@@ -5,8 +5,9 @@ segment reductions (`scatter_reduce_` / `index_add_`) back onto vertices,
 inside a host loop that runs until the iteration converges — the
 level-synchronous / iterative structure of the paper's C++ GAPS kernels.
 Vertex property arrays are the reuse-heavy state the paper reorders for.
-PageRank's relaxation can instead go through the hand-written CUDA SpMV
-(`pagerank_spmv`, kernels/csr_spmv).
+PageRank's pull relaxation always goes through the hand-written CUDA
+SpMV (kernels/csr_spmv), whose wrapper runs its plain version on CPU
+tensors.
 
 Dtypes follow the JAX package with x64 off: depths, labels and distances
 are int32, ranks and dependencies float32. Empty segments keep the
@@ -93,29 +94,20 @@ def bfs(g: GraphArrays, source) -> torch.Tensor:
 # ----------------------------------------------------------------- PageRank
 def pagerank(g: GraphArrays, num_iters: int = 20, damping: float = 0.85,
              tol: float = 1e-6) -> torch.Tensor:
-    return _pagerank(g, num_iters, damping, tol)
+    return pagerank_spmv(g, spmv_values(g), num_iters, damping, tol)
 
 
-def _pagerank(g: GraphArrays, num_iters, damping, tol, relax=None):
+def _pagerank(g: GraphArrays, num_iters, damping, tol, relax):
     """Pull-mode PR: r[v] = (1-d)/N + d * Σ_{u→v} r[u]/outdeg[u].
 
-    ``relax(contrib)`` computes the pull sum; the default is a segment
-    sum over the in-CSR COO view. With bucket masks, N is the count of
-    *real* vertices and all rank mass stays on real vertices; padded
-    vertices hold rank 0 throughout, so the real prefix matches the
-    unpadded run. Stops after ``num_iters`` or once the L1 change is at
-    most ``tol``, like the reference's ``while_loop``.
+    ``relax(contrib)`` computes the pull sum. With bucket masks, N is the
+    count of *real* vertices and all rank mass stays on real vertices;
+    padded vertices hold rank 0 throughout, so the real prefix matches
+    the unpadded run. Stops after ``num_iters`` or once the L1 change is
+    at most ``tol``, like the reference's ``while_loop``.
     """
     n, dev = g.num_vertices, g.device
     f32 = torch.float32
-    if relax is None:
-        t_idx, t_dst = g.t_indices.long(), g.t_dst.long()
-
-        def relax(contrib):
-            # pull over in-CSR: gather(contrib, t_indices) is the
-            # reuse-heavy read
-            return _seg_sum(contrib[t_idx], t_dst, n)
-
     valid = g.vertex_valid
     if valid is None:
         n_real = torch.tensor(float(n), dtype=f32, device=dev)
@@ -145,7 +137,6 @@ def _pagerank(g: GraphArrays, num_iters, damping, tol, relax=None):
     return r
 
 
-# ------------------------------------------------ PageRank via the CUDA SpMV
 def spmv_values(g: GraphArrays) -> torch.Tensor:
     """PR's SpMV edge values in in-CSR order: 1 on real edges, 0 on
     sentinels (`to_device` keeps real edges on the ``[:E]`` prefix of
@@ -159,8 +150,9 @@ def pagerank_spmv(g: GraphArrays, spmv_val: torch.Tensor,
                   num_iters: int = 20, damping: float = 0.85,
                   tol: float = 1e-6, *,
                   num_rows: int | None = None) -> torch.Tensor:
-    """`_pagerank` with the pull relaxation routed through the CSR SpMV
-    kernel (kernels/csr_spmv) over ``g.t_indptr``/``g.t_indices``.
+    """`_pagerank` with the pull relaxation on the CSR SpMV kernel
+    (kernels/csr_spmv) over ``g.t_indptr``/``g.t_indices``: one launch
+    per iteration.
 
     ``spmv_val`` is `spmv_values(g)`: sentinel edges of bucketed uploads
     carry 0 so they contribute nothing. ``num_rows`` (the real vertex
@@ -168,8 +160,7 @@ def pagerank_spmv(g: GraphArrays, spmv_val: torch.Tensor,
     padded vertices are the suffix ``[num_rows, V)``, their rank is
     masked to 0, and the last of them owns every sentinel edge — one row
     of up to half the edge bucket that a warp would walk alone. Their
-    sums are 0 either way. Results agree with `pagerank` to float
-    tolerance (the per-row summation order differs).
+    sums are 0 either way.
     """
     n = g.num_vertices
     rows = n if num_rows is None else num_rows
@@ -177,12 +168,9 @@ def pagerank_spmv(g: GraphArrays, spmv_val: torch.Tensor,
         raise ValueError("num_rows < V needs a bucketed upload")
 
     def relax(contrib):
-        if rows == n:
-            return csr_spmv(g.t_indptr, g.t_indices, spmv_val, contrib)
-        out = torch.zeros_like(contrib)
-        out[:rows] = csr_spmv(g.t_indptr[:rows + 1], g.t_indices, spmv_val,
-                              contrib[:rows])
-        return out
+        y = csr_spmv(g.t_indptr[:rows + 1], g.t_indices, spmv_val,
+                     contrib[:rows])
+        return y if rows == n else torch.nn.functional.pad(y, (0, n - rows))
 
     return _pagerank(g, num_iters, damping, tol, relax)
 

@@ -10,10 +10,10 @@ the JAX package survives as a bounded LRU of per-(kernel, bucket)
 callables with the same hit/miss/eviction counters; PyTorch runs
 eagerly, so a miss builds a plain callable instead of compiling.
 
-PageRank's pull relaxation runs through the hand-written CUDA SpMV
-(kernels/csr_spmv) when ``spmv_pr`` is on — by default exactly when the
-device is CUDA. The kernel reads the uploaded in-CSR rows directly; no
-edge packing is built.
+PageRank's pull relaxation always runs through the hand-written CUDA
+SpMV (kernels/csr_spmv), raw `GraphArrays` included; on the CPU its
+wrapper runs the plain version. The kernel reads the uploaded in-CSR
+rows directly; no edge packing is built.
 
 The sharded backend (edge partitions across devices) and k-NN search
 serving are not ported yet (ROADMAP A7 and A6).
@@ -49,7 +49,7 @@ _FNS = {
     "bfs": K.bfs_multi,
     "sssp": K.sssp_multi,
     "bc": K.bc_multi,
-    "pr": K.pagerank,
+    "pr": K.pagerank_spmv,
     "cc": K.cc_labelprop,
     "ccsv": K.cc_shiloach_vishkin,
 }
@@ -137,7 +137,7 @@ class GraphHandle:
     padded upload shape (equal to the real sizes when bucketing is off or
     the graph already sits on a bucket boundary). ``arrays`` is the
     device upload; ``spmv_val`` the PR SpMV edge values (in-CSR order, 0
-    on sentinels) when the backend serves PR through the CUDA kernel.
+    on sentinels), made once at upload.
     """
 
     backend: str
@@ -197,7 +197,6 @@ class SingleDeviceBackend:
     def __init__(self, bucketing: bool = True, growth: float = 2.0,
                  v_floor: int = 256, e_floor: int = 1024,
                  max_cached_executables: int | None = None,
-                 spmv_pr: bool | str = "auto",
                  metrics: MetricsRegistry | None = None,
                  device: str | torch.device | None = None):
         if max_cached_executables is not None and max_cached_executables < 1:
@@ -208,13 +207,6 @@ class SingleDeviceBackend:
         self.v_floor = v_floor
         self.e_floor = e_floor
         self.max_cached_executables = max_cached_executables
-        # PR relaxation through the CUDA SpMV: "auto" is on exactly when
-        # the device is CUDA; True on the CPU runs the kernel's plain
-        # version through the same path.
-        if spmv_pr == "auto":
-            self.spmv_pr = self.device.type == "cuda"
-        else:
-            self.spmv_pr = bool(spmv_pr)
         self._cache: OrderedDict[tuple, object] = OrderedDict()
         self.metrics = metrics or MetricsRegistry()
         self.tracer: Tracer | None = None   # set by the owning session
@@ -279,10 +271,9 @@ class SingleDeviceBackend:
                            device=self.device)
         self._counters["prepared"].inc()
         self._bucket_counts[bucket] = self._bucket_counts.get(bucket, 0) + 1
-        spmv_val = K.spmv_values(arrays) if self.spmv_pr else None
         return GraphHandle(self.name, n, e, bucket,
                            estimate_device_bytes(*bucket), arrays=arrays,
-                           spmv_val=spmv_val)
+                           spmv_val=K.spmv_values(arrays))
 
     # ------------------------------------------------------------------ run
     def _cache_get(self, key: tuple, build):
@@ -312,14 +303,23 @@ class SingleDeviceBackend:
                ga.vertex_valid is not None)
         return self._cache_get(key, lambda: fn)
 
-    def run_arrays(self, ga: GraphArrays, kernel: str,
-                   sources=None) -> torch.Tensor:
-        """Execute against raw device arrays (no real-prefix slicing)."""
+    def run_arrays(self, ga: GraphArrays, kernel: str, sources=None, *,
+                   spmv_val: torch.Tensor | None = None,
+                   num_rows: int | None = None) -> torch.Tensor:
+        """Execute against raw device arrays (no real-prefix slicing).
+
+        PR relaxes through the CSR SpMV kernel (one launch per
+        iteration); ``spmv_val``/``num_rows`` are its edge values and
+        real row count when the caller holds them (a `GraphHandle`).
+        """
         build_kernel(kernel)  # unknown kernel: raise before anything counts
         if kernel in GLOBAL:
             fn = self._compiled(kernel, ga)
             self._counters["queries"].inc()
             self._counters["dispatches"].inc()
+            if kernel == "pr":
+                val = K.spmv_values(ga) if spmv_val is None else spmv_val
+                return self._sync(kernel, fn(ga, val, num_rows=num_rows))
             return self._sync(kernel, fn(ga))
         padded, real = pad_sources(sources, kernel)
         fn = self._compiled(kernel, ga)
@@ -329,18 +329,6 @@ class SingleDeviceBackend:
         out = fn(ga, torch.from_numpy(padded).to(ga.device))
         return self._sync(kernel, out)[:real]
 
-    def _run_pr_spmv(self, handle: GraphHandle) -> torch.Tensor:
-        """PR with the relaxation on the CUDA CSR SpMV (one launch of
-        the kernel per PR iteration, one dispatch per query)."""
-        ga = handle.arrays
-        key = ("pr@spmv", ga.num_vertices, ga.num_edges,
-               ga.vertex_valid is not None)
-        fn = self._cache_get(key, lambda: K.pagerank_spmv)
-        self._counters["queries"].inc()
-        self._counters["dispatches"].inc()
-        return self._sync("pr", fn(ga, handle.spmv_val,
-                                   num_rows=handle.num_vertices))
-
     def _run_knn(self, handle: GraphHandle, queries) -> tuple:
         raise NotImplementedError("knn: ROADMAP A6")
 
@@ -348,10 +336,9 @@ class SingleDeviceBackend:
             sources=None) -> torch.Tensor:
         if kernel in VECTOR_SOURCE:
             return self._run_knn(handle, sources)
-        if kernel == "pr" and handle.spmv_val is not None:
-            out = self._run_pr_spmv(handle)
-        else:
-            out = self.run_arrays(handle.arrays, kernel, sources)
+        out = self.run_arrays(handle.arrays, kernel, sources,
+                              spmv_val=handle.spmv_val,
+                              num_rows=handle.num_vertices)
         # slice the bucket padding back off: results live on [:V]
         return out[..., :handle.num_vertices]
 
@@ -366,7 +353,9 @@ class SingleDeviceBackend:
             "queries_run": self.queries_run,
             "sources_run": self.sources_run,
             "dispatches": self._counters["dispatches"].value,
-            "spmv_pr": self.spmv_pr,
+            # the JAX package's pallas_pr switch; here PR always runs
+            # the SpMV kernel
+            "spmv_pr": True,
             "bucketing": {
                 "enabled": self.bucketing,
                 "graphs_prepared": self.graphs_prepared,

@@ -27,16 +27,17 @@ class BatchedExecutor:
     def __init__(self, single: SingleDeviceBackend | None = None,
                  num_shards: int | None = None, bucketing: bool = True,
                  max_cached_executables: int | None = None,
-                 metrics=None, fused: bool = True,
-                 spmv_pr: bool | str = "auto",
+                 metrics=None, fused: bool | None = None,
                  device: str | torch.device | None = None):
+        if num_shards is not None or fused is not None:
+            # both configure the sharded backend
+            raise NotImplementedError("sharded backend: ROADMAP A7")
         self.single = single or SingleDeviceBackend(
             bucketing=bucketing,
             max_cached_executables=max_cached_executables,
-            metrics=metrics, spmv_pr=spmv_pr, device=device)
+            metrics=metrics, device=device)
         # one registry spans the facade and its backends — a session
         # adopts it so every engine metric shares a namespace (obs.py).
-        # num_shards and fused configure the sharded backend (ROADMAP A7).
         self.metrics = self.single.metrics
         self._tracer = None
 

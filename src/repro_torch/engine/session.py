@@ -170,7 +170,7 @@ class EngineSession:
                  clock: Clock | None = None,
                  tracer: Tracer | None = None,
                  profiler_dir: str | None = None,
-                 fused: bool = True,
+                 fused: bool | None = None,
                  probe_drift_threshold: float = 0.5,
                  async_full_reorder: bool = True,
                  device=None):

@@ -103,7 +103,7 @@ def test_engine_serves_on_the_card_by_default(plc_graph):
     kernel, and every answer equals the same session on the CPU."""
     _card()
     ex = BatchedExecutor()
-    assert ex.device.type == "cuda" and ex.single.spmv_pr is True
+    assert ex.device.type == "cuda"
     card = EngineSession(executor=ex, redecide_min_queries=10**6)
     host = EngineSession(device="cpu", redecide_min_queries=10**6)
     srcs = np.array([5, 321, 1500])

@@ -7,7 +7,8 @@ for the integer kernels, PR rtol 1e-4, BC rtol 1e-3), policy decisions
 equal, and telemetry must carry the same keys but for the renamed
 ``pallas_pr`` -> ``spmv_pr``. The exact and bucketed legs of
 tests/test_parity_matrix.py run through the port's ``submit`` against
-the numpy oracles, and PR served through the SpMV path keeps parity.
+the numpy oracles, and every PR the backend serves goes through the
+SpMV wrapper.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import repro.engine as jax_engine  # noqa: E402
 import repro_torch.engine as torch_engine  # noqa: E402
 from repro.core.baselines import (bc_baseline, bfs_baseline, cc_baseline,  # noqa: E402
                                   pagerank_baseline, sssp_baseline)
+from repro_torch.algos import kernels as TK  # noqa: E402
 from repro_torch.algos.graph_arrays import to_device  # noqa: E402
 from repro_torch.engine.backends import SingleDeviceBackend  # noqa: E402
 
@@ -97,7 +99,7 @@ def test_session_script_telemetry_keys(both):
     want_keys = {k.replace("pallas_pr", "spmv_pr") for k in _keys(want)}
     assert _keys(got) == want_keys
     single = got["executor"]["single"]
-    assert single["spmv_pr"] is False  # auto: off on the CPU
+    assert single["spmv_pr"] is True  # PR always runs the SpMV
     assert got["executor"]["sharded"] is None
 
 
@@ -149,18 +151,35 @@ def test_matrix_components(served, kernel):
 
 
 # ------------------------------------------------------ PR through the SpMV
-def test_spmv_pr_on_cpu_serves_through_the_spmv_path(plc_graph):
-    ref = SingleDeviceBackend(device="cpu")
-    spmv = SingleDeviceBackend(spmv_pr=True, device="cpu")
-    assert ref.telemetry()["spmv_pr"] is False
-    h_ref, h_spmv = ref.prepare(plc_graph), spmv.prepare(plc_graph)
-    assert h_ref.spmv_val is None and h_spmv.spmv_val is not None
-    out_ref = ref.run(h_ref, "pr").numpy()
-    out = spmv.run(h_spmv, "pr").numpy()
-    np.testing.assert_allclose(out, out_ref, rtol=1e-5, atol=1e-8)
+@pytest.mark.parametrize("bucketing", [False, True],
+                         ids=["exact", "bucketed"])
+def test_spmv_pr_on_cpu_serves_through_the_spmv_path(plc_graph, bucketing,
+                                                     monkeypatch):
+    """Handles and raw arrays alike: each PR iteration calls the SpMV
+    wrapper (on a CUDA tensor it launches the kernel), bucketed handles
+    on their real rows only."""
+    calls = []
+
+    def counted(t_indptr, t_indices, val, x):
+        calls.append(t_indptr.shape[0] - 1)
+        return spmv(t_indptr, t_indices, val, x)
+
+    spmv = TK.csr_spmv
+    monkeypatch.setattr(TK, "csr_spmv", counted)
+    be = SingleDeviceBackend(bucketing=bucketing, device="cpu")
+    h = be.prepare(plc_graph)
+    assert h.spmv_val is not None
+    out = be.run(h, "pr").numpy()
     np.testing.assert_allclose(out, pagerank_baseline(plc_graph), **PR_TOL)
-    assert any(k[0] == "pr@spmv" for k in spmv._cache)
-    assert spmv.telemetry()["dispatches"] == 1
+    assert calls and set(calls) == {plc_graph.num_vertices}
+    iters = len(calls)
+    raw = be.run_arrays(h.arrays, "pr").numpy()
+    assert len(calls) == 2 * iters and calls[-1] == h.arrays.num_vertices
+    np.testing.assert_allclose(raw[:plc_graph.num_vertices], out,
+                               rtol=1e-6, atol=1e-9)
+    assert [k[0] for k in be._cache] == ["pr"]
+    assert be.telemetry()["dispatches"] == 2
+    assert be.telemetry()["spmv_pr"] is True
 
 
 def test_backend_cache_mechanics(plc_graph, tiny_graph):
@@ -188,6 +207,11 @@ def test_unported_paths_raise(plc_graph):
         ex.prepare(plc_graph, backend="sharded")
     with pytest.raises(NotImplementedError, match="A6"):
         ex.prepare(plc_graph, search=object())
+    # the sharded backend's options are refused, not ignored
+    with pytest.raises(NotImplementedError, match="A7"):
+        torch_engine.EngineSession(num_shards=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        torch_engine.BatchedExecutor(fused=False, device="cpu")
 
 
 def test_profiler_hook_maps_to_torch_profiler(tmp_path):
