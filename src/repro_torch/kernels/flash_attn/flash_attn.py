@@ -1,0 +1,116 @@
+"""Causal / sliding-window flash attention: the wrapper of a CUDA kernel.
+
+Replaces the TPU kernel ``flash_attention_pallas`` of the JAX package
+(``src/repro/kernels/flash_attn/flash_attn.py:57-77``, ``pl.pallas_call``
+at ``:66``). The CUDA source is ``repro_torch/csrc/flash_attn.cu``. Each
+thread block owns one (bh, query tile) and walks the key tiles up to the
+diagonal in a fixed order, with the same online-softmax recurrence as the
+TPU kernel's ``_kernel`` (running max and normaliser in float32). Two
+kernels sit behind the one entry point:
+
+* bfloat16 inputs (the model's path): ``mma.sync`` m16n8k16 tensor-core
+  products with float32 accumulation, 64-query by 64-key tiles. QK^T is
+  exact products summed in float32. For PV the float32 probabilities are
+  split into a bf16 high and low part and both are multiplied, so PV keeps
+  about 16 bits of the probabilities' mantissa, close to the float32 PV of
+  the TPU kernel and of `ref.attention_ref`.
+* float32 inputs: float32 FMAs on the SIMT cores, 32-query by 32-key
+  tiles, four threads per query row.
+
+Unlike the TPU kernel, which takes only ``S % 256 == 0``, the CUDA kernels
+take any S: the tail tile is masked. Head dims 16, 32, 64 and 128 are
+compiled; any other raises.
+
+What bounds it on an H100: operations, at long S. A causal call does
+about ``2·BH·S²·d`` multiply-adds, against ``4·BH·S·d`` elements moved;
+at S = 32,768 and d = 64 that is far above the card's ridge point.
+
+On a CPU tensor the wrapper runs the plain version (`ref.attention_ref`);
+on a CUDA tensor it launches a kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .ref import attention_ref
+
+HEAD_DIMS = (16, 32, 64, 128)
+
+# Kernel launches since import (or since a caller last reset it). Only
+# the CUDA branch below adds to it, once per launch.
+launches = 0
+
+_fns: dict = {}
+
+
+def _kernel(dtype: torch.dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
+        from .. import _build
+        lib = _build.load("flash_attn")
+        fn = (lib.flash_attn_bf16 if dtype == torch.bfloat16
+              else lib.flash_attn_f32)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[dtype] = fn
+    return fn
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.shape != q.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, q has "
+                             f"{tuple(q.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if q.dim() != 3:
+        raise ValueError(f"q, k and v must be (BH, S, d), got "
+                         f"{tuple(q.shape)}")
+    if q.shape[2] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[2]} is not one of {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if q.shape[0] * -(-q.shape[1] // 32) >= 2**31:
+        raise ValueError("BH * ceil(S / 32) thread blocks must stay below "
+                         "2^31")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    sm_scale: float | None = None,
+                    window: int = 0) -> torch.Tensor:
+    """Causal attention on (BH, S, d) q, k, v of one dtype (float32 or
+    bfloat16); keys with ``q - k >= window`` are masked when
+    ``window > 0``. Returns (BH, S, d) in q's dtype. Launches on the
+    current CUDA stream and does not synchronise.
+    """
+    global launches
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, sm_scale=sm_scale, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check(q, k, v)
+    bh, s, d = q.shape
+    scale = (d ** -0.5) if sm_scale is None else float(sm_scale)
+    out = torch.empty_like(q)
+    if bh == 0 or s == 0:
+        return out
+    fn = _kernel(q.dtype)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                bh, s, d, scale, int(window), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    launches += 1
+    return out

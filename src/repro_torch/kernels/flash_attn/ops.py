@@ -1,0 +1,20 @@
+"""Causal attention on (BH, S, d): the flash kernel on the card, its plain
+version on the CPU.
+
+The reference's wrapper (``src/repro/kernels/flash_attn/ops.py``) sends a
+call to the plain XLA version whenever ``S % 256 != 0`` or it runs off the
+TPU. Here the device alone decides, and the CUDA kernel takes any S, so a
+call on the card always reaches the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from .flash_attn import flash_attention
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     sm_scale: float | None = None,
+                     window: int = 0) -> torch.Tensor:
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           sm_scale=sm_scale, window=window)

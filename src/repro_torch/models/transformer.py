@@ -1,0 +1,210 @@
+"""Model trunk: the decoder/encoder stack of the ``attn`` family.
+
+The PyTorch port of ``src/repro/models/transformer.py`` for the ``attn``
+trunk (dense attention + MLP blocks). A `Transformer` holds the master
+params in float32 as ``nn.ParameterDict``s, one `AttnBlock` per layer in
+an ``nn.ModuleList``; a Python loop over the blocks takes the place of the
+reference's ``lax.scan`` over stacked layer params.
+
+Modes: prefill (`forward`: logits) and decode (`decode_step`: one token
+against a KV cache). Not ported yet: the ``rwkv`` and ``hybrid`` trunks
+(ROADMAP A8.3), MoE FFNs (A8.4), and training (``loss_fn``,
+``chunked_xent``: A8.5).
+
+Weights come from one of two places:
+
+* `from_jax_params` takes the JAX package's param pytree (numpy leaves)
+  and unstacks its ``(L, ...)`` layer leaves, so both packages can run
+  the same weights (the tests do).
+* `init_params` draws them on a ``torch.Generator``, from the same
+  distributions as the reference's ``init_params`` (normal times the same
+  scales, ones and zeros for norms). The values differ from JAX's for
+  the same seed: the two generators are unrelated. A host without JAX
+  (the card's) runs on these.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from .config import ModelConfig
+from .layers import (COMPUTE_DTYPE, apply_attention, apply_mlp, apply_norm,
+                     embed_tokens, flash_eligible, init_attention,
+                     init_attn_cache, init_embedding, init_mlp, init_norm,
+                     lm_logits)
+
+
+def trunk_kind(cfg: ModelConfig) -> str:
+    if all(b == "rwkv" for b in cfg.block_pattern):
+        return "rwkv"
+    if any(b == "mamba" for b in cfg.block_pattern):
+        return "hybrid"
+    return "attn"
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    kind = trunk_kind(cfg)
+    if kind != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: the {kind} trunk is not ported yet: ROADMAP A8.3")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE FFNs are not ported yet: ROADMAP A8.4 (with "
+            f"the grouped-matmul kernel, B4)")
+
+
+def _params(tree: dict) -> nn.ParameterDict:
+    return nn.ParameterDict(
+        {k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
+
+
+class AttnBlock(nn.Module):
+    """Pre-norm attention + MLP block with scaled residuals."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.norm1 = _params(params["norm1"])
+        self.norm2 = _params(params["norm2"])
+        self.attn = _params(params["attn"])
+        self.ffn = _params(params["ffn"])
+
+    def forward(self, x, positions, cache=None):
+        """Returns (x, new_cache)."""
+        cfg = self.cfg
+        h, new_c = apply_attention(self.attn, apply_norm(self.norm1, x, cfg),
+                                   cfg, positions, cache)
+        x = x + h * cfg.residual_scale
+        f = apply_mlp(self.ffn, apply_norm(self.norm2, x, cfg), cfg)
+        return x + f * cfg.residual_scale, new_c
+
+
+class Transformer(nn.Module):
+    """Embedding, ``num_layers`` `AttnBlock`s and the final norm; the LM
+    head is the tied table or a separate ``head``."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        self.embed = _params(params["embed"])
+        self.layers = nn.ModuleList(AttnBlock(cfg, lp)
+                                    for lp in params["layers"])
+        self.final_norm = _params(params["final_norm"])
+        if len(self.layers) != cfg.num_layers:
+            raise ValueError(f"{len(self.layers)} layers for a "
+                             f"{cfg.num_layers}-layer config")
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["table"].device
+
+
+# =========================================================== initialization
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: str | torch.device | None = None) -> Transformer:
+    """Random weights drawn on ``generator``, which lives on ``device``,
+    with the reference's distributions."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"the generator is on {generator.device}, the "
+                         f"model on {dev}")
+    layers = [{"norm1": init_norm(cfg, device=dev),
+               "norm2": init_norm(cfg, device=dev),
+               "attn": init_attention(generator, cfg),
+               "ffn": init_mlp(generator, cfg)}
+              for _ in range(cfg.num_layers)]
+    return Transformer(cfg, {"embed": init_embedding(generator, cfg),
+                             "layers": layers,
+                             "final_norm": init_norm(cfg, device=dev)})
+
+
+def from_jax_params(cfg: ModelConfig, tree: dict,
+                    device: str | torch.device | None = None) -> Transformer:
+    """The reference's param pytree, with ``np.asarray`` on each leaf, as
+    a `Transformer` on ``device``: the ``(L, ...)`` layer leaves are
+    unstacked into one block each, and every leaf is copied."""
+    dev = resolve_device(device)
+
+    def put(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    def tree_map(fn, t):
+        if isinstance(t, dict):
+            return {k: tree_map(fn, v) for k, v in t.items()}
+        return fn(t)
+
+    layers = [tree_map(lambda a, i=i: put(np.asarray(a)[i]), tree["layers"])
+              for i in range(cfg.num_layers)]
+    return Transformer(cfg, {"embed": tree_map(put, tree["embed"]),
+                             "layers": layers,
+                             "final_norm": tree_map(put, tree["final_norm"])})
+
+
+# ================================================================= caches
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: str | torch.device | None = None) -> dict:
+    """``{"layers": {"k", "v": (L, B, T, KV, dh) bf16, "length": (L,)
+    int32}, "pos": 0-d int32}``, the reference's layout, all zeros."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    one = init_attn_cache(cfg, batch, max_len, device=dev)
+    layers = {k: v.expand(cfg.num_layers, *v.shape).clone()
+              for k, v in one.items()}
+    return {"layers": layers,
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+# ============================================================== public API
+def forward(model: Transformer, batch: dict, mesh=None):
+    """Prefill forward. batch: tokens (B,S) and/or embeds/prefix.
+
+    Returns (logits (B,S,V) bf16, aux_loss). On the card each layer's
+    attention is one flash-kernel launch and the embedding one hot-slab
+    launch; a config the kernel does not take raises before any work.
+    """
+    cfg = model.cfg
+    if mesh is not None:
+        raise NotImplementedError("sharded forward: ROADMAP A8.8")
+    dev = model.device
+    flash_eligible(cfg, dev)
+    if cfg.input_mode == "embeddings":
+        x = batch["embeds"].to(COMPUTE_DTYPE)
+    else:
+        x = embed_tokens(model.embed, batch["tokens"], cfg)
+        if cfg.prefix_tokens > 0:
+            x = torch.cat([batch["prefix"].to(COMPUTE_DTYPE), x], dim=1)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=dev)
+    for block in model.layers:
+        x, _ = block(x, positions)
+    x = apply_norm(model.final_norm, x, cfg)
+    return (lm_logits(model.embed, x, cfg),
+            torch.zeros((), dtype=torch.float32, device=dev))
+
+
+def decode_step(model: Transformer, cache: dict, tokens, mesh=None):
+    """One decode step. tokens: (B, 1). Returns (logits (B,1,V), cache).
+
+    The returned cache shares the K/V tensors of the one passed in, which
+    are written in place; its ``length`` and ``pos`` are new tensors.
+    """
+    if mesh is not None:
+        raise NotImplementedError("sharded decode: ROADMAP A8.8")
+    cfg = model.cfg
+    x = embed_tokens(model.embed, tokens, cfg)
+    positions = cache["pos"][None].to(torch.int32)
+    layers = cache["layers"]
+    lengths = []
+    for i, block in enumerate(model.layers):
+        x, new_c = block(x, positions, {"k": layers["k"][i],
+                                        "v": layers["v"][i],
+                                        "length": layers["length"][i]})
+        lengths.append(new_c["length"])
+    new_cache = {"layers": {"k": layers["k"], "v": layers["v"],
+                            "length": torch.stack(lengths)},
+                 "pos": cache["pos"] + positions.shape[-1]}
+    x = apply_norm(model.final_norm, x, cfg)
+    return lm_logits(model.embed, x, cfg), new_cache

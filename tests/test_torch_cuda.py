@@ -1,4 +1,5 @@
-"""PyTorch port on a CUDA card: the hand-written SpMV and the engine.
+"""PyTorch port on a CUDA card: the hand-written kernels, the engine and
+the LM slice.
 
 Every test here needs a card; each decides inside itself and skips with
 a reason where there is none. The file imports neither JAX nor `repro`,
@@ -6,8 +7,11 @@ so it runs on a host that has only the port's dependencies::
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-The kernel is held to its plain version at rtol 1e-5 / atol 1e-6: the
-float32 sums of a row are taken in another order.
+The SpMV kernel is held to its plain version at rtol 1e-5 / atol 1e-6:
+the float32 sums of a row are taken in another order. The flash kernel is
+held to its plain version at the reference test's tolerances
+(tests/test_kernels.py: float32 rtol 1e-3 / atol 2e-3, bf16 5e-2), the
+hot-slab gather exactly.
 """
 from __future__ import annotations
 
@@ -20,6 +24,11 @@ from repro_torch.core.csr import from_edges  # noqa: E402
 from repro_torch.engine import BatchedExecutor, EngineSession  # noqa: E402
 from repro_torch.kernels.csr_spmv import csr_spmv as spmv_mod  # noqa: E402
 from repro_torch.kernels.csr_spmv.ref import csr_spmv_ref  # noqa: E402
+from repro_torch.kernels.flash_attn import flash_attn as fa  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.hot_embed import hot_embed as he  # noqa: E402
+from repro_torch.kernels.hot_embed.ops import hot_cold_lookup  # noqa: E402
+from repro_torch.kernels.hot_embed.ref import hot_gather_ref  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -121,3 +130,131 @@ def test_engine_serves_on_the_card_by_default(plc_graph):
                                rtol=1e-4, atol=1e-9)
     assert spmv_mod.launches > launches
     assert card.telemetry()["executor"]["single"]["spmv_pr"] is True
+
+
+# ------------------------------------------------------------ flash_attn
+FLASH_TOL = {torch.float32: dict(rtol=1e-3, atol=2e-3),
+             torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 128])
+@pytest.mark.parametrize("bh,s,d", [
+    (2, 256, 64), (1, 512, 128), (3, 256, 32),   # tests/test_kernels.py
+    (2, 300, 64), (1, 77, 16), (1, 1, 32)])      # S not a multiple of 256
+def test_flash_matches_plain_version(bh, s, d, window, dtype):
+    dev = _card()
+    rng = np.random.default_rng(s * d + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
+        np.float32)).to(dev, dtype) for _ in range(3))
+    launches = fa.launches
+    got = fa.flash_attention(q, k, v, window=window)
+    again = fa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == launches + 2
+    assert got.dtype == dtype and got.shape == (bh, s, d)
+    assert torch.equal(got, again)  # fixed loop order: same bits
+    want = attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_causality(dtype):
+    """Future keys must not move the output (tests/test_kernels.py:89)."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 300, 32)).astype(
+        np.float32)).to(dev, dtype) for _ in range(3))
+    o1 = fa.flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 200:], v2[:, 200:] = 99.0, -99.0
+    o2 = fa.flash_attention(q, k2, v2)
+    assert torch.equal(o1[:, :200], o2[:, :200])
+
+
+def test_flash_refuses_bad_operands_on_the_card():
+    dev = _card()
+    q = torch.zeros(2, 64, 48, device=dev)
+    launches = fa.launches
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa.flash_attention(q, q, q)
+    h = torch.zeros(2, 64, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(h, h, h)
+    z = torch.zeros(2, 64, 64, device=dev)
+    with pytest.raises(ValueError, match="is on"):
+        fa.flash_attention(z, z.cpu(), z)
+    assert fa.launches == launches
+
+
+# ------------------------------------------------------------- hot_embed
+@pytest.mark.parametrize("vocab,hot,n,d", [
+    (1000, 128, 400, 32), (4096, 512, 512, 32), (600, 600, 14, 32),
+    (122_753, 6_137, 3000, 2304), (64, 32, 17, 7)])   # D % 4 != 0
+def test_hot_gather_is_exact(vocab, hot, n, d):
+    dev = _card()
+    rng = np.random.default_rng(n)
+    table = torch.from_numpy(rng.standard_normal((vocab, d)).astype(
+        np.float32)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, vocab, n).astype(np.int32)).to(dev)
+    launches = he.launches
+    got = he.hot_gather(ids, table[:hot])
+    again = he.hot_gather(ids, table[:hot])
+    torch.cuda.synchronize()
+    assert he.launches == launches + 2
+    assert torch.equal(got, hot_gather_ref(ids, table[:hot]))
+    assert torch.equal(got, again)
+    assert torch.equal(hot_cold_lookup(ids, table, hot),
+                       table[ids.long()])
+
+
+def test_hot_gather_all_cold_and_all_hot():
+    dev = _card()
+    table = torch.arange(64 * 8, dtype=torch.float32,
+                         device=dev).reshape(64, 8)
+    cold = torch.arange(32, 64, dtype=torch.int32, device=dev)
+    assert not he.hot_gather(cold, table[:32]).any()
+    assert torch.equal(hot_cold_lookup(cold, table, 32), table[cold.long()])
+    every = torch.arange(64, dtype=torch.int32, device=dev)
+    assert torch.equal(he.hot_gather(every, table), table)
+    launches = he.launches
+    with pytest.raises(TypeError, match="int32"):
+        he.hot_gather(every.long(), table)
+    assert he.launches == launches
+
+
+# ----------------------------------------------------------- the LM slice
+def test_lm_slice_on_the_card_matches_the_cpu():
+    """A 2-layer smoke minicpm: the prefill forward on the card (flash
+    kernel per layer, one hot-slab launch) against the same weights on
+    the CPU (plain versions), and the decode path, to the standard of
+    tests/test_models.py::test_decode_matches_forward."""
+    import copy
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import serve_loop, synthetic_requests
+    from repro_torch.models import transformer as T
+
+    dev = _card()
+    cfg = smoke_config("minicpm-2b", layers=2)
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(host).to(dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 300)).astype(np.int32))
+    fl, hl = fa.launches, he.launches
+    got, _ = T.forward(card, {"tokens": tokens.to(dev)})
+    torch.cuda.synchronize()
+    assert (fa.launches - fl, he.launches - hl) == (cfg.num_layers, 1)
+    want, _ = T.forward(host, {"tokens": tokens})
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               rtol=0.15, atol=0.15)
+    agree = (got.float().cpu().argmax(-1) == want.float().argmax(-1))
+    assert agree.float().mean() > 0.95
+    hl = he.launches
+    done = serve_loop(cfg, card, synthetic_requests(4, cfg.vocab_size),
+                      batch_slots=2)
+    assert sorted(r.rid for r in done) == [0, 1, 2, 3]
+    assert all(len(r.out) == r.max_new for r in done)
+    assert he.launches > hl

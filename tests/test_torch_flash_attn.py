@@ -1,0 +1,107 @@
+"""PyTorch port: causal attention agrees with the JAX package's flash kernel.
+
+The same numpy q, k, v go through the JAX package's Pallas kernel
+(``flash_attention_pallas``, run in interpret mode as
+``tests/test_kernels.py:61-103`` runs it) and through the port's
+`flash_attention` on the CPU, which runs the kernel's plain version
+(`attention_ref`). The tolerances are the reference test's: float32 at
+rtol 1e-3 / atol 2e-3 (the online softmax sums in another order), bf16
+at 5e-2.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attn.flash_attn import \
+    flash_attention_pallas  # noqa: E402
+from repro.kernels.flash_attn.ref import \
+    attention_ref as jax_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attn import flash_attn as tf  # noqa: E402
+from repro_torch.kernels.flash_attn.ops import causal_attention  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import attention_ref  # noqa: E402
+
+F32_TOL = dict(rtol=1e-3, atol=2e-3)
+BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+
+
+def _qkv(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("bh,s,d", [(2, 256, 64), (1, 512, 128), (3, 256, 32)])
+@pytest.mark.parametrize("window", [0, 128])
+def test_matches_the_pallas_kernel(bh, s, d, window):
+    q, k, v = _qkv((bh, s, d), 42)
+    want = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window,
+        interpret=True))
+    launches = tf.launches
+    got = tf.flash_attention(*map(torch.from_numpy, (q, k, v)), window=window)
+    assert tf.launches == launches  # the CPU runs the plain version
+    assert got.dtype == torch.float32 and got.shape == (bh, s, d)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+def test_bf16_matches_the_pallas_kernel():
+    rng = np.random.default_rng(7)
+    arrs = [rng.standard_normal((2, 256, 64)) for _ in range(3)]
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in arrs)
+    want = np.asarray(flash_attention_pallas(jq, jk, jv, interpret=True),
+                      np.float32)
+    tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+                  for a in (jq, jk, jv))
+    got = causal_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("s,window,sm_scale", [(300, 0, None), (77, 16, 0.3)])
+def test_any_length_matches_the_plain_reference(s, window, sm_scale):
+    """A length that is no multiple of 256, which the Pallas kernel does
+    not take: the port's plain version against the JAX package's, rtol
+    1e-5 (the same float32 arithmetic, summed in another order)."""
+    q, k, v = _qkv((2, s, 32), s)
+    want = np.asarray(jax_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), sm_scale=sm_scale,
+        window=window))
+    got = attention_ref(*map(torch.from_numpy, (q, k, v)), sm_scale=sm_scale,
+                        window=window)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_causality():
+    """Future tokens must not influence the output
+    (tests/test_kernels.py:89-103)."""
+    q, k, v = _qkv((1, 256, 32), 3)
+    o1 = causal_attention(*map(torch.from_numpy, (q, k, v))).numpy()
+    k[:, 200:], v[:, 200:] = 99.0, -99.0   # corrupt the future
+    o2 = causal_attention(*map(torch.from_numpy, (q, k, v))).numpy()
+    np.testing.assert_allclose(o1[:, :200], o2[:, :200], rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_checks_its_operands():
+    """What the CUDA kernels do not take is refused before a launch."""
+    q = torch.zeros(2, 40, 64)
+    tf._check(q, q.clone(), q.clone())
+    tf._check(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="head dim 48"):
+        z = torch.zeros(2, 40, 48)
+        tf._check(z, z, z)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tf._check(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="k is"):
+        tf._check(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="shape"):
+        tf._check(q, q[:, :30].contiguous(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(2, 64, 40).transpose(1, 2)
+        tf._check(t, t, t)
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        m = q.to("meta")
+        tf.flash_attention(m, m, m)

@@ -85,6 +85,10 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch, repro_torch.engine\n"
             "import repro_torch.kernels.csr_spmv.csr_spmv\n"
             "import repro_torch.kernels.csr_spmv.ops\n"
+            "import repro_torch.kernels.flash_attn.ops\n"
+            "import repro_torch.kernels.hot_embed.ops\n"
+            "import repro_torch.models.transformer\n"
+            "import repro_torch.launch.serve, repro_torch.configs\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
