@@ -32,6 +32,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models.transformer import decode_step, init_cache
+
+# Decode steps run by `serve_loop` since import (or since a caller last
+# reset it), the prompt-feeding ones included.
+decode_steps = 0
 
 
 @dataclasses.dataclass
@@ -87,9 +92,8 @@ def _sample(lg: torch.Tensor, temperature: float,
 def serve_loop(cfg, model, requests: list[Request], batch_slots: int = 4,
                max_len: int = 512, temperature: float = 0.0, seed: int = 0):
     """Continuous-batching loop on the model's device. Returns the
-    completed requests, in completion order."""
-    from ..models.transformer import decode_step, init_cache
-
+    completed requests, in completion order. Every decode step it runs
+    adds one to the module's `decode_steps`."""
     dev = model.device
     queue = list(requests)[::-1]           # pop() takes the oldest
     active: list[Request | None] = [None] * batch_slots
@@ -100,6 +104,11 @@ def serve_loop(cfg, model, requests: list[Request], batch_slots: int = 4,
     tokens = torch.zeros((batch_slots, 1), dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
+    def run_step():
+        global decode_steps
+        decode_steps += 1
+        return decode_step(model, cache, tokens)
+
     def admit(slot: int):
         nonlocal cache
         req = queue.pop()
@@ -108,7 +117,7 @@ def serve_loop(cfg, model, requests: list[Request], batch_slots: int = 4,
         # on their current token, as in the reference
         for tok in req.prompt:
             tokens[slot, 0] = int(tok)
-            _, cache = decode_step(model, cache, tokens)
+            _, cache = run_step()
         active[slot] = req
         remaining[slot] = req.max_new
         req.t_first = None
@@ -118,7 +127,7 @@ def serve_loop(cfg, model, requests: list[Request], batch_slots: int = 4,
         for s in range(batch_slots):
             if active[s] is None and queue:
                 admit(s)
-        logits, cache = decode_step(model, cache, tokens)
+        logits, cache = run_step()
         nxt = _sample(logits[:, -1].float(), temperature, gen)
         tokens = nxt[:, None].to(torch.int32)
         nxt_host = nxt.tolist()         # waits for the step to finish

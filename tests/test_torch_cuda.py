@@ -192,7 +192,8 @@ def test_flash_refuses_bad_operands_on_the_card():
 # ------------------------------------------------------------- hot_embed
 @pytest.mark.parametrize("vocab,hot,n,d", [
     (1000, 128, 400, 32), (4096, 512, 512, 32), (600, 600, 14, 32),
-    (122_753, 6_137, 3000, 2304), (64, 32, 17, 7)])   # D % 4 != 0
+    (122_753, 6_137, 3000, 2304), (64, 32, 17, 7),    # D % 4 != 0
+    (16_384, 6_137, 40_000, 2304)])   # more ids than warps: grid-stride
 def test_hot_gather_is_exact(vocab, hot, n, d):
     dev = _card()
     rng = np.random.default_rng(n)

@@ -89,6 +89,7 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch.kernels.hot_embed.ops\n"
             "import repro_torch.models.transformer\n"
             "import repro_torch.launch.serve, repro_torch.configs\n"
+            "import repro_torch.data.pipeline, repro_torch.locality.vocab\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

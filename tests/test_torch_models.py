@@ -340,6 +340,22 @@ def test_serve_loop_temperature_runs():
     assert outs[0] == outs[1]
 
 
+def test_serve_loop_counts_its_decode_steps(monkeypatch):
+    """`decode_steps` grows by one for every decode step, prompt feeding
+    included: prompt tokens plus one step per loop turn."""
+    cfg = smoke_config(ARCH, layers=1)
+    model = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    calls = []
+    real = TS.decode_step
+    monkeypatch.setattr(TS, "decode_step",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    reqs = TS.synthetic_requests(3, cfg.vocab_size, plen=(2, 4), gen=(2, 5))
+    before = TS.decode_steps
+    TS.serve_loop(cfg, model, reqs, batch_slots=2)
+    assert TS.decode_steps - before == len(calls)
+    assert len(calls) > sum(len(r.prompt) for r in reqs)
+
+
 @pytest.mark.parametrize("layers", [1, 2])
 def test_reset_slot_matches_the_reference(layers):
     """Only (L, B, ...) entries with L != 1 are zeroed, as the
