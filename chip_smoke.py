@@ -50,7 +50,9 @@ weights from ``init_params`` on the card, seed 7):
 8. Consistency: a 64-token prompt through ``forward`` (flash kernel) and
    teacher-forced through ``decode_step`` (chunked attention over the
    cache), rtol/atol 0.15 and argmax agreement > 0.95
-   (tests/test_models.py::test_decode_matches_forward).
+   (tests/test_models.py::test_decode_matches_forward); a position agrees
+   where the top tokens are equal or tie to within one bf16 unit of the
+   forward's top logit.
 9. Card against CPU: the config cut to 2 layers, the same weights on the
    CPU (plain versions) and the card (kernels), a 256-token prompt, the
    same standard.
@@ -64,6 +66,36 @@ weights from ``init_params`` on the card, seed 7):
 11. LM kernel timing at the served shapes, from CUDA events: each kernel,
     its plain version, one PyTorch call as a yardstick (timed only; the
     port never calls it) and the bound.
+
+Then the MoE slice, moonshot-v1-16b-a3b at full width (d 2048, 16 heads
+of 128, 64 experts of d_ff 1408, top-6, 2 shared experts), its depth cut
+to 16 of 48 layers so that the float32 masters (40.3 GB) and a
+32,768-token prefill fit one 80 GB card; weights from ``init_params`` on
+the card (seed 7), after the minicpm model is freed:
+
+12. MoE kernel check: ``moe_gmm`` against its plain version on the card:
+    the reference test's float32 cases (tests/test_kernels.py:106-138) at
+    rtol/atol 1e-4, then bf16 at the smoke (64/128) and served (2048/1408)
+    widths with empty groups, one group holding every row, rows past the
+    groups' total (zero) and M not a multiple of 128. The float32 result
+    of bf16 operands is held at rtol/atol 1e-4 (the products are exact in
+    float32; only the order of the sums differs), the bf16 result must be
+    it rounded once, and a repeat must give the same bits.
+13. Phases 7-11 on moonshot: the prefill (16 flash, 1 hot-slab and 48
+    ``moe_gmm`` launches, a finite aux loss), with flash held to its plain
+    version at d = 128 (2 heads at S = 32,768, all 16 at S = 4,096) and
+    ``moe_gmm`` on layer 0's real expert-sorted rows through the gate and
+    the down products (float32 at 1e-4), layer 0's group sizes and
+    ``locality/moe.dispatch_stats``; decode against forward and card
+    against CPU at 2 layers, where the free-running run's routing must
+    part from the other's at the first layer only at router margins below
+    1e-3, and the logits are held to phase 8's standard on a run that
+    replays the other's expert choices (``models.moe.RouteTape``), since
+    a choice parted at a near-tie moves every later layer and position;
+    ``serve_loop`` with 48 ``moe_gmm`` launches per decode
+    step; the profile; the kernel timings; and ``moe_gmm`` timed at the
+    prefill's gate and down products and at a decode step's 24 rows, with
+    ``torch._grouped_mm`` as the yardstick.
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -84,11 +116,15 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12               # H100 SXM float32 outside tensor cores
 BF16_FLOPS = 989e12             # H100 SXM bf16 dense tensor cores
 ARCH = "minicpm-2b"
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_LAYERS = 16                 # of 48: what one 80 GB card holds in f32
 PREFILL_TOKENS = 32_768
 FLASH_TOL = {"float32": dict(rtol=1e-3, atol=2e-3),
              "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 FLASH_SERVED_TOL = dict(rtol=1.6e-2, atol=1e-2)   # bf16, served shapes
 DECODE_TOL = dict(rtol=0.15, atol=0.15)
+GMM_TOL = dict(rtol=1e-4, atol=1e-4)   # float32 sums of exact products
+ROUTE_TIE = 1e-3        # router margin (probability) that rounding can cross
 
 
 def card_line() -> str:
@@ -421,11 +457,24 @@ def layer0_heads(model, tokens):
     return heads("wq"), heads("wk"), heads("wv", rope=False)
 
 
-def prefill(dev, model, tokens) -> dict:
-    """Phase 7: the prefill forward at full width and depth."""
-    import torch
+def lm_launches() -> dict:
     from repro_torch.kernels.flash_attn import flash_attn as fa
     from repro_torch.kernels.hot_embed import hot_embed as he
+    from repro_torch.kernels.moe_gmm import moe_gmm as gm
+    return {"flash_attn": fa.launches, "hot_embed": he.launches,
+            "moe_gmm": gm.launches}
+
+
+def reset_lm_launches() -> None:
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    from repro_torch.kernels.hot_embed import hot_embed as he
+    from repro_torch.kernels.moe_gmm import moe_gmm as gm
+    fa.launches = he.launches = gm.launches = 0
+
+
+def prefill(dev, model, tokens) -> dict:
+    """Phase 7: the prefill forward at full width."""
+    import torch
     from repro_torch.models.layers import hot_vocab_size
     from repro_torch.models.transformer import forward
 
@@ -435,24 +484,31 @@ def prefill(dev, model, tokens) -> dict:
     forward(model, {"tokens": tokens[:, :256]})   # warm-up: cuBLAS, libs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = he.launches = 0
+    reset_lm_launches()
     t0 = time.perf_counter()
-    logits, _ = forward(model, {"tokens": tokens})
+    logits, aux = forward(model, {"tokens": tokens})
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"flash_attn": fa.launches, "hot_embed": he.launches}
-    if launches != {"flash_attn": cfg.num_layers, "hot_embed": 1}:
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = lm_launches()
+    expected = {"flash_attn": cfg.num_layers, "hot_embed": 1,
+                "moe_gmm": 3 * cfg.num_layers if cfg.is_moe else 0}
+    if launches != expected:
         raise AssertionError(f"prefill launches {launches}, expected "
-                             f"{cfg.num_layers} flash and 1 hot-slab")
+                             f"{expected}")
     if tuple(logits.shape) != (1, n_tokens, cfg.vocab_size):
         raise AssertionError(f"logits shape {tuple(logits.shape)}")
-    if not bool(torch.isfinite(logits).all()):
+    # in slices of 4,096 positions: a whole-tensor isfinite allocates
+    # several (S, V) temporaries
+    if not all(bool(torch.isfinite(logits[:, i:i + 4096]).all())
+               for i in range(0, n_tokens, 4096)):
         raise AssertionError("prefill logits are not all finite")
+    if cfg.is_moe and not (bool(torch.isfinite(aux)) and float(aux) > 0):
+        raise AssertionError(f"prefill aux loss {float(aux)}")
     print(f"prefill: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
           f"tokens=1x{n_tokens} forward {seconds:.3f} s "
           f"({n_tokens / seconds:.1f} tokens/s), launches {launches}, "
-          f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
-          f"logits finite")
+          f"peak {peak:.1f} GiB, logits finite, aux {float(aux):.4f}")
     del logits
     q, k, v = layer0_heads(model, tokens)
     err = flash_check("layer0 served, rows 0-1", q, k, v, rows=(0, 1),
@@ -464,56 +520,285 @@ def prefill(dev, model, tokens) -> dict:
     ids = tokens.reshape(-1)
     hot_err = hot_check("prefill served", ids, model.embed["table"],
                         hot_vocab_size(cfg))
-    return {"launches": launches, "seconds": seconds, "err": err,
-            "hot_err": hot_err, "q": q, "k": k, "v": v, "ids": ids}
+    out = {"launches": launches, "seconds": seconds, "err": err,
+           "hot_err": hot_err, "q": q, "k": k, "v": v, "ids": ids}
+    if cfg.is_moe:
+        out["moe"] = moe_layer0(model, tokens)
+    return out
+
+
+def gmm_check(name, x, w, offs, verbose: bool = True) -> float:
+    """Kernel vs plain version on the same card tensors: the float32
+    result at GMM_TOL (bf16 products are exact in float32; only the order
+    of the sums differs), the bf16 result equal to the float32 one rounded
+    once, rows at or past ``offs[E]`` zero, and a repeat giving the same
+    bits. Returns max |err| of the float32 result."""
+    import torch
+    from repro_torch.kernels.moe_gmm import moe_gmm as gm
+    from repro_torch.kernels.moe_gmm.ref import gmm_grouped_ref
+    got = gm.gmm(x, w, offs)
+    again = gm.gmm(x, w, offs)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"moe_gmm[{name}]: two runs differ")
+    want = gmm_grouped_ref(x, w, offs)
+    torch.testing.assert_close(got, want, **GMM_TOL)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    total = min(int(offs[-1]), x.shape[0])
+    if got[total:].any():
+        raise AssertionError(f"moe_gmm[{name}]: rows past the groups are "
+                             f"not zero")
+    if x.dtype == torch.bfloat16:
+        half = gm.gmm(x, w, offs, out_dtype=torch.bfloat16)
+        if not torch.equal(half, got.to(torch.bfloat16)):
+            raise AssertionError(f"moe_gmm[{name}]: the bf16 result is not "
+                                 f"the float32 one rounded")
+    if verbose:
+        sizes = (offs[1:] - offs[:-1]).tolist()
+        print(f"moe_gmm[{name}]: M={x.shape[0]} K={x.shape[1]} "
+              f"N={w.shape[2]} E={w.shape[0]} rows={total} "
+              f"empty groups={sizes.count(0)} dtype={x.dtype} "
+              f"max_abs_err={err:.3e}")
+    return err
+
+
+def gmm_kernel_cases(dev) -> float:
+    """Phase 12: ``moe_gmm`` against its plain version on the card: the
+    reference test's float32 cases (tests/test_kernels.py:106-138) through
+    ``grouped_matmul``, then bf16 at the smoke and the served widths with
+    empty groups, one group holding every row, rows past the groups'
+    total, and M not a multiple of 128."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.moe_gmm import moe_gmm as gm
+    from repro_torch.kernels.moe_gmm.ops import grouped_matmul
+    from repro_torch.kernels.moe_gmm.ref import gmm_ref
+    rng = np.random.default_rng(SEED)
+
+    def normal(shape, scale=1.0, dtype=torch.float32):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(dev, dtype)
+
+    err = 0.0
+    for gs, k, n in (([128, 128, 128, 128], 128, 256),
+                     ([100, 30, 0, 128], 128, 256), ([0, 0, 5, 1], 128, 256),
+                     ([512, 0, 0, 0], 128, 256), ([128, 128], 384, 128)):
+        _, te, total = gm.pad_groups(np.array(gs))
+        x, w = normal((total, k)), normal((len(gs), k, n), 0.1)
+        te = torch.from_numpy(te).to(dev)
+        got = grouped_matmul(x, w, te)
+        again = grouped_matmul(x, w, te)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"moe_gmm[{gs}]: two runs differ")
+        want = gmm_ref(x, w, te.repeat_interleave(gm.TILE_M))
+        torch.testing.assert_close(got, want, **GMM_TOL)
+        err = max(err, float((got - want).abs().max()))
+        print(f"moe_gmm[reference {gs}, K={k}, N={n}]: float32 "
+              f"max_abs_err={float((got - want).abs().max()):.3e}")
+
+    for m, k, n, e in ((40, 64, 128, 4), (40, 128, 64, 4),
+                       (1000, 2048, 1408, 64), (1000, 1408, 2048, 64),
+                       (333, 2048, 1408, 64), (24, 2048, 1408, 64)):
+        x = normal((m, k), dtype=torch.bfloat16)
+        w = normal((e, k, n), k ** -0.5, torch.bfloat16)
+        for case in ("skewed", "one_group", "short"):
+            if case == "one_group":
+                sizes = np.zeros(e, np.int64)
+                sizes[e // 2] = m
+            elif case == "short":            # rows past the total
+                sizes = rng.multinomial(m - 13, np.ones(e) / e)
+            else:                            # skewed, with empty groups
+                p = 1.0 / (1 + np.arange(e)) ** 1.2
+                sizes = rng.multinomial(m, p / p.sum())
+                sizes[1] = 0
+            offs = torch.from_numpy(np.concatenate(
+                [[0], np.cumsum(sizes)]).astype(np.int32)).to(dev)
+            err = max(err, gmm_check(f"{case}", x, w, offs))
+    return err
+
+
+def moe_layer0(model, tokens) -> dict:
+    """Layer 0's MoE on the prefill: its real expert-sorted rows, held to
+    the plain version through the gate and the down products, and the
+    routing's group sizes and ``dispatch_stats``. Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.locality.moe import dispatch_stats
+    from repro_torch.models.layers import (apply_attention, apply_norm,
+                                           embed_tokens)
+    from repro_torch.models.moe import _route
+    cfg, blk = model.cfg, model.layers[0]
+    bf16 = torch.bfloat16
+    x = embed_tokens(model.embed, tokens, cfg)
+    pos = torch.arange(tokens.shape[1], dtype=torch.int32,
+                       device=tokens.device)
+    h, _ = apply_attention(blk.attn, apply_norm(blk.norm1, x, cfg), cfg, pos)
+    y = apply_norm(blk.norm2, x + h * cfg.residual_scale, cfg).reshape(
+        -1, cfg.d_model)
+    experts, _, _ = _route(blk.ffn, y, cfg)
+    flat = experts.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    xs = y[order // cfg.experts_per_token].contiguous()
+    sizes = torch.bincount(flat, minlength=cfg.num_experts)
+    offs = torch.zeros(cfg.num_experts + 1, dtype=torch.int32,
+                       device=xs.device)
+    offs[1:] = sizes.cumsum(0)
+    w_gate, w_up, w_down = (blk.ffn[n].to(bf16)
+                            for n in ("w_gate", "w_up", "w_down"))
+    err = gmm_check("layer0 served gate", xs, w_gate, offs)
+    from repro_torch.kernels.moe_gmm.moe_gmm import gmm
+    act = (F.silu(gmm(xs, w_gate, offs, out_dtype=bf16))
+           * gmm(xs, w_up, offs, out_dtype=bf16)).to(bf16)
+    err = max(err, gmm_check("layer0 served down", act, w_down, offs))
+    counts = sizes.tolist()
+    print(f"layer0 routing: {flat.numel()} assignments over "
+          f"{cfg.num_experts} experts, group sizes min {min(counts)} max "
+          f"{max(counts)}, {counts.count(0)} empty")
+    stats = dispatch_stats(experts.cpu().numpy(), cfg.num_experts,
+                           d_model=cfg.d_model, d_ff=cfg.d_ff)
+    print(f"layer0 dispatch_stats: {json.dumps(stats)}")
+    return {"xs": xs, "act": act, "offs": offs, "y": y,
+            "experts": experts, "err": err}
+
+
+def bf16_unit(x):
+    """The spacing of bfloat16 values at |x| (8 bits of significand)."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def hold_logits(name, got, want) -> None:
+    """``got`` against ``want`` ((1, n, V) float32, one device) at
+    DECODE_TOL with argmax agreement > 0.95
+    (tests/test_models.py::test_decode_matches_forward), the one standard
+    for every config.
+
+    A position agrees where ``got``'s top token is ``want``'s top token or
+    ties with it to within one bf16 unit of ``want``'s top logit. The
+    logits are bf16, as in the reference: two runs that round differently
+    order two logits one unit apart either way, and a random-weight model
+    has such near-ties among its 163,840 logits at a few positions in a
+    hundred. The spread of ``want`` is printed beside the largest
+    difference: the two scale together (moonshot's logits have a scale of
+    1, minicpm's of 1/9)."""
+    import torch
+    same = want.argmax(-1) == got.argmax(-1)
+    best = want.amax(-1)
+    picked = want.gather(-1, got.argmax(-1, keepdim=True))[..., 0]
+    agree = float((best - picked <= bf16_unit(best)).float().mean())
+    print(f"{name}: {got.shape[1]} tokens, max_abs_diff="
+          f"{float((got - want).abs().max()):.4f} (logits' std "
+          f"{float(want.std()):.4f}), argmax agreement {agree:.4f} "
+          f"({float(same.float().mean()):.4f} for the same token; where "
+          f"not, want's top logit leads got's pick by "
+          f"{[round(float(v), 5) for v in (best - picked)[~same]]})")
+    torch.testing.assert_close(got, want, **DECODE_TOL)
+    if agree <= 0.95:
+        raise AssertionError(f"{name}: argmax agreement {agree}")
+
+
+def routing_check(name, want_tape, got_experts, got, want) -> None:
+    """Where a free-running run's expert choices (``got_experts``, (layers,
+    n, k)) part from the reference run's (``want_tape``).
+
+    A flip at layer l0, position p0 moves every later layer's input at p0
+    and, through attention, at every later position, so the flips there
+    follow from it; the others (roots) are printed with the reference
+    run's router margins. Rounding grows with depth in a random-weight
+    model, so the margins that it can cross do too; at the first layer
+    the two runs' inputs differ by one attention's rounding, and every
+    flip there must lie below ROUTE_TIE (the reference's own forward and
+    decode part at margins near 1e-4, ``tests/moe_routing_witness.py``;
+    a wrong router parts at any margin)."""
+    import torch
+    margins = torch.stack(want_tape.margins)                 # (layers, n)
+    differ = (torch.stack(want_tape.experts) != got_experts).any(-1)
+    upto = differ.int().cumsum(1).clamp(max=1)       # a flip at p' <= p
+    below = (upto.cumsum(0) - upto) > 0              # ... at a layer < l
+    roots = [(int(layer), f"{float(margins[layer, p]):.2e}")
+             for layer, p in (differ & ~below).nonzero()]
+    print(f"{name}, free routing: max_abs_diff="
+          f"{float((got - want).abs().max()):.4f}, argmax agreement "
+          f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.4f}; "
+          f"routing parts at {int(differ.any(0).sum())} of {differ.shape[1]}"
+          f" positions ({int(differ.sum())} of {differ.numel()} "
+          f"layer-positions); roots at (layer, router margin) "
+          f"{roots}"
+          f"; the median margin is {float(margins.median()):.2e}")
+    first = margins[0][differ[0]]
+    if first.numel() and float(first.max()) >= ROUTE_TIE:
+        raise AssertionError(f"{name}: routing parts at the first layer at "
+                             f"a router margin of {float(first.max())}")
 
 
 def decode_consistency(dev, model, tokens) -> None:
-    """Phase 8: forward (flash kernel) against teacher-forced decode."""
+    """Phase 8: forward (flash kernel) against teacher-forced decode.
+
+    For MoE the free-running decode's routing is held by `routing_check`,
+    and the logits by `hold_logits` on a decode that replays the
+    forward's expert choices (`models.moe.RouteTape`): a choice parted at
+    a near-tie moves a token's output by a whole expert's share and every
+    later layer and position with it, in the reference too."""
     import torch
+    from repro_torch.models.moe import RouteTape
     from repro_torch.models.transformer import (decode_step, forward,
                                                 init_cache)
     cfg = model.cfg
     tokens = tokens.to(dev)
-    n = tokens.shape[1]
-    full = forward(model, {"tokens": tokens})[0].float()
-    cache = init_cache(cfg, 1, n, device=dev)
-    steps = []
-    for i in range(n):
-        lg, cache = decode_step(model, cache, tokens[:, i:i + 1])
-        steps.append(lg[:, 0].float())
-    dec = torch.stack(steps, dim=1)
-    torch.testing.assert_close(dec, full, **DECODE_TOL)
-    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
-    if agree <= 0.95:
-        raise AssertionError(f"decode/forward argmax agreement {agree}")
-    print(f"decode vs forward: {n} tokens, max_abs_diff="
-          f"{float((dec - full).abs().max()):.4f}, argmax agreement "
-          f"{agree:.4f}")
+    n, layers = tokens.shape[1], cfg.num_layers
+    with RouteTape() as fwd:
+        full = forward(model, {"tokens": tokens})[0].float()
+
+    def decode(replay=None):
+        cache = init_cache(cfg, 1, n, device=dev)
+        steps = []
+        with RouteTape(replay) as tape:
+            for i in range(n):
+                lg, cache = decode_step(model, cache, tokens[:, i:i + 1])
+                steps.append(lg[:, 0].float())
+        return torch.stack(steps, dim=1), tape
+
+    dec, tape = decode()
+    name = "decode vs forward"
+    if cfg.is_moe:
+        # a decode step routes one position through every layer
+        by_step = torch.stack(tape.experts).reshape(n, layers, -1)
+        routing_check(name, fwd, by_step.transpose(0, 1), dec, full)
+        dec, _ = decode([fwd.experts[layer][i:i + 1] for i in range(n)
+                         for layer in range(layers)])
+        name += ", the forward's routing replayed"
+    hold_logits(name, dec, full)
 
 
 def card_vs_cpu(dev, cfg, tokens) -> None:
-    """Phase 9: the config cut to 2 layers, the same weights on both."""
+    """Phase 9: the config cut to 2 layers, the same weights on both; for
+    MoE the card's free routing is held by `routing_check` and its logits
+    on a run that replays the CPU's expert choices (see
+    `decode_consistency`)."""
     import copy
     import dataclasses
     import torch
+    from repro_torch.models.moe import RouteTape
     from repro_torch.models.transformer import forward, init_params
     cut = dataclasses.replace(cfg, num_layers=2,
                               block_pattern=cfg.block_pattern[:2])
     host = init_params(cut, torch.Generator().manual_seed(SEED), "cpu")
     card = copy.deepcopy(host).to(dev)
-    n = tokens.shape[1]
     t0 = time.perf_counter()
-    want = forward(host, {"tokens": tokens})[0].float()
-    host_s = time.perf_counter() - t0
-    got = forward(card, {"tokens": tokens.to(dev)})[0].float().cpu()
-    torch.testing.assert_close(got, want, **DECODE_TOL)
-    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    if agree <= 0.95:
-        raise AssertionError(f"card/CPU argmax agreement {agree}")
-    print(f"card vs CPU: 2 layers, {n} tokens, max_abs_diff="
-          f"{float((got - want).abs().max()):.4f}, argmax agreement "
-          f"{agree:.4f} (CPU forward {host_s:.1f} s)")
+    with RouteTape() as host_tape:
+        want = forward(host, {"tokens": tokens})[0].float()
+    name = (f"card vs CPU, 2 layers (CPU forward "
+            f"{time.perf_counter() - t0:.1f} s)")
+    with RouteTape() as card_tape:
+        got = forward(card, {"tokens": tokens.to(dev)})[0].float().cpu()
+    if cut.is_moe:
+        routing_check(name, host_tape, torch.stack(card_tape.experts), got,
+                      want)
+        with RouteTape(host_tape.experts):
+            got = forward(card, {"tokens": tokens.to(dev)})[0].float().cpu()
+        name += ", the CPU's routing replayed"
+    hold_logits(name, got, want)
 
 
 def serve_lm(dev, model) -> dict:
@@ -521,18 +806,17 @@ def serve_lm(dev, model) -> dict:
     depth."""
     import numpy as np
     import torch
-    from repro_torch.kernels.flash_attn import flash_attn as fa
-    from repro_torch.kernels.hot_embed import hot_embed as he
     from repro_torch.launch import serve as S
     from repro_torch.models.layers import hot_vocab_size
 
     cfg = model.cfg
     reqs = S.synthetic_requests(8, cfg.vocab_size, seed=0)
-    fa.launches = he.launches = S.decode_steps = 0
+    reset_lm_launches()
+    S.decode_steps = 0
     t0 = time.perf_counter()
     done = S.serve_loop(cfg, model, reqs, batch_slots=4, max_len=512)
     seconds = time.perf_counter() - t0
-    launches = {"flash_attn": fa.launches, "hot_embed": he.launches}
+    launches = lm_launches()
     steps = S.decode_steps
     if sorted(r.rid for r in done) != list(range(8)):
         raise AssertionError("not every request completed")
@@ -540,9 +824,11 @@ def serve_lm(dev, model) -> dict:
         if len(r.out) != r.max_new:
             raise AssertionError(f"request {r.rid}: {len(r.out)} tokens "
                                  f"for max_new={r.max_new}")
-    if launches != {"flash_attn": 0, "hot_embed": steps}:
+    expected = {"flash_attn": 0, "hot_embed": steps,
+                "moe_gmm": 3 * cfg.num_layers * steps if cfg.is_moe else 0}
+    if launches != expected:
         raise AssertionError(f"serve launches {launches} over {steps} "
-                             f"decode steps")
+                             f"decode steps, expected {expected}")
     toks = sum(len(r.out) for r in done)
     lat = [r.t_done - r.t_enqueue for r in done]
     print(f"[serve] {len(done)} requests, {toks} tokens in {seconds:.1f}s "
@@ -550,8 +836,8 @@ def serve_lm(dev, model) -> dict:
           f"steps, {1e3 * seconds / steps:.2f} ms each")
     print(f"[serve] latency p50 {np.percentile(lat, 50):.2f}s "
           f"p95 {np.percentile(lat, 95):.2f}s")
-    print(f"[serve] completion order {[r.rid for r in done]}, hot-slab "
-          f"launches {launches['hot_embed']} = decode steps")
+    print(f"[serve] completion order {[r.rid for r in done]}, launches "
+          f"{launches} over {steps} decode steps")
     # the decode step's shape, (4,) ids, over every token the requests
     # fed or sampled, four at a time
     seen = [t for r in done for t in (*r.prompt.tolist(), *r.out)]
@@ -660,6 +946,106 @@ def time_lm_kernels(model, pre: dict) -> dict:
     return {"flash_attn": flash, "hot_embed": gather}
 
 
+def time_gmm(model, pre: dict) -> tuple[dict, float]:
+    """Phase 13: ``moe_gmm`` at the prefill's shapes (layer 0's real
+    expert-sorted rows through the gate and the down products) and at a
+    decode step's (4 tokens x top-6 = 24 rows), each with the kernel, its
+    plain version, one PyTorch call as a yardstick (``torch._grouped_mm``,
+    timed only; the port never calls it) and the bound. Returns the
+    timings and the decode shape's max |err| against the plain version."""
+    import torch
+    from repro_torch.kernels.moe_gmm import moe_gmm as gm
+    from repro_torch.kernels.moe_gmm.ref import gmm_grouped_ref
+
+    kept = gm.launches
+    cfg, blk, moe = model.cfg, model.layers[0], pre["moe"]
+    bf16 = torch.bfloat16
+    w_gate, w_down = (blk.ffn[n].to(bf16) for n in ("w_gate", "w_down"))
+
+    def one(name, x, w, offs, reps):
+        e, k, n = w.shape
+        sizes = (offs[1:] - offs[:-1]).tolist()
+        rows, used = sum(sizes), sum(c > 0 for c in sizes)
+        out = {"ms": cuda_ms(lambda: gm.gmm(x, w, offs, out_dtype=bf16),
+                             reps=reps),
+               "plain_ms": cuda_ms(lambda: gmm_grouped_ref(x, w, offs, bf16),
+                                   reps=max(1, reps // 10), warmup=1)}
+        if hasattr(torch, "_grouped_mm"):
+            ends = offs[1:]
+            out["library_ms"] = cuda_ms(
+                lambda: torch._grouped_mm(x, w, offs=ends), reps=reps)
+            lib = "torch._grouped_mm"
+        else:
+            bounds = offs.tolist()
+            out["library_ms"] = cuda_ms(lambda: [
+                torch.matmul(x[bounds[i]:bounds[i + 1]], w[i])
+                for i in range(e)], reps=reps)
+            lib = f"{e} torch.matmul"
+        flops = 2 * rows * k * n
+        nbytes = 2 * rows * k + 2 * used * k * n + 2 * x.shape[0] * n \
+            + 4 * (e + 1)
+        ops_ms = flops / BF16_FLOPS * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out.update(bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        print(f"moe_gmm timing [{name}]: rows={rows} K={k} N={n} "
+              f"experts used={used} ms={out['ms']:.4f} "
+              f"plain_ms={out['plain_ms']:.4f} "
+              f"library_ms={out['library_ms']:.4f} ({lib}) "
+              f"bound_ms={out['bound_ms']:.4f} ({flops:.4e} FLOPs, {nbytes} "
+              f"bytes; {flops / out['ms'] / 1e9:.1f} TFLOP/s)")
+        return out
+
+    timing = one("prefill gate", moe["xs"], w_gate, moe["offs"], reps=10)
+    timing["down"] = one("prefill down", moe["act"], w_down, moe["offs"],
+                         reps=10)
+    # a decode step at the served batch: 4 tokens, their top-6 experts
+    top = moe["experts"][:4].reshape(-1)
+    order = torch.argsort(top, stable=True)
+    x = moe["y"][:4][order // cfg.experts_per_token].contiguous()
+    offs = torch.zeros(cfg.num_experts + 1, dtype=torch.int32,
+                       device=x.device)
+    offs[1:] = torch.bincount(top, minlength=cfg.num_experts).cumsum(0)
+    err = gmm_check("decode step", x, w_gate, offs)
+    timing["decode"] = one("decode gate", x, w_gate, offs, reps=100)
+    gm.launches = kept   # timing launches are not the main path's
+    return timing, err
+
+
+def run_lm(dev, cfg, full_cfg=None) -> dict:
+    """Phases 7-11 (and 13 for MoE) on one LM config, weights from
+    ``init_params`` on the card (seed 7). Frees the model before it
+    returns."""
+    import torch
+    from repro_torch.models.transformer import init_params
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    torch.cuda.synchronize()
+    print(f"init_params: {cfg.name}, L={cfg.num_layers}, "
+          f"{cfg.param_count()} parameters (float32 masters) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if full_cfg is not None:
+        print(f"cut: {cfg.num_layers} of {full_cfg.num_layers} layers at "
+              f"full width; the full config has {full_cfg.param_count()} "
+              f"parameters, the cut one {cfg.param_count()}")
+    tokens = token_source(cfg, PREFILL_TOKENS)
+    pre = prefill(dev, model, tokens(1, PREFILL_TOKENS))
+    decode_consistency(dev, model, tokens(2, 64))
+    card_vs_cpu(dev, cfg, tokens(3, 256))
+    lm = serve_lm(dev, model)
+    decode_profile(dev, model)
+    out = {"timing": time_lm_kernels(model, pre), "pre": pre["launches"],
+           "serve": lm["launches"], "flash_err": pre["err"],
+           "hot_err": max(pre["hot_err"], lm["hot_err"])}
+    if cfg.is_moe:
+        out["gmm_timing"], err = time_gmm(model, pre)
+        out["gmm_err"] = max(pre["moe"]["err"], err)
+    del model, pre
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found; run from the root of "
@@ -690,23 +1076,22 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
 
+    import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.models.transformer import init_params
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls must not run in TF32: the "
+                             "router and the plain versions need float32")
     flash_err, hot_err = lm_kernel_cases(dev)
-    cfg = get_config(ARCH)
-    t0 = time.perf_counter()
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                        dev)
-    torch.cuda.synchronize()
-    print(f"init_params: {cfg.name}, {cfg.param_count()} parameters "
-          f"(float32 masters) in {time.perf_counter() - t0:.1f} s")
-    tokens = token_source(cfg, PREFILL_TOKENS)
-    pre = prefill(dev, model, tokens(1, PREFILL_TOKENS))
-    decode_consistency(dev, model, tokens(2, 64))
-    card_vs_cpu(dev, cfg, tokens(3, 256))
-    lm = serve_lm(dev, model)
-    decode_profile(dev, model)
-    lm_timing = time_lm_kernels(model, pre)
+    mini = run_lm(dev, get_config(ARCH))
+
+    gmm_err = gmm_kernel_cases(dev)
+    full = get_config(MOE_ARCH)
+    cut = dataclasses.replace(full, num_layers=MOE_LAYERS,
+                              block_pattern=("attn",) * MOE_LAYERS)
+    moe = run_lm(dev, cut, full)
+
+    def launches(name):
+        return sum(r[w][name] for r in (mini, moe) for w in ("pre", "serve"))
 
     kernels = [{
         "name": "csr_spmv",
@@ -721,19 +1106,27 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:66",
-        "launches": (pre["launches"]["flash_attn"]
-                     + lm["launches"]["flash_attn"]),
-        "max_abs_err": max(flash_err, pre["err"]),
-        **lm_timing["flash_attn"],
+        "launches": launches("flash_attn"),
+        "max_abs_err": max(flash_err, mini["flash_err"], moe["flash_err"]),
+        **mini["timing"]["flash_attn"],
+        MOE_ARCH: moe["timing"]["flash_attn"],
     }, {
         "name": "hot_embed",
         "route": "cuda",
         "source": "src/repro_torch/csrc/hot_embed.cu",
         "replaces": "src/repro/kernels/hot_embed/hot_embed.py:37",
-        "launches": (pre["launches"]["hot_embed"]
-                     + lm["launches"]["hot_embed"]),
-        "max_abs_err": max(hot_err, pre["hot_err"], lm["hot_err"]),
-        **lm_timing["hot_embed"],
+        "launches": launches("hot_embed"),
+        "max_abs_err": max(hot_err, mini["hot_err"], moe["hot_err"]),
+        **mini["timing"]["hot_embed"],
+        MOE_ARCH: moe["timing"]["hot_embed"],
+    }, {
+        "name": "moe_gmm",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:50",
+        "launches": launches("moe_gmm"),
+        "max_abs_err": max(gmm_err, moe["gmm_err"]),
+        **moe["gmm_timing"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

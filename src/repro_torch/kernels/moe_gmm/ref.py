@@ -1,0 +1,31 @@
+"""Plain PyTorch versions of the grouped matmul (any device)."""
+from __future__ import annotations
+
+import torch
+
+
+def gmm_ref(x: torch.Tensor, w: torch.Tensor,
+            row_expert: torch.Tensor) -> torch.Tensor:
+    """``out[i] = x[i] @ w[row_expert[i]]``, float32: the reference's dense
+    per-row oracle. It gathers an (M, K, N) weight tensor, so it is for
+    the tests' small shapes only."""
+    return torch.einsum("mk,mkn->mn", x, w[row_expert.long()]).float()
+
+
+def gmm_grouped_ref(x: torch.Tensor, w: torch.Tensor,
+                    group_offsets: torch.Tensor,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's contract, one product per group: rows
+    ``[offs[e], offs[e+1])`` of x times ``w[e]``, with both operands in
+    float32 and the result rounded once to ``out_dtype``; rows at or past
+    ``offs[E]`` are zero. Offsets past M are clipped to M.
+
+    Reads the offsets on the host (a sync on the card)."""
+    m, n = x.shape[0], w.shape[2]
+    out = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    offs = group_offsets.clamp(0, m).tolist()
+    for e in range(w.shape[0]):
+        lo, hi = offs[e], offs[e + 1]
+        if hi > lo:
+            out[lo:hi] = x[lo:hi].float() @ w[e].float()
+    return out.to(out_dtype)

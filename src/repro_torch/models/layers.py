@@ -12,6 +12,9 @@ Conventions
 * Prefill attention (``cache=None``) goes to the flash kernel on the card
   and to its plain version on the CPU (`flash_eligible`); decode attention
   is the query-chunked plain version over the cache, as in the reference.
+  Decode rounds the probabilities before PV as the config's prefill does:
+  not at all where the prefill takes the kernel, to bf16 elsewhere (the
+  reference's chunked path), so that both compute attention alike.
 * Decode paths take a cache entry and a position offset. The cache's K/V
   tensors are written in place (the reference returns new arrays).
 
@@ -138,22 +141,34 @@ def _attn_mask(q_pos, k_pos, cfg: ModelConfig, k_valid=None):
     return mask
 
 
-def _sdpa_chunked(q, k, v, q_pos, k_pos, cfg: ModelConfig, k_valid=None):
+def _sdpa_chunked(q, k, v, q_pos, k_pos, cfg: ModelConfig, k_valid=None,
+                  round_p: bool = True):
     """Query-chunked GQA attention. q: (B,S,H,dh); k,v: (B,T,KV,dh).
-    Logits and softmax in float32, PV with bf16 probabilities."""
+
+    Logits and softmax in float32. With ``round_p`` (the reference) the
+    probabilities are rounded to bf16 for a bf16 PV; without, PV runs in
+    float32 and the result is rounded once, as the flash kernel does. A
+    decode step after a flash prefill takes the latter: at full width,
+    rounding p in decode alone parts an MoE's decode routing from its
+    forward's at 4 of 64 positions where float32 parts it at 2, as the
+    reference's own decode parts from its forward
+    (``tests/moe_routing_witness.py``)."""
     b, s, h, dh = q.shape
     kvh = cfg.num_kv_heads
     rep = h // kvh
     scale = dh ** -0.5
     qs = q.reshape(b, s, kvh, rep, dh)
-    k32, vc = k.float(), v.to(COMPUTE_DTYPE)
+    k32 = k.float()
+    pv = COMPUTE_DTYPE if round_p else torch.float32
+    vc = v.to(pv)
 
     def one_chunk(qc, qp):  # (B,C,KV,rep,dh), (C,)
         logits = torch.einsum("bcgrd,btgd->bgrct", qc.float(), k32) * scale
         mask = _attn_mask(qp, k_pos, cfg, k_valid)          # (C,T)
         logits = torch.where(mask[None, None, None], logits, -1e30)
         probs = torch.softmax(logits, dim=-1)
-        return torch.einsum("bgrct,btgd->bcgrd", probs.to(COMPUTE_DTYPE), vc)
+        return torch.einsum("bgrct,btgd->bcgrd", probs.to(pv),
+                            vc).to(COMPUTE_DTYPE)
 
     chunk = min(Q_CHUNK, s)
     if s % chunk == 0 and s > chunk:
@@ -173,13 +188,7 @@ def flash_eligible(cfg: ModelConfig, device: torch.device | str) -> bool:
     path; on the card it raises, since nothing there gives way to a plain
     version.
     """
-    missing = []
-    if cfg.num_kv_heads != cfg.num_heads:
-        missing.append("grouped-query attention (num_kv_heads != num_heads)")
-    if cfg.prefix_tokens > 0:
-        missing.append("prefix-LM attention (prefix_tokens > 0)")
-    if not cfg.causal:
-        missing.append("non-causal attention (causal=False)")
+    missing = _flash_missing(cfg)
     if not missing:
         return True
     if torch.device(device).type == "cuda":
@@ -187,6 +196,18 @@ def flash_eligible(cfg: ModelConfig, device: torch.device | str) -> bool:
             f"{cfg.name}: the flash kernel does not take "
             f"{'; '.join(missing)} yet: ROADMAP A8.9")
     return False
+
+
+def _flash_missing(cfg: ModelConfig) -> list[str]:
+    """What the flash kernel lacks for ``cfg``'s attention."""
+    missing = []
+    if cfg.num_kv_heads != cfg.num_heads:
+        missing.append("grouped-query attention (num_kv_heads != num_heads)")
+    if cfg.prefix_tokens > 0:
+        missing.append("prefix-LM attention (prefix_tokens > 0)")
+    if not cfg.causal:
+        missing.append("non-causal attention (causal=False)")
+    return missing
 
 
 def apply_attention(p, x, cfg: ModelConfig, positions, cache=None,
@@ -236,7 +257,8 @@ def apply_attention(p, x, cfg: ModelConfig, positions, cache=None,
             k_valid = k_pos < cache["length"] + 1
         ck = cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
         cv = cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-        out = _sdpa_chunked(q, ck, cv, positions, k_pos, cfg, k_valid)
+        out = _sdpa_chunked(q, ck, cv, positions, k_pos, cfg, k_valid,
+                            round_p=bool(_flash_missing(cfg)))
         new_cache = {"k": ck, "v": cv, "length": cache["length"] + 1}
 
     out = _dense(out.reshape(b, s, h * dh), p["wo"], p.get("bo"))

@@ -6,10 +6,11 @@ params in float32 as ``nn.ParameterDict``s, one `AttnBlock` per layer in
 an ``nn.ModuleList``; a Python loop over the blocks takes the place of the
 reference's ``lax.scan`` over stacked layer params.
 
-Modes: prefill (`forward`: logits) and decode (`decode_step`: one token
-against a KV cache). Not ported yet: the ``rwkv`` and ``hybrid`` trunks
-(ROADMAP A8.3), MoE FFNs (A8.4), and training (``loss_fn``,
-``chunked_xent``: A8.5).
+Modes: prefill (`forward`: logits and the MoE auxiliary loss) and decode
+(`decode_step`: one token against a KV cache). A block's FFN is the MLP,
+or for an MoE config `moe.apply_moe` (the grouped-matmul kernel on the
+card). Not ported yet: the ``rwkv`` and ``hybrid`` trunks (ROADMAP A8.3)
+and training (``loss_fn``, ``chunked_xent``: A8.5).
 
 Weights come from one of two places:
 
@@ -34,6 +35,7 @@ from .layers import (COMPUTE_DTYPE, apply_attention, apply_mlp, apply_norm,
                      embed_tokens, flash_eligible, init_attention,
                      init_attn_cache, init_embedding, init_mlp, init_norm,
                      lm_logits)
+from .moe import apply_moe, init_moe
 
 
 def trunk_kind(cfg: ModelConfig) -> str:
@@ -49,19 +51,18 @@ def _check_ported(cfg: ModelConfig) -> None:
     if kind != "attn":
         raise NotImplementedError(
             f"{cfg.name}: the {kind} trunk is not ported yet: ROADMAP A8.3")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs are not ported yet: ROADMAP A8.4 (with "
-            f"the grouped-matmul kernel, B4)")
 
 
 def _params(tree: dict) -> nn.ParameterDict:
+    """Frozen parameters; a nested dict (the MoE's ``shared``) becomes a
+    nested ``ParameterDict``."""
     return nn.ParameterDict(
-        {k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
+        {k: _params(v) if isinstance(v, dict)
+         else nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
 
 
 class AttnBlock(nn.Module):
-    """Pre-norm attention + MLP block with scaled residuals."""
+    """Pre-norm attention + MLP (or MoE) block with scaled residuals."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -72,13 +73,19 @@ class AttnBlock(nn.Module):
         self.ffn = _params(params["ffn"])
 
     def forward(self, x, positions, cache=None):
-        """Returns (x, new_cache)."""
+        """Returns (x, new_cache, aux_loss); aux is None without MoE (no
+        device op for a dense decode step)."""
         cfg = self.cfg
         h, new_c = apply_attention(self.attn, apply_norm(self.norm1, x, cfg),
                                    cfg, positions, cache)
         x = x + h * cfg.residual_scale
-        f = apply_mlp(self.ffn, apply_norm(self.norm2, x, cfg), cfg)
-        return x + f * cfg.residual_scale, new_c
+        y = apply_norm(self.norm2, x, cfg)
+        aux = None
+        if cfg.is_moe:
+            f, aux = apply_moe(self.ffn, y, cfg)
+        else:
+            f = apply_mlp(self.ffn, y, cfg)
+        return x + f * cfg.residual_scale, new_c, aux
 
 
 class Transformer(nn.Module):
@@ -115,7 +122,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     layers = [{"norm1": init_norm(cfg, device=dev),
                "norm2": init_norm(cfg, device=dev),
                "attn": init_attention(generator, cfg),
-               "ffn": init_mlp(generator, cfg)}
+               "ffn": (init_moe(generator, cfg) if cfg.is_moe
+                       else init_mlp(generator, cfg))}
               for _ in range(cfg.num_layers)]
     return Transformer(cfg, {"embed": init_embedding(generator, cfg),
                              "layers": layers,
@@ -125,8 +133,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def from_jax_params(cfg: ModelConfig, tree: dict,
                     device: str | torch.device | None = None) -> Transformer:
     """The reference's param pytree, with ``np.asarray`` on each leaf, as
-    a `Transformer` on ``device``: the ``(L, ...)`` layer leaves are
-    unstacked into one block each, and every leaf is copied."""
+    a `Transformer` on ``device``: the ``(L, ...)`` layer leaves, nested
+    ones (the MoE's ``shared``) too, are unstacked into one block each,
+    and every leaf is copied."""
     dev = resolve_device(device)
 
     def put(a):
@@ -162,9 +171,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def forward(model: Transformer, batch: dict, mesh=None):
     """Prefill forward. batch: tokens (B,S) and/or embeds/prefix.
 
-    Returns (logits (B,S,V) bf16, aux_loss). On the card each layer's
-    attention is one flash-kernel launch and the embedding one hot-slab
-    launch; a config the kernel does not take raises before any work.
+    Returns (logits (B,S,V) bf16, aux_loss summed over the layers). On
+    the card each layer's attention is one flash-kernel launch, an MoE
+    layer's experts three grouped-matmul launches and the embedding one
+    hot-slab launch; a config the kernel does not take raises before any
+    work.
     """
     cfg = model.cfg
     if mesh is not None:
@@ -178,15 +189,18 @@ def forward(model: Transformer, batch: dict, mesh=None):
         if cfg.prefix_tokens > 0:
             x = torch.cat([batch["prefix"].to(COMPUTE_DTYPE), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=dev)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for block in model.layers:
-        x, _ = block(x, positions)
+        x, _, a = block(x, positions)
+        if a is not None:
+            aux = aux + a
     x = apply_norm(model.final_norm, x, cfg)
-    return (lm_logits(model.embed, x, cfg),
-            torch.zeros((), dtype=torch.float32, device=dev))
+    return lm_logits(model.embed, x, cfg), aux
 
 
 def decode_step(model: Transformer, cache: dict, tokens, mesh=None):
-    """One decode step. tokens: (B, 1). Returns (logits (B,1,V), cache).
+    """One decode step. tokens: (B, 1). Returns (logits (B,1,V), cache);
+    the MoE auxiliary loss is dropped, as in the reference.
 
     The returned cache shares the K/V tensors of the one passed in, which
     are written in place; its ``length`` and ``pos`` are new tensors.
@@ -199,9 +213,9 @@ def decode_step(model: Transformer, cache: dict, tokens, mesh=None):
     layers = cache["layers"]
     lengths = []
     for i, block in enumerate(model.layers):
-        x, new_c = block(x, positions, {"k": layers["k"][i],
-                                        "v": layers["v"][i],
-                                        "length": layers["length"][i]})
+        x, new_c, _ = block(x, positions, {"k": layers["k"][i],
+                                           "v": layers["v"][i],
+                                           "length": layers["length"][i]})
         lengths.append(new_c["length"])
     new_cache = {"layers": {"k": layers["k"], "v": layers["v"],
                             "length": torch.stack(lengths)},

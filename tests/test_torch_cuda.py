@@ -11,7 +11,11 @@ The SpMV kernel is held to its plain version at rtol 1e-5 / atol 1e-6:
 the float32 sums of a row are taken in another order. The flash kernel is
 held to its plain version at the reference test's tolerances
 (tests/test_kernels.py: float32 rtol 1e-3 / atol 2e-3, bf16 5e-2), the
-hot-slab gather exactly.
+hot-slab gather exactly. The grouped matmul is held to its plain version
+(float32 products, one float32 matmul per group) at rtol/atol 1e-4 for a
+float32 result: bf16 products are exact in float32, so only the order of
+the sums differs. A bf16 result must equal the kernel's float32 result
+rounded to bf16: the kernel rounds the same sums once.
 """
 from __future__ import annotations
 
@@ -29,6 +33,11 @@ from repro_torch.kernels.flash_attn.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.hot_embed import hot_embed as he  # noqa: E402
 from repro_torch.kernels.hot_embed.ops import hot_cold_lookup  # noqa: E402
 from repro_torch.kernels.hot_embed.ref import hot_gather_ref  # noqa: E402
+from repro_torch.kernels.moe_gmm import moe_gmm as gmm_mod  # noqa: E402
+from repro_torch.kernels.moe_gmm.ops import (grouped_matmul,  # noqa: E402
+                                             ragged_dot)
+from repro_torch.kernels.moe_gmm.ref import (gmm_grouped_ref,  # noqa: E402
+                                             gmm_ref)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -259,3 +268,151 @@ def test_lm_slice_on_the_card_matches_the_cpu():
     assert sorted(r.rid for r in done) == [0, 1, 2, 3]
     assert all(len(r.out) == r.max_new for r in done)
     assert he.launches > hl
+
+
+# --------------------------------------------------------------- moe_gmm
+GMM_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _pad_groups_tiles(gs):
+    """tile_expert of `moe_gmm.pad_groups` for the reference's cases."""
+    return gmm_mod.pad_groups(np.array(gs))[1:]
+
+
+@pytest.mark.parametrize("gs,k,n", [
+    ([128, 128, 128, 128], 128, 256), ([100, 30, 0, 128], 128, 256),
+    ([0, 0, 5, 1], 128, 256), ([512, 0, 0, 0], 128, 256),
+    ([128, 128], 384, 128)])                   # tests/test_kernels.py
+def test_grouped_matmul_f32_matches_plain_version(gs, k, n):
+    dev = _card()
+    te, total = _pad_groups_tiles(gs)
+    rng = np.random.default_rng(total + k)
+    x = torch.from_numpy(rng.standard_normal((total, k)).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy((0.1 * rng.standard_normal((len(gs), k, n))).astype(
+        np.float32)).to(dev)
+    te = torch.from_numpy(te).to(dev)
+    launches = gmm_mod.launches
+    got = grouped_matmul(x, w, te)
+    again = grouped_matmul(x, w, te)
+    torch.cuda.synchronize()
+    assert gmm_mod.launches == launches + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    want = gmm_ref(x, w, te.repeat_interleave(gmm_mod.TILE_M))
+    torch.testing.assert_close(got, want, **GMM_TOL)
+
+
+def _sizes(rng, m, e, case):
+    if case == "one_group":
+        sizes = np.zeros(e, np.int64)
+        sizes[e // 2] = m
+    elif case == "short":                 # rows past the total
+        sizes = rng.multinomial(m - 13, np.ones(e) / e)
+    else:                                 # skewed, with empty groups
+        p = 1.0 / (1 + np.arange(e)) ** 1.2
+        sizes = rng.multinomial(m, p / p.sum())
+        sizes[1] = 0
+    return sizes
+
+
+@pytest.mark.parametrize("case", ["skewed", "one_group", "short"])
+@pytest.mark.parametrize("m,k,n,e", [
+    (40, 64, 128, 4), (40, 128, 64, 4),          # smoke moonshot widths
+    (1000, 2048, 1408, 64), (1000, 1408, 2048, 64),   # served widths
+    (24, 2048, 1408, 64),                         # a decode step
+    (300, 40, 24, 3)])                            # K, N multiples of 8 only
+def test_ragged_dot_bf16_matches_plain_version(m, k, n, e, case):
+    dev = _card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(m * k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    w = torch.from_numpy((k ** -0.5 * rng.standard_normal((e, k, n))).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    sizes = torch.from_numpy(_sizes(rng, m, e, case)).to(dev)
+    offs = torch.zeros(e + 1, dtype=torch.int32, device=dev)
+    offs[1:] = sizes.cumsum(0)
+    launches = gmm_mod.launches
+    got = ragged_dot(x, w, sizes)
+    again = ragged_dot(x, w, sizes)
+    f32 = gmm_mod.gmm(x, w, offs, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert gmm_mod.launches == launches + 3
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    torch.testing.assert_close(f32, gmm_grouped_ref(x, w, offs), **GMM_TOL)
+    # the same float32 sums, rounded once
+    assert torch.equal(got, f32.to(torch.bfloat16))
+    total = int(sizes.sum())
+    assert not got[total:].any() and not f32[total:].any()
+
+
+def test_grouped_matmul_refuses_bad_operands_on_the_card():
+    dev = _card()
+    x = torch.zeros(128, 64, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(2, 64, 32, device=dev, dtype=torch.bfloat16)
+    offs = torch.tensor([0, 100, 128], dtype=torch.int32, device=dev)
+    launches = gmm_mod.launches
+    with pytest.raises(TypeError):
+        gmm_mod.gmm(x.half(), w.half(), offs)
+    with pytest.raises(TypeError, match="is torch.float32"):
+        gmm_mod.gmm(x, w.float(), offs)
+    with pytest.raises(TypeError, match="int32"):
+        gmm_mod.gmm(x, w, offs.long())
+    with pytest.raises(ValueError, match="is on"):
+        gmm_mod.gmm(x, w.cpu(), offs)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gmm_mod.gmm(x[:, :60].contiguous(), w[:, :60].contiguous(), offs)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gmm_mod.gmm(x, w[:, :, :20].contiguous(), offs)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_mod.gmm(x.t().contiguous().t(), w, offs)
+    assert gmm_mod.launches == launches
+
+
+def test_moe_model_on_the_card_matches_the_cpu():
+    """A 2-layer smoke moonshot (MoE with a shared expert): the prefill on
+    the card (3 grouped-matmul launches per layer) against the same
+    weights on the CPU, and `serve_loop`. The standard of
+    tests/test_models.py::test_decode_matches_forward (rtol/atol 0.15,
+    argmax agreement > 0.95), held at 95% of the positions or more when
+    the card routes freely (where two experts' probabilities nearly tie,
+    rounding that differs between cuBLAS and the CPU picks the other
+    expert for that token) and at every position when the card replays
+    the CPU's expert choices (`models.moe.RouteTape`)."""
+    import copy
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import serve_loop, synthetic_requests
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import RouteTape
+
+    dev = _card()
+    cfg = smoke_config("moonshot-v1-16b-a3b", layers=2)
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(host).to(dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 300)).astype(np.int32))
+    gl = gmm_mod.launches
+    got, aux = T.forward(card, {"tokens": tokens.to(dev)})
+    torch.cuda.synchronize()
+    assert gmm_mod.launches - gl == 3 * cfg.num_layers
+    with RouteTape() as tape:
+        want, want_aux = T.forward(host, {"tokens": tokens})
+    diff = (got.float().cpu() - want.float()).abs()
+    close = (diff <= 0.15 + 0.15 * want.float().abs()).all(-1)
+    assert close.float().mean() >= 0.95
+    agree = (got.float().cpu().argmax(-1) == want.float().argmax(-1))
+    assert agree.float().mean() > 0.95
+    assert abs(float(aux) - float(want_aux)) <= 1e-2 * float(want_aux)
+    with RouteTape(tape.experts):
+        got, _ = T.forward(card, {"tokens": tokens.to(dev)})
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=0.15,
+                               atol=0.15)
+    agree = (got.float().cpu().argmax(-1) == want.float().argmax(-1))
+    assert agree.float().mean() > 0.95
+    gl = gmm_mod.launches
+    done = serve_loop(cfg, card, synthetic_requests(4, cfg.vocab_size),
+                      batch_slots=2)
+    assert sorted(r.rid for r in done) == [0, 1, 2, 3]
+    assert all(len(r.out) == r.max_new for r in done)
+    assert gmm_mod.launches > gl

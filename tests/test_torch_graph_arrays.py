@@ -87,6 +87,8 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch.kernels.csr_spmv.ops\n"
             "import repro_torch.kernels.flash_attn.ops\n"
             "import repro_torch.kernels.hot_embed.ops\n"
+            "import repro_torch.kernels.moe_gmm.ops, repro_torch.models.moe\n"
+            "import repro_torch.locality.moe\n"
             "import repro_torch.models.transformer\n"
             "import repro_torch.launch.serve, repro_torch.configs\n"
             "import repro_torch.data.pipeline, repro_torch.locality.vocab\n"

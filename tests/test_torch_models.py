@@ -163,6 +163,30 @@ def test_sdpa_chunked(arch, s):
     _close(got, want)
 
 
+@pytest.mark.parametrize("s", [12, 2048])
+def test_sdpa_chunked_float32_pv_is_the_flash_oracle(s):
+    """``round_p=False``, decode's attention after a flash prefill, keeps
+    PV in float32 as the reference's flash-attention oracle does: the two
+    agree to the bf16 rounding of the result."""
+    from repro.kernels.flash_attn.ref import attention_ref
+    cfg_j, cfg_t = jax_smoke("minicpm-2b", layers=1), smoke_config(
+        "minicpm-2b", layers=1)
+    rng = np.random.default_rng(s)
+    h, dh = cfg_j.num_heads, cfg_j.head_dim
+    (jq, tq), (jk, tk), (jv, tv) = (_bf16(rng.standard_normal((1, s, h, dh)))
+                                    for _ in range(3))
+
+    def heads(a):
+        return a.transpose(0, 2, 1, 3).reshape(h, s, dh)
+
+    want = attention_ref(heads(jq), heads(jk), heads(jv)).reshape(
+        1, h, s, dh).transpose(0, 2, 1, 3)
+    pos = torch.arange(s, dtype=torch.int32)
+    got = TL._sdpa_chunked(tq, tk, tv, pos, pos, cfg_t, round_p=False)
+    assert got.dtype == torch.bfloat16
+    _close(got, want)
+
+
 def _attn_params(params, layer=0):
     p = jax.tree.map(lambda a: a[layer], params["layers"]["attn"])
     return p, {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
@@ -420,7 +444,7 @@ def test_from_jax_params_copies_every_leaf(minicpm):
 # ----------------------------------------------------------- what raises
 @pytest.mark.parametrize("arch,what", [
     ("qwen2.5-3b", "grouped-query"), ("paligemma-3b", "prefix-LM"),
-    ("hubert-xlarge", "non-causal")])
+    ("hubert-xlarge", "non-causal"), ("mixtral-8x7b", "grouped-query")])
 def test_unported_attention_raises_on_the_card(arch, what):
     """On the card prefill attention is the kernel or nothing: a config it
     does not take raises (the check runs before any tensor work); on the
@@ -433,7 +457,7 @@ def test_unported_attention_raises_on_the_card(arch, what):
 
 
 @pytest.mark.parametrize("arch,row", [
-    ("rwkv6-3b", "A8.3"), ("zamba2-1.2b", "A8.3"), ("mixtral-8x7b", "A8.4")])
+    ("rwkv6-3b", "A8.3"), ("zamba2-1.2b", "A8.3")])
 def test_unported_trunks_raise(arch, row):
     cfg = smoke_config(arch, layers=2)
     with pytest.raises(NotImplementedError, match=row):
