@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and none is caught:
 
 1. Card: print ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile every CUDA source of the port (one ``nvcc`` each, all
-   at once) and print the build seconds.
+   at once) and print the build seconds, then ptxas's registers and spills
+   of the Hopper flash kernel (``flash_fwd_bf16_wgmma``).
 3. Kernel check: ``csr_spmv`` against its plain PyTorch version on the
    card (ragged rows, empty rows, a graph with no edges, a bucketed
    upload with sentinel edges of value 0), rtol 1e-5 / atol 1e-6: float32
@@ -38,7 +39,8 @@ weights from ``init_params`` on the card, seed 7):
    exact. Each result must also repeat bit for bit.
 7. Prefill: ``forward`` on 1 x 32,768 tokens (the ``prefill_32k`` sequence,
    its global batch of 32 cut to 1 for one card) at all 40 layers; 40
-   flash launches, 1 hot-slab launch, finite logits. The tokens come from
+   flash launches, all of them through the ``wgmma`` variant (bf16 at
+   d = 64), 1 hot-slab launch, finite logits. The tokens come from
    the repo's own pipeline: a held-out batch of the Zipf-community corpus
    (``data/pipeline.py``, Zipf exponent 1.2, 64 topics), mapped through
    the vocab LOrder built from its first batch (``locality/vocab.py``).
@@ -65,7 +67,10 @@ weights from ``init_params`` on the card, seed 7):
     splits a step's wall into device time and the rest.
 11. LM kernel timing at the served shapes, from CUDA events: each kernel,
     its plain version, one PyTorch call as a yardstick (timed only; the
-    port never calls it) and the bound.
+    port never calls it) and the bound. Flash also gets the bound of a
+    float32-faithful PV (``faithful_bound_ms``: the split PV's
+    ``6·d·S(S+1)/2·BH`` FLOPs at the bf16 rate), which SDPA, rounding p to
+    bf16, is not held to.
 
 Then the MoE slice, moonshot-v1-16b-a3b at full width (d 2048, 16 heads
 of 128, 64 experts of d_ff 1408, top-6, 2 shared experts), its depth cut
@@ -81,8 +86,9 @@ the card (seed 7), after the minicpm model is freed:
     of bf16 operands is held at rtol/atol 1e-4 (the products are exact in
     float32; only the order of the sums differs), the bf16 result must be
     it rounded once, and a repeat must give the same bits.
-13. Phases 7-11 on moonshot: the prefill (16 flash, 1 hot-slab and 48
-    ``moe_gmm`` launches, a finite aux loss), with flash held to its plain
+13. Phases 7-11 on moonshot: the prefill (16 flash launches through the
+    ``wgmma`` variant at d = 128, 1 hot-slab and 48 ``moe_gmm`` launches, a
+    finite aux loss), with flash held to its plain
     version at d = 128 (2 heads at S = 32,768, all 16 at S = 4,096) and
     ``moe_gmm`` on layer 0's real expert-sorted rows through the gate and
     the down products (float32 at 1e-4), layer 0's group sizes and
@@ -461,8 +467,9 @@ def lm_launches() -> dict:
     from repro_torch.kernels.flash_attn import flash_attn as fa
     from repro_torch.kernels.hot_embed import hot_embed as he
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
-    return {"flash_attn": fa.launches, "hot_embed": he.launches,
-            "moe_gmm": gm.launches}
+    return {"flash_attn": fa.launches,
+            "flash_attn_wgmma": fa.launches_by_variant["wgmma"],
+            "hot_embed": he.launches, "moe_gmm": gm.launches}
 
 
 def reset_lm_launches() -> None:
@@ -470,6 +477,7 @@ def reset_lm_launches() -> None:
     from repro_torch.kernels.hot_embed import hot_embed as he
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
     fa.launches = he.launches = gm.launches = 0
+    fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
 
 
 def prefill(dev, model, tokens) -> dict:
@@ -491,7 +499,8 @@ def prefill(dev, model, tokens) -> dict:
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = lm_launches()
-    expected = {"flash_attn": cfg.num_layers, "hot_embed": 1,
+    expected = {"flash_attn": cfg.num_layers,
+                "flash_attn_wgmma": cfg.num_layers, "hot_embed": 1,
                 "moe_gmm": 3 * cfg.num_layers if cfg.is_moe else 0}
     if launches != expected:
         raise AssertionError(f"prefill launches {launches}, expected "
@@ -824,7 +833,7 @@ def serve_lm(dev, model) -> dict:
         if len(r.out) != r.max_new:
             raise AssertionError(f"request {r.rid}: {len(r.out)} tokens "
                                  f"for max_new={r.max_new}")
-    expected = {"flash_attn": 0, "hot_embed": steps,
+    expected = {"flash_attn": 0, "flash_attn_wgmma": 0, "hot_embed": steps,
                 "moe_gmm": 3 * cfg.num_layers * steps if cfg.is_moe else 0}
     if launches != expected:
         raise AssertionError(f"serve launches {launches} over {steps} "
@@ -900,7 +909,7 @@ def time_lm_kernels(model, pre: dict) -> dict:
     from repro_torch.kernels.hot_embed.ref import hot_gather_ref
     from repro_torch.models.layers import hot_vocab_size
 
-    kept = fa.launches, he.launches
+    kept = fa.launches, dict(fa.launches_by_variant), he.launches
     q, k, v = pre["q"], pre["k"], pre["v"]
     bh, s, d = q.shape
 
@@ -916,13 +925,22 @@ def time_lm_kernels(model, pre: dict) -> dict:
     flops = 4 * d * (s * (s + 1) // 2) * bh      # QK^T and PV, causal pairs
     nbytes = 4 * bh * s * d * q.element_size()   # q, k, v read, o written
     ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    # the split PV multiplies p's bf16 high and low parts: 1.5x the FLOPs
+    faithful = 6 * d * (s * (s + 1) // 2) * bh
     flash.update(bound_ms=max(ops_ms, bytes_ms),
-                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                 faithful_bound_ms=max(faithful / BF16_FLOPS * 1e3,
+                                       bytes_ms),
+                 variant=fa.variant(q.dtype, d))
     print(f"flash_attention timing: (BH, S, d)=({bh}, {s}, {d}) bf16 "
+          f"variant={flash['variant']} "
           f"ms={flash['ms']:.4f} plain_ms={flash['plain_ms']:.4f} "
           f"library_ms={flash['library_ms']:.4f} "
           f"bound_ms={flash['bound_ms']:.4f} ({flops:.4e} FLOPs, "
-          f"{flops / flash['ms'] / 1e9:.1f} TFLOP/s)")
+          f"{flops / flash['ms'] / 1e9:.1f} TFLOP/s) "
+          f"faithful_bound_ms={flash['faithful_bound_ms']:.4f} "
+          f"({faithful:.4e} FLOPs, {faithful / flash['ms'] / 1e9:.1f} "
+          f"TFLOP/s)")
 
     ids, table = pre["ids"], model.embed["table"]
     hot = hot_vocab_size(model.cfg)
@@ -942,7 +960,8 @@ def time_lm_kernels(model, pre: dict) -> dict:
           f"plain_ms={gather['plain_ms']:.4f} "
           f"library_ms={gather['library_ms']:.4f} (F.embedding of all ids) "
           f"bound_ms={gather['bound_ms']:.4f} ({nbytes} bytes)")
-    fa.launches, he.launches = kept  # timing launches are not the main path's
+    # timing launches are not the main path's
+    fa.launches, fa.launches_by_variant, he.launches = kept
     return {"flash_attn": flash, "hot_embed": gather}
 
 
@@ -1067,6 +1086,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    for line in _build.ptxas_report("flash_attn", "flash_fwd_bf16_wgmma"):
+        print(f"ptxas: {line}")
 
     err = kernel_cases(dev)
     served = serve(dev, NUM_VERTICES)
@@ -1107,6 +1128,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:66",
         "launches": launches("flash_attn"),
+        "launches_by_variant": {"wgmma": launches("flash_attn_wgmma")},
         "max_abs_err": max(flash_err, mini["flash_err"], moe["flash_err"]),
         **mini["timing"]["flash_attn"],
         MOE_ARCH: moe["timing"]["flash_attn"],

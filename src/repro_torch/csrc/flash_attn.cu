@@ -3,41 +3,48 @@
 //   o[b, i, :] = sum over j <= i (and i - j < window when window > 0) of
 //                softmax_j(scale * q[b, i, :] . k[b, j, :]) * v[b, j, :]
 //
-// on (BH, S, d) tensors, row-major and contiguous. Each thread block owns one
-// (bh, query tile); it walks the key tiles from the first one the window
-// reaches up to the diagonal, staging each K and V tile in shared memory, and
-// keeps the online-softmax state of the TPU kernel's _kernel
-// (src/repro/kernels/flash_attn/flash_attn.py:30-45) in float32: the running
-// max m, the normaliser l and the unnormalised output acc, rescaled by
-// exp(m_old - m_new) at every tile. Masked logits are -1e30, as there. The
-// loop order is fixed and nothing is summed with atomics, so two runs give
-// the same bits. Any S is taken: rows and keys past S are masked and never
+// on (BH, S, d) tensors, row-major and contiguous. Replaces the TPU kernel
+// flash_attention_pallas (src/repro/kernels/flash_attn/flash_attn.py:59).
+// Each thread block owns one (bh, query tile); it walks the key tiles from
+// the first one the window reaches up to the diagonal, in a fixed order,
+// and keeps the online-softmax state of the TPU kernel's _kernel
+// (flash_attn.py:30-45) in float32: the running max m, the normaliser l
+// and the unnormalised output acc, rescaled by exp(m_old - m_new) at every
+// tile. Masked logits are -1e30, as there. Nothing is summed with atomics
+// and no query tile's keys are split across blocks, so two runs give the
+// same bits. Any S is taken: rows and keys past S are masked and never
 // written. Blocks are issued longest-first (the last query tiles walk the
 // most key tiles), so the tail of the grid is short.
 //
-// Two kernels:
-//  * bf16 inputs: tensor-core mma.sync m16n8k16 (bf16 in, float32 out),
-//    64 queries by 64 keys per tile, four warps of 16 query rows. QK^T sums
-//    exact products in float32. For PV the float32 probabilities are split
-//    into p_hi = bf16(p) and p_lo = bf16(p - p_hi) and both products are
-//    accumulated, so PV keeps ~16 bits of p: close to the float32 PV of the
-//    TPU kernel, which the reference's tests hold this kernel to.
-//  * float32 inputs: SIMT float32 FMAs, 32 queries by 32 keys per tile, four
-//    threads per query row, each holding a quarter of q and of acc; the four
-//    partial dot products are folded with a fixed xor-shuffle butterfly,
-//    which leaves the same bits in all four lanes.
+// Three kernels, chosen by dtype and head dim (flash_attn.py's `variant`
+// names them; nothing falls back from one to another):
+//  * "wgmma", bf16 at d 64 and 128 (the served models): the Hopper design
+//    below (flash_fwd_bf16_wgmma).
+//  * "mma_sync", bf16 at d 16 and 32: warp-level mma.sync m16n8k16, 64
+//    queries by 64 keys per tile, four warps of 16 query rows.
+//  * "simt", float32 at every head dim: float32 FMAs, 32 queries by 32 keys
+//    per tile, four threads per query row.
 //
-// Bound: operations at long S (2 * BH * S^2 * d multiply-adds for a causal
-// call against 4 * BH * S * d elements moved). This first version uses
-// mma.sync without TMA, wgmma or pipelining of the tile loads.
+// Both bf16 kernels sum QK^T as exact products in float32. For PV the
+// float32 probabilities are split into p_hi = bf16(p) and
+// p_lo = bf16(p - p_hi) and both products are accumulated, so PV keeps ~16
+// bits of p: close to the TPU kernel's float32 PV, which the reference's
+// tests hold this kernel to. That costs 1.5 times the operations of a bf16
+// PV: the bound of a faithful kernel is 6 * d * S(S+1)/2 * BH FLOPs at the
+// card's bf16 rate.
+//
+// Bound: operations at long S (4 * d * S(S+1)/2 * BH FLOPs for a causal
+// call against 4 * BH * S * d elements moved).
 //
 // Built by repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC
-// and called through ctypes; the C entry points return cudaGetLastError().
+//        -Xcompiler -fPIC -Xptxas -v
+// and called through ctypes; the C entry points return cudaGetLastError(),
+// or minus the CUresult of cuTensorMapEncodeTiled when it refuses a map.
 
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -59,7 +66,7 @@ __device__ __forceinline__ int first_key_tile(int q0, int window, int tile) {
   return first_key > 0 ? first_key / tile : 0;
 }
 
-// ------------------------------------------------ bf16, tensor cores
+// ------------------------------- bf16 at d 16 and 32: mma.sync
 constexpr int kTile = 64;          // query rows and keys per tile
 constexpr int kMmaThreads = 128;   // four warps, 16 query rows each
 
@@ -398,10 +405,698 @@ void launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
       window, tiles);
 }
 
+// ------------------------------------- bf16 at d 64 and 128: Hopper design
+//
+// One block = one producer warpgroup and two consumer warpgroups (384
+// threads, one block an SM); 128 query rows a block, 64 per consumer, and
+// key tiles of 128. What bounds it is the tensor cores' operations (1.5
+// times a bf16 PV's, for the split), then the softmax's instructions: a
+// tile costs each consumer warp hundreds of them, 66 of which are MUFU.EX2
+// at a quarter of a warp a clock, beside 1,536 clocks of products a tile
+// pair at d 64.
+//  * Loads: one thread of the producer issues TMA copies
+//    (cp.async.bulk.tensor) on 3-D tensor maps over (BH, S, d), 128-byte
+//    swizzled, into a ring of three K/V stages. Tiles past S arrive
+//    zero-filled. Each stage has a `full` mbarrier (the copies' bytes land)
+//    and an `empty` one (all 256 consumer threads have finished reading it),
+//    so the loads of later tiles run while the tensor cores work on this one.
+//  * Products: wgmma.mma_async. S = Q K^T reads Q and K from shared memory
+//    through descriptors (both K-major). O += P_hi V and O += P_lo V take P
+//    from registers as the A operand and V from shared memory as an
+//    MN-major B operand (the descriptor's transpose bit): no scalar shared
+//    loads.
+//  * Overlap: each consumer issues QK^T of tile i with PV of tile i - 1, and
+//    the two consumers take turns to issue (named barriers), so one's
+//    softmax runs while the other's products do.
+//  * setmaxnreg moves registers from the producer (24) to the consumers
+//    (240): S, O and both halves of P live in registers.
+//  * exp2, with the scale folded into the exponent's FMA off the masked
+//    tiles; m and l stay float32.
+//
+// Shared memory: Q, then kStages K tiles, then kStages V tiles, then the
+// mbarriers. A tile is d/64 panels of 128 rows x 64 bf16, each row 128
+// bytes, 16-byte chunk c of row r stored at chunk c ^ (r % 8) (TMA's
+// 128-byte swizzle, which the wgmma descriptors name as layout B128).
+// Panel p holds columns 64p .. 64p + 63. Every panel starts 1024-aligned.
+//
+// Fragment layouts (warp w of a warpgroup owns rows 16w .. 16w + 15 of the
+// warpgroup's 64; lane = 4 g + t):
+//  * accumulator of m64nNk16, N/2 floats a thread: for n-block j (columns
+//    8j .. 8j + 7), acc[4j + 0, 1] = row g, columns 8j + 2t, + 1;
+//    acc[4j + 2, 3] = row g + 8, the same columns. A row's N values sit in
+//    the four lanes of its quad (same g), so its max and sum fold with
+//    xor-shuffles over lanes 1 and 2, and over nothing else.
+//  * A operand from registers (m64k16, four 32-bit registers of two bf16):
+//    a0 = row g, k 2t, 2t + 1; a1 = row g + 8, the same k; a2 = row g,
+//    k 2t + 8, 2t + 9; a3 = row g + 8, the same k. For the 16 keys
+//    16kk .. 16kk + 15 these are S's accumulator entries 8kk + {0,1},
+//    8kk + {2,3}, 8kk + {4,5} and 8kk + {6,7}: P is converted in place.
+constexpr int kRows = 128;       // query rows a block: two warpgroups of 64
+constexpr int kKeys = 128;       // keys a tile
+constexpr int kWgThreads = 128;
+constexpr int kHopperThreads = 3 * kWgThreads;
+constexpr int kConsumers = 2 * kWgThreads;
+constexpr int kPanelBytes = 128 * 128;   // 128 rows x 64 bf16
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Hopper {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // Q, K or V tile
+  // A stage is refilled only after the PV that read it, so with two stages
+  // the loads' latency shows on every tile (d 128: 10.4 ms with two, 9.2
+  // with three); three still fit beside Q at d 128 (225 KB).
+  static constexpr int kStages = 3;
+  static constexpr int kBarrierBytes = 8 * (2 * kStages + 1);
+  // + 1024: the dynamic segment is aligned up to 1024 bytes in the kernel
+  static constexpr int kSmemBytes =
+      kTileBytes * (1 + 2 * kStages) + 128 + 1024;
+  static_assert(kBarrierBytes <= 128, "barriers overflow their slot");
+  static_assert(kSmemBytes <= 232448, "more than a block's shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic for this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// A (64-column, 128-row) box of a (BH, S, d) tensor map at (c0, c1, c2)
+// = (column, row, bh) into shared memory; completion counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (all >> 4), layout B128.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (1ull << 62);
+}
+
+// K-major (Q, K): 8-row groups 1024 bytes apart (SBO); the 16 columns of one
+// k-step sit inside a 128-byte row, so LBO is unused (16).
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+
+// MN-major (V as K x N = keys x d): 8-key groups 1024 bytes apart (SBO),
+// 64-column panels kPanelBytes apart (LBO).
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, kPanelBytes, 1024);
+}
+
+// Named barriers over the 256 consumer threads: one warpgroup waits at
+// `id` while the other only arrives there.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the fence/commit/wait points.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    asm volatile("" : "+f"(r[i])::"memory");
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      asm volatile("" : "+r"(r[i][j])::"memory");
+    }
+  }
+}
+
+#define ACC8(d, i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128, float32) (+)= A (64 x 16, smem) * B (16 x 128, smem), both
+// K-major; `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
+        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x D, float32) += A (64 x 16, bf16 registers) * B (16 x D, smem,
+// MN-major: the transpose bit is set).
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
+        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef ACC8
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// p_hi = bf16(x, y) and p_lo = bf16(x - p_hi.x, y - p_hi.y), packed with x
+// (the lower key) in the low half. A bf16 is the top half of a float, so
+// p_hi unpacks with one shift and one mask.
+__device__ __forceinline__ void split_hi_lo(float x, float y, uint32_t* hi,
+                                            uint32_t* lo) {
+  const uint32_t h = bf16x2_bits(__floats2bfloat162_rn(x, y));
+  *hi = h;
+  const float hx = __uint_as_float(h << 16);
+  const float hy = __uint_as_float(h & 0xffff0000u);
+  *lo = bf16x2_bits(__floats2bfloat162_rn(x - hx, y - hy));
+}
+
+// Max (or, for `lowest`, min) of one row's 32 values of sc: entries
+// 4j + r and 4j + r + 1 for j = 0 .. 15 (r = 0: row g, r = 2: row g + 8),
+// over four independent chains so the latencies overlap.
+template <bool lowest>
+__device__ __forceinline__ float row_extreme(const float (&sc)[64], int r) {
+  float e[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    e[c] = lowest ? fminf(sc[4 * c + r], sc[4 * c + r + 1])
+                  : fmaxf(sc[4 * c + r], sc[4 * c + r + 1]);
+  }
+#pragma unroll
+  for (int j = 4; j < kKeys / 8; ++j) {
+    const float a = sc[4 * j + r], b = sc[4 * j + r + 1];
+    e[j % 4] = lowest ? fminf(e[j % 4], fminf(a, b))
+                      : fmaxf(e[j % 4], fmaxf(a, b));
+  }
+  return lowest ? fminf(fminf(e[0], e[1]), fminf(e[2], e[3]))
+                : fmaxf(fmaxf(e[0], e[1]), fmaxf(e[2], e[3]));
+}
+
+// Sum of one row's 32 values of sc (as in row_extreme), four chains.
+__device__ __forceinline__ float row_sum(const float (&sc)[64], int r) {
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+    a[j % 4] += sc[4 * j + r] + sc[4 * j + r + 1];
+  }
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
+
+// The max over the four lanes of a quad (one row's 128 logits).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// Whether key tile kt needs masking for query tile qt (rows q0 ..): the
+// diagonal tile, and a tile that the window cuts for some row.
+__device__ __forceinline__ bool edge_tile(int kt, int qt, int q0,
+                                          int window) {
+  return kt == qt || (window > 0 && q0 + kRows - 1 - kt * kKeys >= window);
+}
+
+// The softmax step of one key tile on S's accumulators (see the layouts
+// above): move the running max (log2 units) of rows row0 and row1 and turn
+// sc into p = exp2(scale_log2 * s - m). On the diagonal tile, and where
+// the window cuts the tile, logits are scaled and masked first; elsewhere
+// the max is taken on the raw logits (the min, for a negative scale) and
+// the scale is folded into the exponent's FMA. Returns in alpha0, alpha1
+// the factors that rescale what was summed before; l0, l1 take p's sums.
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[64], int kt, bool edge, int row0, int row1, int t, int s,
+    int window, float scale_log2, float& m0, float& m1, float& l0, float& l1,
+    float& alpha0, float& alpha1) {
+  float mx0, mx1;
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt * kKeys + 8 * j + 2 * t + (e & 1);
+        const int row = e < 2 ? row0 : row1;
+        sc[4 * j + e] = key_visible(key, row, s, window)
+                            ? sc[4 * j + e] * scale_log2
+                            : kNegInf;
+      }
+    }
+    mx0 = row_extreme<false>(sc, 0);
+    mx1 = row_extreme<false>(sc, 2);
+  } else if (scale_log2 >= 0.0f) {
+    mx0 = row_extreme<false>(sc, 0) * scale_log2;
+    mx1 = row_extreme<false>(sc, 2) * scale_log2;
+  } else {
+    mx0 = row_extreme<true>(sc, 0) * scale_log2;
+    mx1 = row_extreme<true>(sc, 2) * scale_log2;
+  }
+  const float mn0 = fmaxf(m0, quad_max(mx0));
+  const float mn1 = fmaxf(m1, quad_max(mx1));
+  alpha0 = exp2_approx(m0 - mn0);
+  alpha1 = exp2_approx(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  const float c = edge ? 1.0f : scale_log2;   // edge logits are scaled
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+    sc[4 * j] = exp2_approx(fmaf(sc[4 * j], c, -mn0));
+    sc[4 * j + 1] = exp2_approx(fmaf(sc[4 * j + 1], c, -mn0));
+    sc[4 * j + 2] = exp2_approx(fmaf(sc[4 * j + 2], c, -mn1));
+    sc[4 * j + 3] = exp2_approx(fmaf(sc[4 * j + 3], c, -mn1));
+  }
+  l0 = l0 * alpha0 + row_sum(sc, 0);
+  l1 = l1 * alpha1 + row_sum(sc, 2);
+}
+
+// P in the A-operand layout, 16 keys a k-step, high and low halves.
+__device__ __forceinline__ void split_tile(const float (&sc)[64],
+                                           uint32_t (&ph)[kKeys / 16][4],
+                                           uint32_t (&pl)[kKeys / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      split_hi_lo(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], &ph[kk][r],
+                  &pl[kk][r]);
+    }
+  }
+}
+
+// S = Q K^T on one K tile: k-step kk reads columns 16kk .. 16kk + 15, in
+// panel kk / 4 at byte 32 (kk % 4) of each swizzled row. Issued, not waited.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_rows,
+                                         uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+    wgmma_qk(sc, kmajor_desc(q_rows + off), kmajor_desc(k_tile + off),
+             kk > 0);
+  }
+}
+
+// O += P_hi V + P_lo V on one V tile: k-step kk reads keys 16kk .. 16kk +
+// 15, rows 16kk .. of every panel. Issued, not waited.
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&acc)[N],
+                                         const uint32_t (&ph)[kKeys / 16][4],
+                                         const uint32_t (&pl)[kKeys / 16][4],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    const uint64_t dv = mnmajor_desc(v_tile + kk * 16 * 128);
+    wgmma_pv(acc, ph[kk], dv);
+    wgmma_pv(acc, pl[kk], dv);
+  }
+}
+
+// A consumer warpgroup's loop over the key tiles. The softmax of tile i
+// runs while the tensor cores still multiply tile i - 1's P by its V: per
+// iteration, QK^T of tile i and PV of tile i - 1 are issued as two
+// wgmma groups, `wait_group 1` waits for the first only, the softmax
+// works on S, `wait_group 0` waits for PV (which owns P's registers and O
+// until then), and only then is stage i - 1 released, O rescaled and the
+// new P written over the old. The compiler may move that wait up into the
+// softmax (it does: the new P reuses the old P's registers), so the
+// overlap that counts is the one between the two warpgroups, which take
+// turns to issue their products (named barriers 1 and 2).
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     __nv_bfloat16* __restrict__ o, int bh_count, int s,
+                     float scale_log2, int window, int num_q_tiles) {
+  using H = Hopper<D>;
+  constexpr int kAcc = D / 2;      // O accumulator floats a thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + H::kTileBytes;
+  const uint32_t sv = sk + H::kStages * H::kTileBytes;
+  const uint32_t bars = sv + H::kStages * H::kTileBytes;
+  const uint32_t q_bar = bars + 16 * H::kStages;
+  // full[i] at bars + 8i, empty[i] at bars + 8(kStages + i)
+
+  const int qt = num_q_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
+  const int bh = static_cast<int>(blockIdx.x % bh_count);
+  const int q0 = qt * kRows;
+  const int kt0 = first_key_tile(q0, window, kKeys);
+  const int n_tiles = qt - kt0 + 1;   // key tiles align with query tiles
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < H::kStages; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + 8 * (H::kStages + i), kConsumers);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_bar, H::kTileBytes);
+#pragma unroll
+      for (int p = 0; p < H::kPanels; ++p) {
+        tma_load(sq + p * kPanelBytes, &tm_q, q_bar, 64 * p, q0, bh);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int stage = i % H::kStages;
+        const uint32_t full = bars + 8 * stage;
+        if (i >= H::kStages) {   // wait for the consumers to free the stage
+          mbar_wait(bars + 8 * (H::kStages + stage),
+                    (i / H::kStages - 1) & 1);
+        }
+        mbar_expect_tx(full, 2 * H::kTileBytes);
+        const int key0 = (kt0 + i) * kKeys;
+#pragma unroll
+        for (int p = 0; p < H::kPanels; ++p) {
+          const uint32_t off = stage * H::kTileBytes + p * kPanelBytes;
+          tma_load(sk + off, &tm_k, full, 64 * p, key0, bh);
+          tma_load(sv + off, &tm_v, full, 64 * p, key0, bh);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = threadIdx.x / kWgThreads - 1;   // rows 64cw .. 64cw + 63
+    const int warp = (threadIdx.x % kWgThreads) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int row0 = q0 + cw * 64 + warp * 16 + g;
+    const int row1 = row0 + 8;
+    const uint32_t q_rows = sq + cw * 64 * 128;   // this warpgroup's Q rows
+
+    float acc[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      acc[i] = 0.0f;
+    }
+    float m0 = kNegInf, m1 = kNegInf;   // running max, log2 units
+    float l0 = 0.0f, l1 = 0.0f;         // this lane's share of the normaliser
+    uint32_t ph[kKeys / 16][4], pl[kKeys / 16][4];   // P's two halves
+
+    // The two consumer warpgroups take turns to issue their products:
+    // named barrier 1 + cw is this warpgroup's turn, which the other one
+    // gives after each issue. While one warpgroup's products run, the
+    // other computes its softmax. Warpgroup 0 goes first; warpgroup 1
+    // gives no turn after its last issue, which nothing waits for.
+    const int issues = n_tiles + 1;   // tile 0's QK^T, n - 1 steps, last PV
+    int issued = 0;
+    auto take_turn = [&] { named_sync(1 + cw, kConsumers); };
+    auto give_turn = [&] {
+      if (cw == 0 || ++issued < issues) {
+        named_arrive(2 - cw, kConsumers);
+      }
+    };
+    if (cw == 1) {
+      named_arrive(1, kConsumers);
+    }
+
+    mbar_wait(q_bar, 0);
+    mbar_wait(bars, 0);
+    {   // tile 0: nothing in flight yet
+      float sc[64];
+      float alpha0, alpha1;
+      hold(sc);
+      take_turn();
+      wgmma_fence();
+      issue_qk<D>(sc, q_rows, sk);
+      wgmma_commit();
+      give_turn();
+      wgmma_wait<0>();
+      hold(sc);
+      softmax_tile(sc, kt0, edge_tile(kt0, qt, q0, window), row0, row1, t, s,
+                   window, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+      split_tile(sc, ph, pl);
+    }
+    for (int i = 1; i < n_tiles; ++i) {
+      const int kt = kt0 + i;
+      const int stage = i % H::kStages;
+      const int prev = (i - 1) % H::kStages;
+      mbar_wait(bars + 8 * stage, (i / H::kStages) & 1);
+      float sc[64];
+      hold(sc);
+      hold(acc);
+      hold(ph);
+      hold(pl);
+      take_turn();
+      wgmma_fence();
+      issue_qk<D>(sc, q_rows, sk + stage * H::kTileBytes);
+      wgmma_commit();
+      issue_pv(acc, ph, pl, sv + prev * H::kTileBytes);
+      wgmma_commit();
+      give_turn();
+      wgmma_wait<1>();   // S is in; PV of tile i - 1 may still run
+      hold(sc);
+      float alpha0, alpha1;
+      softmax_tile(sc, kt, edge_tile(kt, qt, q0, window), row0, row1, t, s,
+                   window, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+      wgmma_wait<0>();
+      hold(acc);
+      hold(ph);
+      hold(pl);
+      mbar_arrive(bars + 8 * (H::kStages + prev));
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= alpha0;
+        acc[4 * j + 1] *= alpha0;
+        acc[4 * j + 2] *= alpha1;
+        acc[4 * j + 3] *= alpha1;
+      }
+      split_tile(sc, ph, pl);
+    }
+    // the last tile's PV
+    hold(acc);
+    hold(ph);
+    hold(pl);
+    take_turn();
+    wgmma_fence();
+    issue_pv(acc, ph, pl, sv + ((n_tiles - 1) % H::kStages) * H::kTileBytes);
+    wgmma_commit();
+    give_turn();
+    wgmma_wait<0>();
+    hold(acc);
+    hold(ph);
+    hold(pl);
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float d0 = fmaxf(l0, 1e-30f);
+    const float d1 = fmaxf(l1, 1e-30f);
+    const long long base = static_cast<long long>(bh) * s * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (row0 < s) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            o + base + static_cast<long long>(row0) * D + col) =
+            __floats2bfloat162_rn(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+      }
+      if (row1 < s) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            o + base + static_cast<long long>(row1) * D + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime so the
+// library needs no -lcuda; null if it cannot be found.
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// 0, a cudaError_t, or minus a CUresult if a tensor map is refused.
+template <int D>
+int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o,
+                      int bh, int s, float scale, int window,
+                      cudaStream_t st) {
+  using H = Hopper<D>;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) {
+    return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(D) * 2,
+      static_cast<cuuint64_t>(s) * static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[3] = {64, kKeys, 1};   // kKeys == kRows
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const void* ptrs[3] = {q, k, v};
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    const CUresult r = encode(
+        &maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+        const_cast<void*>(ptrs[i]), dims, strides, box, unit,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) {
+      return -static_cast<int>(r);
+    }
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      H::kSmemBytes);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int tiles = (s + kRows - 1) / kRows;
+  flash_fwd_bf16_wgmma<D><<<tiles * bh, kHopperThreads, H::kSmemBytes, st>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), bh, s,
+      scale * kLog2e, window, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v, o: (bh, s, d) contiguous, 16-byte aligned; d in {16, 32, 64, 128};
-// bh * ceil(s / 32) < 2^31. The wrapper checks all of it.
+// bh * ceil(s / 32) < 2^31. The wrapper checks all of it. d 64 and 128 take
+// the wgmma kernel, d 16 and 32 the mma.sync one.
 extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
                                void* o, int bh, int s, int d, float scale,
                                int window, void* stream) {
@@ -409,8 +1104,10 @@ extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
   switch (d) {
     case 16: launch_bf16<16>(q, k, v, o, bh, s, scale, window, st); break;
     case 32: launch_bf16<32>(q, k, v, o, bh, s, scale, window, st); break;
-    case 64: launch_bf16<64>(q, k, v, o, bh, s, scale, window, st); break;
-    case 128: launch_bf16<128>(q, k, v, o, bh, s, scale, window, st); break;
+    case 64:
+      return launch_bf16_wgmma<64>(q, k, v, o, bh, s, scale, window, st);
+    case 128:
+      return launch_bf16_wgmma<128>(q, k, v, o, bh, s, scale, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -4,11 +4,14 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v \
+         -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The library name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. ``build/`` sits at the
-root of the checkout and is listed in ``.gitignore``. `build_all` starts
+source rebuilds and an unchanged one is reused. The compiler's output,
+with ptxas's registers and spills for every kernel, is kept beside the
+library as ``<name>-<hash>.log`` (`ptxas_report` reads it). ``build/``
+sits at the root of the checkout and is listed in ``.gitignore``. `build_all` starts
 one ``nvcc`` per source at once and waits for all of them. Nothing here
 runs at import: the CPU tests import every module, and this host has no
 ``nvcc``.
@@ -26,7 +29,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -81,10 +84,29 @@ def build_all(names=None) -> dict[str, float]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return seconds
+
+
+def ptxas_report(name: str, kernel: str) -> list[str]:
+    """ptxas's lines for the kernels of library ``name`` whose (mangled)
+    names contain ``kernel``: the entry, its stack and spills, its
+    registers. Empty if the library was built without its log."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    lines, keep = [], False
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep:
+            lines.append(line.strip())
+            if "Used" in line and "registers" in line:
+                keep = False
+    return lines
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,17 +5,25 @@ Replaces the TPU kernel ``flash_attention_pallas`` of the JAX package
 at ``:66``). The CUDA source is ``repro_torch/csrc/flash_attn.cu``. Each
 thread block owns one (bh, query tile) and walks the key tiles up to the
 diagonal in a fixed order, with the same online-softmax recurrence as the
-TPU kernel's ``_kernel`` (running max and normaliser in float32). Two
-kernels sit behind the one entry point:
+TPU kernel's ``_kernel`` (running max and normaliser in float32). Three
+kernels sit behind the one entry point, chosen by `variant` from the
+dtype and the head dim; none falls back to another:
 
-* bfloat16 inputs (the model's path): ``mma.sync`` m16n8k16 tensor-core
-  products with float32 accumulation, 64-query by 64-key tiles. QK^T is
-  exact products summed in float32. For PV the float32 probabilities are
-  split into a bf16 high and low part and both are multiplied, so PV keeps
-  about 16 bits of the probabilities' mantissa, close to the float32 PV of
-  the TPU kernel and of `ref.attention_ref`.
-* float32 inputs: float32 FMAs on the SIMT cores, 32-query by 32-key
-  tiles, four threads per query row.
+* ``"wgmma"``, bfloat16 at head dims 64 and 128 (the served models): a
+  Hopper design. A producer warpgroup keeps TMA loads of K and V in a
+  ring of shared-memory stages; two consumer warpgroups of 64 query rows
+  each run ``wgmma`` for QK^T (operands from shared memory) and for PV
+  (P from registers, V from shared memory), 128-query by 128-key tiles.
+* ``"mma_sync"``, bfloat16 at head dims 16 and 32: warp-level
+  ``mma.sync`` m16n8k16 products, 64-query by 64-key tiles.
+* ``"simt"``, float32: float32 FMAs on the SIMT cores, 32-query by
+  32-key tiles, four threads per query row.
+
+Both bfloat16 kernels sum QK^T as exact products in float32. For PV the
+float32 probabilities are split into a bf16 high and low part and both
+are multiplied, so PV keeps about 16 bits of the probabilities'
+mantissa, close to the float32 PV of the TPU kernel and of
+`ref.attention_ref`; that costs 1.5 times a bf16 PV's operations.
 
 Unlike the TPU kernel, which takes only ``S % 256 == 0``, the CUDA kernels
 take any S: the tail tile is masked. Head dims 16, 32, 64 and 128 are
@@ -23,7 +31,8 @@ compiled; any other raises.
 
 What bounds it on an H100: operations, at long S. A causal call does
 about ``2·BH·S²·d`` multiply-adds, against ``4·BH·S·d`` elements moved;
-at S = 32,768 and d = 64 that is far above the card's ridge point.
+at S = 32,768 and d = 64 that is far above the card's ridge point. With
+the split PV the bf16 kernels do 1.5 times that.
 
 On a CPU tensor the wrapper runs the plain version (`ref.attention_ref`);
 on a CUDA tensor it launches a kernel or raises.
@@ -37,10 +46,25 @@ import torch
 from .ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
+VARIANTS = ("wgmma", "mma_sync", "simt")
 
-# Kernel launches since import (or since a caller last reset it). Only
-# the CUDA branch below adds to it, once per launch.
+# Kernel launches since import (or since a caller last reset them), in all
+# and by variant. Only the CUDA branch below adds to them, once per launch.
 launches = 0
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel that takes ``dtype`` at ``head_dim``: ``"wgmma"``
+    for bfloat16 at 64 and 128, ``"mma_sync"`` for bfloat16 at 16 and 32,
+    ``"simt"`` for float32 at any of `HEAD_DIMS`."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} is not one of {HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "simt"
+    if dtype == torch.bfloat16:
+        return "wgmma" if head_dim >= 64 else "mma_sync"
+    raise TypeError(f"flash_attention takes float32 or bfloat16, got {dtype}")
 
 _fns: dict = {}
 
@@ -69,14 +93,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if t.shape != q.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, q has "
                              f"{tuple(q.shape)}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
-                        f"{q.dtype}")
     if q.dim() != 3:
         raise ValueError(f"q, k and v must be (BH, S, d), got "
                          f"{tuple(q.shape)}")
-    if q.shape[2] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[2]} is not one of {HEAD_DIMS}")
+    # raises for a dtype or a head dim that no kernel takes
+    variant(q.dtype, q.shape[2])
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
@@ -110,7 +131,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 bh, s, d, scale, int(window), stream)
+    if rc < 0:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled "
+                           f"refused a TMA tensor map (CUresult {-rc})")
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     launches += 1
+    launches_by_variant[variant(q.dtype, d)] += 1
     return out

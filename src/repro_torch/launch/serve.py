@@ -152,7 +152,7 @@ def serve_loop(cfg, model, requests: list[Request], batch_slots: int = 4,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="minicpm-2b")
+    ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--requests", type=int, default=8)
@@ -163,6 +163,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from ..configs import get_config, smoke_config
+    from ..models.layers import flash_eligible
     from ..models.transformer import init_params
 
     cfg = smoke_config(args.arch, layers=args.layers) if args.smoke \
@@ -170,6 +171,9 @@ def main(argv=None):
     if cfg.is_encoder:
         raise SystemExit("encoder-only arch has no decode step")
     dev = resolve_device(args.device)
+    # a family whose prefill attention the card does not run yet is
+    # refused there before any work (ROADMAP A8.9), as `forward` does
+    flash_eligible(cfg, dev)
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     reqs = synthetic_requests(args.requests, cfg.vocab_size)
     t0 = time.time()

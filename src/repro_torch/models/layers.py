@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels.flash_attn.flash_attn import HEAD_DIMS
 from ..kernels.flash_attn.ops import causal_attention
 from ..kernels.hot_embed.ops import hot_cold_lookup
 from .config import ModelConfig
@@ -184,9 +185,9 @@ def flash_eligible(cfg: ModelConfig, device: torch.device | str) -> bool:
     the CPU).
 
     The kernel computes causal attention with equal q and kv heads and no
-    prefix. On the CPU another config takes the reference's chunked plain
-    path; on the card it raises, since nothing there gives way to a plain
-    version.
+    prefix, at a head dim in `HEAD_DIMS`. On the CPU another config takes
+    the reference's chunked plain path; on the card it raises, since
+    nothing there gives way to a plain version.
     """
     missing = _flash_missing(cfg)
     if not missing:
@@ -207,6 +208,8 @@ def _flash_missing(cfg: ModelConfig) -> list[str]:
         missing.append("prefix-LM attention (prefix_tokens > 0)")
     if not cfg.causal:
         missing.append("non-causal attention (causal=False)")
+    if cfg.head_dim not in HEAD_DIMS:
+        missing.append(f"head dim {cfg.head_dim} (it takes {HEAD_DIMS})")
     return missing
 
 

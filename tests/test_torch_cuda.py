@@ -183,6 +183,80 @@ def test_flash_causality(dtype):
     assert torch.equal(o1[:, :200], o2[:, :200])
 
 
+@pytest.mark.parametrize("bh", [1, 3])
+@pytest.mark.parametrize("window", [0, 128, 1000])
+@pytest.mark.parametrize("s", [1, 77, 128, 129, 300, 1024, 4096])
+@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_flash_matches_plain_version(d, s, window, bh):
+    """The Hopper kernel (bf16 at the served head dims): one tile and
+    less, a tile and one row, the ring wrapping many times, windows that
+    cut tiles; the reference test's bf16 tolerance, the same bits on a
+    repeat, every launch through the wgmma variant."""
+    dev = _card()
+    rng = np.random.default_rng(7 * s + d + window + bh)
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    before = dict(fa.launches_by_variant)
+    got = fa.flash_attention(q, k, v, window=window)
+    again = fa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant == {
+        **before, "wgmma": before["wgmma"] + 2}
+    assert got.dtype == torch.bfloat16 and got.shape == (bh, s, d)
+    assert torch.equal(got, again)
+    want = attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("sm_scale", [-0.3, 0.02])
+@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_flash_takes_any_scale(d, sm_scale):
+    """Off the masked tiles the kernel takes the row max on the raw
+    logits (the min, for a negative scale) and folds the scale into the
+    exponent; both signs against the plain version."""
+    dev = _card()
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 700, d)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    got = fa.flash_attention(q, k, v, sm_scale=sm_scale, window=300)
+    want = attention_ref(q, k, v, sm_scale=sm_scale, window=300)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_flash_causality(d):
+    """Future keys, in the same tile and in later ones, must not move the
+    output of the Hopper kernel."""
+    dev = _card()
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 600, d)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    o1 = fa.flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 200:], v2[:, 200:] = 99.0, -99.0
+    o2 = fa.flash_attention(q, k2, v2)
+    assert torch.equal(o1[:, :200], o2[:, :200])
+    assert not torch.equal(o1[:, 200:], o2[:, 200:])
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 32, "mma_sync"),
+    (torch.float32, 32, "simt"), (torch.float32, 128, "simt")])
+def test_flash_launches_its_variant(dtype, d, want):
+    """Each (dtype, head dim) reaches the kernel `variant` names, once."""
+    dev = _card()
+    q = torch.randn(2, 130, d, generator=torch.Generator().manual_seed(d))
+    q = q.to(dev, dtype)
+    before = dict(fa.launches_by_variant)
+    fa.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert fa.variant(dtype, d) == want
+    assert fa.launches_by_variant == {**before, want: before[want] + 1}
+
+
 def test_flash_refuses_bad_operands_on_the_card():
     dev = _card()
     q = torch.zeros(2, 64, 48, device=dev)

@@ -105,3 +105,28 @@ def test_kernel_checks_its_operands():
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
         m = q.to("meta")
         tf.flash_attention(m, m, m)
+
+
+@pytest.mark.parametrize("dtype,head_dim,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 32, "mma_sync"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+def test_variant_follows_dtype_and_head_dim(dtype, head_dim, want):
+    """The served bf16 head dims take the Hopper kernel, the other bf16
+    ones the mma.sync kernel, float32 the SIMT one; each is a named
+    variant with its own launch count, and the CPU counts none."""
+    assert tf.variant(dtype, head_dim) == want
+    assert set(tf.launches_by_variant) == set(tf.VARIANTS)
+    before = dict(tf.launches_by_variant)
+    q = torch.zeros(1, 8, head_dim, dtype=dtype)
+    tf.flash_attention(q, q, q)
+    assert tf.launches_by_variant == before
+
+
+@pytest.mark.parametrize("dtype,head_dim,error", [
+    (torch.bfloat16, 48, ValueError), (torch.float32, 256, ValueError),
+    (torch.float16, 64, TypeError)])
+def test_variant_refuses_what_no_kernel_takes(dtype, head_dim, error):
+    with pytest.raises(error):
+        tf.variant(dtype, head_dim)

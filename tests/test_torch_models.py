@@ -456,6 +456,24 @@ def test_unported_attention_raises_on_the_card(arch, what):
     assert TL.flash_eligible(smoke_config(ARCH, layers=1), "cuda") is True
 
 
+@pytest.mark.parametrize("head_dim", [8, 48, 80])
+def test_head_dim_the_kernel_lacks_raises_on_the_card(head_dim):
+    """A causal MHA config whose head dim the kernel was not built for is
+    refused at `flash_eligible`, before any work, naming A8.9; on the CPU
+    it takes the chunked path."""
+    cfg = dataclasses.replace(smoke_config(ARCH, layers=1),
+                              head_dim=head_dim)
+    with pytest.raises(NotImplementedError,
+                       match=f"head dim {head_dim}.*ROADMAP A8.9"):
+        TL.flash_eligible(cfg, torch.device("cuda"))
+    assert TL.flash_eligible(cfg, "cpu") is False
+    model = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    logits, _ = TT.forward(model, {"tokens": torch.arange(
+        6, dtype=torch.int32).reshape(1, 6)})
+    assert logits.shape == (1, 6, cfg.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
+
+
 @pytest.mark.parametrize("arch,row", [
     ("rwkv6-3b", "A8.3"), ("zamba2-1.2b", "A8.3")])
 def test_unported_trunks_raise(arch, row):
@@ -487,6 +505,46 @@ def test_entry_points_refuse_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TT.from_jax_params(cfg, {})
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.main(["--smoke", "--layers", "1"])
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _parsed_args(main, monkeypatch):
+    """The namespace ``main([])`` parses, stopping it right there."""
+    import argparse
+    parse = argparse.ArgumentParser.parse_args
+
+    def stop(self, *a, **kw):
+        raise _Parsed(parse(self, *a, **kw))
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    with pytest.raises(_Parsed) as got:
+        main([])
+    monkeypatch.undo()
+    return got.value.args[0]
+
+
+def test_serve_main_defaults_are_the_references(monkeypatch):
+    """`--arch` and every other option the reference parses default as
+    there (qwen2.5-3b); the port adds only `--device`."""
+    want = vars(_parsed_args(JS.main, monkeypatch))
+    got = vars(_parsed_args(TS.main, monkeypatch))
+    assert want["arch"] == "qwen2.5-3b"
+    assert got.pop("device") is None
+    assert got == want
+
+
+def test_serve_main_default_arch_is_refused_on_the_card(monkeypatch):
+    """On the card the default (GQA) raises at `flash_eligible`, naming
+    A8.9, before any weights are made."""
+    monkeypatch.setattr(TS, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    monkeypatch.setattr(TT, "init_params", lambda *a, **kw: pytest.fail(
+        "weights made before the config was refused"))
+    with pytest.raises(NotImplementedError,
+                       match="qwen2.5-3b.*grouped-query.*ROADMAP A8.9"):
         TS.main(["--smoke", "--layers", "1"])
 
 
