@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero and none is caught:
 1. Card: print ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile every CUDA source of the port (one ``nvcc`` each, all
    at once) and print the build seconds, then ptxas's registers and spills
-   of the Hopper flash kernel (``flash_fwd_bf16_wgmma``).
+   of the Hopper flash kernel (``flash_fwd_bf16_wgmma``) and of both bf16
+   grouped-matmul kernels (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``).
 3. Kernel check: ``csr_spmv`` against its plain PyTorch version on the
    card (ragged rows, empty rows, a graph with no edges, a bucketed
    upload with sentinel edges of value 0), rtol 1e-5 / atol 1e-6: float32
@@ -80,28 +81,33 @@ the card (seed 7), after the minicpm model is freed:
 
 12. MoE kernel check: ``moe_gmm`` against its plain version on the card:
     the reference test's float32 cases (tests/test_kernels.py:106-138) at
-    rtol/atol 1e-4, then bf16 at the smoke (64/128) and served (2048/1408)
-    widths with empty groups, one group holding every row, rows past the
-    groups' total (zero) and M not a multiple of 128. The float32 result
-    of bf16 operands is held at rtol/atol 1e-4 (the products are exact in
-    float32; only the order of the sums differs), the bf16 result must be
-    it rounded once, and a repeat must give the same bits.
+    rtol/atol 1e-4, then bf16 at the smoke (64/128), served (2048/1408)
+    and K 136 / N 200 widths with empty groups, one group holding every
+    row, rows past the groups' total (zero) and M not a multiple of 128,
+    through both bf16 kernels (``wgmma`` and ``splitk``, each forced with
+    ``variant=``). The float32 result of bf16 operands is held at
+    rtol/atol 1e-4 (the products are exact in float32; only the order of
+    the sums differs), the bf16 result must be it rounded once, and a
+    repeat must give the same bits; the two kernels' bits may differ.
 13. Phases 7-11 on moonshot: the prefill (16 flash launches through the
-    ``wgmma`` variant at d = 128, 1 hot-slab and 48 ``moe_gmm`` launches, a
-    finite aux loss), with flash held to its plain
-    version at d = 128 (2 heads at S = 32,768, all 16 at S = 4,096) and
-    ``moe_gmm`` on layer 0's real expert-sorted rows through the gate and
-    the down products (float32 at 1e-4), layer 0's group sizes and
-    ``locality/moe.dispatch_stats``; decode against forward and card
+    ``wgmma`` variant at d = 128, 1 hot-slab and 48 ``moe_gmm`` launches,
+    all through its ``wgmma`` kernel, a finite aux loss), with flash held
+    to its plain version at d = 128 (2 heads at S = 32,768, all 16 at
+    S = 4,096) and both ``moe_gmm`` kernels on layer 0's real
+    expert-sorted rows through the gate and the down products (float32 at
+    1e-4), layer 0's group sizes and ``locality/moe.dispatch_stats``; decode against forward and card
     against CPU at 2 layers, where the free-running run's routing must
     part from the other's at the first layer only at router margins below
     1e-3, and the logits are held to phase 8's standard on a run that
     replays the other's expert choices (``models.moe.RouteTape``), since
     a choice parted at a near-tie moves every later layer and position;
-    ``serve_loop`` with 48 ``moe_gmm`` launches per decode
-    step; the profile; the kernel timings; and ``moe_gmm`` timed at the
-    prefill's gate and down products and at a decode step's 24 rows, with
-    ``torch._grouped_mm`` as the yardstick.
+    ``serve_loop`` with 48 ``moe_gmm`` launches per decode step, all
+    through its ``splitk`` kernel; the profile; the kernel timings; and
+    ``moe_gmm`` timed at the prefill's gate and down products and at a
+    decode step's 24 rows, both kernels, with ``torch._grouped_mm`` as the
+    yardstick and, at the decode step, the wrapper's host ms a call; then
+    a sweep of both kernels over 4 to 32,768 tokens of layer 0's routing,
+    with the kernel the rule picks and a repeat's bits.
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -131,6 +137,7 @@ FLASH_SERVED_TOL = dict(rtol=1.6e-2, atol=1e-2)   # bf16, served shapes
 DECODE_TOL = dict(rtol=0.15, atol=0.15)
 GMM_TOL = dict(rtol=1e-4, atol=1e-4)   # float32 sums of exact products
 ROUTE_TIE = 1e-3        # router margin (probability) that rounding can cross
+SWEEP_TOKENS = (4, 8, 16, 64, 256, 768, 1024, 4096, 32_768)   # phase 13
 
 
 def card_line() -> str:
@@ -140,14 +147,19 @@ def card_line() -> str:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean device milliseconds per call, from CUDA events."""
+def cuda_ms(fn, reps: int, warmup: int = 3, queued: bool = False) -> float:
+    """Mean device milliseconds per call, from CUDA events. ``queued``
+    first parks the device in a 10 ms sleep, so that every call is
+    enqueued before the first one runs: a call whose host cost nears its
+    device time cannot then leave the device idle between calls."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(20_000_000)   # about 10 ms of clock cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -469,7 +481,9 @@ def lm_launches() -> dict:
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
     return {"flash_attn": fa.launches,
             "flash_attn_wgmma": fa.launches_by_variant["wgmma"],
-            "hot_embed": he.launches, "moe_gmm": gm.launches}
+            "hot_embed": he.launches, "moe_gmm": gm.launches,
+            "moe_gmm_wgmma": gm.launches_by_variant["wgmma"],
+            "moe_gmm_splitk": gm.launches_by_variant["splitk"]}
 
 
 def reset_lm_launches() -> None:
@@ -478,6 +492,23 @@ def reset_lm_launches() -> None:
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
     fa.launches = he.launches = gm.launches = 0
     fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+    gm.launches_by_variant = dict.fromkeys(gm.VARIANTS, 0)
+
+
+def gmm_launches(cfg, tokens: int, calls: int) -> dict:
+    """The ``moe_gmm`` launches of ``calls`` forwards or decode steps of
+    ``tokens`` tokens each: gate, up and down in every MoE layer, all
+    through the variant that `moe_gmm.variant` picks for tokens x top-k
+    rows (moonshot: ``wgmma`` at the prefill, ``splitk`` at a decode
+    step)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm as gm
+    out = {"moe_gmm": 0, "moe_gmm_wgmma": 0, "moe_gmm_splitk": 0}
+    if cfg.is_moe:
+        n = 3 * cfg.num_layers * calls
+        v = gm.variant(tokens * cfg.experts_per_token, cfg.num_experts,
+                       cfg.d_model, cfg.d_ff)
+        out.update({"moe_gmm": n, f"moe_gmm_{v}": n})
+    return out
 
 
 def prefill(dev, model, tokens) -> dict:
@@ -501,7 +532,7 @@ def prefill(dev, model, tokens) -> dict:
     launches = lm_launches()
     expected = {"flash_attn": cfg.num_layers,
                 "flash_attn_wgmma": cfg.num_layers, "hot_embed": 1,
-                "moe_gmm": 3 * cfg.num_layers if cfg.is_moe else 0}
+                **gmm_launches(cfg, n_tokens, 1)}
     if launches != expected:
         raise AssertionError(f"prefill launches {launches}, expected "
                              f"{expected}")
@@ -537,38 +568,47 @@ def prefill(dev, model, tokens) -> dict:
 
 
 def gmm_check(name, x, w, offs, verbose: bool = True) -> float:
-    """Kernel vs plain version on the same card tensors: the float32
-    result at GMM_TOL (bf16 products are exact in float32; only the order
-    of the sums differs), the bf16 result equal to the float32 one rounded
-    once, rows at or past ``offs[E]`` zero, and a repeat giving the same
-    bits. Returns max |err| of the float32 result."""
+    """Kernel vs plain version on the same card tensors, for every kernel
+    that takes the operands (bf16: both variants, each forced through
+    ``variant=``; float32: ``simt``): the float32 result at GMM_TOL (bf16
+    products are exact in float32; only the order of the sums differs),
+    the bf16 result equal to the variant's float32 one rounded once, rows
+    at or past ``offs[E]`` zero, and a repeat giving the same bits. The
+    two variants' bits may differ from each other. Returns max |err| of
+    the float32 results."""
     import torch
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
     from repro_torch.kernels.moe_gmm.ref import gmm_grouped_ref
-    got = gm.gmm(x, w, offs)
-    again = gm.gmm(x, w, offs)
-    torch.cuda.synchronize()
-    if not torch.equal(got, again):
-        raise AssertionError(f"moe_gmm[{name}]: two runs differ")
     want = gmm_grouped_ref(x, w, offs)
-    torch.testing.assert_close(got, want, **GMM_TOL)
-    err = float((got - want).abs().max()) if got.numel() else 0.0
     total = min(int(offs[-1]), x.shape[0])
-    if got[total:].any():
-        raise AssertionError(f"moe_gmm[{name}]: rows past the groups are "
-                             f"not zero")
-    if x.dtype == torch.bfloat16:
-        half = gm.gmm(x, w, offs, out_dtype=torch.bfloat16)
-        if not torch.equal(half, got.to(torch.bfloat16)):
-            raise AssertionError(f"moe_gmm[{name}]: the bf16 result is not "
-                                 f"the float32 one rounded")
+    bf16 = x.dtype == torch.bfloat16
+    errs = {}
+    for v in ("wgmma", "splitk") if bf16 else ("simt",):
+        got = gm.gmm(x, w, offs, variant=v)
+        again = gm.gmm(x, w, offs, variant=v)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"moe_gmm[{name}, {v}]: two runs differ")
+        torch.testing.assert_close(got, want, **GMM_TOL)
+        errs[v] = float((got - want).abs().max()) if got.numel() else 0.0
+        if got[total:].any():
+            raise AssertionError(f"moe_gmm[{name}, {v}]: rows past the "
+                                 f"groups are not zero")
+        if bf16:
+            half = gm.gmm(x, w, offs, out_dtype=torch.bfloat16, variant=v)
+            if not torch.equal(half, got.to(torch.bfloat16)):
+                raise AssertionError(f"moe_gmm[{name}, {v}]: the bf16 result "
+                                     f"is not the float32 one rounded")
+        del got, again
     if verbose:
         sizes = (offs[1:] - offs[:-1]).tolist()
-        print(f"moe_gmm[{name}]: M={x.shape[0]} K={x.shape[1]} "
-              f"N={w.shape[2]} E={w.shape[0]} rows={total} "
-              f"empty groups={sizes.count(0)} dtype={x.dtype} "
-              f"max_abs_err={err:.3e}")
-    return err
+        e, k, n = w.shape
+        print(f"moe_gmm[{name}]: M={x.shape[0]} K={k} N={n} E={e} "
+              f"rows={total} empty groups={sizes.count(0)} dtype={x.dtype} "
+              f"rule picks {gm.variant(x.shape[0], e, k, n) if bf16 else 'simt'}"
+              f"; max_abs_err " + ", ".join(f"{v} {err:.3e}"
+                                           for v, err in errs.items()))
+    return max(errs.values())
 
 
 def gmm_kernel_cases(dev) -> float:
@@ -608,7 +648,8 @@ def gmm_kernel_cases(dev) -> float:
 
     for m, k, n, e in ((40, 64, 128, 4), (40, 128, 64, 4),
                        (1000, 2048, 1408, 64), (1000, 1408, 2048, 64),
-                       (333, 2048, 1408, 64), (24, 2048, 1408, 64)):
+                       (333, 2048, 1408, 64), (24, 2048, 1408, 64),
+                       (228, 136, 200, 3)):
         x = normal((m, k), dtype=torch.bfloat16)
         w = normal((e, k, n), k ** -0.5, torch.bfloat16)
         for case in ("skewed", "one_group", "short"):
@@ -834,7 +875,7 @@ def serve_lm(dev, model) -> dict:
             raise AssertionError(f"request {r.rid}: {len(r.out)} tokens "
                                  f"for max_new={r.max_new}")
     expected = {"flash_attn": 0, "flash_attn_wgmma": 0, "hot_embed": steps,
-                "moe_gmm": 3 * cfg.num_layers * steps if cfg.is_moe else 0}
+                **gmm_launches(cfg, 4, steps)}
     if launches != expected:
         raise AssertionError(f"serve launches {launches} over {steps} "
                              f"decode steps, expected {expected}")
@@ -965,69 +1006,162 @@ def time_lm_kernels(model, pre: dict) -> dict:
     return {"flash_attn": flash, "hot_embed": gather}
 
 
+def host_ms(fn, reps: int = 200) -> float:
+    """Mean host milliseconds a call: the wall of enqueuing ``reps`` calls
+    after a synchronize (the device runs behind; nothing waits for it)."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e3
+
+
 def time_gmm(model, pre: dict) -> tuple[dict, float]:
     """Phase 13: ``moe_gmm`` at the prefill's shapes (layer 0's real
     expert-sorted rows through the gate and the down products) and at a
-    decode step's (4 tokens x top-6 = 24 rows), each with the kernel, its
-    plain version, one PyTorch call as a yardstick (``torch._grouped_mm``,
-    timed only; the port never calls it) and the bound. Returns the
-    timings and the decode shape's max |err| against the plain version."""
+    decode step's (the first 4 tokens x top-6 = 24 rows), each with both
+    bf16 variants, the plain version, one PyTorch call as a yardstick
+    (``torch._grouped_mm``, timed only; the port never calls it) and the
+    bound; at the decode shape, the wrapper's host ms a call, and device
+    times taken queued (`cuda_ms`), since there the host's cost nears the
+    device's. Then a sweep of token counts over layer 0's routing (the
+    first t tokens' rows): both variants' times, the variant the rule
+    picks, and whether each variant repeats its bits. Returns the timings
+    and the decode shapes' max |err| against the plain version."""
     import torch
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
     from repro_torch.kernels.moe_gmm.ref import gmm_grouped_ref
 
-    kept = gm.launches
+    kept = gm.launches, dict(gm.launches_by_variant)
     cfg, blk, moe = model.cfg, model.layers[0], pre["moe"]
+    e, topk = cfg.num_experts, cfg.experts_per_token
     bf16 = torch.bfloat16
     w_gate, w_down = (blk.ffn[n].to(bf16) for n in ("w_gate", "w_down"))
+    flat = moe["experts"].reshape(-1)
+    rank = torch.empty_like(flat)   # an assignment's row in moe["act"]
+    rank[torch.argsort(flat, stable=True)] = torch.arange(
+        flat.numel(), device=flat.device)
 
-    def one(name, x, w, offs, reps):
-        e, k, n = w.shape
+    def rows_of(t):
+        """The first t tokens' gate and down inputs, sorted by expert."""
+        mine = flat[:t * topk]
+        order = torch.argsort(mine, stable=True)
+        offs = torch.zeros(e + 1, dtype=torch.int32, device=mine.device)
+        offs[1:] = torch.bincount(mine, minlength=e).cumsum(0)
+        return (moe["y"][:t][order // topk].contiguous(),
+                moe["act"][rank[order]].contiguous(), offs)
+
+    def bound(x, w, offs):
+        k, n = w.shape[1:]
         sizes = (offs[1:] - offs[:-1]).tolist()
         rows, used = sum(sizes), sum(c > 0 for c in sizes)
-        out = {"ms": cuda_ms(lambda: gm.gmm(x, w, offs, out_dtype=bf16),
-                             reps=reps),
-               "plain_ms": cuda_ms(lambda: gmm_grouped_ref(x, w, offs, bf16),
-                                   reps=max(1, reps // 10), warmup=1)}
-        if hasattr(torch, "_grouped_mm"):
-            ends = offs[1:]
-            out["library_ms"] = cuda_ms(
-                lambda: torch._grouped_mm(x, w, offs=ends), reps=reps)
-            lib = "torch._grouped_mm"
-        else:
-            bounds = offs.tolist()
-            out["library_ms"] = cuda_ms(lambda: [
-                torch.matmul(x[bounds[i]:bounds[i + 1]], w[i])
-                for i in range(e)], reps=reps)
-            lib = f"{e} torch.matmul"
         flops = 2 * rows * k * n
         nbytes = 2 * rows * k + 2 * used * k * n + 2 * x.shape[0] * n \
             + 4 * (e + 1)
         ops_ms = flops / BF16_FLOPS * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        out.update(bound_ms=max(ops_ms, bytes_ms),
-                   bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        return (rows, used, flops, nbytes, max(ops_ms, bytes_ms),
+                "operations" if ops_ms >= bytes_ms else "bytes")
+
+    def variant_ms(x, w, offs, v, reps, queued=False):
+        return cuda_ms(lambda: gm.gmm(x, w, offs, out_dtype=bf16, variant=v),
+                       reps=reps, warmup=1 if reps < 3 else 3, queued=queued)
+
+    def one(name, x, w, offs, reps, decode=False):
+        k, n = w.shape[1:]
+        rows, used, flops, nbytes, bound_ms, bound_by = bound(x, w, offs)
+        picked = gm.variant(x.shape[0], e, k, n)
+        other = "splitk" if picked == "wgmma" else "wgmma"
+        by_variant = {picked: variant_ms(x, w, offs, picked, reps,
+                                         queued=decode)}
+        out = {"variant": picked, "ms": by_variant[picked],
+               "ms_by_variant": by_variant,
+               "plain_ms": cuda_ms(lambda: gmm_grouped_ref(x, w, offs, bf16),
+                                   reps=max(1, reps // 10), warmup=1)}
+        if hasattr(torch, "_grouped_mm"):
+            ends = offs[1:]
+            out["library_ms"] = cuda_ms(
+                lambda: torch._grouped_mm(x, w, offs=ends), reps=reps,
+                queued=decode)
+            lib = "torch._grouped_mm"
+        else:
+            bounds = offs.tolist()
+            out["library_ms"] = cuda_ms(lambda: [
+                torch.matmul(x[bounds[i]:bounds[i + 1]], w[i])
+                for i in range(e)], reps=reps, queued=decode)
+            lib = f"{e} torch.matmul"
+        # last: split-K forced at a prefill's rows runs for a third of a
+        # second, and what is timed right after it ran slower
+        by_variant[other] = variant_ms(x, w, offs, other,
+                                       reps if decode else 1, queued=decode)
+        out.update(bound_ms=bound_ms, bound_by=bound_by)
         print(f"moe_gmm timing [{name}]: rows={rows} K={k} N={n} "
-              f"experts used={used} ms={out['ms']:.4f} "
-              f"plain_ms={out['plain_ms']:.4f} "
+              f"experts used={used} variant={picked} ms={out['ms']:.4f} "
+              f"(wgmma {by_variant['wgmma']:.4f}, splitk "
+              f"{by_variant['splitk']:.4f}) plain_ms={out['plain_ms']:.4f} "
               f"library_ms={out['library_ms']:.4f} ({lib}) "
-              f"bound_ms={out['bound_ms']:.4f} ({flops:.4e} FLOPs, {nbytes} "
-              f"bytes; {flops / out['ms'] / 1e9:.1f} TFLOP/s)")
+              f"bound_ms={bound_ms:.4f} ({flops:.4e} FLOPs, {nbytes} bytes; "
+              f"{flops / out['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{nbytes / out['ms'] / 1e6:.1f} GB/s, "
+              f"{100 * bound_ms / out['ms']:.1f}% of the bound)")
+        if decode:
+            out["host_ms"] = host_ms(
+                lambda: gm.gmm(x, w, offs, out_dtype=bf16))
+            print(f"moe_gmm timing [{name}]: host {out['host_ms']:.4f} ms a "
+                  f"call (variant {picked}) beside {out['ms']:.4f} ms on the "
+                  f"device")
         return out
 
-    timing = one("prefill gate", moe["xs"], w_gate, moe["offs"], reps=10)
+    timing = one("prefill gate", moe["xs"], w_gate, moe["offs"], reps=20)
     timing["down"] = one("prefill down", moe["act"], w_down, moe["offs"],
-                         reps=10)
+                         reps=20)
     # a decode step at the served batch: 4 tokens, their top-6 experts
-    top = moe["experts"][:4].reshape(-1)
-    order = torch.argsort(top, stable=True)
-    x = moe["y"][:4][order // cfg.experts_per_token].contiguous()
-    offs = torch.zeros(cfg.num_experts + 1, dtype=torch.int32,
-                       device=x.device)
-    offs[1:] = torch.bincount(top, minlength=cfg.num_experts).cumsum(0)
-    err = gmm_check("decode step", x, w_gate, offs)
-    timing["decode"] = one("decode gate", x, w_gate, offs, reps=100)
-    gm.launches = kept   # timing launches are not the main path's
+    x, act, offs = rows_of(4)
+    err = gmm_check("decode step gate", x, w_gate, offs)
+    err = max(err, gmm_check("decode step down", act, w_down, offs))
+    timing["decode"] = one("decode gate", x, w_gate, offs, reps=100,
+                           decode=True)
+    timing["decode_down"] = one("decode down", act, w_down, offs, reps=100,
+                                decode=True)
+    timing["by_variant"] = {
+        v: {"shape": shape, **{key: entry[key] for key in
+                               ("ms", "library_ms", "bound_ms")},
+            **({"host_ms": entry["host_ms"]} if "host_ms" in entry else {})}
+        for v, shape, entry in (("wgmma", "prefill gate", timing),
+                                ("splitk", "decode gate", timing["decode"]))}
+
+    for t in SWEEP_TOKENS:
+        x, act, offs = rows_of(t)
+        rows = x.shape[0]
+        reps = 20 if rows <= 6144 else 5
+        for name, inp, w in (("gate", x, w_gate), ("down", act, w_down)):
+            k, n = w.shape[1:]
+            ms, same = {}, {}
+            for v in ("wgmma", "splitk"):
+                slow = v == "splitk" and rows > 6144   # forced far past
+                ms[v] = variant_ms(inp, w, offs, v, 1 if slow else reps,
+                                   queued=rows <= 96)
+                first = gm.gmm(inp, w, offs, out_dtype=bf16, variant=v)
+                same[v] = torch.equal(first, gm.gmm(inp, w, offs,
+                                                    out_dtype=bf16,
+                                                    variant=v))
+                if not same[v]:
+                    raise AssertionError(f"moe_gmm sweep [{name}, {t} "
+                                         f"tokens, {v}]: two runs differ")
+            used = int(((offs[1:] - offs[:-1]) > 0).sum())
+            print(f"moe_gmm sweep [{name}]: tokens={t} rows={rows} "
+                  f"rows/group={rows / e:.3f} experts used={used} "
+                  f"wgmma {ms['wgmma']:.4f} ms, splitk {ms['splitk']:.4f} ms,"
+                  f" faster {min(ms, key=ms.get)}, rule picks "
+                  f"{gm.variant(rows, e, k, n)}, same bits "
+                  f"{same['wgmma'] and same['splitk']}")
+    # timing launches are not the main path's
+    gm.launches, gm.launches_by_variant = kept
     return timing, err
 
 
@@ -1086,8 +1220,11 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.ptxas_report("flash_attn", "flash_fwd_bf16_wgmma"):
-        print(f"ptxas: {line}")
+    for name, kernel in (("flash_attn", "flash_fwd_bf16_wgmma"),
+                         ("moe_gmm", "gmm_bf16_wgmma"),
+                         ("moe_gmm", "gmm_bf16_splitk")):
+        for line in _build.ptxas_report(name, kernel):
+            print(f"ptxas: {line}")
 
     err = kernel_cases(dev)
     served = serve(dev, NUM_VERTICES)
@@ -1147,6 +1284,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:50",
         "launches": launches("moe_gmm"),
+        "launches_by_variant": {"wgmma": launches("moe_gmm_wgmma"),
+                                "splitk": launches("moe_gmm_splitk")},
         "max_abs_err": max(gmm_err, moe["gmm_err"]),
         **moe["gmm_timing"],
     }]

@@ -10,39 +10,72 @@
 // Replaces gmm_pallas (src/repro/kernels/moe_gmm/moe_gmm.py). The TPU kernel
 // needs every group padded to 128-row tiles on the host and a per-tile expert
 // map in scalar-prefetch memory; its grid runs the K steps in order and
-// accumulates in the output tile. Here nothing is padded: blockIdx.x counts
-// row tiles over all groups in order, and each block walks the offsets
-// itself to find its expert and its row range [r0, r1) inside one group. A
-// group of n rows takes ceil(n / BM) tiles, so at most ceil(M / BM) + E + 1
-// tiles exist; the launch sizes the grid for that and surplus blocks exit.
-// The tiles past the last group write zeros. blockIdx.y is the 128-column
-// tile. K is a loop inside the block, so each output element is summed in a
-// fixed order, without atomics: two runs give the same bits.
+// accumulates in the output tile. Here nothing is padded: the kernels read
+// the device offsets themselves, so no call reads anything back to the host.
 //
-// Two kernels:
-//  * bf16 operands: tensor-core mma.sync m16n8k16 (bf16 in, float32 sums),
-//    a 128 x 128 output tile per block of eight warps (each 64 x 32), K in
-//    slices of 32 double-buffered in shared memory with cp.async (zero-fill
-//    for rows outside the tile's group and for K and N past the edge),
-//    fragments read with ldmatrix (.trans for w, which is K-major). The
-//    result is written once, as float32 or rounded to bf16.
-//  * float32 operands: SIMT float32 FMAs, a 64 x 64 tile per block of 256
-//    threads, each 4 x 4 outputs, K in slices of 16 summed in order.
+// Three kernels, chosen on the host (moe_gmm.py's `variant`, from M, E, K
+// and N alone, never from the offsets; nothing falls back from one to
+// another):
+//  * "wgmma", bf16 operands at prefill-sized M (gmm_bf16_wgmma). Bound by
+//    operations: 2 * rows * K * N against a few bytes per product. One
+//    block owns a 128-row x 256-column output tile inside one group
+//    (find_tile: a group of n rows takes ceil(n / 128) row tiles, so
+//    nothing is padded; the tiles past the last group write zeros). One
+//    producer warp issues TMA copies (cp.async.bulk.tensor) of 64-deep K
+//    slices of x (a 2-D map, K-major) and of w[e] (a 3-D map over (E, K,
+//    N), N contiguous: the MN-major B operand), 128-byte swizzled, into a
+//    4-stage ring with full/empty mbarriers. Two consumer warpgroups of 64
+//    rows each issue wgmma.mma_async m64n256k16 with float32 accumulators
+//    in registers and keep one slice's products in flight while the next
+//    slice lands. A tile's box may read rows of the next group or past M,
+//    and columns or K past the edge: TMA fills what lies outside the
+//    tensor with zeros, and the epilogue writes only rows [r0, r1) and
+//    columns below N. Blocks are numbered column tile fastest, so the
+//    blocks in flight share x rows and w[e] in L2.
+//  * "splitk", bf16 operands at decode-sized M (gmm_bf16_splitk). Bound
+//    by bytes: a decode step's 24 rows touch up to 24 experts' whole
+//    weights, 5.8 MB each at 2048 x 1408. K is split into `splits` chunks
+//    of `kc` rows so that the grid fills the card (moe_gmm.py's
+//    `splitk_plan`, a host function of M, E, K and N, at most 8 chunks).
+//    One block owns (a group that has rows, 128 columns, one K chunk): its
+//    128 threads stream the chunk's rows of those columns with 16-byte
+//    loads, 4 in flight a thread, into float32 sums of up to 4 rows at
+//    once. Blocks find their group by counting the groups that have rows,
+//    so the ones that work come first in the grid and spread evenly over
+//    the SMs, and 128 columns divide both served widths. The chunks of one
+//    (group, column tile) form a thread-block cluster; each block leaves
+//    its chunk's float32 partial sums in its shared memory, and the
+//    second pass, by the cluster's rank-0 block, adds them in chunk order
+//    through distributed shared memory and rounds once. So one launch does
+//    both passes, with no workspace in device memory and no atomics.
+//  * "simt", float32 operands (gmm_f32_simt): SIMT float32 FMAs, a 64 x 64
+//    tile per block of 256 threads, each 4 x 4 outputs, K in slices of 16.
+//    Only the reference's float32 test cases reach it.
 //
-// Bound: operations at prefill (2 * rows * K * N multiply-adds, far above
-// the card's ridge point at 196,608 rows), bytes at decode (a few rows read
-// whole experts' weights). This first version uses mma.sync without TMA or
-// wgmma.
+// Bits: every kernel sums each output element in a fixed order, without
+// atomics, so a call repeated on the same inputs gives the same bits. The
+// two bf16 variants do not give the same bits as each other: wgmma adds
+// exact bf16 products in the tensor cores' order over 16-deep steps, while
+// split-K keeps 8 running fmaf sums inside a K chunk (rows k = p mod 8),
+// adds them in order, and then adds the chunks: another order of the same
+// float32 sums. Both are held to the plain version (one float32 matmul per
+// group) at rtol/atol 1e-4. A bf16 result is the variant's float32 sum
+// rounded once.
 //
 // Built by repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC
-// and called through ctypes; the C entry points return cudaGetLastError().
+//        -Xcompiler -fPIC -Xptxas -v
+// and called through ctypes; the C entry points return cudaGetLastError(),
+// or minus the CUresult of cuTensorMapEncodeTiled when it refuses a map.
 
 #include <cstdint>
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -76,88 +109,6 @@ __device__ __forceinline__ bool find_tile(const int* __restrict__ offs,
   return false;
 }
 
-// ------------------------------------------------ bf16, tensor cores
-constexpr int kBm = 128;          // rows per block tile
-constexpr int kBn = 128;          // columns per block tile
-constexpr int kBk = 32;           // K per shared-memory slice
-constexpr int kLdA = kBk + 8;     // padded row strides (bf16 elements):
-constexpr int kLdB = kBn + 8;     // ldmatrix rows land in distinct banks
-constexpr int kMmaThreads = 256;  // eight warps: 2 (rows) x 4 (columns)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One K slice [k0, k0 + kBk): rows [r0, r1) of x into as (kBm x kLdA) and
-// rows k0.. of the expert's (K, N) weight, columns [n0, n0 + kBn), into bs
-// (kBk x kLdB). Each of the 256 threads issues two 16-byte copies of each.
-__device__ __forceinline__ void load_slice(
-    __nv_bfloat16* as, __nv_bfloat16* bs, const __nv_bfloat16* __restrict__ x,
-    const __nv_bfloat16* __restrict__ wt, int r0, int r1, int k0, int n0,
-    int k, int n) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = threadIdx.x + i * kMmaThreads;
-    const int row = c / (kBk / 8);
-    const int col = (c % (kBk / 8)) * 8;
-    const bool in = r0 + row < r1 && k0 + col < k;
-    const __nv_bfloat16* src =
-        in ? x + static_cast<long long>(r0 + row) * k + k0 + col : x;
-    cp_async16(as + row * kLdA + col, src, in ? 16 : 0);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = threadIdx.x + i * kMmaThreads;
-    const int row = c / (kBn / 8);
-    const int col = (c % (kBn / 8)) * 8;
-    const bool in = k0 + row < k && n0 + col < n;
-    const __nv_bfloat16* src =
-        in ? wt + static_cast<long long>(k0 + row) * n + n0 + col : wt;
-    cp_async16(bs + row * kLdB + col, src, in ? 16 : 0);
-  }
-}
-
 __device__ __forceinline__ void store2(float* out, float a, float b) {
   *reinterpret_cast<float2*>(out) = make_float2(a, b);
 }
@@ -175,104 +126,522 @@ __device__ void zero_rows(Out* __restrict__ out, int r0, int r1, int n0,
   }
 }
 
+// ------------------------------------------------- bf16, wgmma (prefill)
+constexpr int kWgRows = 128;       // rows of an output tile: 2 x 64
+constexpr int kWgCols = 256;       // columns of an output tile
+constexpr int kWgDepth = 64;       // K of a slice: one 128-byte row of bf16
+constexpr int kWgStages = 4;
+constexpr int kWarpgroup = 128;
+constexpr int kWgThreads = 3 * kWarpgroup;   // producer + two consumers
+constexpr int kConsumers = 2 * kWarpgroup;
+// A slice of x: 128 rows x 64 bf16, each row 128 bytes, 16-byte chunk c of
+// row r stored at chunk c ^ (r % 8) (TMA's 128-byte swizzle, the wgmma
+// descriptors' layout B128).
+constexpr int kATileBytes = kWgRows * 128;
+// A slice of w[e]: 4 panels of 64 columns, each 64 K-rows x 128 bytes,
+// swizzled the same way; panel p holds columns 64p .. 64p + 63.
+constexpr int kPanelBytes = kWgDepth * 128;
+constexpr int kBTileBytes = (kWgCols / 64) * kPanelBytes;
+constexpr int kStageBytes = kATileBytes + kBTileBytes;
+// + 1024: the dynamic segment is aligned up to 1024 bytes in the kernel
+constexpr int kWgSmemBytes = kStageBytes * kWgStages + 128 + 1024;
+static_assert(8 * 2 * kWgStages <= 128, "barriers overflow their slot");
+static_assert(kWgSmemBytes <= 232448, "more than a block's shared memory");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic for this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// A box of a 2-D tensor map at (c0, c1) = (column, row) into shared
+// memory; completion counted on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The same for a 3-D map at (c0, c1, c2).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (all >> 4), layout B128.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (1ull << 62);
+}
+
+// x, K-major: 8-row groups 1024 bytes apart (SBO); the 16 K of one k-step
+// sit inside a 128-byte row, so LBO is unused (16).
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+
+// w[e], MN-major (K rows x N columns, N contiguous): 8-K-row groups 1024
+// bytes apart (SBO), 64-column panels kPanelBytes apart (LBO).
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, kPanelBytes, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the fence/commit/wait points.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    asm volatile("" : "+f"(r[i])::"memory");
+  }
+}
+
+#define ACC8(d, i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 256, float32) (+)= A (64 x 16, smem, K-major) * B (16 x 256,
+// smem, MN-major: the transpose bit of B is set); `accumulate` 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t desc_a,
+                                          uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
+        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56), ACC8(d, 64), ACC8(d, 72),
+        ACC8(d, 80), ACC8(d, 88), ACC8(d, 96), ACC8(d, 104), ACC8(d, 112),
+        ACC8(d, 120)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+#undef ACC8
+
+// One block = one (row tile, 256-column tile); blockIdx.x counts column
+// tiles fastest. Shared memory: kWgStages stages of (x slice, w slice),
+// then the mbarriers: full[i] at bars + 8i, empty[i] at bars + 8(S + i).
+//
+// Accumulator layout of m64nNk16 (warp w of a warpgroup owns rows 16w ..
+// 16w + 15 of its 64; lane = 4g + t): acc[4j + 0, 1] = row g, columns
+// 8j + 2t, + 1; acc[4j + 2, 3] = row g + 8, the same columns.
 template <typename Out>
-__global__ void __launch_bounds__(kMmaThreads)
-gmm_bf16_mma(const __nv_bfloat16* __restrict__ x,
-             const __nv_bfloat16* __restrict__ w, const int* __restrict__ offs,
-             Out* __restrict__ out, int m, int k, int n, int num_groups) {
-  __shared__ __align__(16) __nv_bfloat16 as[2][kBm * kLdA];
-  __shared__ __align__(16) __nv_bfloat16 bs[2][kBk * kLdB];
-
+__global__ void __launch_bounds__(kWgThreads, 1)
+gmm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_x,
+               const __grid_constant__ CUtensorMap tm_w,
+               const int* __restrict__ offs, Out* __restrict__ out, int m,
+               int k, int n, int num_groups, int col_tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  const int n0 = static_cast<int>(blockIdx.x % col_tiles) * kWgCols;
   int expert, r0, r1;
-  if (!find_tile(offs, num_groups, m, kBm, blockIdx.x, &expert, &r0, &r1)) {
+  if (!find_tile(offs, num_groups, m, kWgRows,
+                 static_cast<int>(blockIdx.x / col_tiles), &expert, &r0,
+                 &r1)) {
     return;
   }
-  const int n0 = blockIdx.y * kBn;
   if (expert < 0) {
-    zero_rows(out, r0, r1, n0, n, kBn, kMmaThreads);
+    zero_rows(out, r0, r1, n0, n, kWgCols, kWgThreads);
     return;
   }
-  const __nv_bfloat16* wt = w + static_cast<long long>(expert) * k * n;
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + kWgStages * kStageBytes;
+  const int slices = (k + kWgDepth - 1) / kWgDepth;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = (warp / 4) * 64;  // the warp's rows in the tile
-  const int wn = (warp % 4) * 32;  // the warp's columns in the tile
-
-  float acc[4][4][4];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+    for (int i = 0; i < kWgStages; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + 8 * (kWgStages + i), kConsumers);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const int slices = (k + kBk - 1) / kBk;
-  load_slice(as[0], bs[0], x, wt, r0, r1, 0, n0, k, n);
-  cp_async_commit();
-  for (int s = 0; s < slices; ++s) {
-    if (s + 1 < slices) {
-      load_slice(as[(s + 1) & 1], bs[(s + 1) & 1], x, wt, r0, r1,
-                 (s + 1) * kBk, n0, k, n);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* a_s = as[s & 1];
-    const __nv_bfloat16* b_s = bs[s & 1];
+  if (threadIdx.x < kWarpgroup) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < slices; ++s) {
+        const int stage = s % kWgStages;
+        if (s >= kWgStages) {   // wait for the consumers to free the stage
+          mbar_wait(bars + 8 * (kWgStages + stage),
+                    (s / kWgStages - 1) & 1);
+        }
+        const uint32_t full = bars + 8 * stage;
+        const uint32_t a = base + stage * kStageBytes;
+        mbar_expect_tx(full, kStageBytes);
+        tma_load_2d(a, &tm_x, full, s * kWgDepth, r0);
 #pragma unroll
-    for (int kk = 0; kk < kBk; kk += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ldmatrix_x4(a[i], a_s + (wm + i * 16 + lane % 16) * kLdA + kk +
-                              (lane / 16) * 8);
-      }
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, b_s + (kk + lane % 16) * kLdB + wn + p * 16 +
-                                 (lane / 16) * 8);
-        b[2 * p][0] = r[0];
-        b[2 * p][1] = r[1];
-        b[2 * p + 1][0] = r[2];
-        b[2 * p + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+        for (int p = 0; p < kWgCols / 64; ++p) {
+          tma_load_3d(a + kATileBytes + p * kPanelBytes, &tm_w, full,
+                      n0 + 64 * p, s * kWgDepth, expert);
         }
       }
     }
-    __syncthreads();  // the next iteration's copy reuses this buffer
-  }
-
-  const int g = lane / 4;
-  const int t = lane % 4;
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = threadIdx.x / kWarpgroup - 1;   // rows 64cw .. 64cw + 63
+    float acc[128];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row_a = r0 + wm + i * 16 + g;
+    for (int i = 0; i < 128; ++i) {
+      acc[i] = 0.0f;
+    }
+    for (int s = 0; s < slices; ++s) {
+      const int stage = s % kWgStages;
+      mbar_wait(bars + 8 * stage, (s / kWgStages) & 1);
+      const uint32_t a = base + stage * kStageBytes + cw * 64 * 128;
+      const uint32_t b = base + stage * kStageBytes + kATileBytes;
+      hold(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgDepth / 16; ++kk) {
+        // k-step kk: bytes 32kk of each x row, K-rows 16kk .. of each panel
+        wgmma_256(acc, kmajor_desc(a + 32 * kk),
+                  mnmajor_desc(b + kk * 16 * 128), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();   // slice s - 1's products are done: free its stage
+      hold(acc);
+      if (s > 0) {
+        mbar_arrive(bars + 8 * (kWgStages + (s - 1) % kWgStages));
+      }
+    }
+    wgmma_wait<0>();
+    hold(acc);
+
+    const int warp = (threadIdx.x % kWarpgroup) / 32;
+    const int lane = threadIdx.x % 32;
+    const int row_a = r0 + cw * 64 + warp * 16 + lane / 4;
     const int row_b = row_a + 8;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn + j * 8 + t * 2;
+    for (int j = 0; j < kWgCols / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
       if (col >= n) {
         continue;
       }
       if (row_a < r1) {
-        store2(out + static_cast<long long>(row_a) * n + col, acc[i][j][0],
-               acc[i][j][1]);
+        store2(out + static_cast<long long>(row_a) * n + col, acc[4 * j],
+               acc[4 * j + 1]);
       }
       if (row_b < r1) {
-        store2(out + static_cast<long long>(row_b) * n + col, acc[i][j][2],
-               acc[i][j][3]);
+        store2(out + static_cast<long long>(row_b) * n + col, acc[4 * j + 2],
+               acc[4 * j + 3]);
       }
     }
+  }
+}
+
+// ------------------------------------------------ bf16, split-K (decode)
+// A block of 128 threads: 16 threads of 8 columns each (128 columns,
+// which divide both served widths), times 8 phases of K rows; 4 rows of a
+// group summed at once (a decode step's groups have at most 4: one a
+// token); 4 16-byte loads of w in flight a thread. At 80 registers, 6
+// blocks fit an SM (`launch_bounds`), so the grid that `splitk_plan`
+// sizes for 6 x 132 blocks runs in one wave.
+constexpr int kSkThreads = 128;
+constexpr int kSkColThreads = 16;
+constexpr int kSkCols = 8 * kSkColThreads;
+constexpr int kSkPhases = kSkThreads / kSkColThreads;
+constexpr int kSkRows = 4;
+constexpr int kSkUnroll = 4;
+constexpr int kSkBlocksPerSm = 6;
+constexpr int kSkStage = 512;   // K rows of x staged in shared memory
+static_assert(kSkRows * kSkCols == 4 * kSkThreads,
+              "a pass's sums are added 4 values a thread");
+
+__device__ __forceinline__ void unpack8(uint4 v, float (&f)[8]) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void store4(float* out, float4 v) {
+  *reinterpret_cast<float4*>(out) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* out, float4 v) {
+  store2(out, v.x, v.y);
+  store2(out + 2, v.z, v.w);
+}
+
+// The u-th group that has rows (clipped offsets lo < hi) and its rows
+// [lo, hi), or g = -1: the block's 128 threads look at 128 groups at a
+// time and count them with warp ballots.
+static_assert(kSkThreads == 128, "nth_used_group counts with 4 warps");
+
+struct GroupRows {
+  int g, lo, hi;
+};
+
+__device__ GroupRows nth_used_group(const int* __restrict__ offs,
+                                    int num_groups, int m, int u) {
+  __shared__ int counts[4];
+  __shared__ int3 found;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    found = make_int3(-1, 0, 0);
+  }
+  int seen = 0;   // groups with rows before this window
+  for (int g0 = 0; g0 < num_groups; g0 += 128) {
+    const int g = g0 + threadIdx.x;
+    int lo = 0, hi = 0;
+    if (g < num_groups) {
+      lo = min(max(__ldg(offs + g), 0), m);
+      hi = max(min(__ldg(offs + g + 1), m), lo);
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, hi > lo);
+    if (lane == 0) {
+      counts[warp] = __popc(mask);
+    }
+    __syncthreads();
+    int rank = seen + __popc(mask & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) {
+      rank += counts[w];
+    }
+    if (hi > lo && rank == u) {
+      found = make_int3(g, lo, hi);
+    }
+    seen += counts[0] + counts[1] + counts[2] + counts[3];
+    __syncthreads();   // `found` is written; `counts` may be rewritten
+    if (found.x >= 0 || seen > u) {
+      break;
+    }
+  }
+  return {found.x, found.y, found.z};
+}
+
+// blockIdx = (column tile, K chunk, slot u); the K chunks of one (tile,
+// slot) form a cluster of gridDim.y blocks. Slot u < gridDim.z - 1 takes
+// the u-th group that has rows (slots past the last such group exit,
+// whole clusters at a time), so the blocks that work come first in the
+// grid and spread evenly over the SMs; the last slot is the zero tail. A
+// block streams K rows [kb, ke) of its 128 columns of w[g]: thread
+// (phase p, column group c) sums rows kb + p, kb + p + 8, ... of its 8
+// columns in order with fmaf, for up to 4 rows of the group at once; the
+// phases' sums are added in phase order through shared memory, which
+// gives the chunk's float32 partial sums. The cluster's rank-0 block then
+// reads every rank's partial sums through distributed shared memory, adds
+// them in rank (K) order, rounds once and writes the rows.
+template <typename Out>
+__global__ void __launch_bounds__(kSkThreads, kSkBlocksPerSm)
+gmm_bf16_splitk(const __nv_bfloat16* __restrict__ x,
+                const __nv_bfloat16* __restrict__ w,
+                const int* __restrict__ offs, Out* __restrict__ out, int m,
+                int k, int n, int num_groups, int kc) {
+  __shared__ float xs[kSkRows][kSkStage];
+  __shared__ __align__(16) float red[kSkPhases][kSkRows][kSkCols];
+  __shared__ float4 chunk_sum[kSkThreads];   // a pass's sums, 4 a thread
+  const int c8 = (threadIdx.x % kSkColThreads) * 8;
+  const int phase = threadIdx.x / kSkColThreads;
+  const int n0 = blockIdx.x * kSkCols;
+  const int col = n0 + c8;
+  const bool active = col < n;
+  if (blockIdx.z == gridDim.z - 1) {
+    if (blockIdx.y == 0) {
+      const int total = min(max(__ldg(offs + num_groups), 0), m);
+      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (long long o = threadIdx.x * 4;
+           o < static_cast<long long>(m - total) * kSkCols;
+           o += kSkThreads * 4) {
+        const int c = n0 + static_cast<int>(o % kSkCols);
+        if (c < n) {
+          store4(out + (total + o / kSkCols) * n + c, zero);
+        }
+      }
+    }
+    return;
+  }
+  const GroupRows group = nth_used_group(offs, num_groups, m, blockIdx.z);
+  const int g = group.g, lo = group.lo, hi = group.hi;
+  if (g < 0) {
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  const int kb = blockIdx.y * kc;
+  const int ke = min(k, kb + kc);
+  const __nv_bfloat16* wg = w + static_cast<long long>(g) * k * n + col;
+
+  for (int r0 = lo; r0 < hi; r0 += kSkRows) {
+    float acc[kSkRows][8];
+#pragma unroll
+    for (int r = 0; r < kSkRows; ++r) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        acc[r][c] = 0.0f;
+      }
+    }
+    for (int k0 = kb; k0 < ke; k0 += kSkStage) {
+      const int kn = min(kSkStage, ke - k0);
+      // rows phase, phase + P, ... below kn, kSkUnroll at a time
+      const int mine = (kn - phase + kSkPhases - 1) / kSkPhases;
+      uint4 v[kSkUnroll];
+      auto load = [&](int j) {
+#pragma unroll
+        for (int u = 0; u < kSkUnroll; ++u) {
+          if (j + u < mine) {
+            v[u] = __ldg(reinterpret_cast<const uint4*>(
+                wg + static_cast<long long>(k0 + phase +
+                                            kSkPhases * (j + u)) * n));
+          }
+        }
+      };
+      if (active) {
+        load(0);   // in flight while x is staged
+      }
+      __syncthreads();   // the previous stage's readers are done
+      for (int c = threadIdx.x; c < kSkRows * kSkStage; c += kSkThreads) {
+        const int r = c / kSkStage;
+        const int i = c % kSkStage;
+        xs[r][i] = (r0 + r < hi && i < kn)
+                       ? __bfloat162float(
+                             x[static_cast<long long>(r0 + r) * k + k0 + i])
+                       : 0.0f;
+      }
+      __syncthreads();
+      if (!active) {
+        continue;
+      }
+      for (int j = 0; j < mine; j += kSkUnroll) {
+        if (j > 0) {
+          load(j);
+        }
+#pragma unroll
+        for (int u = 0; u < kSkUnroll; ++u) {
+          if (j + u < mine) {
+            float wf[8];
+            unpack8(v[u], wf);
+#pragma unroll
+            for (int r = 0; r < kSkRows; ++r) {
+              const float xv = xs[r][phase + kSkPhases * (j + u)];
+#pragma unroll
+              for (int c = 0; c < 8; ++c) {
+                acc[r][c] = fmaf(xv, wf[c], acc[r][c]);
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kSkRows; ++r) {
+      float4* dst = reinterpret_cast<float4*>(&red[phase][r][c8]);
+      dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+    }
+    __syncthreads();
+    // the thread's 4 sums: row r4, columns c4 .. c4 + 3
+    const int r4 = threadIdx.x * 4 / kSkCols;
+    const int c4 = threadIdx.x * 4 % kSkCols;
+    float4 s = *reinterpret_cast<const float4*>(&red[0][r4][c4]);
+#pragma unroll
+    for (int p = 1; p < kSkPhases; ++p) {
+      const float4 v = *reinterpret_cast<const float4*>(&red[p][r4][c4]);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    chunk_sum[threadIdx.x] = s;
+    cluster.sync();   // every chunk's partial sums are in place
+    if (cluster.block_rank() == 0) {
+      for (unsigned q = 1; q < cluster.num_blocks(); ++q) {
+        const float4 v = *cluster.map_shared_rank(&chunk_sum[threadIdx.x], q);
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      const int row = r0 + r4;
+      if (row < hi && n0 + c4 < n) {
+        store4(out + static_cast<long long>(row) * n + n0 + c4, s);
+      }
+    }
+    cluster.sync();   // rank 0 has read them: they may be overwritten
   }
 }
 
@@ -361,32 +730,144 @@ gmm_f32_simt(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-dim3 grid_for(int m, int n, int num_groups, int bm, int bn) {
-  return dim3((m + bm - 1) / bm + num_groups + 1, (n + bn - 1) / bn);
+// Row tiles of bm rows over all groups: at most ceil(M / bm) + E + 1.
+int row_tiles(int m, int num_groups, int bm) {
+  return (m + bm - 1) / bm + num_groups + 1;
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime so the
+// library needs no -lcuda; null if it cannot be found.
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A bf16 tensor map with a 128-byte-swizzled box; 0 or the CUresult.
+CUresult encode_bf16(EncodeTiled encode, CUtensorMap* map, int rank,
+                     const void* ptr, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box) {
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// 0, a cudaError_t, or minus a CUresult if a tensor map is refused.
+template <typename Out>
+int launch_wgmma(const void* x, const void* w, const int* offs, void* out,
+                 int m, int k, int n, int num_groups, cudaStream_t st) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) {
+    return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  }
+  CUtensorMap tm_x, tm_w;
+  const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(m)};
+  const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t x_box[2] = {kWgDepth, kWgRows};
+  CUresult r = encode_bf16(encode, &tm_x, 2, x, x_dims, x_strides, x_box);
+  if (r != CUDA_SUCCESS) {
+    return -static_cast<int>(r);
+  }
+  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(n),
+                                static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(num_groups)};
+  const cuuint64_t w_strides[2] = {
+      static_cast<cuuint64_t>(n) * 2,
+      static_cast<cuuint64_t>(k) * static_cast<cuuint64_t>(n) * 2};
+  const cuuint32_t w_box[3] = {64, kWgDepth, 1};
+  r = encode_bf16(encode, &tm_w, 3, w, w_dims, w_strides, w_box);
+  if (r != CUDA_SUCCESS) {
+    return -static_cast<int>(r);
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      gmm_bf16_wgmma<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWgSmemBytes);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int col_tiles = (n + kWgCols - 1) / kWgCols;
+  gmm_bf16_wgmma<Out>
+      <<<row_tiles(m, num_groups, kWgRows) * col_tiles, kWgThreads,
+         kWgSmemBytes, st>>>(tm_x, tm_w, offs, static_cast<Out*>(out), m, k,
+                             n, num_groups, col_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Out>
+int launch_splitk(const void* x, const void* w, const int* offs, void* out,
+                  int m, int k, int n, int num_groups, int splits, int kc,
+                  cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  // slots for the groups that have rows (at most min(M, E)), then the tail
+  cfg.gridDim = dim3((n + kSkCols - 1) / kSkCols, splits,
+                     min(m, num_groups) + 1);
+  cfg.blockDim = dim3(kSkThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = splits;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gmm_bf16_splitk<Out>, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), offs, static_cast<Out*>(out), m,
+      k, n, num_groups, kc);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
 
 // x, w: bf16; out: float32 when out_f32, else bf16. Shapes as above; the
-// wrapper checks them, and M * N, M * K and E * K * N stay below 2^31.
-extern "C" int moe_gmm_bf16(const void* x, const void* w, const int* offs,
-                            void* out, int out_f32, int m, int k, int n,
-                            int num_groups, void* stream) {
-  if (m <= 0 || n <= 0) {
-    return static_cast<int>(cudaSuccess);
-  }
+// wrapper checks them (M, K, N and E all positive), and M * N, M * K and
+// E * K * N stay below 2^31.
+extern "C" int moe_gmm_bf16_wgmma(const void* x, const void* w,
+                                  const int* offs, void* out, int out_f32,
+                                  int m, int k, int n, int num_groups,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(m, n, num_groups, kBm, kBn);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wb = static_cast<const __nv_bfloat16*>(w);
-  if (out_f32) {
-    gmm_bf16_mma<float><<<grid, kMmaThreads, 0, st>>>(
-        xb, wb, offs, static_cast<float*>(out), m, k, n, num_groups);
-  } else {
-    gmm_bf16_mma<__nv_bfloat16><<<grid, kMmaThreads, 0, st>>>(
-        xb, wb, offs, static_cast<__nv_bfloat16*>(out), m, k, n, num_groups);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return out_f32 ? launch_wgmma<float>(x, w, offs, out, m, k, n, num_groups,
+                                       st)
+                 : launch_wgmma<__nv_bfloat16>(x, w, offs, out, m, k, n,
+                                               num_groups, st);
+}
+
+// As above; K chunk c covers rows [c * kc, min(K, (c + 1) * kc)), kc a
+// multiple of 8, splits * kc >= K > (splits - 1) * kc, 1 <= splits <= 8
+// (a portable cluster), and min(M, E) + 1 below 65,536.
+extern "C" int moe_gmm_bf16_splitk(const void* x, const void* w,
+                                   const int* offs, void* out, int out_f32,
+                                   int m, int k, int n, int num_groups,
+                                   int splits, int kc, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return out_f32 ? launch_splitk<float>(x, w, offs, out, m, k, n, num_groups,
+                                        splits, kc, st)
+                 : launch_splitk<__nv_bfloat16>(x, w, offs, out, m, k, n,
+                                                num_groups, splits, kc, st);
 }
 
 extern "C" int moe_gmm_f32(const void* x, const void* w, const int* offs,
@@ -396,7 +877,8 @@ extern "C" int moe_gmm_f32(const void* x, const void* w, const int* offs,
     return static_cast<int>(cudaSuccess);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  gmm_f32_simt<<<grid_for(m, n, num_groups, kFm, kFn), kSimtThreads, 0, st>>>(
+  const dim3 grid(row_tiles(m, num_groups, kFm), (n + kFn - 1) / kFn);
+  gmm_f32_simt<<<grid, kSimtThreads, 0, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), offs,
       static_cast<float*>(out), m, k, n, num_groups);
   return static_cast<int>(cudaGetLastError());

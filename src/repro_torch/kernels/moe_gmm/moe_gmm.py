@@ -6,35 +6,48 @@ Replaces the TPU kernel ``gmm_pallas`` of the JAX package
 to 128-row tiles on the host (`pad_groups`), and picks each tile's expert
 through a scalar-prefetched map. The CUDA source,
 ``repro_torch/csrc/moe_gmm.cu``, takes the groups as they are: an
-``(E+1,)`` int32 tensor of row offsets on the card. One thread block
-owns one (row tile, 128-column tile) and finds its expert and row range
-from the offsets itself, so nothing is padded or read back to the host:
-a decode step syncs with the host no more for it. Rows at or past
-``offs[E]`` are written as zeros. Two kernels sit behind the one entry:
+``(E+1,)`` int32 tensor of row offsets on the card, which the kernels
+read themselves, so nothing is padded or read back to the host: a decode
+step syncs with the host no more for it. Rows at or past ``offs[E]`` are
+written as zeros. Three kernels sit behind the one entry; `variant`
+picks one for bfloat16 operands from ``(M, E, K, N)`` alone, never from
+the offsets, and nothing falls back from one to another:
 
-* bfloat16 operands (the model's path): ``mma.sync`` m16n8k16 with
-  float32 accumulators, 128 x 128 output tiles over 32-deep K slices
-  double-buffered with ``cp.async``; the result is written once, in
-  float32 or rounded to bfloat16.
-* float32 operands: float32 FMAs on the SIMT cores, 64 x 64 output
-  tiles, K summed in order. The reference's float32 test cases need it;
-  the model only calls bf16.
+* ``"wgmma"``, bfloat16 at prefill-sized M, where operations bound it:
+  a producer warp keeps TMA copies of 64-deep K slices of x and of the
+  group's weight in a 4-stage shared-memory ring, and two consumer
+  warpgroups multiply them with ``wgmma`` (m64n256k16, float32
+  accumulators) into a 128 x 256 output tile inside one group.
+* ``"splitk"``, bfloat16 at decode-sized M (a decode step's 24 rows
+  over 64 experts, at most 4 a group), where bytes bound it: each used expert's weight
+  streams once, split along K into chunks (`splitk_plan`) so the grid
+  fills the card; the chunks of one (group, 128-column tile) form a
+  thread-block cluster, and its first block adds the chunks' float32
+  partial sums in chunk order through distributed shared memory and
+  rounds once. One launch, no workspace. `ref.gmm_splitk_ref` models
+  that order in plain PyTorch.
+* ``"simt"``, float32 operands: float32 FMAs on the SIMT cores. The
+  reference's float32 test cases need it; the model only calls bf16.
 
-Each output element is summed in a fixed order without atomics, so two
-runs give the same bits.
+Each output element is summed in a fixed order without atomics, so a
+repeated call gives the same bits. The two bf16 variants do not give the
+same bits as each other (split-K adds the same exact products in another
+order), and both are held to the plain version at rtol/atol 1e-4. A
+bf16 result is the variant's float32 sum rounded once.
 
 What bounds it on an H100: operations at prefill (moonshot-v1-16b-a3b at
 32,768 tokens: 196,608 rows x 2048 x 1408 is 1.13e12 FLOPs against 2.3
 GB moved), bytes at decode (24 rows read up to 24 experts' weights, 138
-MB). This first version uses ``mma.sync`` without TMA or ``wgmma``.
+MB).
 
 On a CPU tensor the wrapper runs the plain version
-(`ref.gmm_grouped_ref`); on a CUDA tensor it launches the kernel or
+(`ref.gmm_grouped_ref`); on a CUDA tensor it launches a kernel or
 raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -42,29 +55,65 @@ import torch
 from .ref import gmm_grouped_ref
 
 TILE_M = 128
+VARIANTS = ("wgmma", "splitk", "simt")
 
-# Kernel launches since import (or since a caller last reset it). Only
-# the CUDA branch below adds to it, once per launch.
+# bf16 calls with at most this many rows a group (M / E) take "splitk".
+# The sweep of chip_smoke.py's phase 13 (PERF.md §6) put the crossover
+# between 24 rows over 64 experts (split-K faster) and 48 (wgmma faster).
+SPLITK_MAX_ROWS_PER_GROUP = 0.5
+# split-K cuts K into as many chunks (at most 8, a portable cluster) as
+# keep every block resident at once when min(M, E) groups have rows: 6
+# blocks of 128 threads an SM (80 registers) on 132 SMs. Past one wave a
+# decode step ran slower (PERF.md §6: gmm_ab.py's chunk sweep).
+SPLITK_SLOTS = 132 * 6
+SPLITK_MAX_CHUNKS = 8
+
+# Kernel launches since import (or since a caller last reset them), in all
+# and by variant. Only the CUDA branch below adds to them, once per
+# launch (one a call).
 launches = 0
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def variant(m: int, e: int, k: int, n: int) -> str:
+    """The bfloat16 kernel for M rows over E groups of (K, N) weights:
+    ``"splitk"`` up to `SPLITK_MAX_ROWS_PER_GROUP` rows a group (a decode
+    step), else ``"wgmma"``. A function of the shapes alone (K and N do
+    not move the crossover measured so far); it never reads a tensor."""
+    return ("splitk" if m <= SPLITK_MAX_ROWS_PER_GROUP * max(e, 1)
+            else "wgmma")
+
+
+@functools.lru_cache(maxsize=256)
+def splitk_plan(m: int, e: int, k: int, n: int) -> tuple[int, int]:
+    """(chunks, kc) of the split-K variant: K in chunks of ``kc`` rows (a
+    multiple of 8), as many as keep the blocks (one per 128 columns of a
+    group's chunk) within `SPLITK_SLOTS` when min(M, E) groups have rows,
+    with at least 64 K rows a chunk and at most `SPLITK_MAX_CHUNKS`."""
+    tiles = max(1, min(m, e)) * -(-n // 128)
+    s = min(max(1, SPLITK_SLOTS // tiles), max(1, k // 64),
+            SPLITK_MAX_CHUNKS)
+    kc = -(-k // s)
+    kc = -(-kc // 8) * 8
+    return -(-k // kc), kc
+
 
 _fns: dict = {}
 
 
-def _kernel(dtype: torch.dtype):
-    fn = _fns.get(dtype)
+def _kernel(name: str):
+    fn = _fns.get(name)
     if fn is None:
         from .. import _build
         lib = _build.load("moe_gmm")
-        if dtype == torch.bfloat16:
-            fn = lib.moe_gmm_bf16
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-                ctypes.c_void_p]
-        else:
-            fn = lib.moe_gmm_f32
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p]
+        fn = getattr(lib, "moe_gmm_bf16_" + name if name != "simt"
+                     else "moe_gmm_f32")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = {"wgmma": [p] * 4 + [i] * 5 + [p],
+                       "splitk": [p] * 4 + [i] * 7 + [p],
+                       "simt": [p] * 4 + [i] * 4 + [p]}[name]
         fn.restype = ctypes.c_int
-        _fns[dtype] = fn
+        _fns[name] = fn
     return fn
 
 
@@ -101,10 +150,42 @@ def _check(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor,
             x.shape[0] * n >= 2**31:
         raise ValueError("x, w and the output must each hold fewer than "
                          "2^31 elements")
+    if w.shape[0] >= 65535:
+        raise ValueError(f"at most 65,534 groups, got {w.shape[0]}")
+
+
+def _pick(dtype: torch.dtype, m: int, e: int, k: int, n: int,
+          forced: str | None) -> str:
+    if dtype != torch.bfloat16:
+        if forced not in (None, "simt"):
+            raise ValueError(f"{dtype} operands take the 'simt' kernel, not "
+                             f"{forced!r}")
+        return "simt"
+    if forced is None:
+        return variant(m, e, k, n)
+    if forced not in ("wgmma", "splitk"):
+        raise ValueError(f"bfloat16 operands take 'wgmma' or 'splitk', not "
+                         f"{forced!r}")
+    return forced
+
+
+def _launch(fn, name: str, x, w, offs, out, m: int, k: int, n: int,
+            e: int) -> int:
+    """One kernel call on the current stream of x's card (the current
+    device); returns the C entry point's code."""
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    ptrs = (x.data_ptr(), w.data_ptr(), offs.data_ptr(), out.data_ptr())
+    if name == "simt":
+        return fn(*ptrs, m, k, n, e, stream)
+    out_f32 = int(out.dtype == torch.float32)
+    if name == "wgmma":
+        return fn(*ptrs, out_f32, m, k, n, e, stream)
+    return fn(*ptrs, out_f32, m, k, n, e, *splitk_plan(m, e, k, n), stream)
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
-        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        out_dtype: torch.dtype = torch.float32,
+        variant: str | None = None) -> torch.Tensor:
     """(M, K) x rows sorted by group, (E, K, N) w and (E+1,) int32 row
     offsets -> (M, N) in ``out_dtype``: rows ``[offs[e], offs[e+1])``
     times ``w[e]``, summed in float32 and rounded once; rows at or past
@@ -113,10 +194,14 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
     ``offs[0]`` is 0 and the offsets do not decrease; offsets past M are
     clipped to M. x and w are both float32 (float32 out) or both bfloat16
     (float32 or bfloat16 out). K and N are multiples of 8. Launches on
-    the current CUDA stream and does not synchronise.
+    the current CUDA stream and does not synchronise. ``variant`` forces
+    one bfloat16 kernel (``"wgmma"`` or ``"splitk"``) for the tests and
+    the kernel checks; the model never passes it.
     """
     global launches
     if x.device.type == "cpu":
+        if variant is not None:
+            _pick(x.dtype, *x.shape[:1], *w.shape, variant)
         return gmm_grouped_ref(x, w, group_offsets, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"grouped matmul runs on cpu or cuda, not "
@@ -124,22 +209,27 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
     _check(x, w, group_offsets, out_dtype)
     m, k = x.shape
     e, _, n = w.shape
+    name = _pick(x.dtype, m, e, k, n, variant)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    fn = _kernel(x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.bfloat16:
-            rc = fn(x.data_ptr(), w.data_ptr(), group_offsets.data_ptr(),
-                    out.data_ptr(), int(out_dtype == torch.float32), m, k,
-                    n, e, stream)
-        else:
-            rc = fn(x.data_ptr(), w.data_ptr(), group_offsets.data_ptr(),
-                    out.data_ptr(), m, k, n, e, stream)
+    if k == 0 or e == 0:   # no products: every row is zero
+        return out.zero_()
+    fn = _kernel(name)
+    idx = x.device.index
+    if idx == torch.cuda.current_device():
+        rc = _launch(fn, name, x, w, group_offsets, out, m, k, n, e)
+    else:
+        with torch.cuda.device(idx):
+            rc = _launch(fn, name, x, w, group_offsets, out, m, k, n, e)
+    if rc < 0:
+        raise RuntimeError(f"grouped matmul: cuTensorMapEncodeTiled refused "
+                           f"a TMA tensor map (CUresult {-rc})")
     if rc != 0:
-        raise RuntimeError(f"grouped matmul launch failed: CUDA error {rc}")
+        raise RuntimeError(f"grouped matmul launch failed ({name}): CUDA "
+                           f"error {rc}")
     launches += 1
+    launches_by_variant[name] += 1
     return out
 
 

@@ -29,3 +29,23 @@ def gmm_grouped_ref(x: torch.Tensor, w: torch.Tensor,
         if hi > lo:
             out[lo:hi] = x[lo:hi].float() @ w[e].float()
     return out.to(out_dtype)
+
+
+def gmm_splitk_ref(x: torch.Tensor, w: torch.Tensor,
+                   group_offsets: torch.Tensor, kc: int,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The order of the split-K kernel (``moe_gmm.variant`` "splitk"): K
+    cut into chunks of ``kc`` rows, each chunk's product summed in
+    float32, the chunks' partial sums added in chunk order and the result
+    rounded once to ``out_dtype``; rows at or past ``offs[E]`` are zero.
+    Inside a chunk the kernel adds the products one by one, in K order; a
+    float32 matmul takes its own order there.
+
+    Reads the offsets on the host (a sync on the card)."""
+    k = x.shape[1]
+    total = None
+    for k0 in range(0, max(k, 1), kc):
+        part = gmm_grouped_ref(x[:, k0:k0 + kc], w[:, k0:k0 + kc],
+                               group_offsets)
+        total = part if total is None else total + part
+    return total.to(out_dtype)

@@ -15,7 +15,9 @@ hot-slab gather exactly. The grouped matmul is held to its plain version
 (float32 products, one float32 matmul per group) at rtol/atol 1e-4 for a
 float32 result: bf16 products are exact in float32, so only the order of
 the sums differs. A bf16 result must equal the kernel's float32 result
-rounded to bf16: the kernel rounds the same sums once.
+rounded to bf16: the kernel rounds the same sums once. Each of its two
+bf16 variants (``wgmma``, ``splitk``) is held so, forced by ``variant=``;
+their bits need not agree with each other.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from repro_torch.kernels.moe_gmm import moe_gmm as gmm_mod  # noqa: E402
 from repro_torch.kernels.moe_gmm.ops import (grouped_matmul,  # noqa: E402
                                              ragged_dot)
 from repro_torch.kernels.moe_gmm.ref import (gmm_grouped_ref,  # noqa: E402
-                                             gmm_ref)
+                                             gmm_ref, gmm_splitk_ref)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -440,7 +442,99 @@ def test_grouped_matmul_refuses_bad_operands_on_the_card():
         gmm_mod.gmm(x, w[:, :, :20].contiguous(), offs)
     with pytest.raises(ValueError, match="contiguous"):
         gmm_mod.gmm(x.t().contiguous().t(), w, offs)
+    by_variant = dict(gmm_mod.launches_by_variant)
+    with pytest.raises(ValueError, match="'wgmma' or 'splitk'"):
+        gmm_mod.gmm(x, w, offs, variant="mma_sync")
+    with pytest.raises(ValueError, match="'simt'"):
+        gmm_mod.gmm(x.float(), w.float(), offs, variant="splitk")
+    with pytest.raises(TypeError, match="is torch.float32"):
+        gmm_mod.gmm(x, w.float(), offs, variant="wgmma")
     assert gmm_mod.launches == launches
+    assert gmm_mod.launches_by_variant == by_variant
+
+
+def _variant_sizes(rng, case, m, e):
+    sizes = np.zeros(e, np.int64)
+    if case == "m1":
+        sizes[e // 3] = 1
+    elif case == "boundary":            # group ends inside 128-row tiles
+        sizes[:] = [50, 100, 78]
+    elif case == "empty":               # 8 groups hold every row
+        sizes[rng.choice(e, 8, replace=False)] = rng.multinomial(
+            m, np.ones(8) / 8)
+    elif case == "one_group":
+        sizes[e // 2] = m
+    elif case == "short":               # rows past offs[E]
+        sizes[:] = rng.multinomial(m - 13, np.ones(e) / e)
+    elif case == "decode":              # 4 tokens, 6 distinct experts each
+        for _ in range(4):
+            sizes[rng.choice(e, 6, replace=False)] += 1
+    else:                               # skewed, with empty groups
+        p = 1.0 / (1 + np.arange(e)) ** 1.2
+        sizes[:] = rng.multinomial(m, p / p.sum())
+        sizes[1] = 0
+    return sizes
+
+
+@pytest.mark.parametrize("variant", ["wgmma", "splitk"])
+@pytest.mark.parametrize("case,m,k,n,e", [
+    ("m1", 1, 2048, 1408, 64),
+    ("boundary", 228, 136, 200, 3),     # K % 64 != 0, N % 128 != 0
+    ("empty", 300, 2048, 1408, 64),
+    ("one_group", 1000, 1408, 2048, 64),
+    ("short", 1000, 2048, 1408, 64),
+    ("skewed", 1000, 1408, 2048, 64),   # the served widths
+    ("decode", 24, 2048, 1408, 64),
+    ("decode", 24, 1408, 2048, 64)])
+def test_gmm_variant_matches_plain_version(variant, case, m, k, n, e):
+    """Each bf16 variant, forced, against the plain version at GMM_TOL
+    (float32 out), its bf16 result the float32 one rounded once, its bits
+    equal on a repeat, rows past offs[E] zero, and three launches counted
+    under its name. The two variants' bits may differ (split-K adds in
+    another order); split-K is also held to its own order's model."""
+    dev = _card()
+    rng = np.random.default_rng(m * k + n + e)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    w = torch.from_numpy((k ** -0.5 * rng.standard_normal((e, k, n))).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    sizes = _variant_sizes(rng, case, m, e)
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(
+        np.int32)).to(dev)
+    before = dict(gmm_mod.launches_by_variant)
+    got = gmm_mod.gmm(x, w, offs, variant=variant)
+    again = gmm_mod.gmm(x, w, offs, variant=variant)
+    half = gmm_mod.gmm(x, w, offs, out_dtype=torch.bfloat16, variant=variant)
+    torch.cuda.synchronize()
+    assert gmm_mod.launches_by_variant == {**before,
+                                           variant: before[variant] + 3}
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    torch.testing.assert_close(got, gmm_grouped_ref(x, w, offs), **GMM_TOL)
+    assert torch.equal(half, got.to(torch.bfloat16))
+    total = int(sizes.sum())
+    assert not got[total:].any() and not half[total:].any()
+    if variant == "splitk":
+        kc = gmm_mod.splitk_plan(m, e, k, n)[1]
+        torch.testing.assert_close(got, gmm_splitk_ref(x, w, offs, kc),
+                                   **GMM_TOL)
+
+
+@pytest.mark.parametrize("m,dtype,want", [
+    (24, torch.bfloat16, "splitk"), (1000, torch.bfloat16, "wgmma"),
+    (24, torch.float32, "simt")])
+def test_gmm_launches_the_variant_its_rule_picks(m, dtype, want):
+    dev = _card()
+    e, k, n = 64, 256, 128
+    x = torch.ones(m, k, device=dev, dtype=dtype)
+    w = torch.full((e, k, n), 0.5, device=dev, dtype=dtype)
+    offs = torch.linspace(0, m, e + 1, device=dev).to(torch.int32)
+    if dtype == torch.bfloat16:
+        assert gmm_mod.variant(m, e, k, n) == want
+    before = dict(gmm_mod.launches_by_variant)
+    got = gmm_mod.gmm(x, w, offs)
+    torch.cuda.synchronize()
+    assert gmm_mod.launches_by_variant == {**before, want: before[want] + 1}
+    assert torch.equal(got, torch.full_like(got, 0.5 * k))
 
 
 def test_moe_model_on_the_card_matches_the_cpu():
