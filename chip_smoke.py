@@ -9,12 +9,20 @@ Phases, in order; any failure exits non-zero and none is caught:
 
 1. Card: print ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile every CUDA source of the port (one ``nvcc`` each, all
-   at once) and print the build seconds, then ptxas's registers and spills
-   of the Hopper flash kernel (``flash_fwd_bf16_wgmma``) and of both bf16
-   grouped-matmul kernels (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``).
+   at once) and print the build seconds, then ptxas's registers, shared
+   memory and spills of both SpMV kernels (``csr_spmv_merge``,
+   ``csr_spmv_carries``), of the Hopper flash kernel
+   (``flash_fwd_bf16_wgmma``) and of both bf16 grouped-matmul kernels
+   (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``).
 3. Kernel check: ``csr_spmv`` against its plain PyTorch version on the
    card (ragged rows, empty rows, a graph with no edges, a bucketed
-   upload with sentinel edges of value 0), rtol 1e-5 / atol 1e-6: float32
+   upload with sentinel edges of value 0; a 100k-edge hub across many
+   blocks' shares; a larger bucketed upload with its full
+   ``t_indptr``, whose sentinel row spans half the edges; the same upload's
+   real rows only, so ``t_indptr[-1] < len(t_indices)``; rows of 512 edges
+   and empty rows that end exactly on every chunk boundary and every
+   block's share; one vertex; views of ``t_indptr``, ``t_indices`` and ``val``
+   at 4-byte but not 16-byte offsets), rtol 1e-5 / atol 1e-6: float32
    sums taken in another order. Each result must also repeat bit for bit.
 4. Serve: ``EngineSession(device="cuda")`` registers a 1M-vertex
    power-law community graph (the repo's ``lj-sim`` recipe, a stand-in
@@ -26,8 +34,8 @@ Phases, in order; any failure exits non-zero and none is caught:
 5. Kernel timing at the served graph's shapes (the real rows of its
    in-CSR, as PR's relaxation passes them): the kernel, its plain
    version, one ``torch.sparse`` CSR product as a yardstick (timed only;
-   the port never calls it) and the bound (bytes over 3.35 TB/s, the
-   H100 SXM's HBM rate).
+   the port never calls it), the bound (bytes over 3.35 TB/s, the
+   H100 SXM's HBM rate) and the wrapper's host ms a call.
 
 Then the LM slice, minicpm-2b at full width (``src/repro_torch/models``,
 weights from ``init_params`` on the card, seed 7):
@@ -194,6 +202,7 @@ def kernel_cases(dev) -> float:
     from repro_torch.core.csr import from_edges
     from repro_torch.core.generators import powerlaw_community
     from repro_torch.engine.backends import bucket_dims
+    from repro_torch.kernels.csr_spmv import csr_spmv as spmv
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -224,6 +233,55 @@ def kernel_cases(dev) -> float:
     errs.append(spmv_check("sentinels", ga.t_indptr, ga.t_indices,
                            ga.edge_valid.to(torch.float32),
                            rand(ga.num_vertices)))
+
+    # a 100k-edge hub: its edges cross many blocks' shares
+    rng = np.random.default_rng(SEED)
+    n = 2000
+    g = from_edges(n, rng.integers(0, n, 103_000),
+                   np.concatenate([np.zeros(100_000, np.int64),
+                                   rng.integers(1, n, 3000)]))
+    ip, ix = in_csr(g)
+    errs.append(spmv_check("hub_100k", ip, ix, rand(ix.numel()), rand(n)))
+    # a bucketed upload, whole: the sentinel row holds half the edges;
+    # then its real rows only, as PR's relaxation passes them
+    g = powerlaw_community(200_000, avg_degree=12.0, seed=SEED)
+    ga = to_device(g, pad_to=bucket_dims(g.num_vertices, g.num_edges),
+                   device=dev)
+    val = ga.edge_valid.to(torch.float32)
+    errs.append(spmv_check("bucket_full", ga.t_indptr, ga.t_indices, val,
+                           rand(ga.num_vertices)))
+    v = g.num_vertices
+    errs.append(spmv_check("bucket_prefix", ga.t_indptr[:v + 1],
+                           ga.t_indices, val, rand(v)))
+    # rows of 512 edges and empty rows, ending on every 2,048-edge chunk
+    # boundary and every block's share (8 rows of 512 edges and one empty
+    # row a block: 4,105 items)
+    blocks = spmv.blocks(torch.cuda.current_device())
+    deg = np.tile([512] * 8 + [0], blocks)
+    ip = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)])
+                          .astype(np.int32)).to(dev)
+    ix = torch.randint(0, deg.size, (int(deg.sum()),), generator=gen,
+                       device=dev, dtype=torch.int32)
+    errs.append(spmv_check("boundaries", ip, ix, rand(ix.numel()),
+                           rand(deg.size)))
+    # one vertex with 5,000 self-loops
+    ip = torch.tensor([0, 5000], dtype=torch.int32, device=dev)
+    errs.append(spmv_check("one_vertex", ip,
+                           torch.zeros(5000, dtype=torch.int32, device=dev),
+                           rand(5000), rand(1)))
+    # views at 4-byte, not 16-byte, offsets
+    g = powerlaw_community(20_000, avg_degree=12.0, mixing=0.12, seed=SEED)
+    ip, ix = in_csr(g)
+    e = ix.numel()
+    ipv = torch.empty(ip.numel() + 2, dtype=torch.int32, device=dev)[2:]
+    ixv = torch.empty(e + 1, dtype=torch.int32, device=dev)[1:]
+    valv = torch.empty(e + 3, device=dev)[3:]
+    ipv.copy_(ip)
+    ixv.copy_(ix)
+    valv.copy_(rand(e))
+    if any(t.data_ptr() % 16 == 0 for t in (ipv, ixv, valv)):
+        raise AssertionError("the views must not be 16-byte aligned")
+    errs.append(spmv_check("views", ipv, ixv, valv, rand(g.num_vertices)))
     return max(errs)
 
 
@@ -312,16 +370,19 @@ def time_spmv(entry) -> tuple[dict, float]:
     mat = torch.sparse_csr_tensor(ip, ix[:e], val[:e], size=(n, n),
                                   check_invariants=True)
     library_ms = cuda_ms(lambda: mat @ x, reps=50)
+    host = host_ms(lambda: spmv.csr_spmv(ip, ix, val, x))
     spmv.launches = kept  # timing launches are not the main path's
     nbytes = 4 * (n + 1) + 8 * e + 4 * n + 4 * n
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * e / F32_FLOPS * 1e3
     print(f"csr_spmv timing: rows={n} edges={e} ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-          f"bound_ms={max(bytes_ms, ops_ms):.4f} ({nbytes} bytes)")
+          f"bound_ms={max(bytes_ms, ops_ms):.4f} ({nbytes} bytes) "
+          f"host_ms={host:.4f}")
     return ({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
              "bound_ms": max(bytes_ms, ops_ms),
-             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"},
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "host_ms": host},
             err)
 
 
@@ -1220,11 +1281,16 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
-    for name, kernel in (("flash_attn", "flash_fwd_bf16_wgmma"),
+    for name, kernel in (("csr_spmv", "csr_spmv_merge"),
+                         ("csr_spmv", "csr_spmv_carries"),
+                         ("flash_attn", "flash_fwd_bf16_wgmma"),
                          ("moe_gmm", "gmm_bf16_wgmma"),
                          ("moe_gmm", "gmm_bf16_splitk")):
         for line in _build.ptxas_report(name, kernel):
             print(f"ptxas: {line}")
+    smem = _build.load("csr_spmv").csr_spmv_smem_bytes()
+    print(f"csr_spmv_merge: {smem} bytes of dynamic shared memory "
+          f"a block")
 
     err = kernel_cases(dev)
     served = serve(dev, NUM_VERTICES)

@@ -1,10 +1,14 @@
 """Pull-mode CSR SpMV, PageRank's relaxation: the wrapper of a CUDA kernel.
 
 Replaces the TPU kernel ``csr_spmv_pallas`` of the JAX package
-(``src/repro/kernels/csr_spmv/csr_spmv.py:80-104``, ``pl.pallas_call`` at
-``:88``). The CUDA source is ``repro_torch/csrc/csr_spmv.cu``: one warp per
-destination row, lanes striding over the row's in-edges, a fixed shuffle
-tree per row, so the sum order is fixed and no atomics are needed.
+(``src/repro/kernels/csr_spmv/csr_spmv.py:78-104``, ``pl.pallas_call`` at
+``:88``). The CUDA source is ``repro_torch/csrc/csr_spmv.cu``: an
+edge-balanced grid of a fixed number of blocks a SM, each streaming its
+slice of the edge arrays and of the row ends through shared memory with
+bulk (TMA) copies and walking their merge, 8 items a thread, with a fixed
+segmented-scan tree; rows cut between blocks are summed in parts by a
+second small kernel, in block order. The sum order is fixed and nothing
+is added with an atomic, so a call repeats its bits.
 
 What bounds it on an H100: bytes. A call streams about ``8E + 8V`` bytes
 (``t_indices`` and ``val`` per edge, ``t_indptr`` and ``y`` per row); the
@@ -18,7 +22,8 @@ power-law graph (13.5M edges) the packing grew to 218M slots, 16.2x the
 edges. Reading the in-CSR rows as they are costs no padding at all.
 
 On a CPU tensor the wrapper runs the plain version (`ref.csr_spmv_ref`);
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel or raises. `ref.csr_spmv_blocked_ref`
+is a plain model of the kernel's partition, for the tests only.
 """
 from __future__ import annotations
 
@@ -32,18 +37,34 @@ from .ref import csr_spmv_ref
 # the CUDA branch below adds to it, once per launch.
 launches = 0
 
-_fn = None
+_lib = None
+_blocks: dict[int, int] = {}   # card index -> blocks of the kernel's grid
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
+    global _lib
+    if _lib is None:
         from .. import _build
-        fn = _build.load("csr_spmv").csr_spmv_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        lib = _build.load("csr_spmv")
+        p = ctypes.c_void_p
+        lib.csr_spmv_f32.argtypes = [p] * 7 + [ctypes.c_int,
+                                               ctypes.c_longlong,
+                                               ctypes.c_int, p]
+        lib.csr_spmv_f32.restype = ctypes.c_int
+        lib.csr_spmv_blocks.argtypes = [ctypes.c_int]
+        lib.csr_spmv_blocks.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def blocks(index: int) -> int:
+    """Blocks of the kernel's grid on card ``index``: a fixed number a SM,
+    from the SM count alone. The workspace holds one partial sum and one
+    row id for each."""
+    count = _blocks.get(index)
+    if count is None:
+        count = _blocks[index] = _kernel().csr_spmv_blocks(index)
+    return count
 
 
 def _check(t_indptr, t_indices, val, x) -> int:
@@ -83,14 +104,24 @@ def csr_spmv(t_indptr: torch.Tensor, t_indices: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmv runs on cpu or cuda, not {x.device}")
     n = _check(t_indptr, t_indices, val, x)
-    y = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:
-        return y
-    fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(t_indptr.data_ptr(), t_indices.data_ptr(), val.data_ptr(),
-                x.data_ptr(), y.data_ptr(), n, stream)
+        return torch.empty(0, dtype=torch.float32, device=x.device)
+    lib = _kernel()
+    index = x.device.index
+    nb = blocks(index)
+    # One allocation: y, then the workspace of the blocks' open rows (a
+    # partial sum and a row id a block), whose contents need not be set.
+    out = torch.empty(n + 2 * nb, dtype=torch.float32, device=x.device)
+    y = out[:n]
+    work = out.data_ptr() + 4 * n
+    args = (t_indptr.data_ptr(), t_indices.data_ptr(), val.data_ptr(),
+            x.data_ptr(), y.data_ptr(), work, work + 4 * nb, n,
+            t_indices.shape[0], nb, torch._C._cuda_getCurrentRawStream(index))
+    if index == torch.cuda.current_device():
+        rc = lib.csr_spmv_f32(*args)
+    else:
+        with torch.cuda.device(index):
+            rc = lib.csr_spmv_f32(*args)
     if rc != 0:
         raise RuntimeError(f"csr_spmv launch failed: CUDA error {rc}")
     launches += 1

@@ -8,7 +8,12 @@ so it runs on a host that has only the port's dependencies::
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 The SpMV kernel is held to its plain version at rtol 1e-5 / atol 1e-6:
-the float32 sums of a row are taken in another order. The flash kernel is
+the float32 sums of a row are taken in another order. It is also held,
+at the same tolerance, to the plain model of its partition
+(``ref.csr_spmv_blocked_ref``: equal shares of the merged row ends and
+edges a block, rows cut at share and step boundaries, parts added in
+block order), and every result must
+repeat bit for bit. The flash kernel is
 held to its plain version at the reference test's tolerances
 (tests/test_kernels.py: float32 rtol 1e-3 / atol 2e-3, bf16 5e-2), the
 hot-slab gather exactly. The grouped matmul is held to its plain version
@@ -29,7 +34,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.csr import from_edges  # noqa: E402
 from repro_torch.engine import BatchedExecutor, EngineSession  # noqa: E402
 from repro_torch.kernels.csr_spmv import csr_spmv as spmv_mod  # noqa: E402
-from repro_torch.kernels.csr_spmv.ref import csr_spmv_ref  # noqa: E402
+from repro_torch.kernels.csr_spmv.ref import (csr_spmv_blocked_ref,  # noqa: E402
+                                             csr_spmv_ref)
 from repro_torch.kernels.flash_attn import flash_attn as fa  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.hot_embed import hot_embed as he  # noqa: E402
@@ -59,8 +65,8 @@ def _in_csr(g, dev):
 @pytest.mark.parametrize("num_vertices,num_edges", [
     (1, 0), (40, 39), (700, 20_000), (3000, 5000)])
 def test_kernel_matches_plain_version(num_vertices, num_edges):
-    """Random graphs: rows shorter and longer than the 4x32-edge unroll,
-    and empty rows."""
+    """Random graphs: fewer edges than the grid has blocks, rows shorter
+    and longer than a block's range, and empty rows."""
     dev = _card()
     rng = np.random.default_rng(num_edges)
     g = from_edges(num_vertices, rng.integers(0, num_vertices, num_edges),
@@ -80,7 +86,8 @@ def test_kernel_matches_plain_version(num_vertices, num_edges):
 
 
 def test_kernel_one_long_row():
-    """A hub row of 100k in-edges, walked by one warp, beside short rows."""
+    """A hub row of 100k in-edges, summed in parts by the blocks whose
+    shares it crosses and added in block order, beside short rows."""
     dev = _card()
     rng = np.random.default_rng(1)
     n = 2000
@@ -96,6 +103,153 @@ def test_kernel_one_long_row():
     want = csr_spmv_ref(ip.cpu(), ix.cpu(), val.cpu().double(),
                         x.cpu().double())
     torch.testing.assert_close(got.cpu().double(), want, **TOL)
+
+
+def _spmv_holds(ip, ix, val, x, model=True):
+    """The kernel against its plain version and the model of its
+    partition; two runs must give the same bits. Returns the result."""
+    launches = spmv_mod.launches
+    got = spmv_mod.csr_spmv(ip, ix, val, x)
+    again = spmv_mod.csr_spmv(ip, ix, val, x)
+    torch.cuda.synchronize()
+    assert spmv_mod.launches == launches + 2
+    assert got.dtype == torch.float32 and got.shape == (ip.numel() - 1,)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, csr_spmv_ref(ip, ix, val, x), **TOL)
+    if model:   # the kernel's own grid and step of 2,048 items
+        want = csr_spmv_blocked_ref(ip.cpu(), ix.cpu(), val.cpu(), x.cpu(),
+                                    spmv_mod.blocks(x.device.index), 2048)
+        torch.testing.assert_close(got.cpu(), want, **TOL)
+    return got
+
+
+def _random_csr(rng, num_vertices, num_edges, dev):
+    g = from_edges(num_vertices, rng.integers(0, num_vertices, num_edges),
+                   rng.integers(0, num_vertices, num_edges))
+    ip, ix = _in_csr(g, dev)
+    val = torch.from_numpy(rng.random(num_edges, np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal(num_vertices)
+                         .astype(np.float32)).to(dev)
+    return ip, ix, val, x
+
+
+@pytest.mark.parametrize("edges_per_block", [0.5, 1, 700, 2048, 5000,
+                                             12_000])
+def test_kernel_across_block_ranges(edges_per_block):
+    """Random graphs sized by the card's grid: blocks with less than one
+    edge, with one, inside one 2,048-edge chunk, about one chunk, and
+    several chunks, so that rows cross 1, 2 and many blocks' shares."""
+    dev = _card()
+    blocks = spmv_mod.blocks(torch.cuda.current_device())
+    num_edges = int(edges_per_block * blocks)
+    rng = np.random.default_rng(num_edges)
+    num_vertices = max(1, num_edges // 12)
+    _spmv_holds(*_random_csr(rng, num_vertices, num_edges, dev))
+
+
+def test_kernel_hub_across_ranges_repeats_its_bits():
+    """The 100k-edge hub spans many blocks' ranges; its parts are added
+    in block order by the second kernel, so five runs give one result."""
+    dev = _card()
+    rng = np.random.default_rng(2)
+    n = 2000
+    g = from_edges(n, rng.integers(0, n, 103_000),
+                   np.concatenate([np.zeros(100_000, np.int64),
+                                   rng.integers(1, n, 3000)]))
+    ip, ix = _in_csr(g, dev)
+    val = torch.from_numpy(rng.random(ix.numel(), np.float32)).to(dev)
+    x = torch.from_numpy(rng.random(n, np.float32)).to(dev)
+    got = _spmv_holds(ip, ix, val, x)
+    for _ in range(3):
+        assert torch.equal(spmv_mod.csr_spmv(ip, ix, val, x), got)
+
+
+@pytest.mark.parametrize("rows", ["all", "real"])
+def test_kernel_bucketed_upload(rows):
+    """A bucketed upload: its full ``t_indptr``, whose last padded row
+    holds every sentinel edge (half the edge bucket), or its real rows
+    only, as PR's relaxation passes them, so that ``t_indptr[-1]`` is
+    less than ``len(t_indices)``."""
+    from repro_torch.algos.graph_arrays import to_device
+    from repro_torch.core.generators import powerlaw_community
+    from repro_torch.engine.backends import bucket_dims
+    dev = _card()
+    g = powerlaw_community(50_000, avg_degree=12.0, seed=3)
+    ga = to_device(g, pad_to=bucket_dims(g.num_vertices, g.num_edges),
+                   device=dev)
+    n = ga.num_vertices if rows == "all" else g.num_vertices
+    ip = ga.t_indptr[:n + 1]
+    assert rows == "all" or int(ip[-1]) < ga.t_indices.numel()
+    x = torch.from_numpy(np.random.default_rng(4).random(n, np.float32))
+    _spmv_holds(ip, ga.t_indices, ga.edge_valid.to(torch.float32),
+                x.to(dev))
+
+
+def test_kernel_rows_ending_on_boundaries():
+    """Rows of 512 edges and empty rows that end exactly on every
+    2,048-edge chunk boundary and on every block's share: 8 rows of 512
+    edges and one empty row a block, 4,105 items, so each share ends
+    right after an empty row's end."""
+    dev = _card()
+    blocks = spmv_mod.blocks(torch.cuda.current_device())
+    deg = np.tile([512] * 8 + [0], blocks)
+    rng = np.random.default_rng(5)
+    ip = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)])
+                          .astype(np.int32)).to(dev)
+    e = int(deg.sum())
+    assert e == 4096 * blocks
+    ix = torch.from_numpy(rng.integers(0, deg.size, e, dtype=np.int32))
+    val = torch.from_numpy(rng.random(e, np.float32))
+    x = torch.from_numpy(rng.random(deg.size, np.float32))
+    _spmv_holds(ip, ix.to(dev), val.to(dev), x.to(dev))
+
+
+def test_kernel_one_vertex():
+    dev = _card()
+    rng = np.random.default_rng(6)
+    ip = torch.tensor([0, 5000], dtype=torch.int32, device=dev)
+    ix = torch.zeros(5000, dtype=torch.int32, device=dev)
+    val = torch.from_numpy(rng.random(5000, np.float32)).to(dev)
+    x = torch.tensor([0.5], device=dev)
+    got = _spmv_holds(ip, ix, val, x)
+    assert got.shape == (1,)
+
+
+@pytest.mark.parametrize("offsets", [(1, 0, 0), (0, 1, 3), (2, 3, 1)],
+                         ids=["indices", "values", "all"])
+def test_kernel_takes_unaligned_views(offsets):
+    """Views at 4-byte but not 16-byte offsets: the bulk copies widen to
+    16-byte boundaries and the elements outside the array come from
+    plain loads."""
+    dev = _card()
+    rng = np.random.default_rng(7)
+    ip, ix, val, x = _random_csr(rng, 3000, 40_000, dev)
+    views = []
+    for t, off in zip((ip, ix, val), offsets):
+        v = torch.empty(t.numel() + off, dtype=t.dtype, device=dev)[off:]
+        v.copy_(t)
+        assert off == 0 or v.data_ptr() % 16 != 0
+        views.append(v)
+    got = _spmv_holds(*views, x)
+    assert torch.equal(got, spmv_mod.csr_spmv(ip, ix, val, x))
+
+
+def test_kernel_does_not_sync_with_the_host():
+    """No host read of the edge count or anything else: the wrapper runs
+    under ``set_sync_debug_mode("error")``, on a bucketed prefix."""
+    dev = _card()
+    rng = np.random.default_rng(8)
+    ip, ix, val, x = _random_csr(rng, 5000, 60_000, dev)
+    spmv_mod.csr_spmv(ip, ix, val, x)   # load the library first
+    pad = torch.zeros(1000, dtype=torch.int32, device=dev)
+    ixp, valp = torch.cat([ix, pad]), torch.cat([val, pad.float()])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = spmv_mod.csr_spmv(ip, ixp, valp, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.testing.assert_close(got, csr_spmv_ref(ip, ix, val, x), **TOL)
 
 
 def test_kernel_refuses_bad_operands_on_the_card():
