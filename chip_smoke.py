@@ -5,7 +5,10 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero and none is caught:
+Phases, in order; any failure exits non-zero and none is caught. Each
+prints its wall seconds. The k-NN corpora's NSW graphs and host oracles
+are made in two worker processes started with the run (spawned before
+any CUDA work, joined before it exits), beside phases 1-5.
 
 1. Card: print ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile every CUDA source of the port (one ``nvcc`` each, all
@@ -37,6 +40,25 @@ Phases, in order; any failure exits non-zero and none is caught:
    the port never calls it), the bound (bytes over 3.35 TB/s, the
    H100 SXM's HBM rate) and the wrapper's host ms a call.
 
+k-NN search through ``EngineSession(device="cuda")``, the default
+``SearchParams`` (beam 32, k_return 10, 96 steps):
+
+* tests/test_search.py:164's corpus (240 x 8, NSW k 8): recall@10 of at
+  least 0.95 against brute force;
+* ``clustered_vectors(16_384, dim=128, num_clusters=64, seed=1)`` (SIFT1M's
+  width with 16,384 of its 1,000,000 base vectors: the host NSW builder
+  takes about 9 ms an insert), NSW k 16, 1,024 queries (corpus rows plus
+  N(0, 0.01) jitter): at least 99% of the rows equal to the host beam
+  search's (``core/baselines.knn_search_baseline``; float32 distances
+  summed in another order may swap near-tied candidates) and recall@10
+  within 0.01 of the host's; the same ids on a repeat and after
+  ``refresh_hotness`` moves the graph to the visit-sorted layout and then
+  patches it; the launch wall, the loop's iterations, the visited masks'
+  bytes, the launch wall at 1, 64 and 1,024 queries;
+* 2,048 integer-valued vectors of d 16 (exact float32 distances), NSW k
+  8, 64 queries: every id equals the host oracle's and the summed visits
+  equal the host's.
+
 Then the LM slice, minicpm-2b at full width (``src/repro_torch/models``,
 weights from ``init_params`` on the card, seed 7):
 
@@ -44,8 +66,15 @@ weights from ``init_params`` on the card, seed 7):
    reference test's shapes (tests/test_kernels.py:61-103: (2,256,64),
    (1,512,128), (3,256,32), window 0 and 128) plus S = 300 and a
    causality case, float32 at rtol 1e-3 / atol 2e-3 and bf16 at 5e-2;
-   ``hot_gather`` at the reference cases plus all-cold ids and H = vocab,
-   exact. Each result must also repeat bit for bit.
+   grouped-query attention (k and v of 8 / group rows for 8 query rows,
+   groups 2, 4 and 8) in every variant (bf16 at d 64, 128, 16, 32 and
+   float32), window 0 and 128, S 256, 300 and 4,096, at the same
+   tolerances and equal, bit for bit, to the same kernel on k and v
+   repeated per query row; multi-head calls give the bits the kernel gave
+   before it took grouped-query attention
+   (tests/test_torch_cuda.py::MHA_DIGESTS); ``hot_gather`` at the
+   reference cases plus all-cold ids and H = vocab, exact. Each result
+   must also repeat bit for bit.
 7. Prefill: ``forward`` on 1 x 32,768 tokens (the ``prefill_32k`` sequence,
    its global batch of 32 cut to 1 for one card) at all 40 layers; 40
    flash launches, all of them through the ``wgmma`` variant (bf16 at
@@ -80,6 +109,13 @@ weights from ``init_params`` on the card, seed 7):
     float32-faithful PV (``faithful_bound_ms``: the split PV's
     ``6·d·S(S+1)/2·BH`` FLOPs at the bf16 rate), which SDPA, rounding p to
     bf16, is not held to.
+
+Then phases 7-11 on qwen2.5-3b at full width and depth (36 layers, d
+2048, 16 heads of 128 over 2 kv heads, d_ff 11008, vocab 151,936, QKV
+bias, tied embeddings: 3,085,844,480 parameters): 36 flash launches a
+prefill, all ``wgmma`` with grouped kv (group 8), flash held to its plain
+version on layer 0's real q and grouped k/v, timed beside
+``F.scaled_dot_product_attention(..., enable_gqa=True)``.
 
 Then the MoE slice, moonshot-v1-16b-a3b at full width (d 2048, 16 heads
 of 128, 64 experts of d_ff 1408, top-6, 2 shared experts), its depth cut
@@ -136,6 +172,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12               # H100 SXM float32 outside tensor cores
 BF16_FLOPS = 989e12             # H100 SXM bf16 dense tensor cores
 ARCH = "minicpm-2b"
+GQA_ARCH = "qwen2.5-3b"
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_LAYERS = 16                 # of 48: what one 80 GB card holds in f32
 PREFILL_TOKENS = 32_768
@@ -146,6 +183,12 @@ DECODE_TOL = dict(rtol=0.15, atol=0.15)
 GMM_TOL = dict(rtol=1e-4, atol=1e-4)   # float32 sums of exact products
 ROUTE_TIE = 1e-3        # router margin (probability) that rounding can cross
 SWEEP_TOKENS = (4, 8, 16, 64, 256, 768, 1024, 4096, 32_768)   # phase 13
+# k-NN: SIFT1M's width (d 128) with 16,384 of its 1,000,000 base vectors:
+# the host NSW builder takes about 9 ms an insert
+KNN_VECTORS, KNN_DIM, KNN_K = 16_384, 128, 16
+KNN_QUERIES = 1024
+KNN_RECALL = 0.95     # tests/test_search.py:164, on its own corpus
+KNN_AGREE = 0.99      # float corpus: rows equal to the host oracle's
 
 
 def card_line() -> str:
@@ -386,32 +429,231 @@ def time_spmv(entry) -> tuple[dict, float]:
             err)
 
 
+# ------------------------------------------------------------------ k-NN
+def search_corpus(kind: str, num_vectors: int = KNN_VECTORS,
+                  num_queries: int = KNN_QUERIES) -> dict:
+    """A k-NN corpus, its NSW graph and its host oracles, made on the
+    host. Runs in a process of its own, started with the run, so that it
+    overlaps the graph phases.
+
+    ``clustered``: `clustered_vectors(16_384, dim=128, num_clusters=64,
+    seed=1)`, NSW k 16, and for its ``num_queries`` queries (seed 0) the
+    host beam search's ids and visits (`knn_search_baseline`, the
+    reference's search in float32 at the default beam) and the
+    brute-force ids. ``integer``: 2,048 integer-valued vectors of d 16 in
+    [0, 12) (exact float32 distances), NSW k 8. ``reference``:
+    tests/test_search.py's corpus (240 x 8, 5 clusters, NSW k 8)."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.baselines import knn_search_baseline
+    from repro_torch.core.generators import clustered_vectors
+    from repro_torch.search import (build_nsw_graph, knn_brute_force,
+                                    medoid_entry)
+    t0 = time.perf_counter()
+    if kind == "clustered":
+        vecs, _ = clustered_vectors(num_vectors, dim=KNN_DIM,
+                                    num_clusters=64, seed=1)
+        k = KNN_K
+    elif kind == "integer":
+        vecs = np.random.default_rng(SEED).integers(0, 12, (2048, 16)).astype(
+            np.float32)
+        k = 8
+    else:
+        vecs, _ = clustered_vectors(240, dim=8, num_clusters=5, seed=1)
+        k = 8
+    out = {"vectors": vecs, "graph": build_nsw_graph(vecs, k=k),
+           "seconds": time.perf_counter() - t0}
+    if kind == "clustered":
+        t0 = time.perf_counter()
+        queries = knn_queries(vecs, num_queries, seed=0)
+        start = medoid_entry(vecs)
+        host = [knn_search_baseline(out["graph"], vecs, q, start)
+                for q in queries]
+        out.update(host_ids=np.stack([h[0] for h in host]),
+                   host_visits=sum(int(h[1].sum()) for h in host),
+                   brute=knn_brute_force(vecs, queries, 10),
+                   oracle_seconds=time.perf_counter() - t0)
+    return out
+
+
+def knn_queries(vecs, n: int, seed: int):
+    """Corpus rows plus N(0, 0.01) jitter (tests/test_search.py's
+    queries)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    q = vecs[rng.integers(0, len(vecs), n)]
+    return (q + rng.normal(0, 0.01, q.shape)).astype(np.float32)
+
+
+def knn_phase(dev, corpora: dict, card: str) -> dict:
+    """k-NN search served through ``EngineSession`` on the card: recall@10
+    against brute force on the clustered corpus, the host oracle's ids and
+    visits on the integer one, the same ids across the identity,
+    visit-sorted and patched layouts and on a repeat; the launch walls."""
+    import numpy as np
+    import torch
+    from repro_torch.algos import kernels as K
+    from repro_torch.core.baselines import knn_search_baseline
+    from repro_torch.engine import EngineSession
+    from repro_torch.search import knn_brute_force, medoid_entry
+
+    def recall(got, want):
+        return float(np.mean([len(set(a) & set(b)) / want.shape[1]
+                              for a, b in zip(got.tolist(), want.tolist())]))
+
+    built = corpora["reference"].result()
+    with EngineSession(device=dev) as s0:
+        vecs = built["vectors"]
+        gid = s0.register(built["graph"], "knn-reference", vectors=vecs)
+        q = knn_queries(vecs, 24, seed=0)
+        small = recall(s0.submit(gid, "knn", q), knn_brute_force(vecs, q, 10))
+    print(f"knn reference corpus (tests/test_search.py:164, 240 x 8): "
+          f"recall@10 {small:.4f}")
+    if small < KNN_RECALL:
+        raise AssertionError(f"knn recall@10 {small} on the reference "
+                             f"corpus")
+
+    built = corpora["clustered"].result()
+    vecs, g = built["vectors"], built["graph"]
+    print(f"knn corpus: {len(vecs)} x {vecs.shape[1]} clustered vectors, "
+          f"NSW k {KNN_K}, {g.num_edges} edges, built on the host in "
+          f"{built['seconds']:.1f} s, host oracles in "
+          f"{built['oracle_seconds']:.1f} s (beside the graph phases)")
+    session = EngineSession(device=dev)
+    gid = session.register(g, "knn-sift-cut", vectors=vecs)
+    entry = session.registry.get(gid)
+    p = entry.search_params
+    print(f"knn registered: bucket {entry.bucket_shape}, {p}")
+
+    def launch_wall():
+        return session.metrics().histogram(
+            "engine_launch_wall_seconds", "device wall per launch",
+            kernel="knn", backend="single").sum
+
+    queries = knn_queries(vecs, KNN_QUERIES, seed=0)
+    K.knn_iterations = 0
+    wall0 = launch_wall()
+    t0 = time.perf_counter()
+    ids = session.submit(gid, "knn", queries)
+    seconds = time.perf_counter() - t0
+    wall = launch_wall() - wall0
+    iterations = K.knn_iterations
+    lanes = 1 << (KNN_QUERIES - 1).bit_length()
+    mask_bytes = lanes * entry.bucket_shape[0]
+    served_visits = entry.visits_total
+    rows = float(np.mean([np.array_equal(a, b) for a, b in
+                          zip(ids, built["host_ids"])]))
+    got_recall = recall(ids, built["brute"])
+    host_recall = recall(built["host_ids"], built["brute"])
+    print(f"knn: {KNN_QUERIES} queries, launch wall {wall:.4f} s "
+          f"(submit {seconds:.4f} s), {iterations} loop iterations, "
+          f"visited masks {mask_bytes} bytes ({lanes} x "
+          f"{entry.bucket_shape[0]} bool) [{card}]")
+    print(f"knn: {100 * rows:.2f}% of the rows equal the host oracle's; "
+          f"visits {served_visits} (host {built['host_visits']}); "
+          f"recall@{p.k_return} {got_recall:.4f} (host oracle "
+          f"{host_recall:.4f})")
+    # float32 distances summed in another order may swap near-tied
+    # candidates: most rows, not all, must equal the host's
+    if rows < KNN_AGREE or got_recall < host_recall - 0.01:
+        raise AssertionError(f"knn: {rows} of the rows equal the host "
+                             f"oracle's, recall {got_recall} against its "
+                             f"{host_recall}")
+    if not 0 < iterations <= p.max_steps:
+        raise AssertionError(f"knn ran {iterations} iterations")
+
+    # a repeat, past the result cache: the same bits
+    handle = entry.handle
+    first, visits = session.executor.single.run(handle, "knn", queries)
+    again, visits2 = session.executor.single.run(handle, "knn", queries)
+    if not (torch.equal(first, again) and torch.equal(visits, visits2)):
+        raise AssertionError("knn: two runs differ")
+    if first.device.type != dev.type:
+        raise AssertionError(f"knn ran on {first.device}")
+    # the identity layout, then visit-sorted, then patched
+    tiers = []
+    for _ in range(2):
+        r = session.refresh_hotness(gid)
+        tiers.append((r["tier"], r["scheme"]))
+        if not np.array_equal(session.submit(gid, "knn", queries), ids):
+            raise AssertionError(f"knn ids changed with the layout {r}")
+    if tiers != [("full", "visitsort"), ("patch", "visitsort")]:
+        raise AssertionError(f"knn refresh_hotness tiers {tiers}")
+    print(f"knn: ids bit-identical across the identity layout and "
+          f"refresh_hotness {tiers}, and on a repeat")
+
+    walls = {}
+    for n, seed in ((1, 1), (64, 2), (KNN_QUERIES, 3)):
+        q = knn_queries(vecs, n, seed)
+        w0 = launch_wall()
+        session.submit(gid, "knn", q)
+        walls[n] = launch_wall() - w0
+    print(f"knn batch launch wall by batch size: "
+          + ", ".join(f"{n}: {w:.4f} s" for n, w in walls.items())
+          + f" [{card}]")
+    session.close()
+
+    built = corpora["integer"].result()
+    ivecs, ig = built["vectors"], built["graph"]
+    iq = np.random.default_rng(SEED + 1).integers(0, 12, (64, 16)).astype(
+        np.float32)
+    with EngineSession(device=dev) as s2:
+        gid = s2.register(ig, "knn-int", vectors=ivecs)
+        got = s2.submit(gid, "knn", iq)
+        served_visits = s2.registry.get(gid).visits_total
+    start = medoid_entry(ivecs)
+    host_visits = 0
+    for q, row in zip(iq, got):
+        want, visited = knn_search_baseline(ig, ivecs, q, start)
+        host_visits += int(visited.sum())
+        if row.tolist() != want.tolist():
+            raise AssertionError(f"knn ids {row} != host oracle {want}")
+    if served_visits != host_visits:
+        raise AssertionError(f"knn visits {served_visits} != host "
+                             f"{host_visits}")
+    print(f"knn integer corpus: {len(ivecs)} x {ivecs.shape[1]}, NSW k 8, "
+          f"{len(iq)} queries: every id equals the host oracle's, visits "
+          f"{served_visits} equal the host's")
+    return {"launch_wall_s": wall, "iterations": iterations,
+            "mask_bytes": mask_bytes, "recall": got_recall, "walls": walls}
+
+
 # ------------------------------------------------------------ the LM slice
 def flash_check(name, q, k, v, window=0, rows=None, tol=None) -> float:
     """Kernel vs plain version on the same card tensors; returns max |err|.
 
-    ``rows`` limits the comparison to those (b·h) rows of the kernel's
-    output, each against the plain version on that row alone (the plain
-    version materialises S x S logits). ``tol`` defaults to the reference
-    test's tolerance for q's dtype."""
+    k and v may hold BH / group rows (grouped-query attention); then the
+    kernel must also give the bits it gives on k and v repeated per query
+    row. ``rows`` limits the comparison to those (b·h) rows of the
+    kernel's output, each against the plain version on that row and its
+    kv row alone (the plain version materialises S x S logits). ``tol``
+    defaults to the reference test's tolerance for q's dtype."""
     import torch
     from repro_torch.kernels.flash_attn import flash_attn as fa
     from repro_torch.kernels.flash_attn.ref import attention_ref
+    group = fa.kv_group(q, k, v)
     got = fa.flash_attention(q, k, v, window=window)
     again = fa.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError(f"flash_attention[{name}]: two runs differ")
+    if group > 1 and not torch.equal(got, fa.flash_attention(
+            q, k.repeat_interleave(group, 0), v.repeat_interleave(group, 0),
+            window=window)):
+        raise AssertionError(f"flash_attention[{name}]: grouped kv differs "
+                             f"from the same kv repeated per query row")
     tol = tol or FLASH_TOL[str(q.dtype).removeprefix("torch.")]
     err = 0.0
-    for sl in ([slice(None)] if rows is None
-               else [slice(i, i + 1) for i in rows]):
-        want = attention_ref(q[sl], k[sl], v[sl], window=window).float()
+    for sl, kv in ([(slice(None), slice(None))] if rows is None
+                   else [(slice(i, i + 1), slice(i // group, i // group + 1))
+                         for i in rows]):
+        want = attention_ref(q[sl], k[kv], v[kv], window=window).float()
         torch.testing.assert_close(got[sl].float(), want, **tol)
         err = max(err, float((got[sl].float() - want).abs().max()))
         del want
-    print(f"flash_attention[{name}]: shape={tuple(q.shape)} "
-          f"dtype={q.dtype} window={window} max_abs_err={err:.3e}")
+    print(f"flash_attention[{name}]: shape={tuple(q.shape)} kv rows="
+          f"{k.shape[0]} dtype={q.dtype} window={window} "
+          f"max_abs_err={err:.3e}")
     return err
 
 
@@ -469,6 +711,32 @@ def lm_kernel_cases(dev) -> tuple[float, float]:
         print(f"flash_attention[causality, {dtype}]: rows before the "
               f"corrupted keys unchanged")
 
+    # grouped-query attention in every variant: 8 query rows over 8 /
+    # group kv rows
+    for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 128),
+                     (torch.bfloat16, 16), (torch.bfloat16, 32),
+                     (torch.float32, 64)):
+        for group in (2, 4, 8):
+            for s in (256, 300, 4096):
+                for window in (0, 128):
+                    q = normal((8, s, d), dtype)
+                    k, v = (normal((8 // group, s, d), dtype)
+                            for _ in range(2))
+                    flash_err = max(flash_err, flash_check(
+                        f"gqa group {group}, 8x{s}x{d}", q, k, v, window))
+    # multi-head calls keep the bits of the kernel before it took
+    # grouped-query attention (tests/test_torch_cuda.py::MHA_DIGESTS)
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    tc = card_tests()
+    for case in tc.DIGEST_CASES:
+        dtype, d, s, window = case
+        got = tc.flash_digest(fa.flash_attention, *case, dev)
+        if got != tc.MHA_DIGESTS[(d, s, window, str(dtype))]:
+            raise AssertionError(f"flash_attention[{case}]: multi-head bits "
+                                 f"changed")
+    print(f"flash_attention: multi-head bits unchanged in "
+          f"{len(tc.DIGEST_CASES)} cases")
+
     hot_err = 0.0
     for vocab, hot, n, d in ((1000, 128, 400, 32), (4096, 512, 512, 32),
                              (600, 600, 14, 32)):
@@ -484,6 +752,17 @@ def lm_kernel_cases(dev) -> tuple[float, float]:
     hot_check("hot_is_vocab", torch.tensor([0, 63, 5, 63], dtype=torch.int32,
                                            device=dev), table, 64)
     return flash_err, hot_err
+
+
+def card_tests():
+    """tests/test_torch_cuda.py as a module (for its digests of the
+    multi-head flash kernel)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_cuda", ROOT / "tests" / "test_torch_cuda.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def token_source(cfg, seq_len: int):
@@ -517,23 +796,26 @@ def token_source(cfg, seq_len: int):
 
 
 def layer0_heads(model, tokens):
-    """Layer 0's (B·H, S, dh) q, k and v, as `apply_attention` hands them
-    to the flash kernel."""
+    """Layer 0's (B·H, S, dh) q and (B·KV, S, dh) k and v, as
+    `apply_attention` hands them to the flash kernel."""
     import torch
     from repro_torch.models.layers import (_dense, apply_norm, apply_rope,
                                            embed_tokens)
     cfg, blk = model.cfg, model.layers[0]
     b, s = tokens.shape
-    h, dh = cfg.num_heads, cfg.head_dim
+    dh = cfg.head_dim
     x = apply_norm(blk.norm1, embed_tokens(model.embed, tokens, cfg), cfg)
     pos = torch.arange(s, dtype=torch.int32, device=tokens.device)
 
-    def heads(w, rope=True):
-        t = _dense(x, blk.attn[w]).reshape(b, s, h, dh)
+    def heads(w, n, rope=True):
+        t = _dense(x, blk.attn[f"w{w}"], blk.attn.get(f"b{w}")).reshape(
+            b, s, n, dh)
         if rope:
             t = apply_rope(t, pos, cfg)
-        return t.transpose(1, 2).reshape(b * h, s, dh).contiguous()
-    return heads("wq"), heads("wk"), heads("wv", rope=False)
+        return t.transpose(1, 2).reshape(b * n, s, dh).contiguous()
+    kv = cfg.num_kv_heads
+    return (heads("q", cfg.num_heads), heads("k", kv),
+            heads("v", kv, rope=False))
 
 
 def lm_launches() -> dict:
@@ -542,6 +824,7 @@ def lm_launches() -> dict:
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
     return {"flash_attn": fa.launches,
             "flash_attn_wgmma": fa.launches_by_variant["wgmma"],
+            "flash_attn_gqa": fa.launches_grouped,
             "hot_embed": he.launches, "moe_gmm": gm.launches,
             "moe_gmm_wgmma": gm.launches_by_variant["wgmma"],
             "moe_gmm_splitk": gm.launches_by_variant["splitk"]}
@@ -551,7 +834,7 @@ def reset_lm_launches() -> None:
     from repro_torch.kernels.flash_attn import flash_attn as fa
     from repro_torch.kernels.hot_embed import hot_embed as he
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
-    fa.launches = he.launches = gm.launches = 0
+    fa.launches = fa.launches_grouped = he.launches = gm.launches = 0
     fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
     gm.launches_by_variant = dict.fromkeys(gm.VARIANTS, 0)
 
@@ -591,9 +874,11 @@ def prefill(dev, model, tokens) -> dict:
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = lm_launches()
+    gqa = cfg.num_kv_heads < cfg.num_heads
     expected = {"flash_attn": cfg.num_layers,
-                "flash_attn_wgmma": cfg.num_layers, "hot_embed": 1,
-                **gmm_launches(cfg, n_tokens, 1)}
+                "flash_attn_wgmma": cfg.num_layers,
+                "flash_attn_gqa": cfg.num_layers if gqa else 0,
+                "hot_embed": 1, **gmm_launches(cfg, n_tokens, 1)}
     if launches != expected:
         raise AssertionError(f"prefill launches {launches}, expected "
                              f"{expected}")
@@ -935,8 +1220,8 @@ def serve_lm(dev, model) -> dict:
         if len(r.out) != r.max_new:
             raise AssertionError(f"request {r.rid}: {len(r.out)} tokens "
                                  f"for max_new={r.max_new}")
-    expected = {"flash_attn": 0, "flash_attn_wgmma": 0, "hot_embed": steps,
-                **gmm_launches(cfg, 4, steps)}
+    expected = {"flash_attn": 0, "flash_attn_wgmma": 0, "flash_attn_gqa": 0,
+                "hot_embed": steps, **gmm_launches(cfg, 4, steps)}
     if launches != expected:
         raise AssertionError(f"serve launches {launches} over {steps} "
                              f"decode steps, expected {expected}")
@@ -1011,21 +1296,25 @@ def time_lm_kernels(model, pre: dict) -> dict:
     from repro_torch.kernels.hot_embed.ref import hot_gather_ref
     from repro_torch.models.layers import hot_vocab_size
 
-    kept = fa.launches, dict(fa.launches_by_variant), he.launches
+    kept = (fa.launches, dict(fa.launches_by_variant), fa.launches_grouped,
+            he.launches)
     q, k, v = pre["q"], pre["k"], pre["v"]
     bh, s, d = q.shape
+    group = fa.kv_group(q, k, v)
 
     def plain_flash():   # one (b·h) row at a time: S x S logits each
         for i in range(bh):
-            attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+            j = i // group
+            attention_ref(q[i:i + 1], k[j:j + 1], v[j:j + 1])
     flash = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=5,
                            warmup=1),
              "plain_ms": cuda_ms(plain_flash, reps=1, warmup=1),
              "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                 q[None], k[None], v[None], is_causal=True), reps=5,
-                 warmup=1)}
+                 q[None], k[None], v[None], is_causal=True,
+                 enable_gqa=group > 1), reps=5, warmup=1)}
     flops = 4 * d * (s * (s + 1) // 2) * bh      # QK^T and PV, causal pairs
-    nbytes = 4 * bh * s * d * q.element_size()   # q, k, v read, o written
+    # q read and o written, k and v read: BH / group rows each
+    nbytes = (2 * bh + 2 * bh // group) * s * d * q.element_size()
     ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     # the split PV multiplies p's bf16 high and low parts: 1.5x the FLOPs
     faithful = 6 * d * (s * (s + 1) // 2) * bh
@@ -1033,9 +1322,9 @@ def time_lm_kernels(model, pre: dict) -> dict:
                  bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                  faithful_bound_ms=max(faithful / BF16_FLOPS * 1e3,
                                        bytes_ms),
-                 variant=fa.variant(q.dtype, d))
+                 variant=fa.variant(q.dtype, d), group=group)
     print(f"flash_attention timing: (BH, S, d)=({bh}, {s}, {d}) bf16 "
-          f"variant={flash['variant']} "
+          f"group={group} variant={flash['variant']} "
           f"ms={flash['ms']:.4f} plain_ms={flash['plain_ms']:.4f} "
           f"library_ms={flash['library_ms']:.4f} "
           f"bound_ms={flash['bound_ms']:.4f} ({flops:.4e} FLOPs, "
@@ -1063,7 +1352,8 @@ def time_lm_kernels(model, pre: dict) -> dict:
           f"library_ms={gather['library_ms']:.4f} (F.embedding of all ids) "
           f"bound_ms={gather['bound_ms']:.4f} ({nbytes} bytes)")
     # timing launches are not the main path's
-    fa.launches, fa.launches_by_variant, he.launches = kept
+    (fa.launches, fa.launches_by_variant, fa.launches_grouped,
+     he.launches) = kept
     return {"flash_attn": flash, "hot_embed": gather}
 
 
@@ -1260,6 +1550,14 @@ def run_lm(dev, cfg, full_cfg=None) -> dict:
     return out
 
 
+def timed(label: str, fn, *args):
+    """``fn(*args)``, its wall seconds printed under ``label``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found; run from the root of "
@@ -1269,9 +1567,25 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 3
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    # the k-NN corpora's host NSW builds run beside the graph phases
+    with ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        corpora = {kind: pool.submit(search_corpus, kind)
+                   for kind in ("clustered", "integer", "reference")}
+        try:
+            return run(torch, corpora)
+        finally:
+            for f in corpora.values():
+                f.cancel()
+
+
+def run(torch, corpora: dict) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     dev = torch.device("cuda")
@@ -1292,12 +1606,14 @@ def main() -> int:
     print(f"csr_spmv_merge: {smem} bytes of dynamic shared memory "
           f"a block")
 
-    err = kernel_cases(dev)
-    served = serve(dev, NUM_VERTICES)
-    timing, served_err = time_spmv(served["entry"])
+    err = timed("3 spmv checks", kernel_cases, dev)
+    served = timed("4 graph serve", serve, dev, NUM_VERTICES)
+    timing, served_err = timed("5 spmv timing", time_spmv, served["entry"])
     served["session"].close()
     spmv_launches = served["launches"]["csr_spmv"]
     del served
+    torch.cuda.empty_cache()
+    timed("k-NN", knn_phase, dev, corpora, card)
     torch.cuda.empty_cache()
 
     import dataclasses
@@ -1305,17 +1621,19 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("float32 matmuls must not run in TF32: the "
                              "router and the plain versions need float32")
-    flash_err, hot_err = lm_kernel_cases(dev)
-    mini = run_lm(dev, get_config(ARCH))
+    flash_err, hot_err = timed("6 LM kernel checks", lm_kernel_cases, dev)
+    mini = timed(f"7-11 {ARCH}", run_lm, dev, get_config(ARCH))
+    qwen = timed(f"7-11 {GQA_ARCH}", run_lm, dev, get_config(GQA_ARCH))
 
-    gmm_err = gmm_kernel_cases(dev)
+    gmm_err = timed("12 moe_gmm checks", gmm_kernel_cases, dev)
     full = get_config(MOE_ARCH)
     cut = dataclasses.replace(full, num_layers=MOE_LAYERS,
                               block_pattern=("attn",) * MOE_LAYERS)
-    moe = run_lm(dev, cut, full)
+    moe = timed(f"13 {MOE_ARCH}", run_lm, dev, cut, full)
+    runs = (mini, qwen, moe)
 
     def launches(name):
-        return sum(r[w][name] for r in (mini, moe) for w in ("pre", "serve"))
+        return sum(r[w][name] for r in runs for w in ("pre", "serve"))
 
     kernels = [{
         "name": "csr_spmv",
@@ -1332,8 +1650,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:66",
         "launches": launches("flash_attn"),
         "launches_by_variant": {"wgmma": launches("flash_attn_wgmma")},
-        "max_abs_err": max(flash_err, mini["flash_err"], moe["flash_err"]),
+        "launches_grouped_query": launches("flash_attn_gqa"),
+        "max_abs_err": max([flash_err] + [r["flash_err"] for r in runs]),
         **mini["timing"]["flash_attn"],
+        GQA_ARCH: qwen["timing"]["flash_attn"],
         MOE_ARCH: moe["timing"]["flash_attn"],
     }, {
         "name": "hot_embed",
@@ -1341,8 +1661,9 @@ def main() -> int:
         "source": "src/repro_torch/csrc/hot_embed.cu",
         "replaces": "src/repro/kernels/hot_embed/hot_embed.py:37",
         "launches": launches("hot_embed"),
-        "max_abs_err": max(hot_err, mini["hot_err"], moe["hot_err"]),
+        "max_abs_err": max([hot_err] + [r["hot_err"] for r in runs]),
         **mini["timing"]["hot_embed"],
+        GQA_ARCH: qwen["timing"]["hot_embed"],
         MOE_ARCH: moe["timing"]["hot_embed"],
     }, {
         "name": "moe_gmm",
@@ -1355,6 +1676,7 @@ def main() -> int:
         "max_abs_err": max(gmm_err, moe["gmm_err"]),
         **moe["gmm_timing"],
     }]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

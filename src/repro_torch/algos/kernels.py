@@ -17,6 +17,8 @@ reduction's identity (INT32_MAX for min, False for max), as
 Batched multi-source forms carry a leading source axis (S, V) and follow
 the semantics of a ``vmap`` over the single-source while loops: the loop
 runs until every lane has converged, and a converged lane stays frozen.
+The k-NN beam search (`knn_search_multi`) batches its query lanes the
+same way.
 
 Bucket padding: when a `GraphArrays` carries ``vertex_valid`` /
 ``edge_valid`` masks (shape-bucketed uploads, see engine/backends.py),
@@ -318,6 +320,144 @@ def bc(g: GraphArrays, sources, chunk: int = 16) -> torch.Tensor:
     for i in range(0, srcs.shape[0], chunk):
         out = out + bc_multi(g, srcs[i:i + chunk]).sum(dim=0)
     return out
+
+
+# ------------------------------------------------------- k-NN beam search
+#
+# Greedy best-first traversal of a fixed out-degree k-NN graph with a
+# bounded beam (the reference's `knn_search`, one `lax.while_loop` per
+# query, vmapped over the batch). Candidates rank by the pair
+#
+#     (float32_dist_bits, canonical_id)
+#
+# squared-L2 distances are non-negative, so their float32 bit patterns
+# order like the floats as int32, and the canonical (original) vertex id
+# breaks every distance tie the same way in every layout. Both halves are
+# non-negative int32, so the int64 key ``bits·2³¹ + tie`` is that pair's
+# total order, and one stable sort of it is the reference's
+# ``lexsort((tie, bits))``. KNN_SENTINEL exceeds the bits of any real
+# distance (+inf is 0x7F800000), so empty slots and visited candidates
+# sort last.
+
+KNN_SENTINEL = 2**31 - 1  # int32 max
+# Beam-search loop iterations since import (or since a caller last reset
+# it), over every `knn_search_multi` call: each ends in one host sync.
+knn_iterations = 0
+
+
+def _dist_bits(dist: torch.Tensor) -> torch.Tensor:
+    return dist.to(torch.float32).contiguous().view(torch.int32)
+
+
+def _rank_key(bits: torch.Tensor, tie: torch.Tensor) -> torch.Tensor:
+    """The int64 key whose order is the lexicographic order of
+    ``(bits, tie)``, both non-negative int32."""
+    return (bits.long() << 31) | tie.long()
+
+
+def _first_argmin(vals: torch.Tensor) -> torch.Tensor:
+    """Index of the first minimum along the last axis (``jnp.argmin``'s
+    tie rule), spelled out so that no backend's argmin decides it."""
+    pos = torch.arange(vals.shape[-1], device=vals.device)
+    at_min = vals == vals.amin(-1, keepdim=True)
+    return torch.where(at_min, pos, vals.shape[-1]).amin(-1)
+
+
+def knn_search_multi(g: GraphArrays, vectors: torch.Tensor,
+                     canon: torch.Tensor, entry, queries: torch.Tensor,
+                     valid: torch.Tensor, *, k_out: int, beam_width: int,
+                     k_return: int, max_steps: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched beam search: (S, d) queries -> ((S, k_return) int32 served
+    ids, -1 in empty slots; (V,) int32 visit counts).
+
+    ``vectors`` (V, d) are in served order, ``canon`` (V,) maps served to
+    original ids, ``entry`` is the served id every lane starts from, and
+    ``valid`` (S,) masks pad lanes out of the visit counts. Every row of
+    ``g`` holds exactly ``k_out`` neighbours.
+
+    Each lane carries its beam (``bits``, ``tie``, ``ids``, ``exp``,
+    (S, beam_width)) and its (S, V) visited mask. A lane is active while
+    it has an unexpanded real candidate; an inactive lane is frozen, as
+    under the reference's vmapped ``while_loop``, and never wakes, since
+    its state no longer changes. The loop runs at most ``max_steps``
+    iterations and stops once no lane is active: one host sync an
+    iteration.
+    """
+    global knn_iterations
+    dev = vectors.device
+    n = g.num_vertices
+    sent = KNN_SENTINEL
+    q = queries.to(device=dev, dtype=torch.float32)
+    s = q.shape[0]
+    lanes = torch.arange(s, device=dev)
+    indices = g.indices.long()
+    indptr = g.indptr.long()
+    offs = torch.arange(k_out, device=dev)
+
+    def dists(ids):   # (S, m) served ids -> (S, m) float32 distances
+        diff = vectors[ids] - q[:, None, :]
+        return (diff * diff).sum(-1)
+
+    e = torch.as_tensor(entry, device=dev).long().reshape(())
+    bits = torch.full((s, beam_width), sent, dtype=torch.int32, device=dev)
+    bits[:, 0] = _dist_bits(dists(e.expand(s)[:, None]))[:, 0]
+    tie = torch.full((s, beam_width), sent, dtype=torch.int32, device=dev)
+    tie[:, 0] = canon[e]
+    ids = torch.zeros((s, beam_width), dtype=torch.int32, device=dev)
+    ids[:, 0] = e.to(torch.int32)
+    exp = torch.zeros((s, beam_width), dtype=torch.bool, device=dev)
+    visited = torch.zeros((s, n), dtype=torch.bool, device=dev)
+    visited[:, e] = True
+    fresh_exp = torch.zeros((s, k_out), dtype=torch.bool, device=dev)
+
+    for _ in range(max_steps):
+        active = (~exp & (bits < sent)).any(-1)
+        if not bool(active.any()):
+            break
+        knn_iterations += 1
+        # nearest unexpanded slot: min bits first, the canonical id breaks
+        # distance ties (each vertex enters a beam at most once)
+        m = torch.where(exp, sent, bits).amin(-1, keepdim=True)
+        slot = _first_argmin(torch.where(exp | (bits != m), sent, tie))
+        v = ids[lanes, slot].long()
+        exp[lanes, slot] |= active
+        nbrs = indices[indptr[v][:, None] + offs]              # (S, k_out)
+        seen = visited.gather(1, nbrs)
+        fresh = ~seen
+        visited.scatter_(1, nbrs, seen | active[:, None])
+        nbits = torch.where(fresh, _dist_bits(dists(nbrs)), sent)
+        ntie = torch.where(fresh, canon[nbrs], sent)
+        all_bits = torch.cat([bits, nbits], 1)
+        all_tie = torch.cat([tie, ntie], 1)
+        all_ids = torch.cat([ids, nbrs.to(torch.int32)], 1)
+        all_exp = torch.cat([exp, fresh_exp], 1)
+        keep = torch.sort(_rank_key(all_bits, all_tie), dim=1,
+                          stable=True).indices[:, :beam_width]
+        live = active[:, None]
+        bits = torch.where(live, all_bits.gather(1, keep), bits)
+        tie = torch.where(live, all_tie.gather(1, keep), tie)
+        ids = torch.where(live, all_ids.gather(1, keep), ids)
+        exp = torch.where(live, all_exp.gather(1, keep), exp)
+
+    # the beam stays sorted by every merge, so its head is the result
+    top = torch.where(bits[:, :k_return] < sent, ids[:, :k_return], -1)
+    valid = torch.as_tensor(valid, device=dev).bool()
+    visits = (visited & valid[:, None]).sum(0, dtype=torch.int32)
+    return top, visits
+
+
+def knn_search(g: GraphArrays, vectors: torch.Tensor, canon: torch.Tensor,
+               entry, query: torch.Tensor, *, k_out: int, beam_width: int,
+               k_return: int, max_steps: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One query -> ``(ids, visited)``: the ``k_return`` nearest served
+    ids found (-1 in empty slots) and the (V,) bool visited mask."""
+    ids, visits = knn_search_multi(
+        g, vectors, canon, entry, query.reshape(1, -1),
+        torch.ones(1, dtype=torch.bool), k_out=k_out, beam_width=beam_width,
+        k_return=k_return, max_steps=max_steps)
+    return ids[0], visits > 0
 
 
 KERNELS = {

@@ -1,9 +1,13 @@
 // Causal / sliding-window flash attention, hand-written for Hopper.
 //
 //   o[b, i, :] = sum over j <= i (and i - j < window when window > 0) of
-//                softmax_j(scale * q[b, i, :] . k[b, j, :]) * v[b, j, :]
+//                softmax_j(scale * q[b, i, :] . k[b / g, j, :]) *
+//                v[b / g, j, :]
 //
-// on (BH, S, d) tensors, row-major and contiguous. Replaces the TPU kernel
+// on row-major, contiguous q and o of (BH, S, d) and k and v of (BH / g, S,
+// d): grouped-query attention, where the g query heads h = kv * g .. kv * g +
+// g - 1 of a batch row share kv head kv (b = batch * H + h, so b / g =
+// batch * KV + kv). g = 1 is multi-head attention. Replaces the TPU kernel
 // flash_attention_pallas (src/repro/kernels/flash_attn/flash_attn.py:59).
 // Each thread block owns one (bh, query tile); it walks the key tiles from
 // the first one the window reaches up to the diagonal, in a fixed order,
@@ -14,7 +18,9 @@
 // and no query tile's keys are split across blocks, so two runs give the
 // same bits. Any S is taken: rows and keys past S are masked and never
 // written. Blocks are issued longest-first (the last query tiles walk the
-// most key tiles), so the tail of the grid is short.
+// most key tiles), so the tail of the grid is short; within a query tile
+// consecutive blocks take consecutive bh, so the g heads that share a kv
+// head run side by side and read its K and V tiles from L2.
 //
 // Three kernels, chosen by dtype and head dim (flash_attn.py's `variant`
 // names them; nothing falls back from one to another):
@@ -120,8 +126,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, int bh_count, int s,
-                   float scale, int window, int num_q_tiles) {
+                   __nv_bfloat16* __restrict__ o, int bh_count, int group,
+                   int s, float scale, int window, int num_q_tiles) {
   constexpr int kLd = D + 8;   // padded row stride: conflict-free fragments
   constexpr int kK = D / 16;   // k-steps of QK^T
   constexpr int kN = D / 8;    // n-blocks of PV
@@ -131,6 +137,7 @@ flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
   const int qt = num_q_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
   const int bh = static_cast<int>(blockIdx.x % bh_count);
   const long long base = static_cast<long long>(bh) * s * D;
+  const long long kv_base = static_cast<long long>(bh / group) * s * D;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;      // fragment row group
@@ -164,8 +171,8 @@ flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
   const int kt_end = qt;   // the diagonal tile (query and key tiles align)
   for (int kt = first_key_tile(q0, window, kTile); kt <= kt_end; ++kt) {
     __syncthreads();
-    load_tile_bf16<D>(ks, k + base, kt * kTile, s);
-    load_tile_bf16<D>(vs, v + base, kt * kTile, s);
+    load_tile_bf16<D>(ks, k + kv_base, kt * kTile, s);
+    load_tile_bf16<D>(vs, v + kv_base, kt * kTile, s);
     __syncthreads();
 
     float sc[kTile / 8][4];
@@ -284,7 +291,7 @@ template <int D>
 __global__ void __launch_bounds__(kSimtThreads)
 flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ o,
-                   int bh_count, int s, float scale, int window,
+                   int bh_count, int group, int s, float scale, int window,
                    int num_q_tiles) {
   constexpr int kVec = D / 4;        // float4 per row
   constexpr int kMine = kVec / kPart;  // float4 per thread: chunk i*4+part
@@ -294,6 +301,7 @@ flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int qt = num_q_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
   const int bh = static_cast<int>(blockIdx.x % bh_count);
   const long long base = static_cast<long long>(bh) * s * D;
+  const long long kv_base = static_cast<long long>(bh / group) * s * D;
   const int part = threadIdx.x % kPart;
   const int q0 = qt * kRowsF;
   const int row = q0 + threadIdx.x / kPart;
@@ -316,7 +324,7 @@ flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = threadIdx.x; c < kKeysF * kVec; c += kSimtThreads) {
       const int key = kt * kKeysF + c / kVec;
       const int col = c % kVec;
-      const long long off = base + static_cast<long long>(key) * D;
+      const long long off = kv_base + static_cast<long long>(key) * D;
       const bool in = key < s;
       ks[c / kVec][col] =
           in ? __ldg(reinterpret_cast<const float4*>(k + off) + col)
@@ -386,23 +394,24 @@ flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 void launch_bf16(const void* q, const void* k, const void* v, void* o,
-                 int bh, int s, float scale, int window, cudaStream_t st) {
+                 int bh, int group, int s, float scale, int window,
+                 cudaStream_t st) {
   const int tiles = (s + kTile - 1) / kTile;
   flash_fwd_bf16_mma<D><<<tiles * bh, kMmaThreads, 0, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      bh, s, scale, window, tiles);
+      bh, group, s, scale, window, tiles);
 }
 
 template <int D>
 void launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
-                int s, float scale, int window, cudaStream_t st) {
+                int group, int s, float scale, int window, cudaStream_t st) {
   const int tiles = (s + kRowsF - 1) / kRowsF;
   flash_fwd_f32_simt<D><<<tiles * bh, kSimtThreads, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), bh, s, scale,
-      window, tiles);
+      static_cast<const float*>(v), static_cast<float*>(o), bh, group, s,
+      scale, window, tiles);
 }
 
 // ------------------------------------- bf16 at d 64 and 128: Hopper design
@@ -415,11 +424,13 @@ void launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
 // at a quarter of a warp a clock, beside 1,536 clocks of products a tile
 // pair at d 64.
 //  * Loads: one thread of the producer issues TMA copies
-//    (cp.async.bulk.tensor) on 3-D tensor maps over (BH, S, d), 128-byte
-//    swizzled, into a ring of three K/V stages. Tiles past S arrive
-//    zero-filled. Each stage has a `full` mbarrier (the copies' bytes land)
-//    and an `empty` one (all 256 consumer threads have finished reading it),
-//    so the loads of later tiles run while the tensor cores work on this one.
+//    (cp.async.bulk.tensor) on 3-D tensor maps over (BH, S, d) for Q and
+//    (BH / g, S, d) for K and V, 128-byte swizzled, into a ring of three K/V
+//    stages; a block's K and V tiles come from kv row bh / g. Tiles past S
+//    arrive zero-filled. Each stage has a `full` mbarrier (the copies' bytes
+//    land) and an `empty` one (all 256 consumer threads have finished reading
+//    it), so the loads of later tiles run while the tensor cores work on this
+//    one.
 //  * Products: wgmma.mma_async. S = Q K^T reads Q and K from shared memory
 //    through descriptors (both K-major). O += P_hi V and O += P_lo V take P
 //    from registers as the A operand and V from shared memory as an
@@ -515,7 +526,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 // A (64-column, 128-row) box of a (BH, S, d) tensor map at (c0, c1, c2)
-// = (column, row, bh) into shared memory; completion counted on `bar`.
+// = (column, row, q or kv row) into shared memory; completion counted on
+// `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1,
                                          int c2) {
@@ -838,8 +850,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
-                     __nv_bfloat16* __restrict__ o, int bh_count, int s,
-                     float scale_log2, int window, int num_q_tiles) {
+                     __nv_bfloat16* __restrict__ o, int bh_count, int group,
+                     int s, float scale_log2, int window, int num_q_tiles) {
   using H = Hopper<D>;
   constexpr int kAcc = D / 2;      // O accumulator floats a thread
   extern __shared__ uint8_t smem_raw[];
@@ -852,6 +864,7 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
   const int qt = num_q_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
   const int bh = static_cast<int>(blockIdx.x % bh_count);
+  const int bh_kv = bh / group;
   const int q0 = qt * kRows;
   const int kt0 = first_key_tile(q0, window, kKeys);
   const int n_tiles = qt - kt0 + 1;   // key tiles align with query tiles
@@ -888,8 +901,8 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int p = 0; p < H::kPanels; ++p) {
           const uint32_t off = stage * H::kTileBytes + p * kPanelBytes;
-          tma_load(sk + off, &tm_k, full, 64 * p, key0, bh);
-          tma_load(sv + off, &tm_v, full, 64 * p, key0, bh);
+          tma_load(sk + off, &tm_k, full, 64 * p, key0, bh_kv);
+          tma_load(sv + off, &tm_v, full, 64 * p, key0, bh_kv);
         }
       }
     }
@@ -1052,16 +1065,17 @@ EncodeTiled tensor_map_encoder() {
 // 0, a cudaError_t, or minus a CUresult if a tensor map is refused.
 template <int D>
 int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o,
-                      int bh, int s, float scale, int window,
+                      int bh, int group, int s, float scale, int window,
                       cudaStream_t st) {
   using H = Hopper<D>;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) {
     return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
   }
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(bh)};
+  // q: (bh, s, D); k and v: (bh / group, s, D)
+  const cuuint64_t rows[3] = {static_cast<cuuint64_t>(bh),
+                              static_cast<cuuint64_t>(bh / group),
+                              static_cast<cuuint64_t>(bh / group)};
   const cuuint64_t strides[2] = {
       static_cast<cuuint64_t>(D) * 2,
       static_cast<cuuint64_t>(s) * static_cast<cuuint64_t>(D) * 2};
@@ -1070,6 +1084,8 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o,
   const void* ptrs[3] = {q, k, v};
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                                static_cast<cuuint64_t>(s), rows[i]};
     const CUresult r = encode(
         &maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
         const_cast<void*>(ptrs[i]), dims, strides, box, unit,
@@ -1087,41 +1103,56 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o,
   }
   const int tiles = (s + kRows - 1) / kRows;
   flash_fwd_bf16_wgmma<D><<<tiles * bh, kHopperThreads, H::kSmemBytes, st>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), bh, s,
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), bh, group, s,
       scale * kLog2e, window, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, s, d) contiguous, 16-byte aligned; d in {16, 32, 64, 128};
+// q, o: (bh, s, d) and k, v: (bh / group, s, d), contiguous, 16-byte
+// aligned; group >= 1 divides bh; d in {16, 32, 64, 128};
 // bh * ceil(s / 32) < 2^31. The wrapper checks all of it. d 64 and 128 take
 // the wgmma kernel, d 16 and 32 the mma.sync one.
 extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
-                               void* o, int bh, int s, int d, float scale,
-                               int window, void* stream) {
+                               void* o, int bh, int group, int s, int d,
+                               float scale, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (group < 1 || bh % group != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (d) {
-    case 16: launch_bf16<16>(q, k, v, o, bh, s, scale, window, st); break;
-    case 32: launch_bf16<32>(q, k, v, o, bh, s, scale, window, st); break;
+    case 16:
+      launch_bf16<16>(q, k, v, o, bh, group, s, scale, window, st);
+      break;
+    case 32:
+      launch_bf16<32>(q, k, v, o, bh, group, s, scale, window, st);
+      break;
     case 64:
-      return launch_bf16_wgmma<64>(q, k, v, o, bh, s, scale, window, st);
+      return launch_bf16_wgmma<64>(q, k, v, o, bh, group, s, scale, window,
+                                   st);
     case 128:
-      return launch_bf16_wgmma<128>(q, k, v, o, bh, s, scale, window, st);
+      return launch_bf16_wgmma<128>(q, k, v, o, bh, group, s, scale, window,
+                                    st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
-                              void* o, int bh, int s, int d, float scale,
-                              int window, void* stream) {
+                              void* o, int bh, int group, int s, int d,
+                              float scale, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (group < 1 || bh % group != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (d) {
-    case 16: launch_f32<16>(q, k, v, o, bh, s, scale, window, st); break;
-    case 32: launch_f32<32>(q, k, v, o, bh, s, scale, window, st); break;
-    case 64: launch_f32<64>(q, k, v, o, bh, s, scale, window, st); break;
-    case 128: launch_f32<128>(q, k, v, o, bh, s, scale, window, st); break;
+    case 16: launch_f32<16>(q, k, v, o, bh, group, s, scale, window, st); break;
+    case 32: launch_f32<32>(q, k, v, o, bh, group, s, scale, window, st); break;
+    case 64: launch_f32<64>(q, k, v, o, bh, group, s, scale, window, st); break;
+    case 128:
+      launch_f32<128>(q, k, v, o, bh, group, s, scale, window, st);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -15,8 +15,13 @@ SpMV (kernels/csr_spmv), raw `GraphArrays` included; on the CPU its
 wrapper runs the plain version. The kernel reads the uploaded in-CSR
 rows directly; no edge packing is built.
 
-The sharded backend (edge partitions across devices) and k-NN search
-serving are not ported yet (ROADMAP A7 and A6).
+k-NN search graphs carry their vectors and canonical ids on the device
+(`DeviceSearch`, padded to the vertex bucket); a ``knn`` run is one
+batched beam search over the padded query lanes (`algos.kernels.
+knn_search_multi`).
+
+The sharded backend (edge partitions across devices) is not ported yet
+(ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from ..algos import kernels as K
 from ..algos.graph_arrays import GraphArrays, to_device
 from ..core.csr import Graph
 from ..device import resolve_device
-from ..search.serve import SearchSpec
+from ..search.serve import SearchSpec, pad_queries
 from .obs import MetricsRegistry, Tracer
 
 # kernels taking a batch of sources -> (S, V) per-source rows
@@ -52,12 +57,11 @@ _FNS = {
     "pr": K.pagerank_spmv,
     "cc": K.cc_labelprop,
     "ccsv": K.cc_shiloach_vishkin,
+    "knn": K.knn_search_multi,
 }
 
 
 def build_kernel(kernel: str):
-    if kernel in VECTOR_SOURCE:
-        raise NotImplementedError(f"{kernel}: ROADMAP A6")
     try:
         return _FNS[kernel]
     except KeyError:
@@ -130,6 +134,38 @@ def estimate_device_bytes(num_vertices: int, num_edges: int,
 
 # ------------------------------------------------------------------- handle
 @dataclasses.dataclass
+class DeviceSearch:
+    """Device-resident knn operands of one uploaded search graph.
+
+    ``vectors``/``canon`` are the `SearchSpec` payloads padded to the
+    handle's vertex bucket (padded rows are unreachable: sentinel edges
+    never land in a real adjacency list, so the search cannot gather
+    them). ``params`` are the beam knobs, fixed per graph.
+    """
+
+    vectors: torch.Tensor   # (V_bucket, d) float32, served order
+    canon: torch.Tensor     # (V_bucket,) int32 served -> original
+    entry: int              # served id of the entry vertex
+    params: object          # search.serve.SearchParams
+    dim: int
+
+
+def _device_search(spec: SearchSpec, v_bucket: int,
+                   device: torch.device) -> DeviceSearch:
+    vecs = np.ascontiguousarray(spec.vectors, dtype=np.float32)
+    canon = np.ascontiguousarray(spec.canon, dtype=np.int32)
+    if v_bucket > len(vecs):
+        vecs = np.concatenate(
+            [vecs, np.zeros((v_bucket - len(vecs), vecs.shape[1]),
+                            np.float32)])
+        canon = np.concatenate(
+            [canon, np.arange(len(canon), v_bucket, dtype=np.int32)])
+    return DeviceSearch(torch.from_numpy(vecs).to(device),
+                        torch.from_numpy(canon).to(device),
+                        int(spec.entry), spec.params, int(vecs.shape[1]))
+
+
+@dataclasses.dataclass
 class GraphHandle:
     """What ``prepare`` returns and ``run`` consumes — one served graph.
 
@@ -137,7 +173,8 @@ class GraphHandle:
     padded upload shape (equal to the real sizes when bucketing is off or
     the graph already sits on a bucket boundary). ``arrays`` is the
     device upload; ``spmv_val`` the PR SpMV edge values (in-CSR order, 0
-    on sentinels), made once at upload.
+    on sentinels), made once at upload; ``search`` the knn operands of a
+    search graph.
     """
 
     backend: str
@@ -147,6 +184,7 @@ class GraphHandle:
     device_bytes: int
     arrays: GraphArrays | None = None
     spmv_val: torch.Tensor | None = None
+    search: DeviceSearch | None = None
 
 
 @runtime_checkable
@@ -261,8 +299,6 @@ class SingleDeviceBackend:
     def prepare(self, graph: Graph,
                 canonical_ids: np.ndarray | None = None,
                 search: SearchSpec | None = None) -> GraphHandle:
-        if search is not None:
-            raise NotImplementedError("search graphs (knn): ROADMAP A6")
         n, e = graph.num_vertices, graph.num_edges
         bucket = (bucket_dims(n, e, self.growth, self.v_floor, self.e_floor)
                   if self.bucketing else (n, e))
@@ -271,9 +307,11 @@ class SingleDeviceBackend:
                            device=self.device)
         self._counters["prepared"].inc()
         self._bucket_counts[bucket] = self._bucket_counts.get(bucket, 0) + 1
+        ds = (_device_search(search, bucket[0], self.device)
+              if search is not None else None)
         return GraphHandle(self.name, n, e, bucket,
                            estimate_device_bytes(*bucket), arrays=arrays,
-                           spmv_val=K.spmv_values(arrays))
+                           spmv_val=K.spmv_values(arrays), search=ds)
 
     # ------------------------------------------------------------------ run
     def _cache_get(self, key: tuple, build):
@@ -330,7 +368,30 @@ class SingleDeviceBackend:
         return self._sync(kernel, out)[:real]
 
     def _run_knn(self, handle: GraphHandle, queries) -> tuple:
-        raise NotImplementedError("knn: ROADMAP A6")
+        """Beam search over the uploaded search graph: (S, d) queries ->
+        ``((S, k_return) served ids, (V,) visit counts)``. Each beam
+        parameterisation and padded batch has its own cache key, as in
+        the reference."""
+        ds = handle.search
+        if ds is None:
+            raise ValueError("knn_search needs a graph prepared with "
+                             "search= (a SearchSpec); this handle has none")
+        ga = handle.arrays
+        p = ds.params
+        padded, valid, real = pad_queries(queries)
+        key = ("knn", ga.num_vertices, ga.num_edges, ds.dim, len(padded),
+               p.k_out, p.beam_width, p.k_return, p.max_steps)
+        fn = self._cache_get(key, lambda: build_kernel("knn"))
+        self._counters["queries"].inc()
+        self._counters["dispatches"].inc()
+        self._counters["sources"].inc(real)
+        ids, visits = fn(ga, ds.vectors, ds.canon, ds.entry,
+                         torch.from_numpy(padded).to(self.device),
+                         torch.from_numpy(valid).to(self.device),
+                         k_out=p.k_out, beam_width=p.beam_width,
+                         k_return=p.k_return, max_steps=p.max_steps)
+        ids = self._sync("knn", ids)
+        return ids[:real], visits[:handle.num_vertices]
 
     def run(self, handle: GraphHandle, kernel: str,
             sources=None) -> torch.Tensor:

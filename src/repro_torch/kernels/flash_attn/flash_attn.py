@@ -1,5 +1,10 @@
 """Causal / sliding-window flash attention: the wrapper of a CUDA kernel.
 
+q and the output are (BH, S, d); k and v are (BH / group, S, d), so that
+``group`` query rows share one kv row: grouped-query attention, where
+query row ``b·H + h`` reads kv row ``b·KV + h // group`` (``group = H /
+KV``). ``group`` 1 is multi-head attention.
+
 Replaces the TPU kernel ``flash_attention_pallas`` of the JAX package
 (``src/repro/kernels/flash_attn/flash_attn.py:57-77``, ``pl.pallas_call``
 at ``:66``). The CUDA source is ``repro_torch/csrc/flash_attn.cu``. Each
@@ -30,9 +35,10 @@ take any S: the tail tile is masked. Head dims 16, 32, 64 and 128 are
 compiled; any other raises.
 
 What bounds it on an H100: operations, at long S. A causal call does
-about ``2·BH·S²·d`` multiply-adds, against ``4·BH·S·d`` elements moved;
-at S = 32,768 and d = 64 that is far above the card's ridge point. With
-the split PV the bf16 kernels do 1.5 times that.
+about ``2·BH·S²·d`` multiply-adds, against ``(2·BH + 2·BH / group)·S·d``
+elements moved; at S = 32,768 and d = 64 that is far above the card's
+ridge point, and grouping kv heads changes only the bytes. With the split
+PV the bf16 kernels do 1.5 times that.
 
 On a CPU tensor the wrapper runs the plain version (`ref.attention_ref`);
 on a CUDA tensor it launches a kernel or raises.
@@ -48,10 +54,12 @@ from .ref import attention_ref
 HEAD_DIMS = (16, 32, 64, 128)
 VARIANTS = ("wgmma", "mma_sync", "simt")
 
-# Kernel launches since import (or since a caller last reset them), in all
-# and by variant. Only the CUDA branch below adds to them, once per launch.
+# Kernel launches since import (or since a caller last reset them), in all,
+# by variant, and those with grouped kv (group > 1). Only the CUDA branch
+# below adds to them, once per launch.
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
+launches_grouped = 0
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -77,25 +85,39 @@ def _kernel(dtype: torch.dtype):
         fn = (lib.flash_attn_bf16 if dtype == torch.bfloat16
               else lib.flash_attn_f32)
         fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[dtype] = fn
     return fn
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def kv_group(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """The query rows a kv row serves: ``BH / k.shape[0]``. Raises unless
+    q is (BH, S, d) and k and v are (BH / group, S, d) for a whole
+    group."""
+    if q.dim() != 3:
+        raise ValueError(f"q, k and v must be 3-D, got q of shape "
+                         f"{tuple(q.shape)}")
+    if k.shape != v.shape:
+        raise ValueError(f"k has shape {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    bh, s, d = q.shape
+    kvh = k.shape[0] if k.dim() == 3 else -1
+    if k.shape[1:] != (s, d) or kvh < 0 or (bh % kvh if kvh else bh):
+        raise ValueError(f"k and v must be (BH / group, S, d) for q of "
+                         f"shape {tuple(q.shape)}, got {tuple(k.shape)}")
+    return bh // kvh if kvh else 1
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """Raises on what no kernel takes; returns the kv group."""
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if t.shape != q.shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, q has "
-                             f"{tuple(q.shape)}")
-    if q.dim() != 3:
-        raise ValueError(f"q, k and v must be (BH, S, d), got "
-                         f"{tuple(q.shape)}")
+    group = kv_group(q, k, v)
     # raises for a dtype or a head dim that no kernel takes
     variant(q.dtype, q.shape[2])
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -104,23 +126,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.shape[0] * -(-q.shape[1] // 32) >= 2**31:
         raise ValueError("BH * ceil(S / 32) thread blocks must stay below "
                          "2^31")
+    return group
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: float | None = None,
                     window: int = 0) -> torch.Tensor:
-    """Causal attention on (BH, S, d) q, k, v of one dtype (float32 or
-    bfloat16); keys with ``q - k >= window`` are masked when
+    """Causal attention on (BH, S, d) q and (BH / group, S, d) k and v of
+    one dtype (float32 or bfloat16), ``group = BH / k.shape[0]`` query
+    rows to a kv row; keys with ``q - k >= window`` are masked when
     ``window > 0``. Returns (BH, S, d) in q's dtype. Launches on the
     current CUDA stream and does not synchronise.
     """
-    global launches
+    global launches, launches_grouped
     if q.device.type == "cpu":
         return attention_ref(q, k, v, sm_scale=sm_scale, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
-    _check(q, k, v)
+    group = _check(q, k, v)
     bh, s, d = q.shape
     scale = (d ** -0.5) if sm_scale is None else float(sm_scale)
     out = torch.empty_like(q)
@@ -130,7 +154,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                bh, s, d, scale, int(window), stream)
+                bh, group, s, d, scale, int(window), stream)
     if rc < 0:
         raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled "
                            f"refused a TMA tensor map (CUresult {-rc})")
@@ -138,4 +162,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     launches += 1
     launches_by_variant[variant(q.dtype, d)] += 1
+    if group > 1:
+        launches_grouped += 1
     return out

@@ -1,5 +1,5 @@
-"""Causal attention on (BH, S, d): the flash kernel on the card, its plain
-version on the CPU.
+"""Causal attention on (BH, S, d) queries and (BH / group, S, d) keys and
+values: the flash kernel on the card, its plain version on the CPU.
 
 The reference's wrapper (``src/repro/kernels/flash_attn/ops.py``) sends a
 call to the plain XLA version whenever ``S % 256 != 0`` or it runs off the

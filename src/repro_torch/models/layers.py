@@ -184,8 +184,9 @@ def flash_eligible(cfg: ModelConfig, device: torch.device | str) -> bool:
     `causal_attention` (the flash kernel on the card, its plain version on
     the CPU).
 
-    The kernel computes causal attention with equal q and kv heads and no
-    prefix, at a head dim in `HEAD_DIMS`. On the CPU another config takes
+    The kernel computes causal attention, multi-head or grouped-query
+    (each kv head serving ``num_heads / num_kv_heads`` query heads), with
+    no prefix, at a head dim in `HEAD_DIMS`. On the CPU another config takes
     the reference's chunked plain path; on the card it raises, since
     nothing there gives way to a plain version.
     """
@@ -195,15 +196,13 @@ def flash_eligible(cfg: ModelConfig, device: torch.device | str) -> bool:
     if torch.device(device).type == "cuda":
         raise NotImplementedError(
             f"{cfg.name}: the flash kernel does not take "
-            f"{'; '.join(missing)} yet: ROADMAP A8.9")
+            f"{'; '.join(missing)} yet: ROADMAP A8.9b")
     return False
 
 
 def _flash_missing(cfg: ModelConfig) -> list[str]:
     """What the flash kernel lacks for ``cfg``'s attention."""
     missing = []
-    if cfg.num_kv_heads != cfg.num_heads:
-        missing.append("grouped-query attention (num_kv_heads != num_heads)")
     if cfg.prefix_tokens > 0:
         missing.append("prefix-LM attention (prefix_tokens > 0)")
     if not cfg.causal:
@@ -232,8 +231,10 @@ def apply_attention(p, x, cfg: ModelConfig, positions, cache=None,
 
     if cache is None:
         if flash_eligible(cfg, x.device):
+            # (B·heads, S, dh); k and v keep their kv heads, so that a kv
+            # row serves h / kv query rows (never expanded to h heads)
             def heads(t):
-                return t.transpose(1, 2).reshape(b * h, s, dh)
+                return t.transpose(1, 2).reshape(-1, s, dh)
             of = causal_attention(heads(q), heads(k), heads(v),
                                   window=cfg.window)
             out = of.reshape(b, h, s, dh).transpose(1, 2)

@@ -16,7 +16,12 @@ block order), and every result must
 repeat bit for bit. The flash kernel is
 held to its plain version at the reference test's tolerances
 (tests/test_kernels.py: float32 rtol 1e-3 / atol 2e-3, bf16 5e-2), the
-hot-slab gather exactly. The grouped matmul is held to its plain version
+hot-slab gather exactly; grouped-query calls (k and v of BH / group
+rows) must also give the bits of the same kernel on k and v repeated per
+query row, and multi-head calls the bits the kernel gave before it took
+grouped-query attention (`MHA_DIGESTS`). k-NN search served through
+`EngineSession` on the card must give the CPU session's ids and visits
+bit for bit on integer-valued vectors. The grouped matmul is held to its plain version
 (float32 products, one float32 matmul per group) at rtol/atol 1e-4 for a
 float32 result: bf16 products are exact in float32, so only the order of
 the sums differs. A bf16 result must equal the kernel's float32 result
@@ -25,6 +30,8 @@ bf16 variants (``wgmma``, ``splitk``) is held so, forced by ``variant=``;
 their bits need not agree with each other.
 """
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -428,6 +435,109 @@ def test_flash_refuses_bad_operands_on_the_card():
     assert fa.launches == launches
 
 
+@pytest.mark.parametrize("s", [256, 300])
+@pytest.mark.parametrize("window", [0, 128])
+@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 64), (torch.bfloat16, 128),      # wgmma
+    (torch.bfloat16, 16), (torch.bfloat16, 32),       # mma_sync
+    (torch.float32, 32), (torch.float32, 128)],       # simt
+    ids=["bf16-64", "bf16-128", "bf16-16", "bf16-32", "f32-32", "f32-128"])
+def test_flash_grouped_query_matches_plain_version(dtype, d, group, window,
+                                                   s):
+    """Grouped-query attention in every variant: 8 query rows over 8 /
+    group kv rows. The result must repeat its bits, equal the same
+    kernel's on k and v repeated per query row (each block reads its kv
+    row where the multi-head call reads a copy of it), and match the plain
+    version at the reference test's tolerance."""
+    dev = _card()
+    bh = 8
+    rng = np.random.default_rng(group * s + d + window)
+    q = torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
+        np.float32)).to(dev, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((bh // group, s, d)).astype(
+        np.float32)).to(dev, dtype) for _ in range(2))
+    want_variant = fa.variant(dtype, d)
+    before = dict(fa.launches_by_variant)
+    got = fa.flash_attention(q, k, v, window=window)
+    again = fa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant == {
+        **before, want_variant: before[want_variant] + 2}
+    assert got.shape == (bh, s, d) and torch.equal(got, again)
+    expanded = fa.flash_attention(q, k.repeat_interleave(group, 0),
+                                  v.repeat_interleave(group, 0),
+                                  window=window)
+    assert torch.equal(got, expanded)
+    want = attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_grouped_query_at_qwen_heads():
+    """qwen2.5-3b's attention: 16 query heads over 2 kv heads (group 8)
+    at d 128, through the wgmma variant, at S 4,096."""
+    dev = _card()
+    rng = np.random.default_rng(16)
+    q = torch.from_numpy(rng.standard_normal((16, 4096, 128)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((2, 4096, 128)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    got = fa.flash_attention(q, k, v)
+    assert torch.equal(got, fa.flash_attention(q, k, v))
+    want = attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+# (dtype, d, S, window) -> sha256 of the output bytes of the multi-head
+# kernel on `_digest_inputs`, recorded on an H100 from the kernel as it
+# was before it took grouped-query attention: a multi-head call (group 1)
+# must keep those bits.
+MHA_DIGESTS = {
+    (64, 300, 0, "torch.bfloat16"):
+        "4b944725ee9d098b338405d0f5b5b65610b70bc10f6883ec31f237769650df96",
+    (128, 700, 128, "torch.bfloat16"):
+        "9f5cb0bfdcb3c52c53e86af7a3aa2638f3c62b2535ef1e14896cd297db5cc4e9",
+    (32, 300, 0, "torch.bfloat16"):
+        "2a1ce1569ac0e811954da30594926251abf3d9dcb1b9a2103e135a4462d8a19c",
+    (16, 77, 16, "torch.bfloat16"):
+        "920f718cd7d9438f1cfcafeb97386b885f87a36ec32f0d780a8f065f984e6425",
+    (64, 300, 128, "torch.float32"):
+        "90a78a5047d9a1076c49adc00e81b6cf7774a3d75c78196b44c89cdcd45188b6",
+    (128, 256, 0, "torch.float32"):
+        "60182e02e70fa75c459e6df43cdce1030cf83f3789d59e811b1c0d190a4c6dfb",
+}
+
+
+def _digest_inputs(dtype, d, s, window, dev):
+    rng = np.random.default_rng(1000 * d + s + window)
+    return [torch.from_numpy(rng.standard_normal((3, s, d)).astype(
+        np.float32)).to(dev, dtype) for _ in range(3)]
+
+
+def flash_digest(attention, dtype, d, s, window, dev) -> str:
+    """sha256 of ``attention(q, k, v, window=window)``'s bytes on the
+    fixed inputs of one `MHA_DIGESTS` case."""
+    out = attention(*_digest_inputs(dtype, d, s, window, dev),
+                    window=window)
+    return hashlib.sha256(out.contiguous().view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()
+
+
+DIGEST_CASES = [(torch.bfloat16, 64, 300, 0), (torch.bfloat16, 128, 700, 128),
+                (torch.bfloat16, 32, 300, 0), (torch.bfloat16, 16, 77, 16),
+                (torch.float32, 64, 300, 128), (torch.float32, 128, 256, 0)]
+
+
+@pytest.mark.parametrize("case", DIGEST_CASES,
+                         ids=[f"{str(c[0])[6:]}-{c[1]}-{c[2]}-{c[3]}"
+                              for c in DIGEST_CASES])
+def test_flash_multi_head_keeps_its_bits(case):
+    dev = _card()
+    assert flash_digest(fa.flash_attention, *case, dev) == MHA_DIGESTS[
+        case[1:] + (str(case[0]),)]
+
+
 # ------------------------------------------------------------- hot_embed
 @pytest.mark.parametrize("vocab,hot,n,d", [
     (1000, 128, 400, 32), (4096, 512, 512, 32), (600, 600, 14, 32),
@@ -498,6 +608,72 @@ def test_lm_slice_on_the_card_matches_the_cpu():
     assert sorted(r.rid for r in done) == [0, 1, 2, 3]
     assert all(len(r.out) == r.max_new for r in done)
     assert he.launches > hl
+
+
+# ------------------------------------------------------------------- k-NN
+def _int_corpus(n, dim, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 12, (n, dim)).astype(np.float32),
+            rng.integers(0, 12, (24, dim)).astype(np.float32))
+
+
+def test_knn_served_on_the_card_matches_the_cpu():
+    """k-NN through `EngineSession` on the card and on the CPU, integer
+    coordinates (exact float32 distances): the same ids, the host
+    oracle's ids, the same visit totals; and the same ids after
+    `refresh_hotness` moves the graph to the visit-sorted layout and then
+    repacks it (patch)."""
+    from repro_torch.core.baselines import knn_search_baseline
+    from repro_torch.search import SearchParams, build_nsw_graph, medoid_entry
+    dev = _card()
+    vecs, queries = _int_corpus(600, 8, 3)
+    g = build_nsw_graph(vecs, k=8)
+    params = SearchParams(k_out=8, beam_width=16, k_return=8)
+    got, totals = {}, {}
+    for where in ("cuda", "cpu"):
+        with EngineSession(device=where) as s:
+            gid = s.register(g, "int-knn", vectors=vecs,
+                             search_params=params)
+            got[where] = s.submit(gid, "knn", queries)
+            totals[where] = s.registry.get(gid).visits_total
+            assert s.refresh_hotness(gid)["tier"] == "full"
+            assert np.array_equal(s.submit(gid, "knn", queries), got[where])
+            assert s.refresh_hotness(gid)["tier"] == "patch"
+            assert np.array_equal(s.submit(gid, "knn", queries), got[where])
+    np.testing.assert_array_equal(got["cuda"], got["cpu"])
+    assert totals["cuda"] == totals["cpu"]
+    entry = medoid_entry(vecs)
+    for q, row in zip(queries, got["cuda"]):
+        want, _ = knn_search_baseline(g, vecs, q, entry, beam_width=16,
+                                      k_return=8)
+        assert row.tolist() == want.tolist()
+
+
+def test_knn_recall_on_the_card():
+    """tests/test_search.py:164 on the card: its clustered float corpus,
+    recall@10 of at least 0.95 against brute force; the run stays on the
+    card."""
+    from repro_torch.core.generators import clustered_vectors
+    from repro_torch.search import build_nsw_graph, knn_brute_force
+    dev = _card()
+    vecs, _ = clustered_vectors(240, dim=8, num_clusters=5, seed=1)
+    g = build_nsw_graph(vecs, k=8)
+    rng = np.random.default_rng(0)
+    queries = vecs[rng.integers(0, len(vecs), 24)]
+    queries = (queries + rng.normal(0, 0.01, queries.shape)).astype(
+        np.float32)
+    with EngineSession(device=dev) as s:
+        gid = s.register(g, "recall", vectors=vecs)
+        got = s.submit(gid, "knn", queries)
+        ex = s.executor.single
+        ga = s.registry.get(gid).handle
+        assert ga.search.vectors.device.type == "cuda"
+        ids, visits = ex.run(ga, "knn", queries)
+        assert ids.device.type == "cuda" and visits.device.type == "cuda"
+    oracle = knn_brute_force(vecs, queries, 10)
+    recall = np.mean([len(set(a) & set(b)) / 10
+                      for a, b in zip(got.tolist(), oracle.tolist())])
+    assert recall >= 0.95
 
 
 # --------------------------------------------------------------- moe_gmm

@@ -201,12 +201,12 @@ def test_backend_cache_mechanics(plc_graph, tiny_graph):
 def test_unported_paths_raise(plc_graph):
     ex = torch_engine.BatchedExecutor(device="cpu")
     h = ex.prepare(plc_graph)
-    with pytest.raises(NotImplementedError, match="A6"):
+    # knn is ported (tests/test_torch_knn.py); a graph prepared without
+    # a SearchSpec has nothing to search
+    with pytest.raises(ValueError, match="search="):
         ex.run(h, "knn", np.zeros((1, 4), np.float32))
     with pytest.raises(NotImplementedError, match="A7"):
         ex.prepare(plc_graph, backend="sharded")
-    with pytest.raises(NotImplementedError, match="A6"):
-        ex.prepare(plc_graph, search=object())
     # the sharded backend's options are refused, not ignored
     with pytest.raises(NotImplementedError, match="A7"):
         torch_engine.EngineSession(num_shards=4, device="cpu")

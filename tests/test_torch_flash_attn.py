@@ -6,7 +6,8 @@ The same numpy q, k, v go through the JAX package's Pallas kernel
 `flash_attention` on the CPU, which runs the kernel's plain version
 (`attention_ref`). The tolerances are the reference test's: float32 at
 rtol 1e-3 / atol 2e-3 (the online softmax sums in another order), bf16
-at 5e-2.
+at 5e-2. Grouped-query cases give the Pallas kernel, which takes equal
+heads only, k and v repeated per query row.
 """
 from __future__ import annotations
 
@@ -59,6 +60,54 @@ def test_bf16_matches_the_pallas_kernel():
     got = causal_attention(tq, tk, tv)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("s,window", [(256, 0), (512, 128)])
+def test_grouped_query_matches_the_pallas_kernel(group, s, window):
+    """Grouped-query attention: 8 query rows, 8 / group kv rows. The
+    Pallas kernel takes equal heads only, so it gets k and v repeated per
+    query row; the port's `flash_attention` (its plain version here) takes
+    the grouped k and v as they are. The reference test's float32
+    tolerance."""
+    bh, d = 8, 64
+    rng = np.random.default_rng(group * 1000 + s)
+    q = rng.standard_normal((bh, s, d)).astype(np.float32)
+    k, v = (rng.standard_normal((bh // group, s, d)).astype(np.float32)
+            for _ in range(2))
+    want = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, group, axis=0)),
+        jnp.asarray(np.repeat(v, group, axis=0)), window=window,
+        interpret=True))
+    got = tf.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                             window=window)
+    assert got.shape == (bh, s, d)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    via_ops = causal_attention(*map(torch.from_numpy, (q, k, v)),
+                               window=window)
+    assert torch.equal(via_ops, got)
+
+
+def test_kernel_takes_grouped_kv_and_refuses_the_rest():
+    """k and v of (BH / group, S, d) for a whole group are taken (the
+    group is BH / k.shape[0]); a kv count that does not divide BH, more
+    kv rows than query rows, or k and v of different shapes are
+    refused."""
+    q = torch.zeros(8, 40, 64)
+    for kvh in (8, 4, 2, 1):
+        kv = torch.zeros(kvh, 40, 64)
+        tf._check(q, kv, kv.clone())
+        assert tf.kv_group(q, kv, kv) == 8 // kvh
+    for kvh in (3, 5, 16):
+        kv = torch.zeros(kvh, 40, 64)
+        with pytest.raises(ValueError, match="BH / group"):
+            tf._check(q, kv, kv)
+    with pytest.raises(ValueError, match="shape"):
+        tf._check(q, torch.zeros(2, 40, 64), torch.zeros(4, 40, 64))
+    with pytest.raises(ValueError, match="BH / group"):
+        tf._check(q, torch.zeros(2, 40, 32), torch.zeros(2, 40, 32))
+    empty = torch.zeros(0, 40, 64)
+    assert tf.kv_group(empty, empty, empty) == 1
 
 
 @pytest.mark.parametrize("s,window,sm_scale", [(300, 0, None), (77, 16, 0.3)])

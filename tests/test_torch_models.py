@@ -194,14 +194,15 @@ def _attn_params(params, layer=0):
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "qwen2.5-3b"])
 def test_apply_attention_prefill(arch):
-    """minicpm through `causal_attention` (the flash kernel's plain
-    version), qwen2.5 (GQA, qkv bias) through the chunked path."""
+    """minicpm (MHA) and qwen2.5 (GQA, qkv bias) through
+    `causal_attention` (the flash kernel's plain version, float32 PV),
+    beside the reference's chunked path (bf16 PV)."""
     cfg_j, cfg_t, params, _ = _pair(arch)
     jp, tp = _attn_params(params)
     x = np.random.default_rng(4).standard_normal((2, 20, cfg_j.d_model))
     jx, tx = _bf16(x)
     pos = np.arange(20, dtype=np.int32)
-    assert TL.flash_eligible(cfg_t, "cpu") == (arch == "minicpm-2b")
+    assert TL.flash_eligible(cfg_t, "cpu") is True
     want, _ = JL.apply_attention(jp, jx, cfg_j, jnp.asarray(pos))
     got, cache = TL.apply_attention(tp, tx, cfg_t, torch.from_numpy(pos))
     assert cache is None and got.dtype == torch.bfloat16
@@ -290,13 +291,19 @@ def test_forward_matches_the_reference(minicpm):
 
 
 def test_forward_gqa_matches_the_reference():
-    """qwen2.5 (GQA, qkv bias, no hot vocabulary): the chunked path on the
-    CPU."""
-    cfg_j, _, params, model = _pair("qwen2.5-3b")
+    """qwen2.5 (GQA, qkv bias, no hot vocabulary), 2 layers: the port's
+    prefill attention is the flash kernel's plain version on the grouped
+    k and v (float32 PV), the reference's its chunked path (bf16 PV); the
+    same tolerance and argmax standard as minicpm's forward."""
+    cfg_j, cfg_t, params, model = _pair("qwen2.5-3b")
+    assert cfg_t.num_kv_heads < cfg_t.num_heads
+    assert TL.flash_eligible(cfg_t, "cpu") is True
     tokens = _tokens(cfg_j, (1, 24), seed=2)
     want, _ = JT.forward(params, {"tokens": jnp.asarray(tokens)}, cfg_j)
     got, _ = TT.forward(model, {"tokens": torch.from_numpy(tokens)})
     _close(got, want)
+    agree = (_f32(got).argmax(-1) == _f32(want).argmax(-1)).mean()
+    assert agree > 0.95
 
 
 def test_decode_matches_the_reference_and_forward(minicpm):
@@ -443,28 +450,36 @@ def test_from_jax_params_copies_every_leaf(minicpm):
 
 # ----------------------------------------------------------- what raises
 @pytest.mark.parametrize("arch,what", [
-    ("qwen2.5-3b", "grouped-query"), ("paligemma-3b", "prefix-LM"),
-    ("hubert-xlarge", "non-causal"), ("mixtral-8x7b", "grouped-query")])
+    ("qwen2.5-3b", None), ("paligemma-3b", "prefix-LM"),
+    ("hubert-xlarge", "non-causal"), ("mixtral-8x7b", None)])
 def test_unported_attention_raises_on_the_card(arch, what):
     """On the card prefill attention is the kernel or nothing: a config it
     does not take raises (the check runs before any tensor work); on the
-    CPU it takes the reference's chunked path."""
-    cfg = smoke_config(arch, layers=1)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A8.9"):
-        TL.flash_eligible(cfg, torch.device("cuda"))
-    assert TL.flash_eligible(cfg, "cpu") is False
+    CPU it takes the reference's chunked path. The GQA configs (``what``
+    None: qwen2.5-3b, and mixtral-8x7b with its sliding window) are taken
+    by the kernel, at full width as in the smoke config."""
+    for cfg in (smoke_config(arch, layers=1), get_config(arch)):
+        if what is None:
+            assert cfg.num_kv_heads < cfg.num_heads
+            assert TL.flash_eligible(cfg, torch.device("cuda")) is True
+            assert TL.flash_eligible(cfg, "cpu") is True
+            continue
+        with pytest.raises(NotImplementedError,
+                           match=f"{what}.*ROADMAP A8.9b"):
+            TL.flash_eligible(cfg, torch.device("cuda"))
+        assert TL.flash_eligible(cfg, "cpu") is False
     assert TL.flash_eligible(smoke_config(ARCH, layers=1), "cuda") is True
 
 
 @pytest.mark.parametrize("head_dim", [8, 48, 80])
 def test_head_dim_the_kernel_lacks_raises_on_the_card(head_dim):
     """A causal MHA config whose head dim the kernel was not built for is
-    refused at `flash_eligible`, before any work, naming A8.9; on the CPU
+    refused at `flash_eligible`, before any work, naming A8.9b; on the CPU
     it takes the chunked path."""
     cfg = dataclasses.replace(smoke_config(ARCH, layers=1),
                               head_dim=head_dim)
     with pytest.raises(NotImplementedError,
-                       match=f"head dim {head_dim}.*ROADMAP A8.9"):
+                       match=f"head dim {head_dim}.*ROADMAP A8.9b"):
         TL.flash_eligible(cfg, torch.device("cuda"))
     assert TL.flash_eligible(cfg, "cpu") is False
     model = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -537,15 +552,30 @@ def test_serve_main_defaults_are_the_references(monkeypatch):
 
 
 def test_serve_main_default_arch_is_refused_on_the_card(monkeypatch):
-    """On the card the default (GQA) raises at `flash_eligible`, naming
-    A8.9, before any weights are made."""
+    """The default (qwen2.5-3b, GQA) is no longer refused on the card:
+    `flash_eligible` takes it there (the run is stopped right after that
+    check, since this host has no card to make weights on). A config the
+    kernel does not take is still refused before any weights, naming
+    A8.9b."""
+    class _Reached(Exception):
+        pass
+
+    eligible = TL.flash_eligible
+
+    def checked(cfg, device):
+        raise _Reached(cfg.name, str(device), eligible(cfg, device))
     monkeypatch.setattr(TS, "resolve_device",
                         lambda device=None: torch.device("cuda"))
+    monkeypatch.setattr(TL, "flash_eligible", checked)
+    with pytest.raises(_Reached) as got:
+        TS.main(["--smoke", "--layers", "1"])
+    assert got.value.args == ("qwen2.5-3b", "cuda", True)
+    monkeypatch.setattr(TL, "flash_eligible", eligible)
     monkeypatch.setattr(TT, "init_params", lambda *a, **kw: pytest.fail(
         "weights made before the config was refused"))
     with pytest.raises(NotImplementedError,
-                       match="qwen2.5-3b.*grouped-query.*ROADMAP A8.9"):
-        TS.main(["--smoke", "--layers", "1"])
+                       match="paligemma-3b.*prefix-LM.*ROADMAP A8.9b"):
+        TS.main(["--arch", "paligemma-3b", "--smoke", "--layers", "1"])
 
 
 def test_serve_main_on_the_cpu(capsys):

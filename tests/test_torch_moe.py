@@ -3,9 +3,11 @@ package.
 
 Both packages run the smoke moonshot-v1-16b-a3b (4 experts, top-2, one
 shared expert) and smoke mixtral-8x7b (4 experts, top-2, GQA with a
-sliding window, so the chunked attention path on the CPU) on the same
-weights: the JAX package's ``init_params`` pytree, carried across with
-`from_jax_params`. Inputs are made from seeds with numpy.
+sliding window) on the same weights: the JAX package's ``init_params``
+pytree, carried across with `from_jax_params`. Inputs are made from seeds
+with numpy. The port's prefill attention is the flash kernel's plain
+version (float32 PV) for both, and its decode keeps PV in float32 after
+it; the reference's chunked path rounds p to bf16 in both.
 
 Tolerances:
 * routing on the same bf16 input: the same experts, gates and aux loss at
@@ -14,10 +16,17 @@ Tolerances:
 * whole models: the standards of tests/test_torch_models.py (logits
   within 2% of the largest, decode within rtol/atol 0.15, argmax agreement
   > 0.95), held at 95% of the positions or more. A top-k choice is
-  discrete: where two experts' probabilities nearly tie, bf16 rounding
-  that differs between the frameworks upstream picks the other expert
-  for that token and moves its logits by O(1) (measured: 1 position of 80
-  in smoke mixtral's forward, none in moonshot's).
+  discrete: where two experts' probabilities nearly tie, rounding that
+  differs between the frameworks upstream (bf16 against float32 PV among
+  it) picks the other expert for that token and moves its logits by O(1)
+  (measured: 5 positions of 80 in smoke mixtral's forward, from 3
+  choices parted at router margins 2e-5 to 5e-4; none in moonshot's).
+  So the whole-model tests hold the free-running routing to part only
+  where the router's margin is below ROUTE_TIE, at a root (a choice no
+  earlier layer's parted choice at that position or before reaches),
+  and the logits to the standard on a run that replays the other run's
+  expert choices (`models.moe.RouteTape`), as chip_smoke.py holds the
+  card to the CPU.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ BF16_FRAC = 2e-2        # tests/test_torch_models.py
 DECODE_TOL = dict(rtol=0.15, atol=0.15)
 MOE_TOL = dict(rtol=0.1, atol=0.02)   # tests/test_models.py:133
 MIN_POSITIONS = 0.95
+ROUTE_TIE = 1e-3        # chip_smoke.py: a router margin rounding can cross
 
 
 def _f32(a) -> np.ndarray:
@@ -73,6 +83,18 @@ def _argmax_agree(got, want) -> float:
     return float((_f32(got).argmax(-1) == _f32(want).argmax(-1)).mean())
 
 
+def _argmax_agree_to_a_unit(got, want) -> float:
+    """Share of positions where ``got``'s top token is ``want``'s or ties
+    with it to within one bf16 unit of ``want``'s top logit: the argmax
+    standard chip_smoke.py holds two roundings of a decode to (PERF.md
+    §2), for logits that each framework rounds to bf16 after sums that
+    differ upstream."""
+    got, want = _f32(got), _f32(want)
+    best = want.max(-1)
+    picked = np.take_along_axis(want, got.argmax(-1)[..., None], -1)[..., 0]
+    return float((best - picked <= _bf16_unit(best)).mean())
+
+
 def _pair(arch, layers=2, **replace):
     cfg_j = dataclasses.replace(jax_smoke(arch, layers=layers), **replace)
     cfg_t = dataclasses.replace(smoke_config(arch, layers=layers), **replace)
@@ -85,6 +107,36 @@ def _pair(arch, layers=2, **replace):
 @pytest.fixture(scope="module", params=ARCHS)
 def moe_pair(request):
     return _pair(request.param)
+
+
+def _traced_routes(monkeypatch):
+    """Patch the reference's `_route` to record each call's expert ids,
+    sorted, in call order (``jax.debug.callback``, so jitted calls
+    record too); returns the list they land in."""
+    routes, route = [], JM._route
+
+    def traced(p, x, cfg):
+        experts, gates, aux = route(p, x, cfg)
+        jax.debug.callback(lambda e: routes.append(np.sort(e, -1)),
+                           experts, ordered=True)
+        return experts, gates, aux
+    monkeypatch.setattr(JM, "_route", traced)
+    return routes
+
+
+def _assert_parts_at_ties(want, got, margins, b):
+    """``want`` and ``got``: (layers, b·s, k) expert ids of two runs in
+    (b, s) row order; ``margins`` (layers, b·s) the router margins of
+    ``got``. Every root where they part (no parted choice at an earlier
+    layer at that position or before in its sequence) lies below
+    ROUTE_TIE."""
+    layers = want.shape[0]
+    differ = (want != got).any(-1).reshape(layers, b, -1)
+    upto = np.maximum.accumulate(differ, axis=2)
+    below = (np.cumsum(upto, axis=0) - upto) > 0
+    roots = differ & ~below
+    assert (margins.reshape(layers, b, -1)[roots] < ROUTE_TIE).all(), (
+        margins.reshape(layers, b, -1)[roots])
 
 
 def _moe_params(arch, seed=0):
@@ -228,17 +280,27 @@ def test_apply_moe_refuses_a_mesh():
 
 
 # ---------------------------------------------------------------- the model
-def test_forward_and_aux_match_the_reference(moe_pair):
+def test_forward_and_aux_match_the_reference(moe_pair, monkeypatch):
+    """Free-running, the routing parts only at near-ties; on the
+    reference's expert choices the logits meet the standard."""
     cfg_j, _, params, model = moe_pair
     tokens = np.random.default_rng(1).integers(
         0, cfg_j.vocab_size, (2, 40)).astype(np.int32)
+    routes = _traced_routes(monkeypatch)
     want, jaux = JT.forward(params, {"tokens": jnp.asarray(tokens)}, cfg_j)
+    jax.effects_barrier()
     launches = gmm_mod.launches
-    got, aux = TT.forward(model, {"tokens": torch.from_numpy(tokens)})
+    with TM.RouteTape() as tape:
+        got, aux = TT.forward(model, {"tokens": torch.from_numpy(tokens)})
     assert gmm_mod.launches == launches   # the CPU runs the plain version
     assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _assert_parts_at_ties(np.stack(routes), torch.stack(tape.experts).numpy(),
+                          torch.stack(tape.margins).numpy(), tokens.shape[0])
+    with TM.RouteTape([torch.from_numpy(e).long() for e in routes]):
+        forced, _ = TT.forward(model, {"tokens": torch.from_numpy(tokens)})
     atol = BF16_FRAC * float(np.abs(_f32(want)).max())
-    assert _positions_close(got, want, BF16_FRAC, atol) >= MIN_POSITIONS
+    assert _positions_close(forced, want, BF16_FRAC, atol) >= MIN_POSITIONS
+    assert _argmax_agree(forced, want) > 0.95
     assert _argmax_agree(got, want) > 0.95
     # the layers' inputs differ by bf16 rounding, so their routing
     # statistics do too; one flipped assignment of the T·k = 160 moves the
@@ -248,29 +310,64 @@ def test_forward_and_aux_match_the_reference(moe_pair):
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-2)
 
 
-def test_decode_matches_the_reference_and_forward(moe_pair):
+def test_decode_matches_the_reference_and_forward(moe_pair, monkeypatch):
     """Teacher-forced decode through the cache against the reference's
-    `decode_step` and the port's own forward."""
+    `decode_step` and the port's own forward: free-running, the port's
+    decode routing parts from either only at near-ties; on the other
+    run's expert choices the logits meet the standard. The port's decode
+    keeps PV in float32 after a flash prefill, where the reference's
+    rounds p to bf16 (ROADMAP C), so against the reference's decode a top
+    token may change where the two leading logits lie within a bf16 unit:
+    there the argmax is held to within one unit (measured in smoke
+    mixtral: 2 of 24 positions change, leads of 1 and 2 units; against
+    the port's own forward, the same arithmetic, none)."""
     cfg_j, cfg_t, params, model = moe_pair
-    b, s = 2, 12
+    b, s, layers = 2, 12, cfg_t.num_layers
     tokens = np.random.default_rng(3).integers(
         0, cfg_j.vocab_size, (b, s)).astype(np.int32)
+    routes = _traced_routes(monkeypatch)
     jc = JT.init_cache(cfg_j, b, max_len=s)
-    tc = TT.init_cache(cfg_t, b, max_len=s, device="cpu")
     step = jax.jit(lambda p, c, t: JT.decode_step(p, c, t, cfg_j))
-    jd, td = [], []
+    jd = []
     for i in range(s):
         lg, jc = step(params, jc, jnp.asarray(tokens[:, i:i + 1]))
         jd.append(_f32(lg[:, 0]))
-        lg, tc = TT.decode_step(model, tc, torch.from_numpy(
-            tokens[:, i:i + 1]))
-        td.append(_f32(lg[:, 0]))
-    jd, td = np.stack(jd, 1), np.stack(td, 1)
-    full, _ = TT.forward(model, {"tokens": torch.from_numpy(tokens)})
-    for want in (jd, _f32(full)):
-        assert _positions_close(td, want, **DECODE_TOL) >= MIN_POSITIONS
-        assert _argmax_agree(td, want) > 0.95
-    assert int(tc["pos"]) == s
+    jax.effects_barrier()
+    jd = np.stack(jd, 1)
+
+    def decode(replay=None):
+        tc = TT.init_cache(cfg_t, b, max_len=s, device="cpu")
+        out = []
+        with TM.RouteTape(replay) as tape:
+            for i in range(s):
+                lg, tc = TT.decode_step(model, tc, torch.from_numpy(
+                    tokens[:, i:i + 1]))
+                out.append(_f32(lg[:, 0]))
+        assert int(tc["pos"]) == s
+        return np.stack(out, 1), tape
+
+    def by_position(calls):   # (s·layers, b, k) step-major -> (layers, b·s, k)
+        e = np.stack(calls).reshape(s, layers, b, -1)
+        return e.transpose(1, 2, 0, 3).reshape(layers, b * s, -1)
+
+    td, tape = decode()
+    margins = torch.stack(tape.margins).numpy().reshape(s, layers, b)
+    margins = margins.transpose(1, 2, 0).reshape(layers, b * s)
+    got_routes = by_position([e.numpy() for e in tape.experts])
+    _assert_parts_at_ties(by_position(routes), got_routes, margins, b)
+    with TM.RouteTape() as fwd:
+        full, _ = TT.forward(model, {"tokens": torch.from_numpy(tokens)})
+    fwd_routes = torch.stack(fwd.experts).numpy()
+    _assert_parts_at_ties(fwd_routes, got_routes, margins, b)
+
+    on_ref, _ = decode([torch.from_numpy(e).long() for e in routes])
+    per_step = fwd_routes.reshape(layers, b, s, -1)
+    on_fwd, _ = decode([torch.from_numpy(per_step[layer, :, i]).long()
+                        for i in range(s) for layer in range(layers)])
+    assert _positions_close(on_ref, jd, **DECODE_TOL) >= MIN_POSITIONS
+    assert _argmax_agree_to_a_unit(on_ref, jd) > 0.95
+    assert _positions_close(on_fwd, full, **DECODE_TOL) >= MIN_POSITIONS
+    assert _argmax_agree(on_fwd, full) > 0.95
 
 
 def _reference_serve_trace(monkeypatch, cfg_j, params, requests):
