@@ -15,8 +15,9 @@ any CUDA work, joined before it exits), beside phases 1-5.
    at once) and print the build seconds, then ptxas's registers, shared
    memory and spills of both SpMV kernels (``csr_spmv_merge``,
    ``csr_spmv_carries``), of the Hopper flash kernel
-   (``flash_fwd_bf16_wgmma``) and of both bf16 grouped-matmul kernels
-   (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``).
+   (``flash_fwd_bf16_wgmma``) and of its ``mma.sync`` kernels
+   (``flash_fwd_bf16_mma``, d 16, 32 and 256), of both bf16 grouped-matmul
+   kernels (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``).
 3. Kernel check: ``csr_spmv`` against its plain PyTorch version on the
    card (ragged rows, empty rows, a graph with no edges, a bucketed
    upload with sentinel edges of value 0; a 100k-edge hub across many
@@ -72,11 +73,15 @@ weights from ``init_params`` on the card, seed 7):
    tolerances and equal, bit for bit, to the same kernel on k and v
    repeated per query row; multi-head calls give the bits the kernel gave
    before it took grouped-query attention
-   (tests/test_torch_cuda.py::MHA_DIGESTS); ``hot_gather`` at the
-   reference cases plus all-cold ids and H = vocab, exact. Each result
-   must also repeat bit for bit.
-7. Prefill: ``forward`` on 1 x 32,768 tokens (the ``prefill_32k`` sequence,
-   its global batch of 32 cut to 1 for one card) at all 40 layers; 40
+   (tests/test_torch_cuda.py::MHA_DIGESTS); the causal, sliding-window,
+   prefix-LM (prefix 256 and 700) and bidirectional masks in every
+   variant, with head dims 80 and 256 in bf16, at S 300 and 1,000, and 8
+   query rows on 1 kv row with a 256-token prefix at S 300 and 4,096;
+   ``hot_gather`` at the reference cases plus all-cold ids and H = vocab,
+   exact. Each result must also repeat bit for bit.
+7. Prefill: ``forward`` on the batch ``configs/shapes.input_specs``
+   defines for ``prefill_32k`` (32,768 positions, its global batch of 32
+   cut to 1 for one card) at all 40 layers; 40
    flash launches, all of them through the ``wgmma`` variant (bf16 at
    d = 64), 1 hot-slab launch, finite logits. The tokens come from
    the repo's own pipeline: a held-out batch of the Zipf-community corpus
@@ -116,6 +121,25 @@ bias, tied embeddings: 3,085,844,480 parameters): 36 flash launches a
 prefill, all ``wgmma`` with grouped kv (group 8), flash held to its plain
 version on layer 0's real q and grouped k/v, timed beside
 ``F.scaled_dot_product_attention(..., enable_gqa=True)``.
+
+Then phases 7-11 on paligemma-3b at full width and depth (18 layers, d
+2048, 8 heads of 256 over 1 kv head, d_ff 16384, vocab 257,216, tied
+embeddings: 2,508,660,736 parameters): a prefix of 256 embedding rows
+(N(0, 1) from the seed) plus 32,512 tokens; 18 flash launches a prefill,
+all ``mma_sync`` (d 256), grouped (group 8) and prefix-masked; decode
+against forward as a pure token stream (``prefix_tokens`` 0, as
+tests/test_models.py runs it: a decode step takes tokens only); card
+against CPU on 256 prefix rows plus 256 tokens; flash timed beside
+``F.scaled_dot_product_attention`` with an explicit boolean (S, S) mask
+on the memory-efficient backend (k and v repeated per head, which that
+backend needs). Then hubert-xlarge at full width and depth (48 layers, d
+1280, 16 heads of 80, bidirectional, d_ff 5120, layernorm, a 504-way
+head: 945,131,520 parameters): the encoder forward on 32,768 frames
+(N(0, 1) from the seed), 48 bidirectional flash launches, all ``wgmma``
+(d 80 in 128-column tiles); card against CPU on 256 frames; the flash
+timing beside ``is_causal=False`` SDPA. An encoder has no decode step
+(``configs/shapes.cell_supported``), so phases 8 and 10 are skipped and
+say so. Both library calls round p to bf16.
 
 Then the MoE slice, moonshot-v1-16b-a3b at full width (d 2048, 16 heads
 of 128, 64 experts of d_ff 1408, top-6, 2 shared experts), its depth cut
@@ -158,6 +182,7 @@ is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -173,12 +198,19 @@ F32_FLOPS = 67e12               # H100 SXM float32 outside tensor cores
 BF16_FLOPS = 989e12             # H100 SXM bf16 dense tensor cores
 ARCH = "minicpm-2b"
 GQA_ARCH = "qwen2.5-3b"
+PREFIX_ARCH = "paligemma-3b"    # prefix-LM, one kv head, head dim 256
+ENCODER_ARCH = "hubert-xlarge"  # bidirectional encoder, head dim 80
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_LAYERS = 16                 # of 48: what one 80 GB card holds in f32
-PREFILL_TOKENS = 32_768
+PREFILL_SHAPE = "prefill_32k"   # configs/shapes.py; its batch of 32 cut to 1
+PREFILL_TOKENS = None           # None: SHAPES[PREFILL_SHAPE].seq_len
 FLASH_TOL = {"float32": dict(rtol=1e-3, atol=2e-3),
              "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 FLASH_SERVED_TOL = dict(rtol=1.6e-2, atol=1e-2)   # bf16, served shapes
+# bf16 masks and head dims 80 / 256: the kernel and the plain version both
+# keep PV in float32 and round once, so they part by at most one bf16 unit
+# of the output (2^-7 of it); atol covers outputs near zero
+FLASH_MASK_TOL = dict(rtol=8e-3, atol=1e-3)
 DECODE_TOL = dict(rtol=0.15, atol=0.15)
 GMM_TOL = dict(rtol=1e-4, atol=1e-4)   # float32 sums of exact products
 ROUTE_TIE = 1e-3        # router margin (probability) that rounding can cross
@@ -619,27 +651,29 @@ def knn_phase(dev, corpora: dict, card: str) -> dict:
 
 
 # ------------------------------------------------------------ the LM slice
-def flash_check(name, q, k, v, window=0, rows=None, tol=None) -> float:
+def flash_check(name, q, k, v, window=0, rows=None, tol=None,
+                causal=True, prefix=0) -> float:
     """Kernel vs plain version on the same card tensors; returns max |err|.
 
     k and v may hold BH / group rows (grouped-query attention); then the
     kernel must also give the bits it gives on k and v repeated per query
     row. ``rows`` limits the comparison to those (b·h) rows of the
     kernel's output, each against the plain version on that row and its
-    kv row alone (the plain version materialises S x S logits). ``tol``
-    defaults to the reference test's tolerance for q's dtype."""
+    kv row alone. ``tol`` defaults to the reference test's tolerance for
+    q's dtype. ``causal``, ``prefix`` and ``window`` give the mask."""
     import torch
     from repro_torch.kernels.flash_attn import flash_attn as fa
     from repro_torch.kernels.flash_attn.ref import attention_ref
+    mask = dict(window=window, causal=causal, prefix=prefix)
     group = fa.kv_group(q, k, v)
-    got = fa.flash_attention(q, k, v, window=window)
-    again = fa.flash_attention(q, k, v, window=window)
+    got = fa.flash_attention(q, k, v, **mask)
+    again = fa.flash_attention(q, k, v, **mask)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError(f"flash_attention[{name}]: two runs differ")
     if group > 1 and not torch.equal(got, fa.flash_attention(
             q, k.repeat_interleave(group, 0), v.repeat_interleave(group, 0),
-            window=window)):
+            **mask)):
         raise AssertionError(f"flash_attention[{name}]: grouped kv differs "
                              f"from the same kv repeated per query row")
     tol = tol or FLASH_TOL[str(q.dtype).removeprefix("torch.")]
@@ -647,14 +681,57 @@ def flash_check(name, q, k, v, window=0, rows=None, tol=None) -> float:
     for sl, kv in ([(slice(None), slice(None))] if rows is None
                    else [(slice(i, i + 1), slice(i // group, i // group + 1))
                          for i in rows]):
-        want = attention_ref(q[sl], k[kv], v[kv], window=window).float()
+        want = attention_ref(q[sl], k[kv], v[kv], **mask).float()
         torch.testing.assert_close(got[sl].float(), want, **tol)
         err = max(err, float((got[sl].float() - want).abs().max()))
         del want
     print(f"flash_attention[{name}]: shape={tuple(q.shape)} kv rows="
-          f"{k.shape[0]} dtype={q.dtype} window={window} "
-          f"max_abs_err={err:.3e}")
+          f"{k.shape[0]} dtype={q.dtype} "
+          f"variant={fa.variant(q.dtype, q.shape[2])} "
+          f"mask={fa.mask_kind(causal, prefix)} "
+          f"prefix={prefix if causal else 0} "
+          f"window={window if causal else 0} max_abs_err={err:.3e}")
     return err
+
+
+def flash_boundary_check(q, k, v, prefix: int = 300) -> None:
+    """The mask's edges, one key at a time, on (BH, S, d) q, k, v with S
+    and ``prefix`` inside a tile of every variant (S 600, prefix 300).
+    Causal with the prefix: a change to key ``prefix``, the first past it,
+    leaves rows below it bit for bit and moves row ``prefix``; a change to
+    key ``prefix - 1`` moves row 0. Non-causal: a change to the last key
+    (in the ragged tile) moves row 0."""
+    import torch
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    s = q.shape[1]
+
+    def bumped(j):
+        k2, v2 = k.clone(), v.clone()
+        k2[:, j], v2[:, j] = k2[:, j] + 4.0, v2[:, j] - 4.0
+        return k2, v2
+
+    base = fa.flash_attention(q, k, v, prefix=prefix)
+    past = fa.flash_attention(q, *bumped(prefix), prefix=prefix)
+    last = fa.flash_attention(q, *bumped(prefix - 1), prefix=prefix)
+    every = fa.flash_attention(q, k, v, causal=False)
+    end = fa.flash_attention(q, *bumped(s - 1), causal=False)
+    torch.cuda.synchronize()
+    name = (f"flash_attention[boundaries, {q.dtype}, d {q.shape[2]}, S {s}, "
+            f"prefix {prefix}]")
+    if not torch.equal(base[:, :prefix], past[:, :prefix]):
+        raise AssertionError(f"{name}: key {prefix} moved a row below the "
+                             f"prefix")
+    for rows, a, b, what in ((slice(prefix, prefix + 1), base, past,
+                              f"key {prefix} left row {prefix}"),
+                             (slice(0, 1), base, last,
+                              f"key {prefix - 1} left row 0"),
+                             (slice(0, 1), every, end,
+                              f"key {s - 1} left row 0 (non-causal)")):
+        if torch.equal(a[:, rows], b[:, rows]):
+            raise AssertionError(f"{name}: {what} unchanged")
+    print(f"{name}: rows below the prefix keep their bits when key {prefix} "
+          f"changes; rows {prefix} and 0 see keys {prefix} and "
+          f"{prefix - 1}; non-causal row 0 sees key {s - 1}")
 
 
 def hot_check(name, ids, table, hot: int, verbose: bool = True) -> float:
@@ -736,6 +813,30 @@ def lm_kernel_cases(dev) -> tuple[float, float]:
                                  f"changed")
     print(f"flash_attention: multi-head bits unchanged in "
           f"{len(tc.DIGEST_CASES)} cases")
+    # causal, sliding-window, prefix-LM (a prefix shorter and longer than
+    # a tile, and than S) and bidirectional masks in every variant and at
+    # head dims 80 and 256; S no multiple of any tile; then grouped kv
+    # (8 query rows on 1 kv row) with a prefix
+    bf16, f32 = torch.bfloat16, torch.float32
+    variants = ((bf16, 64), (bf16, 80), (bf16, 128), (bf16, 16), (bf16, 32),
+                (bf16, 256), (f32, 32), (f32, 128))
+    for dtype, d in variants:
+        tol = FLASH_MASK_TOL if dtype == bf16 else None
+        for s in (300, 1000):
+            for mask in (dict(), dict(window=128), dict(prefix=256),
+                         dict(prefix=700), dict(causal=False)):
+                q, k, v = (normal((2, s, d), dtype) for _ in range(3))
+                flash_err = max(flash_err, flash_check(
+                    f"masks 2x{s}x{d}", q, k, v, tol=tol, **mask))
+        flash_boundary_check(*(normal((2, 600, d), dtype) for _ in range(3)))
+    for dtype, d in ((bf16, 256), (bf16, 128), (bf16, 80), (f32, 64)):
+        tol = FLASH_MASK_TOL if dtype == bf16 else None
+        for s in (300, 4096):
+            q = normal((8, s, d), dtype)
+            k, v = (normal((1, s, d), dtype) for _ in range(2))
+            flash_err = max(flash_err, flash_check(
+                f"gqa group 8, prefix 256, 8x{s}x{d}", q, k, v, tol=tol,
+                prefix=256))
 
     hot_err = 0.0
     for vocab, hot, n, d in ((1000, 128, 400, 32), (4096, 512, 512, 32),
@@ -795,17 +896,56 @@ def token_source(cfg, seq_len: int):
     return tokens
 
 
-def layer0_heads(model, tokens):
+def lm_batch(cfg, tokens, step: int, seq_len: int) -> dict:
+    """The prefill batch of ``seq_len`` positions that
+    ``configs/shapes.input_specs`` defines for ``cfg``, at batch 1, on the
+    CPU: ``tokens`` from the token source (its batch ``step``); a
+    prefix-LM's prefix of embeddings and an encoder's frames from N(0, 1)
+    on a ``torch.Generator`` seeded with SEED + step, in their spec's
+    dtype."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec, input_specs
+    spec = ShapeSpec(f"prefill_{seq_len}", seq_len, 1, "prefill")
+    gen = torch.Generator().manual_seed(SEED + step)
+    batch = {}
+    for name, t in input_specs(cfg, spec).items():
+        batch[name] = (tokens(step, t.shape[1]) if name == "tokens" else
+                       torch.randn(t.shape, generator=gen).to(t.dtype))
+    return batch
+
+
+def on(dev, batch: dict) -> dict:
+    return {name: t.to(dev) for name, t in batch.items()}
+
+
+@contextlib.contextmanager
+def token_stream(model):
+    """``model`` with a prefix-LM's prefix cut to 0, as
+    tests/test_models.py::test_decode_matches_forward runs paligemma: a
+    decode step takes tokens only, so its forward must too."""
+    import dataclasses
+    cfg = model.cfg
+    mods = [model, *model.layers]
+    for m in mods:
+        m.cfg = dataclasses.replace(cfg, prefix_tokens=0)
+    try:
+        yield model
+    finally:
+        for m in mods:
+            m.cfg = cfg
+
+
+def layer0_heads(model, batch):
     """Layer 0's (B·H, S, dh) q and (B·KV, S, dh) k and v, as
     `apply_attention` hands them to the flash kernel."""
     import torch
-    from repro_torch.models.layers import (_dense, apply_norm, apply_rope,
-                                           embed_tokens)
+    from repro_torch.models.layers import _dense, apply_norm, apply_rope
+    from repro_torch.models.transformer import embed_inputs
     cfg, blk = model.cfg, model.layers[0]
-    b, s = tokens.shape
+    x = apply_norm(blk.norm1, embed_inputs(model, batch), cfg)
+    b, s = x.shape[:2]
     dh = cfg.head_dim
-    x = apply_norm(blk.norm1, embed_tokens(model.embed, tokens, cfg), cfg)
-    pos = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)
 
     def heads(w, n, rope=True):
         t = _dense(x, blk.attn[f"w{w}"], blk.attn.get(f"b{w}")).reshape(
@@ -824,7 +964,10 @@ def lm_launches() -> dict:
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
     return {"flash_attn": fa.launches,
             "flash_attn_wgmma": fa.launches_by_variant["wgmma"],
+            "flash_attn_mma_sync": fa.launches_by_variant["mma_sync"],
             "flash_attn_gqa": fa.launches_grouped,
+            "flash_attn_prefix": fa.launches_by_mask["prefix"],
+            "flash_attn_non_causal": fa.launches_by_mask["non_causal"],
             "hot_embed": he.launches, "moe_gmm": gm.launches,
             "moe_gmm_wgmma": gm.launches_by_variant["wgmma"],
             "moe_gmm_splitk": gm.launches_by_variant["splitk"]}
@@ -836,6 +979,7 @@ def reset_lm_launches() -> None:
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
     fa.launches = fa.launches_grouped = he.launches = gm.launches = 0
     fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+    fa.launches_by_mask = dict.fromkeys(fa.MASKS, 0)
     gm.launches_by_variant = dict.fromkeys(gm.VARIANTS, 0)
 
 
@@ -855,30 +999,55 @@ def gmm_launches(cfg, tokens: int, calls: int) -> dict:
     return out
 
 
-def prefill(dev, model, tokens) -> dict:
-    """Phase 7: the prefill forward at full width."""
+def flash_mask(cfg) -> dict:
+    """The flash kernel's mask arguments for ``cfg``'s attention."""
+    return dict(window=cfg.window, causal=cfg.causal,
+                prefix=cfg.prefix_tokens)
+
+
+def flash_launches(cfg, calls: int) -> dict:
+    """The flash launches of ``calls`` forwards: one a layer, all through
+    the variant of ``cfg``'s head dim, grouped and masked as its
+    attention is."""
+    import torch
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    n = cfg.num_layers * calls
+    v = fa.variant(torch.bfloat16, cfg.head_dim)
+    kind = fa.mask_kind(cfg.causal, cfg.prefix_tokens)
+    return {"flash_attn": n,
+            "flash_attn_wgmma": n if v == "wgmma" else 0,
+            "flash_attn_mma_sync": n if v == "mma_sync" else 0,
+            "flash_attn_gqa": n if cfg.num_kv_heads < cfg.num_heads else 0,
+            "flash_attn_prefix": n if kind == "prefix" else 0,
+            "flash_attn_non_causal": n if kind == "non_causal" else 0}
+
+
+def prefill(dev, model, batch) -> dict:
+    """Phase 7: the prefill forward at full width, on ``batch``
+    (`lm_batch`)."""
     import torch
     from repro_torch.models.layers import hot_vocab_size
     from repro_torch.models.transformer import forward
 
     cfg = model.cfg
-    tokens = tokens.to(dev)
-    n_tokens = tokens.shape[1]
-    forward(model, {"tokens": tokens[:, :256]})   # warm-up: cuBLAS, libs
+    batch = on(dev, batch)
+    # warm-up (cuBLAS, libs) on the first 256 positions after any prefix
+    forward(model, {n: t if n == "prefix" else t[:, :256]
+                    for n, t in batch.items()})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_lm_launches()
     t0 = time.perf_counter()
-    logits, aux = forward(model, {"tokens": tokens})
+    logits, aux = forward(model, batch)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = lm_launches()
-    gqa = cfg.num_kv_heads < cfg.num_heads
-    expected = {"flash_attn": cfg.num_layers,
-                "flash_attn_wgmma": cfg.num_layers,
-                "flash_attn_gqa": cfg.num_layers if gqa else 0,
-                "hot_embed": 1, **gmm_launches(cfg, n_tokens, 1)}
+    n_tokens = logits.shape[1]
+    tokens = batch.get("tokens")
+    expected = {**flash_launches(cfg, 1),
+                "hot_embed": 0 if tokens is None else 1,
+                **gmm_launches(cfg, n_tokens, 1)}
     if launches != expected:
         raise AssertionError(f"prefill launches {launches}, expected "
                              f"{expected}")
@@ -891,25 +1060,28 @@ def prefill(dev, model, tokens) -> dict:
         raise AssertionError("prefill logits are not all finite")
     if cfg.is_moe and not (bool(torch.isfinite(aux)) and float(aux) > 0):
         raise AssertionError(f"prefill aux loss {float(aux)}")
+    inputs = ", ".join(f"{n} {tuple(t.shape)}" for n, t in batch.items())
     print(f"prefill: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
-          f"tokens=1x{n_tokens} forward {seconds:.3f} s "
+          f"positions=1x{n_tokens} ({inputs}) forward {seconds:.3f} s "
           f"({n_tokens / seconds:.1f} tokens/s), launches {launches}, "
           f"peak {peak:.1f} GiB, logits finite, aux {float(aux):.4f}")
     del logits
-    q, k, v = layer0_heads(model, tokens)
+    q, k, v = layer0_heads(model, batch)
+    mask = flash_mask(cfg)
     err = flash_check("layer0 served, rows 0-1", q, k, v, rows=(0, 1),
-                      tol=FLASH_SERVED_TOL)
+                      tol=FLASH_SERVED_TOL, **mask)
     s4 = 4096
     err = max(err, flash_check(
         "layer0 all heads", *(t[:, :s4].contiguous() for t in (q, k, v)),
-        tol=FLASH_SERVED_TOL))
-    ids = tokens.reshape(-1)
-    hot_err = hot_check("prefill served", ids, model.embed["table"],
-                        hot_vocab_size(cfg))
+        tol=FLASH_SERVED_TOL, **mask))
     out = {"launches": launches, "seconds": seconds, "err": err,
-           "hot_err": hot_err, "q": q, "k": k, "v": v, "ids": ids}
+           "hot_err": 0.0, "q": q, "k": k, "v": v, "ids": None}
+    if tokens is not None:
+        out["ids"] = tokens.reshape(-1)
+        out["hot_err"] = hot_check("prefill served", out["ids"],
+                                   model.embed["table"], hot_vocab_size(cfg))
     if cfg.is_moe:
-        out["moe"] = moe_layer0(model, tokens)
+        out["moe"] = moe_layer0(model, batch)
     return out
 
 
@@ -1014,21 +1186,20 @@ def gmm_kernel_cases(dev) -> float:
     return err
 
 
-def moe_layer0(model, tokens) -> dict:
+def moe_layer0(model, batch) -> dict:
     """Layer 0's MoE on the prefill: its real expert-sorted rows, held to
     the plain version through the gate and the down products, and the
     routing's group sizes and ``dispatch_stats``. Returns the rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.locality.moe import dispatch_stats
-    from repro_torch.models.layers import (apply_attention, apply_norm,
-                                           embed_tokens)
+    from repro_torch.models.layers import apply_attention, apply_norm
     from repro_torch.models.moe import _route
+    from repro_torch.models.transformer import embed_inputs
     cfg, blk = model.cfg, model.layers[0]
     bf16 = torch.bfloat16
-    x = embed_tokens(model.embed, tokens, cfg)
-    pos = torch.arange(tokens.shape[1], dtype=torch.int32,
-                       device=tokens.device)
+    x = embed_inputs(model, batch)
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     h, _ = apply_attention(blk.attn, apply_norm(blk.norm1, x, cfg), cfg, pos)
     y = apply_norm(blk.norm2, x + h * cfg.residual_scale, cfg).reshape(
         -1, cfg.d_model)
@@ -1135,7 +1306,13 @@ def decode_consistency(dev, model, tokens) -> None:
     and the logits by `hold_logits` on a decode that replays the
     forward's expert choices (`models.moe.RouteTape`): a choice parted at
     a near-tie moves a token's output by a whole expert's share and every
-    later layer and position with it, in the reference too."""
+    later layer and position with it, in the reference too. A prefix-LM
+    runs as a pure token stream (`token_stream`)."""
+    with token_stream(model):
+        _decode_consistency(dev, model, tokens)
+
+
+def _decode_consistency(dev, model, tokens) -> None:
     import torch
     from repro_torch.models.moe import RouteTape
     from repro_torch.models.transformer import (decode_step, forward,
@@ -1167,11 +1344,12 @@ def decode_consistency(dev, model, tokens) -> None:
     hold_logits(name, dec, full)
 
 
-def card_vs_cpu(dev, cfg, tokens) -> None:
-    """Phase 9: the config cut to 2 layers, the same weights on both; for
-    MoE the card's free routing is held by `routing_check` and its logits
-    on a run that replays the CPU's expert choices (see
-    `decode_consistency`)."""
+def card_vs_cpu(dev, cfg, batch) -> None:
+    """Phase 9: the config cut to 2 layers, the same weights on both, the
+    same ``batch`` (`lm_batch`); the CPU rounds p to bf16 before PV as the
+    reference does, the card keeps it float32. For MoE the card's free
+    routing is held by `routing_check` and its logits on a run that
+    replays the CPU's expert choices (see `decode_consistency`)."""
     import copy
     import dataclasses
     import torch
@@ -1183,16 +1361,16 @@ def card_vs_cpu(dev, cfg, tokens) -> None:
     card = copy.deepcopy(host).to(dev)
     t0 = time.perf_counter()
     with RouteTape() as host_tape:
-        want = forward(host, {"tokens": tokens})[0].float()
+        want = forward(host, batch)[0].float()
     name = (f"card vs CPU, 2 layers (CPU forward "
             f"{time.perf_counter() - t0:.1f} s)")
     with RouteTape() as card_tape:
-        got = forward(card, {"tokens": tokens.to(dev)})[0].float().cpu()
+        got = forward(card, on(dev, batch))[0].float().cpu()
     if cut.is_moe:
         routing_check(name, host_tape, torch.stack(card_tape.experts), got,
                       want)
         with RouteTape(host_tape.experts):
-            got = forward(card, {"tokens": tokens.to(dev)})[0].float().cpu()
+            got = forward(card, on(dev, batch))[0].float().cpu()
         name += ", the CPU's routing replayed"
     hold_logits(name, got, want)
 
@@ -1220,8 +1398,8 @@ def serve_lm(dev, model) -> dict:
         if len(r.out) != r.max_new:
             raise AssertionError(f"request {r.rid}: {len(r.out)} tokens "
                                  f"for max_new={r.max_new}")
-    expected = {"flash_attn": 0, "flash_attn_wgmma": 0, "flash_attn_gqa": 0,
-                "hot_embed": steps, **gmm_launches(cfg, 4, steps)}
+    expected = {**flash_launches(cfg, 0), "hot_embed": steps,
+                **gmm_launches(cfg, 4, steps)}
     if launches != expected:
         raise AssertionError(f"serve launches {launches} over {steps} "
                              f"decode steps, expected {expected}")
@@ -1287,51 +1465,88 @@ def decode_profile(dev, model, steps: int = 5) -> None:
 
 
 def time_lm_kernels(model, pre: dict) -> dict:
-    """Phase 11: both LM kernels at the prefill's shapes."""
+    """Phase 11: both LM kernels at the prefill's shapes (the hot-slab
+    gather only where the input is tokens)."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attn import flash_attn as fa
-    from repro_torch.kernels.flash_attn.ref import attention_ref
+    from repro_torch.kernels.flash_attn.ref import attention_ref, visible
     from repro_torch.kernels.hot_embed import hot_embed as he
     from repro_torch.kernels.hot_embed.ref import hot_gather_ref
     from repro_torch.models.layers import hot_vocab_size
 
-    kept = (fa.launches, dict(fa.launches_by_variant), fa.launches_grouped,
-            he.launches)
+    kept = (fa.launches, dict(fa.launches_by_variant),
+            dict(fa.launches_by_mask), fa.launches_grouped, he.launches)
+    cfg = model.cfg
+    mask = flash_mask(cfg)
     q, k, v = pre["q"], pre["k"], pre["v"]
     bh, s, d = q.shape
     group = fa.kv_group(q, k, v)
 
-    def plain_flash():   # one (b·h) row at a time: S x S logits each
+    def plain_flash():   # one (b·h) row at a time
         for i in range(bh):
             j = i // group
-            attention_ref(q[i:i + 1], k[j:j + 1], v[j:j + 1])
-    flash = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=5,
-                           warmup=1),
-             "plain_ms": cuda_ms(plain_flash, reps=1, warmup=1),
-             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                 q[None], k[None], v[None], is_causal=True,
-                 enable_gqa=group > 1), reps=5, warmup=1)}
-    flops = 4 * d * (s * (s + 1) // 2) * bh      # QK^T and PV, causal pairs
+            attention_ref(q[i:i + 1], k[j:j + 1], v[j:j + 1], **mask)
+    flash = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **mask),
+                           reps=5, warmup=1),
+             "plain_ms": cuda_ms(plain_flash, reps=1, warmup=1)}
+    # the library call, which rounds p to bf16: causal or bidirectional
+    # SDPA; with a prefix, an explicit boolean (S, S) mask on the
+    # memory-efficient backend, which takes no grouped kv, so k and v are
+    # repeated per head outside the timed call
+    if cfg.causal and cfg.prefix_tokens > 0:
+        pos = torch.arange(s, device=q.device)
+        keep = visible(pos, pos, prefix=cfg.prefix_tokens,
+                       window=cfg.window)[None, None]
+        kr, vr = (t.repeat_interleave(group, 0)[None] for t in (k, v))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            flash["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q[None], kr, vr, attn_mask=keep), reps=5, warmup=1)
+        library = ("F.scaled_dot_product_attention(attn_mask=bool (S, S) "
+                   "prefix mask, k/v repeated per head), efficient backend")
+        del keep, kr, vr
+    else:
+        flash["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=cfg.causal,
+                enable_gqa=group > 1), reps=5, warmup=1)
+        library = (f"F.scaled_dot_product_attention(is_causal="
+                   f"{cfg.causal}, enable_gqa={group > 1})")
+    # (row, key) pairs the mask lets through (the served configs have no
+    # window): the causal triangle, plus the prefix's keys above the
+    # diagonal; every pair when non-causal
+    p = min(cfg.prefix_tokens, s)
+    pairs = (s * s if not cfg.causal
+             else s * (s + 1) // 2 + p * (p - 1) // 2)
+    flops = 4 * d * pairs * bh      # QK^T and PV
     # q read and o written, k and v read: BH / group rows each
     nbytes = (2 * bh + 2 * bh // group) * s * d * q.element_size()
     ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     # the split PV multiplies p's bf16 high and low parts: 1.5x the FLOPs
-    faithful = 6 * d * (s * (s + 1) // 2) * bh
+    faithful = 6 * d * pairs * bh
     flash.update(bound_ms=max(ops_ms, bytes_ms),
                  bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                  faithful_bound_ms=max(faithful / BF16_FLOPS * 1e3,
                                        bytes_ms),
-                 variant=fa.variant(q.dtype, d), group=group)
-    print(f"flash_attention timing: (BH, S, d)=({bh}, {s}, {d}) bf16 "
-          f"group={group} variant={flash['variant']} "
+                 variant=fa.variant(q.dtype, d), group=group,
+                 mask=fa.mask_kind(cfg.causal, cfg.prefix_tokens))
+    print(f"flash_attention timing: {cfg.name} (BH, S, d)=({bh}, {s}, {d}) "
+          f"bf16 group={group} variant={flash['variant']} "
+          f"mask={flash['mask']} prefix={cfg.prefix_tokens} "
           f"ms={flash['ms']:.4f} plain_ms={flash['plain_ms']:.4f} "
-          f"library_ms={flash['library_ms']:.4f} "
-          f"bound_ms={flash['bound_ms']:.4f} ({flops:.4e} FLOPs, "
+          f"library_ms={flash['library_ms']:.4f} ({library}, p rounded to "
+          f"bf16) bound_ms={flash['bound_ms']:.4f} ({flops:.4e} FLOPs, "
           f"{flops / flash['ms'] / 1e9:.1f} TFLOP/s) "
           f"faithful_bound_ms={flash['faithful_bound_ms']:.4f} "
           f"({faithful:.4e} FLOPs, {faithful / flash['ms'] / 1e9:.1f} "
           f"TFLOP/s)")
+    out = {"flash_attn": flash}
+    if pre["ids"] is None:
+        (fa.launches, fa.launches_by_variant, fa.launches_by_mask,
+         fa.launches_grouped, he.launches) = kept
+        return out
 
     ids, table = pre["ids"], model.embed["table"]
     hot = hot_vocab_size(model.cfg)
@@ -1352,9 +1567,10 @@ def time_lm_kernels(model, pre: dict) -> dict:
           f"library_ms={gather['library_ms']:.4f} (F.embedding of all ids) "
           f"bound_ms={gather['bound_ms']:.4f} ({nbytes} bytes)")
     # timing launches are not the main path's
-    (fa.launches, fa.launches_by_variant, fa.launches_grouped,
-     he.launches) = kept
-    return {"flash_attn": flash, "hot_embed": gather}
+    (fa.launches, fa.launches_by_variant, fa.launches_by_mask,
+     fa.launches_grouped, he.launches) = kept
+    out["hot_embed"] = gather
+    return out
 
 
 def host_ms(fn, reps: int = 200) -> float:
@@ -1518,9 +1734,14 @@ def time_gmm(model, pre: dict) -> tuple[dict, float]:
 
 def run_lm(dev, cfg, full_cfg=None) -> dict:
     """Phases 7-11 (and 13 for MoE) on one LM config, weights from
-    ``init_params`` on the card (seed 7). Frees the model before it
+    ``init_params`` on the card (seed 7), its inputs from
+    ``configs/shapes.input_specs`` (`lm_batch`). Phases whose cell
+    ``cell_supported`` rules out (an encoder's decode: consistency, serve,
+    decode profile) are skipped and say so. Frees the model before it
     returns."""
+    import dataclasses
     import torch
+    from repro_torch.configs.shapes import SHAPES, cell_supported
     from repro_torch.models.transformer import init_params
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
@@ -1533,12 +1754,24 @@ def run_lm(dev, cfg, full_cfg=None) -> dict:
         print(f"cut: {cfg.num_layers} of {full_cfg.num_layers} layers at "
               f"full width; the full config has {full_cfg.param_count()} "
               f"parameters, the cut one {cfg.param_count()}")
-    tokens = token_source(cfg, PREFILL_TOKENS)
-    pre = prefill(dev, model, tokens(1, PREFILL_TOKENS))
-    decode_consistency(dev, model, tokens(2, 64))
-    card_vs_cpu(dev, cfg, tokens(3, 256))
-    lm = serve_lm(dev, model)
-    decode_profile(dev, model)
+    shape = dataclasses.replace(SHAPES[PREFILL_SHAPE], global_batch=1)
+    seq = PREFILL_TOKENS or shape.seq_len
+    tokens = (None if cfg.input_mode == "embeddings"
+              else token_source(cfg, seq))
+    pre = prefill(dev, model, lm_batch(cfg, tokens, 1, seq))
+    decode, why = cell_supported(cfg, SHAPES["decode_32k"])
+    if decode:
+        decode_consistency(dev, model, tokens(2, 64))
+    else:
+        print(f"decode vs forward: skipped for {cfg.name}: {why}")
+    card_vs_cpu(dev, cfg, lm_batch(cfg, tokens, 3,
+                                   256 + cfg.prefix_tokens))
+    lm = {"launches": {}, "hot_err": 0.0}
+    if decode:
+        lm = serve_lm(dev, model)
+        decode_profile(dev, model)
+    else:
+        print(f"serve and decode profile: skipped for {cfg.name}: {why}")
     out = {"timing": time_lm_kernels(model, pre), "pre": pre["launches"],
            "serve": lm["launches"], "flash_err": pre["err"],
            "hot_err": max(pre["hot_err"], lm["hot_err"])}
@@ -1598,6 +1831,7 @@ def run(torch, corpora: dict) -> int:
     for name, kernel in (("csr_spmv", "csr_spmv_merge"),
                          ("csr_spmv", "csr_spmv_carries"),
                          ("flash_attn", "flash_fwd_bf16_wgmma"),
+                         ("flash_attn", "flash_fwd_bf16_mma"),
                          ("moe_gmm", "gmm_bf16_wgmma"),
                          ("moe_gmm", "gmm_bf16_splitk")):
         for line in _build.ptxas_report(name, kernel):
@@ -1624,16 +1858,19 @@ def run(torch, corpora: dict) -> int:
     flash_err, hot_err = timed("6 LM kernel checks", lm_kernel_cases, dev)
     mini = timed(f"7-11 {ARCH}", run_lm, dev, get_config(ARCH))
     qwen = timed(f"7-11 {GQA_ARCH}", run_lm, dev, get_config(GQA_ARCH))
+    pali = timed(f"7-11 {PREFIX_ARCH}", run_lm, dev, get_config(PREFIX_ARCH))
+    hubert = timed(f"7, 9, 11 {ENCODER_ARCH}", run_lm, dev,
+                   get_config(ENCODER_ARCH))
 
     gmm_err = timed("12 moe_gmm checks", gmm_kernel_cases, dev)
     full = get_config(MOE_ARCH)
     cut = dataclasses.replace(full, num_layers=MOE_LAYERS,
                               block_pattern=("attn",) * MOE_LAYERS)
     moe = timed(f"13 {MOE_ARCH}", run_lm, dev, cut, full)
-    runs = (mini, qwen, moe)
+    runs = (mini, qwen, pali, hubert, moe)
 
     def launches(name):
-        return sum(r[w][name] for r in runs for w in ("pre", "serve"))
+        return sum(r[w].get(name, 0) for r in runs for w in ("pre", "serve"))
 
     kernels = [{
         "name": "csr_spmv",
@@ -1649,11 +1886,18 @@ def run(torch, corpora: dict) -> int:
         "source": "src/repro_torch/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:66",
         "launches": launches("flash_attn"),
-        "launches_by_variant": {"wgmma": launches("flash_attn_wgmma")},
+        "launches_by_variant": {
+            "wgmma": launches("flash_attn_wgmma"),
+            "mma_sync": launches("flash_attn_mma_sync")},
+        "launches_by_mask": {
+            "prefix": launches("flash_attn_prefix"),
+            "non_causal": launches("flash_attn_non_causal")},
         "launches_grouped_query": launches("flash_attn_gqa"),
         "max_abs_err": max([flash_err] + [r["flash_err"] for r in runs]),
         **mini["timing"]["flash_attn"],
         GQA_ARCH: qwen["timing"]["flash_attn"],
+        PREFIX_ARCH: pali["timing"]["flash_attn"],
+        ENCODER_ARCH: hubert["timing"]["flash_attn"],
         MOE_ARCH: moe["timing"]["flash_attn"],
     }, {
         "name": "hot_embed",
@@ -1664,6 +1908,7 @@ def run(torch, corpora: dict) -> int:
         "max_abs_err": max([hot_err] + [r["hot_err"] for r in runs]),
         **mini["timing"]["hot_embed"],
         GQA_ARCH: qwen["timing"]["hot_embed"],
+        PREFIX_ARCH: pali["timing"]["hot_embed"],
         MOE_ARCH: moe["timing"]["hot_embed"],
     }, {
         "name": "moe_gmm",

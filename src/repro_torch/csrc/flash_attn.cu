@@ -1,46 +1,56 @@
-// Causal / sliding-window flash attention, hand-written for Hopper.
+// Flash attention, hand-written for Hopper: causal, sliding-window,
+// prefix-LM and bidirectional masks.
 //
-//   o[b, i, :] = sum over j <= i (and i - j < window when window > 0) of
+//   o[b, i, :] = sum over the keys j that row i sees of
 //                softmax_j(scale * q[b, i, :] . k[b / g, j, :]) *
 //                v[b / g, j, :]
 //
 // on row-major, contiguous q and o of (BH, S, d) and k and v of (BH / g, S,
 // d): grouped-query attention, where the g query heads h = kv * g .. kv * g +
 // g - 1 of a batch row share kv head kv (b = batch * H + h, so b / g =
-// batch * KV + kv). g = 1 is multi-head attention. Replaces the TPU kernel
-// flash_attention_pallas (src/repro/kernels/flash_attn/flash_attn.py:59).
+// batch * KV + kv). g = 1 is multi-head attention. Which keys a row sees is
+// the port's layers._attn_mask (struct Mask below): a causal row i sees keys
+// j <= i, and j < P too when i < P (a prefix of P tokens that attend to each
+// other both ways), cut to i - j < window when window > 0; a non-causal row
+// sees every key. Replaces the TPU kernel flash_attention_pallas
+// (src/repro/kernels/flash_attn/flash_attn.py:59), which is causal only;
+// the prefix and non-causal masks have no TPU counterpart.
 // Each thread block owns one (bh, query tile); it walks the key tiles from
-// the first one the window reaches up to the diagonal, in a fixed order,
-// and keeps the online-softmax state of the TPU kernel's _kernel
-// (flash_attn.py:30-45) in float32: the running max m, the normaliser l
-// and the unnormalised output acc, rescaled by exp(m_old - m_new) at every
-// tile. Masked logits are -1e30, as there. Nothing is summed with atomics
-// and no query tile's keys are split across blocks, so two runs give the
-// same bits. Any S is taken: rows and keys past S are masked and never
-// written. Blocks are issued longest-first (the last query tiles walk the
-// most key tiles), so the tail of the grid is short; within a query tile
-// consecutive blocks take consecutive bh, so the g heads that share a kv
-// head run side by side and read its K and V tiles from L2.
+// the first one the window reaches up to the last one any of its rows sees
+// (the diagonal; the prefix's last tile, if later; every tile when
+// non-causal), in a fixed order, and keeps the online-softmax state of the
+// TPU kernel's _kernel (flash_attn.py:30-45) in float32: the running max m,
+// the normaliser l and the unnormalised output acc, rescaled by
+// exp(m_old - m_new) at every tile. Masked logits are -1e30, as there.
+// Nothing is summed with atomics and no query tile's keys are split across
+// blocks, so two runs give the same bits. Any S is taken: rows and keys past
+// S are masked and never written. Blocks are issued longest-first (the last
+// query tiles walk the most key tiles), so the tail of the grid is short;
+// within a query tile consecutive blocks take consecutive bh, so the g heads
+// that share a kv head run side by side and read its K and V tiles from L2.
 //
 // Three kernels, chosen by dtype and head dim (flash_attn.py's `variant`
 // names them; nothing falls back from one to another):
-//  * "wgmma", bf16 at d 64 and 128 (the served models): the Hopper design
-//    below (flash_fwd_bf16_wgmma).
-//  * "mma_sync", bf16 at d 16 and 32: warp-level mma.sync m16n8k16, 64
-//    queries by 64 keys per tile, four warps of 16 query rows.
-//  * "simt", float32 at every head dim: float32 FMAs, 32 queries by 32 keys
-//    per tile, four threads per query row.
+//  * "wgmma", bf16 at d 64, 80 and 128 (the served models): the Hopper
+//    design below (flash_fwd_bf16_wgmma). d 80 runs in 128-column tiles
+//    whose last 48 columns TMA fills with zeros.
+//  * "mma_sync", bf16 at d 16, 32 and 256: warp-level mma.sync m16n8k16, 64
+//    queries by 64 keys per tile, four warps of 16 query rows; at d 256 Q
+//    is read from shared memory, not held in registers.
+//  * "simt", float32 at d 16, 32, 64 and 128: float32 FMAs, 32 queries by
+//    32 keys per tile, four threads per query row.
 //
 // Both bf16 kernels sum QK^T as exact products in float32. For PV the
 // float32 probabilities are split into p_hi = bf16(p) and
 // p_lo = bf16(p - p_hi) and both products are accumulated, so PV keeps ~16
 // bits of p: close to the TPU kernel's float32 PV, which the reference's
 // tests hold this kernel to. That costs 1.5 times the operations of a bf16
-// PV: the bound of a faithful kernel is 6 * d * S(S+1)/2 * BH FLOPs at the
-// card's bf16 rate.
+// PV: the bound of a faithful kernel is 6 * d * pairs FLOPs at the card's
+// bf16 rate, where pairs is the (row, key) pairs the mask lets through
+// (S(S+1)/2 * BH causal, S^2 * BH non-causal).
 //
-// Bound: operations at long S (4 * d * S(S+1)/2 * BH FLOPs for a causal
-// call against 4 * BH * S * d elements moved).
+// Bound: operations at long S (4 * d * pairs FLOPs against 4 * BH * S * d
+// elements moved).
 //
 // Built by repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -58,21 +68,49 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ bool key_visible(int key, int row, int s,
-                                            int window) {
-  return key <= row && key < s && (window <= 0 || row - key < window);
-}
+// The keys a query row sees (the port's layers._attn_mask). The wrapper
+// passes window 0 and prefix 0 with causal 0, as the mask ignores both
+// there.
+struct Mask {
+  int s;        // rows and keys of the sequence
+  int window;   // > 0: a causal row sees only keys with row - key < window
+  int prefix;   // causal rows below it see every key below it
+  int causal;   // 0: every row sees every key below s
 
-// First key tile that any row of a query tile starting at q0 can see.
-__device__ __forceinline__ int first_key_tile(int q0, int window, int tile) {
-  if (window <= 0) {
-    return 0;
+  __device__ __forceinline__ bool visible(int key, int row) const {
+    if (key >= s) {
+      return false;
+    }
+    if (!causal) {
+      return true;
+    }
+    return (key <= row || (row < prefix && key < prefix)) &&
+           (window <= 0 || row - key < window);
   }
-  const int first_key = q0 - window + 1;
-  return first_key > 0 ? first_key / tile : 0;
-}
 
-// ------------------------------- bf16 at d 16 and 32: mma.sync
+  // First key tile that any row of a query tile starting at q0 can see.
+  __device__ __forceinline__ int first_tile(int q0, int tile) const {
+    if (window <= 0) {
+      return 0;
+    }
+    const int first_key = q0 - window + 1;
+    return first_key > 0 ? first_key / tile : 0;
+  }
+
+  // Last key tile that any row of a query tile can see, given the tile
+  // holding its last row's own key (`diag`): the prefix's last tile when
+  // later, every tile when non-causal.
+  __device__ __forceinline__ int last_tile(int diag, int tile) const {
+    if (!causal) {
+      return (s - 1) / tile;
+    }
+    const int p = prefix < s ? prefix : s;
+    const int prefix_tile = p > 0 ? (p - 1) / tile : 0;
+    return diag > prefix_tile ? diag : prefix_tile;
+  }
+};
+
+// --------------------------- bf16 at d 16, 32 and 256: mma.sync
 constexpr int kTile = 64;          // query rows and keys per tile
 constexpr int kMmaThreads = 128;   // four warps, 16 query rows each
 
@@ -121,19 +159,47 @@ __device__ __forceinline__ void load_tile_bf16(
   }
 }
 
+// The m16k16 A fragment of rows r, r + 8 and columns c .. c + 15 of a tile
+// with row stride kLd (lane = 4 g + t reads columns c + 2t, + 1, + 8, + 9).
+template <int kLd>
+__device__ __forceinline__ void a_fragment(uint32_t a[4],
+                                           const __nv_bfloat16* tile, int r,
+                                           int c) {
+  a[0] = *reinterpret_cast<const uint32_t*>(tile + r * kLd + c);
+  a[1] = *reinterpret_cast<const uint32_t*>(tile + (r + 8) * kLd + c);
+  a[2] = *reinterpret_cast<const uint32_t*>(tile + r * kLd + c + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(tile + (r + 8) * kLd + c + 8);
+}
+
+// Shared memory of the mma.sync kernel: the K and V tiles, padded to rows of
+// D + 8; at d 256 also Q's tile, since its fragments (64 registers) beside
+// O's (128) would not fit a thread's registers. Dynamic, since d 256 takes
+// 101,376 bytes, past the 48 KB a block may hold statically.
+template <int D>
+struct MmaTile {
+  static constexpr int kLd = D + 8;   // padded row stride: conflict-free
+  static constexpr bool kQShared = D > 128;
+  static constexpr int kSmemBytes = (kQShared ? 3 : 2) * kTile * kLd * 2;
+  static_assert(kSmemBytes <= 232448, "more than a block's shared memory");
+};
+
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    __nv_bfloat16* __restrict__ o, int bh_count, int group,
-                   int s, float scale, int window, int num_q_tiles) {
-  constexpr int kLd = D + 8;   // padded row stride: conflict-free fragments
+                   Mask mask, float scale, int num_q_tiles) {
+  using T = MmaTile<D>;
+  constexpr int kLd = T::kLd;
   constexpr int kK = D / 16;   // k-steps of QK^T
   constexpr int kN = D / 8;    // n-blocks of PV
-  __shared__ __align__(16) __nv_bfloat16 ks[kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTile * kLd];
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* vs = ks + kTile * kLd;
+  __nv_bfloat16* qs = vs + kTile * kLd;   // d 256 only
 
+  const int s = mask.s;
   const int qt = num_q_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
   const int bh = static_cast<int>(blockIdx.x % bh_count);
   const long long base = static_cast<long long>(bh) * s * D;
@@ -146,19 +212,19 @@ flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
   const int row0 = q0 + warp * 16 + g;
   const int row1 = row0 + 8;
 
-  // q fragments, staged through the K buffer
-  load_tile_bf16<D>(ks, q + base, q0, s);
-  __syncthreads();
-  uint32_t qa[kK][4];
+  // q fragments, held in registers (staged through the K buffer), or at
+  // d 256 kept in their own shared tile and read at every k-step
+  constexpr int kQRegs = T::kQShared ? 1 : kK;
+  uint32_t qa[kQRegs][4];
+  if constexpr (T::kQShared) {
+    load_tile_bf16<D>(qs, q + base, q0, s);
+  } else {
+    load_tile_bf16<D>(ks, q + base, q0, s);
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < kK; ++kk) {
-    const int r = warp * 16 + g;
-    const int c = kk * 16 + t * 2;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(ks + r * kLd + c);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(ks + (r + 8) * kLd + c);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(ks + r * kLd + c + 8);
-    qa[kk][3] =
-        *reinterpret_cast<const uint32_t*>(ks + (r + 8) * kLd + c + 8);
+    for (int kk = 0; kk < kK; ++kk) {
+      a_fragment<kLd>(qa[kk], ks, warp * 16 + g, kk * 16 + t * 2);
+    }
   }
 
   float acc[kN][4];
@@ -168,8 +234,9 @@ flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
   }
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
 
-  const int kt_end = qt;   // the diagonal tile (query and key tiles align)
-  for (int kt = first_key_tile(q0, window, kTile); kt <= kt_end; ++kt) {
+  // query and key tiles align: tile qt holds the query tile's own keys
+  const int kt_end = mask.last_tile(qt, kTile);
+  for (int kt = mask.first_tile(q0, kTile); kt <= kt_end; ++kt) {
     __syncthreads();
     load_tile_bf16<D>(ks, k + kv_base, kt * kTile, s);
     load_tile_bf16<D>(vs, v + kv_base, kt * kTile, s);
@@ -179,11 +246,30 @@ flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int nb = 0; nb < kTile / 8; ++nb) {
       sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.0f;
+    }
+    if constexpr (T::kQShared) {
+      // each sc[nb] still sums its k-steps in ascending order
 #pragma unroll
       for (int kk = 0; kk < kK; ++kk) {
-        const __nv_bfloat16* kr = ks + (nb * 8 + g) * kLd + kk * 16 + t * 2;
-        mma_bf16(sc[nb], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+        a_fragment<kLd>(qa[0], qs, warp * 16 + g, kk * 16 + t * 2);
+#pragma unroll
+        for (int nb = 0; nb < kTile / 8; ++nb) {
+          const __nv_bfloat16* kr =
+              ks + (nb * 8 + g) * kLd + kk * 16 + t * 2;
+          mma_bf16(sc[nb], qa[0], *reinterpret_cast<const uint32_t*>(kr),
+                   *reinterpret_cast<const uint32_t*>(kr + 8));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nb = 0; nb < kTile / 8; ++nb) {
+#pragma unroll
+        for (int kk = 0; kk < kK; ++kk) {
+          const __nv_bfloat16* kr =
+              ks + (nb * 8 + g) * kLd + kk * 16 + t * 2;
+          mma_bf16(sc[nb], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
+                   *reinterpret_cast<const uint32_t*>(kr + 8));
+        }
       }
     }
 
@@ -194,8 +280,7 @@ flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int key = kt * kTile + nb * 8 + t * 2 + (e & 1);
         const int row = e < 2 ? row0 : row1;
-        sc[nb][e] = key_visible(key, row, s, window) ? sc[nb][e] * scale
-                                                     : kNegInf;
+        sc[nb][e] = mask.visible(key, row) ? sc[nb][e] * scale : kNegInf;
       }
       mx0 = fmaxf(mx0, fmaxf(sc[nb][0], sc[nb][1]));
       mx1 = fmaxf(mx1, fmaxf(sc[nb][2], sc[nb][3]));
@@ -291,13 +376,14 @@ template <int D>
 __global__ void __launch_bounds__(kSimtThreads)
 flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ o,
-                   int bh_count, int group, int s, float scale, int window,
+                   int bh_count, int group, Mask mask, float scale,
                    int num_q_tiles) {
   constexpr int kVec = D / 4;        // float4 per row
   constexpr int kMine = kVec / kPart;  // float4 per thread: chunk i*4+part
   __shared__ float4 ks[kKeysF][kVec];
   __shared__ float4 vs[kKeysF][kVec];
 
+  const int s = mask.s;
   const int qt = num_q_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
   const int bh = static_cast<int>(blockIdx.x % bh_count);
   const long long base = static_cast<long long>(bh) * s * D;
@@ -318,8 +404,8 @@ flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
   float m = kNegInf, l = 0.0f;
 
   const int last_row = (q0 + kRowsF < s ? q0 + kRowsF : s) - 1;
-  const int kt_end = last_row / kKeysF;
-  for (int kt = first_key_tile(q0, window, kKeysF); kt <= kt_end; ++kt) {
+  const int kt_end = mask.last_tile(last_row / kKeysF, kKeysF);
+  for (int kt = mask.first_tile(q0, kKeysF); kt <= kt_end; ++kt) {
     __syncthreads();
     for (int c = threadIdx.x; c < kKeysF * kVec; c += kSimtThreads) {
       const int key = kt * kKeysF + c / kVec;
@@ -347,7 +433,7 @@ flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int key = kt * kKeysF + j;
-      p[j] = key_visible(key, row, s, window) ? dot * scale : kNegInf;
+      p[j] = mask.visible(key, row) ? dot * scale : kNegInf;
       mx = fmaxf(mx, p[j]);
     }
     const float mn = fmaxf(m, mx);
@@ -393,28 +479,36 @@ flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-void launch_bf16(const void* q, const void* k, const void* v, void* o,
-                 int bh, int group, int s, float scale, int window,
-                 cudaStream_t st) {
-  const int tiles = (s + kTile - 1) / kTile;
-  flash_fwd_bf16_mma<D><<<tiles * bh, kMmaThreads, 0, st>>>(
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
+                int group, Mask mask, float scale, cudaStream_t st) {
+  using T = MmaTile<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kSmemBytes);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int tiles = (mask.s + kTile - 1) / kTile;
+  flash_fwd_bf16_mma<D><<<tiles * bh, kMmaThreads, T::kSmemBytes, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      bh, group, s, scale, window, tiles);
+      bh, group, mask, scale, tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-void launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
-                int group, int s, float scale, int window, cudaStream_t st) {
-  const int tiles = (s + kRowsF - 1) / kRowsF;
+int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
+               int group, Mask mask, float scale, cudaStream_t st) {
+  const int tiles = (mask.s + kRowsF - 1) / kRowsF;
   flash_fwd_f32_simt<D><<<tiles * bh, kSimtThreads, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), bh, group, s,
-      scale, window, tiles);
+      static_cast<const float*>(v), static_cast<float*>(o), bh, group, mask,
+      scale, tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------- bf16 at d 64 and 128: Hopper design
+// --------------------------------- bf16 at d 64, 80 and 128: Hopper design
 //
 // One block = one producer warpgroup and two consumer warpgroups (384
 // threads, one block an SM); 128 query rows a block, 64 per consumer, and
@@ -427,10 +521,13 @@ void launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
 //    (cp.async.bulk.tensor) on 3-D tensor maps over (BH, S, d) for Q and
 //    (BH / g, S, d) for K and V, 128-byte swizzled, into a ring of three K/V
 //    stages; a block's K and V tiles come from kv row bh / g. Tiles past S
-//    arrive zero-filled. Each stage has a `full` mbarrier (the copies' bytes
-//    land) and an `empty` one (all 256 consumer threads have finished reading
-//    it), so the loads of later tiles run while the tensor cores work on this
-//    one.
+//    arrive zero-filled, and so do columns past d: d 80 takes two 64-column
+//    panels, the second one 16 columns wide in memory. QK^T stops at column
+//    d (5 k-steps at d 80); PV runs over all 128 columns, 1.6 times d 80's
+//    work, and only the first d are stored. Each stage has a `full`
+//    mbarrier (the copies' bytes land) and an `empty` one (all 256 consumer
+//    threads have finished reading it), so the loads of later tiles run
+//    while the tensor cores work on this one.
 //  * Products: wgmma.mma_async. S = Q K^T reads Q and K from shared memory
 //    through descriptors (both K-major). O += P_hi V and O += P_lo V take P
 //    from registers as the A operand and V from shared memory as an
@@ -445,7 +542,7 @@ void launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
 //    tiles; m and l stay float32.
 //
 // Shared memory: Q, then kStages K tiles, then kStages V tiles, then the
-// mbarriers. A tile is d/64 panels of 128 rows x 64 bf16, each row 128
+// mbarriers. A tile is ceil(d/64) panels of 128 rows x 64 bf16, each row 128
 // bytes, 16-byte chunk c of row r stored at chunk c ^ (r % 8) (TMA's
 // 128-byte swizzle, which the wgmma descriptors name as layout B128).
 // Panel p holds columns 64p .. 64p + 63. Every panel starts 1024-aligned.
@@ -472,7 +569,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Hopper {
-  static constexpr int kPanels = D / 64;
+  static constexpr int kPanels = (D + 63) / 64;
+  static constexpr int kWidth = 64 * kPanels;   // columns of a tile: D or 128
   static constexpr int kTileBytes = kPanels * kPanelBytes;  // Q, K or V tile
   // A stage is refilled only after the PV that read it, so with two stages
   // the loads' latency shows on every tile (d 128: 10.4 ms with two, 9.2
@@ -735,24 +833,30 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// Whether key tile kt needs masking for query tile qt (rows q0 ..): the
-// diagonal tile, and a tile that the window cuts for some row.
+// Whether key tile kt needs masking for query tile qt (rows q0 ..): a
+// causal call's diagonal tile, the prefix's tiles past it, a tile that the
+// window cuts for some row; and the tile that holds key S - 1 when S is
+// not a whole number of tiles. A causal call without a prefix reaches that
+// last tile only as its diagonal.
 __device__ __forceinline__ bool edge_tile(int kt, int qt, int q0,
-                                          int window) {
-  return kt == qt || (window > 0 && q0 + kRows - 1 - kt * kKeys >= window);
+                                          const Mask& mask) {
+  return (mask.causal &&
+          (kt >= qt ||
+           (mask.window > 0 && q0 + kRows - 1 - kt * kKeys >= mask.window))) ||
+         (kt + 1) * kKeys > mask.s;
 }
 
 // The softmax step of one key tile on S's accumulators (see the layouts
 // above): move the running max (log2 units) of rows row0 and row1 and turn
 // sc into p = exp2(scale_log2 * s - m). On the diagonal tile, and where
-// the window cuts the tile, logits are scaled and masked first; elsewhere
+// the mask cuts the tile, logits are scaled and masked first; elsewhere
 // the max is taken on the raw logits (the min, for a negative scale) and
 // the scale is folded into the exponent's FMA. Returns in alpha0, alpha1
 // the factors that rescale what was summed before; l0, l1 take p's sums.
 __device__ __forceinline__ void softmax_tile(
-    float (&sc)[64], int kt, bool edge, int row0, int row1, int t, int s,
-    int window, float scale_log2, float& m0, float& m1, float& l0, float& l1,
-    float& alpha0, float& alpha1) {
+    float (&sc)[64], int kt, bool edge, int row0, int row1, int t,
+    const Mask& mask, float scale_log2, float& m0, float& m1, float& l0,
+    float& l1, float& alpha0, float& alpha1) {
   float mx0, mx1;
   if (edge) {
 #pragma unroll
@@ -761,9 +865,8 @@ __device__ __forceinline__ void softmax_tile(
       for (int e = 0; e < 4; ++e) {
         const int key = kt * kKeys + 8 * j + 2 * t + (e & 1);
         const int row = e < 2 ? row0 : row1;
-        sc[4 * j + e] = key_visible(key, row, s, window)
-                            ? sc[4 * j + e] * scale_log2
-                            : kNegInf;
+        sc[4 * j + e] =
+            mask.visible(key, row) ? sc[4 * j + e] * scale_log2 : kNegInf;
       }
     }
     mx0 = row_extreme<false>(sc, 0);
@@ -808,7 +911,8 @@ __device__ __forceinline__ void split_tile(const float (&sc)[64],
 }
 
 // S = Q K^T on one K tile: k-step kk reads columns 16kk .. 16kk + 15, in
-// panel kk / 4 at byte 32 (kk % 4) of each swizzled row. Issued, not waited.
+// panel kk / 4 at byte 32 (kk % 4) of each swizzled row; d / 16 k-steps
+// (the zero columns of a padded tile are skipped). Issued, not waited.
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_rows,
                                          uint32_t k_tile) {
@@ -851,9 +955,9 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      __nv_bfloat16* __restrict__ o, int bh_count, int group,
-                     int s, float scale_log2, int window, int num_q_tiles) {
+                     Mask mask, float scale_log2, int num_q_tiles) {
   using H = Hopper<D>;
-  constexpr int kAcc = D / 2;      // O accumulator floats a thread
+  constexpr int kAcc = H::kWidth / 2;   // O accumulator floats a thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sk = sq + H::kTileBytes;
@@ -866,8 +970,10 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int bh = static_cast<int>(blockIdx.x % bh_count);
   const int bh_kv = bh / group;
   const int q0 = qt * kRows;
-  const int kt0 = first_key_tile(q0, window, kKeys);
-  const int n_tiles = qt - kt0 + 1;   // key tiles align with query tiles
+  const int s = mask.s;
+  const int kt0 = mask.first_tile(q0, kKeys);
+  // key tiles align with query tiles: tile qt holds the rows' own keys
+  const int n_tiles = mask.last_tile(qt, kKeys) - kt0 + 1;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -957,8 +1063,8 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
       give_turn();
       wgmma_wait<0>();
       hold(sc);
-      softmax_tile(sc, kt0, edge_tile(kt0, qt, q0, window), row0, row1, t, s,
-                   window, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+      softmax_tile(sc, kt0, edge_tile(kt0, qt, q0, mask), row0, row1, t, mask,
+                   scale_log2, m0, m1, l0, l1, alpha0, alpha1);
       split_tile(sc, ph, pl);
     }
     for (int i = 1; i < n_tiles; ++i) {
@@ -981,8 +1087,8 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<1>();   // S is in; PV of tile i - 1 may still run
       hold(sc);
       float alpha0, alpha1;
-      softmax_tile(sc, kt, edge_tile(kt, qt, q0, window), row0, row1, t, s,
-                   window, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+      softmax_tile(sc, kt, edge_tile(kt, qt, q0, mask), row0, row1, t, mask,
+                   scale_log2, m0, m1, l0, l1, alpha0, alpha1);
       wgmma_wait<0>();
       hold(acc);
       hold(ph);
@@ -1065,14 +1171,17 @@ EncodeTiled tensor_map_encoder() {
 // 0, a cudaError_t, or minus a CUresult if a tensor map is refused.
 template <int D>
 int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o,
-                      int bh, int group, int s, float scale, int window,
+                      int bh, int group, Mask mask, float scale,
                       cudaStream_t st) {
   using H = Hopper<D>;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) {
     return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
   }
-  // q: (bh, s, D); k and v: (bh / group, s, D)
+  const int s = mask.s;
+  // q: (bh, s, D); k and v: (bh / group, s, D). A box is 64 columns wide;
+  // at D 80 the second panel's box reaches past column D, and TMA fills
+  // those columns with zeros.
   const cuuint64_t rows[3] = {static_cast<cuuint64_t>(bh),
                               static_cast<cuuint64_t>(bh / group),
                               static_cast<cuuint64_t>(bh / group)};
@@ -1103,57 +1212,59 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o,
   }
   const int tiles = (s + kRows - 1) / kRows;
   flash_fwd_bf16_wgmma<D><<<tiles * bh, kHopperThreads, H::kSmemBytes, st>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), bh, group, s,
-      scale * kLog2e, window, tiles);
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), bh, group,
+      mask, scale * kLog2e, tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+Mask make_mask(int s, int window, int causal, int prefix) {
+  return causal ? Mask{s, window, prefix, 1} : Mask{s, 0, 0, 0};
 }
 
 }  // namespace
 
 // q, o: (bh, s, d) and k, v: (bh / group, s, d), contiguous, 16-byte
-// aligned; group >= 1 divides bh; d in {16, 32, 64, 128};
-// bh * ceil(s / 32) < 2^31. The wrapper checks all of it. d 64 and 128 take
-// the wgmma kernel, d 16 and 32 the mma.sync one.
+// aligned; group >= 1 divides bh; d in {16, 32, 64, 80, 128, 256};
+// bh * ceil(s / 32) < 2^31. The wrapper checks all of it. d 64, 80 and 128
+// take the wgmma kernel, d 16, 32 and 256 the mma.sync one. causal 0 sees
+// every key (window and prefix are then ignored); causal 1 with prefix P
+// lets the rows below P see every key below P.
 extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
                                void* o, int bh, int group, int s, int d,
-                               float scale, int window, void* stream) {
+                               float scale, int window, int causal,
+                               int prefix, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (group < 1 || bh % group != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Mask m = make_mask(s, window, causal, prefix);
   switch (d) {
-    case 16:
-      launch_bf16<16>(q, k, v, o, bh, group, s, scale, window, st);
-      break;
-    case 32:
-      launch_bf16<32>(q, k, v, o, bh, group, s, scale, window, st);
-      break;
-    case 64:
-      return launch_bf16_wgmma<64>(q, k, v, o, bh, group, s, scale, window,
-                                   st);
+    case 16: return launch_bf16<16>(q, k, v, o, bh, group, m, scale, st);
+    case 32: return launch_bf16<32>(q, k, v, o, bh, group, m, scale, st);
+    case 256: return launch_bf16<256>(q, k, v, o, bh, group, m, scale, st);
+    case 64: return launch_bf16_wgmma<64>(q, k, v, o, bh, group, m, scale, st);
+    case 80: return launch_bf16_wgmma<80>(q, k, v, o, bh, group, m, scale, st);
     case 128:
-      return launch_bf16_wgmma<128>(q, k, v, o, bh, group, s, scale, window,
-                                    st);
+      return launch_bf16_wgmma<128>(q, k, v, o, bh, group, m, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
+// float32: d in {16, 32, 64, 128}; otherwise as flash_attn_bf16.
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
                               void* o, int bh, int group, int s, int d,
-                              float scale, int window, void* stream) {
+                              float scale, int window, int causal, int prefix,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (group < 1 || bh % group != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Mask m = make_mask(s, window, causal, prefix);
   switch (d) {
-    case 16: launch_f32<16>(q, k, v, o, bh, group, s, scale, window, st); break;
-    case 32: launch_f32<32>(q, k, v, o, bh, group, s, scale, window, st); break;
-    case 64: launch_f32<64>(q, k, v, o, bh, group, s, scale, window, st); break;
-    case 128:
-      launch_f32<128>(q, k, v, o, bh, group, s, scale, window, st);
-      break;
+    case 16: return launch_f32<16>(q, k, v, o, bh, group, m, scale, st);
+    case 32: return launch_f32<32>(q, k, v, o, bh, group, m, scale, st);
+    case 64: return launch_f32<64>(q, k, v, o, bh, group, m, scale, st);
+    case 128: return launch_f32<128>(q, k, v, o, bh, group, m, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

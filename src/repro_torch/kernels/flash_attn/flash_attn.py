@@ -1,4 +1,5 @@
-"""Causal / sliding-window flash attention: the wrapper of a CUDA kernel.
+"""Flash attention (causal, sliding-window, prefix-LM or bidirectional):
+the wrapper of a CUDA kernel.
 
 q and the output are (BH, S, d); k and v are (BH / group, S, d), so that
 ``group`` query rows share one kv row: grouped-query attention, where
@@ -8,40 +9,51 @@ KV``). ``group`` 1 is multi-head attention.
 Replaces the TPU kernel ``flash_attention_pallas`` of the JAX package
 (``src/repro/kernels/flash_attn/flash_attn.py:57-77``, ``pl.pallas_call``
 at ``:66``). The CUDA source is ``repro_torch/csrc/flash_attn.cu``. Each
-thread block owns one (bh, query tile) and walks the key tiles up to the
-diagonal in a fixed order, with the same online-softmax recurrence as the
-TPU kernel's ``_kernel`` (running max and normaliser in float32). Three
-kernels sit behind the one entry point, chosen by `variant` from the
-dtype and the head dim; none falls back to another:
+thread block owns one (bh, query tile) and walks, in a fixed order, the
+key tiles its rows see: up to the diagonal for a causal call, up to the
+prefix's last tile too with a prefix (prefix-LM: rows below ``prefix``
+see every key below it), every tile for a non-causal call. The masks are
+the port's ``models.layers._attn_mask``; the TPU kernel is causal only.
+The online-softmax recurrence is the TPU kernel's ``_kernel`` (running
+max and normaliser in float32). Three kernels sit behind the one entry
+point, chosen by `variant` from the dtype and the head dim; none falls
+back to another:
 
-* ``"wgmma"``, bfloat16 at head dims 64 and 128 (the served models): a
-  Hopper design. A producer warpgroup keeps TMA loads of K and V in a
-  ring of shared-memory stages; two consumer warpgroups of 64 query rows
-  each run ``wgmma`` for QK^T (operands from shared memory) and for PV
-  (P from registers, V from shared memory), 128-query by 128-key tiles.
-* ``"mma_sync"``, bfloat16 at head dims 16 and 32: warp-level
-  ``mma.sync`` m16n8k16 products, 64-query by 64-key tiles.
-* ``"simt"``, float32: float32 FMAs on the SIMT cores, 32-query by
-  32-key tiles, four threads per query row.
+* ``"wgmma"``, bfloat16 at head dims 64, 80 and 128 (the served models
+  but paligemma-3b): a Hopper design. A producer warpgroup keeps TMA
+  loads of K and V in a ring of shared-memory stages; two consumer
+  warpgroups of 64 query rows each run ``wgmma`` for QK^T (operands from
+  shared memory) and for PV (P from registers, V from shared memory),
+  128-query by 128-key tiles. Head dim 80 (hubert-xlarge) runs in
+  128-column tiles that TMA fills with zeros past column 80: QK^T stops
+  at column 80, PV does 1.6 times d 80's work.
+* ``"mma_sync"``, bfloat16 at head dims 16, 32 and 256 (paligemma-3b):
+  warp-level ``mma.sync`` m16n8k16 products, 64-query by 64-key tiles;
+  at 256, Q is read from shared memory rather than held in registers.
+* ``"simt"``, float32 at head dims 16, 32, 64 and 128: float32 FMAs on
+  the SIMT cores, 32-query by 32-key tiles, four threads per query row.
 
 Both bfloat16 kernels sum QK^T as exact products in float32. For PV the
 float32 probabilities are split into a bf16 high and low part and both
 are multiplied, so PV keeps about 16 bits of the probabilities'
 mantissa, close to the float32 PV of the TPU kernel and of
-`ref.attention_ref`; that costs 1.5 times a bf16 PV's operations.
+`ref.attention_ref` (without ``round_p``); that costs 1.5 times a bf16
+PV's operations.
 
 Unlike the TPU kernel, which takes only ``S % 256 == 0``, the CUDA kernels
-take any S: the tail tile is masked. Head dims 16, 32, 64 and 128 are
-compiled; any other raises.
+take any S: the tail tile is masked. The head dims of `HEAD_DIMS`
+(bfloat16) and `F32_HEAD_DIMS` (float32) are compiled; any other raises.
 
 What bounds it on an H100: operations, at long S. A causal call does
-about ``2·BH·S²·d`` multiply-adds, against ``(2·BH + 2·BH / group)·S·d``
-elements moved; at S = 32,768 and d = 64 that is far above the card's
-ridge point, and grouping kv heads changes only the bytes. With the split
-PV the bf16 kernels do 1.5 times that.
+about ``2·BH·S²·d`` multiply-adds (a non-causal one twice that), against
+``(2·BH + 2·BH / group)·S·d`` elements moved; at S = 32,768 and d = 64
+that is far above the card's ridge point, and grouping kv heads changes
+only the bytes. With the split PV the bf16 kernels do 1.5 times that.
 
-On a CPU tensor the wrapper runs the plain version (`ref.attention_ref`);
-on a CUDA tensor it launches a kernel or raises.
+On a CPU tensor the wrapper runs the plain version (`ref.attention_ref`),
+which on bf16 rounds p to bf16 before PV as the reference's model path
+(``layers._sdpa_chunked``) does; on a CUDA tensor it launches a kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -51,28 +63,43 @@ import torch
 
 from .ref import attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)      # bfloat16
+WGMMA_HEAD_DIMS = (64, 80, 128)
+F32_HEAD_DIMS = (16, 32, 64, 128)
 VARIANTS = ("wgmma", "mma_sync", "simt")
+MASKS = ("causal", "prefix", "non_causal")
 
 # Kernel launches since import (or since a caller last reset them), in all,
-# by variant, and those with grouped kv (group > 1). Only the CUDA branch
+# by variant, by mask (causal without a prefix, causal with one,
+# non-causal), and those with grouped kv (group > 1). Only the CUDA branch
 # below adds to them, once per launch.
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
+launches_by_mask = dict.fromkeys(MASKS, 0)
 launches_grouped = 0
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel that takes ``dtype`` at ``head_dim``: ``"wgmma"``
-    for bfloat16 at 64 and 128, ``"mma_sync"`` for bfloat16 at 16 and 32,
-    ``"simt"`` for float32 at any of `HEAD_DIMS`."""
+    for bfloat16 at 64, 80 and 128, ``"mma_sync"`` for bfloat16 at 16, 32
+    and 256, ``"simt"`` for float32 at any of `F32_HEAD_DIMS`."""
+    if dtype == torch.float32:
+        if head_dim not in F32_HEAD_DIMS:
+            raise ValueError(f"head dim {head_dim} is not one of "
+                             f"{F32_HEAD_DIMS} (float32)")
+        return "simt"
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head dim {head_dim} is not one of {HEAD_DIMS}")
-    if dtype == torch.float32:
-        return "simt"
     if dtype == torch.bfloat16:
-        return "wgmma" if head_dim >= 64 else "mma_sync"
+        return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
     raise TypeError(f"flash_attention takes float32 or bfloat16, got {dtype}")
+
+
+def mask_kind(causal: bool, prefix: int) -> str:
+    """The `MASKS` entry a call counts under."""
+    if not causal:
+        return "non_causal"
+    return "prefix" if prefix > 0 else "causal"
 
 _fns: dict = {}
 
@@ -86,7 +113,8 @@ def _kernel(dtype: torch.dtype):
               else lib.flash_attn_f32)
         fn.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[dtype] = fn
     return fn
@@ -130,17 +158,28 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    sm_scale: float | None = None,
-                    window: int = 0) -> torch.Tensor:
-    """Causal attention on (BH, S, d) q and (BH / group, S, d) k and v of
-    one dtype (float32 or bfloat16), ``group = BH / k.shape[0]`` query
-    rows to a kv row; keys with ``q - k >= window`` are masked when
-    ``window > 0``. Returns (BH, S, d) in q's dtype. Launches on the
-    current CUDA stream and does not synchronise.
+                    sm_scale: float | None = None, window: int = 0,
+                    causal: bool = True, prefix: int = 0) -> torch.Tensor:
+    """Attention on (BH, S, d) q and (BH / group, S, d) k and v of one
+    dtype (float32 or bfloat16), ``group = BH / k.shape[0]`` query rows to
+    a kv row. Causal: row i sees keys j <= i, and every key below
+    ``prefix`` when i < ``prefix``; keys with ``i - j >= window`` are
+    masked when ``window > 0``. ``causal=False``: every row sees every key
+    (``window`` and ``prefix`` are ignored). Returns (BH, S, d) in q's
+    dtype. Launches on the current CUDA stream and does not synchronise.
+    The kernel keeps PV in float32; the plain version on a CPU tensor
+    rounds p to bf16 first when q is bf16, as the reference's model does.
     """
     global launches, launches_grouped
+    if window < 0 or prefix < 0:
+        raise ValueError(f"window ({window}) and prefix ({prefix}) must not "
+                         f"be negative")
+    if not causal:
+        window = prefix = 0
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, sm_scale=sm_scale, window=window)
+        return attention_ref(q, k, v, sm_scale=sm_scale, window=window,
+                             causal=causal, prefix=prefix,
+                             round_p=q.dtype == torch.bfloat16)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
@@ -154,7 +193,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                bh, group, s, d, scale, int(window), stream)
+                bh, group, s, d, scale, int(window), int(bool(causal)),
+                int(prefix), stream)
     if rc < 0:
         raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled "
                            f"refused a TMA tensor map (CUresult {-rc})")
@@ -162,6 +202,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     launches += 1
     launches_by_variant[variant(q.dtype, d)] += 1
+    launches_by_mask[mask_kind(causal, prefix)] += 1
     if group > 1:
         launches_grouped += 1
     return out

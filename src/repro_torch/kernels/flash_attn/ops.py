@@ -1,5 +1,5 @@
-"""Causal attention on (BH, S, d) queries and (BH / group, S, d) keys and
-values: the flash kernel on the card, its plain version on the CPU.
+"""Attention on (BH, S, d) queries and (BH / group, S, d) keys and values:
+the flash kernel on the card, its plain version on the CPU.
 
 The reference's wrapper (``src/repro/kernels/flash_attn/ops.py``) sends a
 call to the plain XLA version whenever ``S % 256 != 0`` or it runs off the
@@ -13,8 +13,18 @@ import torch
 from .flash_attn import flash_attention
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              sm_scale: float | None = None, window: int = 0,
+              causal: bool = True, prefix: int = 0) -> torch.Tensor:
+    """`flash_attention` on contiguous operands: causal (with a
+    bidirectional ``prefix`` and a sliding ``window``) or, with
+    ``causal=False``, every key."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           sm_scale=sm_scale, window=window, causal=causal,
+                           prefix=prefix)
+
+
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      sm_scale: float | None = None,
                      window: int = 0) -> torch.Tensor:
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           sm_scale=sm_scale, window=window)
+    return attention(q, k, v, sm_scale=sm_scale, window=window)

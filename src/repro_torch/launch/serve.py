@@ -171,8 +171,8 @@ def main(argv=None):
     if cfg.is_encoder:
         raise SystemExit("encoder-only arch has no decode step")
     dev = resolve_device(args.device)
-    # a family whose prefill attention the card does not run yet is
-    # refused there before any work (ROADMAP A8.9b), as `forward` does
+    # a head dim the flash kernel lacks is refused on the card before any
+    # work, as `forward` refuses it
     flash_eligible(cfg, dev)
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     reqs = synthetic_requests(args.requests, cfg.vocab_size)

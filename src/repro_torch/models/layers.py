@@ -10,13 +10,19 @@ Conventions
 * Master params float32; matmul inputs cast to ``COMPUTE_DTYPE`` (bf16) at
   every call, as the reference does.
 * Prefill attention (``cache=None``) goes to the flash kernel on the card
-  and to its plain version on the CPU (`flash_eligible`); decode attention
-  is the query-chunked plain version over the cache, as in the reference.
-  Decode rounds the probabilities before PV as the config's prefill does:
-  not at all where the prefill takes the kernel, to bf16 elsewhere (the
-  reference's chunked path), so that both compute attention alike.
+  and to its plain version on the CPU (`flash_eligible`), with the
+  config's mask (causal, sliding-window, prefix-LM or bidirectional);
+  decode attention is the query-chunked plain version over the cache, as
+  in the reference. The device decides how p meets V, in prefill and
+  decode alike: the card keeps PV in float32 (the flash kernel's, and the
+  TPU kernel's, arithmetic); the CPU rounds p to bf16 before PV, as the
+  reference's forward and decode do (`_sdpa_chunked`).
 * Decode paths take a cache entry and a position offset. The cache's K/V
   tensors are written in place (the reference returns new arrays).
+* bf16 roundings follow the reference's compiled program: a Python
+  float that scales a bf16 tensor is itself a bf16 constant there
+  (`bf16_scalar`), and ``jax.nn.silu`` and ``jax.nn.gelu`` on bf16 round
+  each step of their formulas (`silu`, `gelu`).
 
 The reference's sequence-sharded decode (``_seq_shards``,
 ``_decode_attn_seqsharded``) belongs to the sharded mesh and is not
@@ -24,11 +30,12 @@ ported: a ``mesh=`` argument raises.
 """
 from __future__ import annotations
 
+import math
+
 import torch
-import torch.nn.functional as F
 
 from ..kernels.flash_attn.flash_attn import HEAD_DIMS
-from ..kernels.flash_attn.ops import causal_attention
+from ..kernels.flash_attn.ops import attention
 from ..kernels.hot_embed.ops import hot_cold_lookup
 from .config import ModelConfig
 
@@ -45,6 +52,27 @@ def _no_mesh(mesh) -> None:
 def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32) * scale
+
+
+def bf16_scalar(v: float) -> float:
+    """``v`` rounded to bf16: what a Python float becomes in the reference
+    when it scales a bf16 array (JAX's weak typing keeps the array's
+    dtype)."""
+    return float(torch.tensor(v, dtype=torch.bfloat16))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA computes it on a bf16 ``x``: ``x · 1 / (1 +
+    exp(-x))``, each step rounded to bf16 (``F.silu`` rounds once)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh form) as XLA computes it on a bf16
+    ``x``: ``x · 0.5 (1 + tanh(c (x + k x³)))`` with ``c = √(2/π)`` and
+    ``k = 0.044715`` in bf16, each step rounded to bf16."""
+    c, k = bf16_scalar(math.sqrt(2 / math.pi)), bf16_scalar(0.044715)
+    return x * (0.5 * (1 + torch.tanh(c * (x + k * x ** 3))))
 
 
 def _dense(x, w, b=None):
@@ -149,10 +177,10 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, cfg: ModelConfig, k_valid=None,
     Logits and softmax in float32. With ``round_p`` (the reference) the
     probabilities are rounded to bf16 for a bf16 PV; without, PV runs in
     float32 and the result is rounded once, as the flash kernel does. A
-    decode step after a flash prefill takes the latter: at full width,
-    rounding p in decode alone parts an MoE's decode routing from its
-    forward's at 4 of 64 positions where float32 parts it at 2, as the
-    reference's own decode parts from its forward
+    decode step on the card takes the latter, after the kernel's prefill:
+    at full width, rounding p in decode alone parts an MoE's decode
+    routing from its forward's at 4 of 64 positions where float32 parts it
+    at 2, as the reference's own decode parts from its forward
     (``tests/moe_routing_witness.py``)."""
     b, s, h, dh = q.shape
     kvh = cfg.num_kv_heads
@@ -181,35 +209,23 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, cfg: ModelConfig, k_valid=None,
 
 def flash_eligible(cfg: ModelConfig, device: torch.device | str) -> bool:
     """Whether prefill attention (``cache=None``) runs through
-    `causal_attention` (the flash kernel on the card, its plain version on
+    `ops.attention` (the flash kernel on the card, its plain version on
     the CPU).
 
-    The kernel computes causal attention, multi-head or grouped-query
-    (each kv head serving ``num_heads / num_kv_heads`` query heads), with
-    no prefix, at a head dim in `HEAD_DIMS`. On the CPU another config takes
-    the reference's chunked plain path; on the card it raises, since
-    nothing there gives way to a plain version.
+    The kernel takes every mask of `_attn_mask` (causal, sliding-window,
+    prefix-LM and bidirectional), multi-head or grouped-query (each kv
+    head serving ``num_heads / num_kv_heads`` query heads), at a head dim
+    in `HEAD_DIMS`. On the CPU a config at another head dim takes the
+    reference's chunked plain path; on the card it raises, since nothing
+    there gives way to a plain version.
     """
-    missing = _flash_missing(cfg)
-    if not missing:
+    if cfg.head_dim in HEAD_DIMS:
         return True
     if torch.device(device).type == "cuda":
         raise NotImplementedError(
-            f"{cfg.name}: the flash kernel does not take "
-            f"{'; '.join(missing)} yet: ROADMAP A8.9b")
+            f"{cfg.name}: the flash kernel does not take head dim "
+            f"{cfg.head_dim} (it takes {HEAD_DIMS}) yet: ROADMAP A8.9b")
     return False
-
-
-def _flash_missing(cfg: ModelConfig) -> list[str]:
-    """What the flash kernel lacks for ``cfg``'s attention."""
-    missing = []
-    if cfg.prefix_tokens > 0:
-        missing.append("prefix-LM attention (prefix_tokens > 0)")
-    if not cfg.causal:
-        missing.append("non-causal attention (causal=False)")
-    if cfg.head_dim not in HEAD_DIMS:
-        missing.append(f"head dim {cfg.head_dim} (it takes {HEAD_DIMS})")
-    return missing
 
 
 def apply_attention(p, x, cfg: ModelConfig, positions, cache=None,
@@ -235,8 +251,8 @@ def apply_attention(p, x, cfg: ModelConfig, positions, cache=None,
             # row serves h / kv query rows (never expanded to h heads)
             def heads(t):
                 return t.transpose(1, 2).reshape(-1, s, dh)
-            of = causal_attention(heads(q), heads(k), heads(v),
-                                  window=cfg.window)
+            of = attention(heads(q), heads(k), heads(v), window=cfg.window,
+                           causal=cfg.causal, prefix=cfg.prefix_tokens)
             out = of.reshape(b, h, s, dh).transpose(1, 2)
         else:
             out = _sdpa_chunked(q, k, v, positions, positions, cfg)
@@ -261,8 +277,9 @@ def apply_attention(p, x, cfg: ModelConfig, positions, cache=None,
             k_valid = k_pos < cache["length"] + 1
         ck = cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
         cv = cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        # p meets V as in the prefill on this device (`flash_attention`)
         out = _sdpa_chunked(q, ck, cv, positions, k_pos, cfg, k_valid,
-                            round_p=bool(_flash_missing(cfg)))
+                            round_p=x.device.type != "cuda")
         new_cache = {"k": ck, "v": cv, "length": cache["length"] + 1}
 
     out = _dense(out.reshape(b, s, h * dh), p["wo"], p.get("bo"))
@@ -302,10 +319,9 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig):
 
 def apply_mlp(p, x, cfg: ModelConfig):
     if cfg.mlp_type == "swiglu":
-        return _dense(F.silu(_dense(x, p["w_gate"]))
+        return _dense(silu(_dense(x, p["w_gate"]))
                       * _dense(x, p["w_up"]), p["w_down"])
-    # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(_dense(x, p["w_in"], p.get("b_in")), approximate="tanh")
+    h = gelu(_dense(x, p["w_in"], p.get("b_in")))
     return _dense(h, p["w_out"], p.get("b_out"))
 
 
@@ -336,6 +352,7 @@ def embed_tokens(p, ids, cfg: ModelConfig):
 
 
 def lm_logits(p, x, cfg: ModelConfig):
-    """bf16 logits; ``logit_scale`` is applied after the bf16 product."""
+    """bf16 logits; ``logit_scale`` (in bf16) is applied after the bf16
+    product."""
     w = p["table"].T if cfg.tie_embeddings else p["head"]
-    return _dense(x, w) * cfg.logit_scale
+    return _dense(x, w) * bf16_scalar(cfg.logit_scale)

@@ -28,11 +28,10 @@ mesh: a ``mesh=`` argument raises (ROADMAP A8.8).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels.moe_gmm.ops import ragged_dot
 from .config import ModelConfig
-from .layers import COMPUTE_DTYPE, _dense, _normal
+from .layers import COMPUTE_DTYPE, _dense, _normal, silu
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -98,7 +97,7 @@ def _expert_ffn_ragged(xs, w_gate, w_up, w_down, group_sizes):
     stacks are cast to bf16 at every call, as in the reference."""
     dt = COMPUTE_DTYPE
     xs = xs.to(dt)
-    h = F.silu(ragged_dot(xs, w_gate.to(dt), group_sizes)) * ragged_dot(
+    h = silu(ragged_dot(xs, w_gate.to(dt), group_sizes)) * ragged_dot(
         xs, w_up.to(dt), group_sizes)
     return ragged_dot(h.to(dt), w_down.to(dt), group_sizes)
 
@@ -186,7 +185,7 @@ def apply_moe(p, x, cfg: ModelConfig, mesh=None):
         xd = x_flat.to(dt)
         g = torch.einsum("td,tkdf->tkf", xd, wg.to(dt))
         u = torch.einsum("td,tkdf->tkf", xd, wu.to(dt))
-        yk = torch.einsum("tkf,tkfd->tkd", F.silu(g) * u, wd.to(dt))
+        yk = torch.einsum("tkf,tkfd->tkd", silu(g) * u, wd.to(dt))
         y = torch.einsum("tkd,tk->td", yk, gates.to(dt))
     else:
         y = _dispatch_local(x_flat, experts, gates, p["w_gate"], p["w_up"],
@@ -194,6 +193,6 @@ def apply_moe(p, x, cfg: ModelConfig, mesh=None):
 
     if cfg.num_shared_experts:
         sp = p["shared"]
-        y = y + _dense(F.silu(_dense(x_flat, sp["w_gate"]))
+        y = y + _dense(silu(_dense(x_flat, sp["w_gate"]))
                        * _dense(x_flat, sp["w_up"]), sp["w_down"])
     return y.reshape(b, s, d).to(COMPUTE_DTYPE), aux

@@ -32,7 +32,7 @@ from torch import nn
 from ..device import resolve_device
 from .config import ModelConfig
 from .layers import (COMPUTE_DTYPE, apply_attention, apply_mlp, apply_norm,
-                     embed_tokens, flash_eligible, init_attention,
+                     bf16_scalar, embed_tokens, flash_eligible, init_attention,
                      init_attn_cache, init_embedding, init_mlp, init_norm,
                      lm_logits)
 from .moe import apply_moe, init_moe
@@ -76,16 +76,19 @@ class AttnBlock(nn.Module):
         """Returns (x, new_cache, aux_loss); aux is None without MoE (no
         device op for a dense decode step)."""
         cfg = self.cfg
+        scale = bf16_scalar(cfg.residual_scale)
         h, new_c = apply_attention(self.attn, apply_norm(self.norm1, x, cfg),
                                    cfg, positions, cache)
-        x = x + h * cfg.residual_scale
-        y = apply_norm(self.norm2, x, cfg)
+        # the residual sum reaches norm2 before its bf16 rounding, as in the
+        # reference's compiled block (XLA keeps the fused add in float32)
+        x32 = x.float() + h * scale
+        y = apply_norm(self.norm2, x32, cfg)
         aux = None
         if cfg.is_moe:
             f, aux = apply_moe(self.ffn, y, cfg)
         else:
             f = apply_mlp(self.ffn, y, cfg)
-        return x + f * cfg.residual_scale, new_c, aux
+        return x32.to(COMPUTE_DTYPE) + f * scale, new_c, aux
 
 
 class Transformer(nn.Module):
@@ -168,26 +171,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 # ============================================================== public API
+def embed_inputs(model: Transformer, batch: dict) -> torch.Tensor:
+    """The trunk's (B, S, d) bf16 input: an encoder's ``embeds`` as they
+    are; otherwise the embedded ``tokens``, after a prefix-LM's ``prefix``
+    of embeddings."""
+    cfg = model.cfg
+    if cfg.input_mode == "embeddings":
+        return batch["embeds"].to(COMPUTE_DTYPE)
+    x = embed_tokens(model.embed, batch["tokens"], cfg)
+    if cfg.prefix_tokens > 0:
+        x = torch.cat([batch["prefix"].to(COMPUTE_DTYPE), x], dim=1)
+    return x
+
+
 def forward(model: Transformer, batch: dict, mesh=None):
-    """Prefill forward. batch: tokens (B,S) and/or embeds/prefix.
+    """Prefill forward. batch: tokens (B,S) and/or embeds/prefix
+    (`embed_inputs`).
 
     Returns (logits (B,S,V) bf16, aux_loss summed over the layers). On
-    the card each layer's attention is one flash-kernel launch, an MoE
-    layer's experts three grouped-matmul launches and the embedding one
-    hot-slab launch; a config the kernel does not take raises before any
-    work.
+    the card each layer's attention is one flash-kernel launch with the
+    config's mask (causal, sliding-window, prefix-LM or bidirectional),
+    an MoE layer's experts three grouped-matmul launches and the token
+    embedding one hot-slab launch; a config the kernel does not take
+    raises before any work.
     """
     cfg = model.cfg
     if mesh is not None:
         raise NotImplementedError("sharded forward: ROADMAP A8.8")
     dev = model.device
     flash_eligible(cfg, dev)
-    if cfg.input_mode == "embeddings":
-        x = batch["embeds"].to(COMPUTE_DTYPE)
-    else:
-        x = embed_tokens(model.embed, batch["tokens"], cfg)
-        if cfg.prefix_tokens > 0:
-            x = torch.cat([batch["prefix"].to(COMPUTE_DTYPE), x], dim=1)
+    x = embed_inputs(model, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for block in model.layers:

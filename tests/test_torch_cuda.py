@@ -15,7 +15,9 @@ edges a block, rows cut at share and step boundaries, parts added in
 block order), and every result must
 repeat bit for bit. The flash kernel is
 held to its plain version at the reference test's tolerances
-(tests/test_kernels.py: float32 rtol 1e-3 / atol 2e-3, bf16 5e-2), the
+(tests/test_kernels.py: float32 rtol 1e-3 / atol 2e-3, bf16 5e-2), and
+with its prefix-LM and bidirectional masks and at head dims 80 and 256
+to one bf16 unit of the output (`FLASH_MASK_TOL`), the
 hot-slab gather exactly; grouped-query calls (k and v of BH / group
 rows) must also give the bits of the same kernel on k and v repeated per
 query row, and multi-head calls the bits the kernel gave before it took
@@ -307,6 +309,10 @@ def test_engine_serves_on_the_card_by_default(plc_graph):
 # ------------------------------------------------------------ flash_attn
 FLASH_TOL = {torch.float32: dict(rtol=1e-3, atol=2e-3),
              torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+# the masks and head dims 80 / 256 in bf16: kernel and plain version both
+# keep PV in float32 and round once, so they part by at most one bf16 unit
+# of the output (2^-7 of it); atol covers outputs near zero
+FLASH_MASK_TOL = dict(rtol=8e-3, atol=1e-3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -536,6 +542,155 @@ def test_flash_multi_head_keeps_its_bits(case):
     dev = _card()
     assert flash_digest(fa.flash_attention, *case, dev) == MHA_DIGESTS[
         case[1:] + (str(case[0]),)]
+
+
+MASKS = [dict(prefix=100), dict(prefix=300), dict(causal=False),
+         dict(prefix=64, window=128)]
+MASK_IDS = ["prefix100", "prefix300", "non_causal", "prefix64-window128"]
+
+
+@pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
+@pytest.mark.parametrize("s", [77, 300])
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 64), (torch.bfloat16, 80), (torch.bfloat16, 128),
+    (torch.bfloat16, 16), (torch.bfloat16, 32), (torch.bfloat16, 256),
+    (torch.float32, 32), (torch.float32, 128)],
+    ids=["bf16-64", "bf16-80", "bf16-128", "bf16-16", "bf16-32", "bf16-256",
+         "f32-32", "f32-128"])
+def test_flash_masks_match_plain_version(dtype, d, s, mask):
+    """The prefix-LM and bidirectional masks in every variant and at the
+    new head dims (80 through the wgmma kernel's zero-filled columns, 256
+    through mma.sync), S not a multiple of any tile, a prefix shorter and
+    longer than S: the same bits on a repeat, the launch counted under its
+    variant and mask, and the plain version at the reference test's
+    tolerance."""
+    dev = _card()
+    rng = np.random.default_rng(s * d + len(mask))
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, s, d)).astype(
+        np.float32)).to(dev, dtype) for _ in range(3))
+    kind = fa.mask_kind(mask.get("causal", True), mask.get("prefix", 0))
+    want_variant = fa.variant(dtype, d)
+    by_variant, by_mask = dict(fa.launches_by_variant), dict(
+        fa.launches_by_mask)
+    got = fa.flash_attention(q, k, v, **mask)
+    again = fa.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant == {
+        **by_variant, want_variant: by_variant[want_variant] + 2}
+    assert fa.launches_by_mask == {**by_mask, kind: by_mask[kind] + 2}
+    assert got.shape == (2, s, d) and torch.equal(got, again)
+    want = attention_ref(q, k, v, **mask)
+    tol = FLASH_MASK_TOL if dtype == torch.bfloat16 else FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("d", [80, 256])
+def test_flash_masks_keep_the_future_out(d):
+    """Prefix-LM: a row below the prefix sees every prefix key, a row past
+    it no later key; non-causal: the last key moves the first row. Then
+    one key at a time at the edges (prefix 300 and S 600 inside a tile of
+    every variant): key 300, the first past the prefix, leaves rows 0-299
+    bit for bit and moves row 300; key 299 moves row 0; non-causal, key
+    599 in the ragged tile moves row 0."""
+    dev = _card()
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 600, d)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 250:], v2[:, 250:] = 9.0, -9.0        # inside the prefix of 300
+    o1 = fa.flash_attention(q, k, v, prefix=300)
+    o2 = fa.flash_attention(q, k2, v2, prefix=300)
+    assert not torch.equal(o1[:, :1], o2[:, :1])
+    k3, v3 = k.clone(), v.clone()
+    k3[:, 400:], v3[:, 400:] = 9.0, -9.0        # past the prefix
+    o3 = fa.flash_attention(q, k3, v3, prefix=300)
+    assert torch.equal(o1[:, :400], o3[:, :400])
+    b1 = fa.flash_attention(q, k, v, causal=False)
+    b3 = fa.flash_attention(q, k3, v3, causal=False)
+    assert not torch.equal(b1[:, :1], b3[:, :1])
+
+    def bumped(j):
+        kj, vj = k.clone(), v.clone()
+        kj[:, j], vj[:, j] = kj[:, j] + 4.0, vj[:, j] - 4.0
+        return kj, vj
+
+    past = fa.flash_attention(q, *bumped(300), prefix=300)
+    assert torch.equal(o1[:, :300], past[:, :300])
+    assert not torch.equal(o1[:, 300], past[:, 300])
+    last = fa.flash_attention(q, *bumped(299), prefix=300)
+    assert not torch.equal(o1[:, :1], last[:, :1])
+    end = fa.flash_attention(q, *bumped(599), causal=False)
+    assert not torch.equal(b1[:, :1], end[:, :1])
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "hubert-xlarge"])
+def test_flash_at_the_new_models_heads(arch):
+    """paligemma-3b's attention (8 query heads over 1 kv head, d 256, a
+    256-token prefix) and hubert-xlarge's (16 heads of 80, bidirectional)
+    at S 4,096, against the plain version to one bf16 unit."""
+    dev = _card()
+    h, kv, d, mask = ((8, 1, 256, dict(prefix=256)) if arch == "paligemma-3b"
+                      else (16, 16, 80, dict(causal=False)))
+    rng = np.random.default_rng(h + d)
+    q = torch.from_numpy(rng.standard_normal((h, 4096, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((kv, 4096, d)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    got = fa.flash_attention(q, k, v, **mask)
+    assert torch.equal(got, fa.flash_attention(q, k, v, **mask))
+    if kv < h:
+        assert torch.equal(got, fa.flash_attention(
+            q, k.repeat_interleave(h // kv, 0),
+            v.repeat_interleave(h // kv, 0), **mask))
+    want = attention_ref(q, k, v, **mask)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_MASK_TOL)
+
+
+def test_flash_refuses_float32_at_head_dim_256():
+    """Head dim 256 is built for bf16 only: a float32 call is refused
+    before a launch."""
+    dev = _card()
+    launches = fa.launches
+    with pytest.raises(ValueError, match="head dim 256"):
+        z = torch.zeros(1, 64, 256, device=dev)
+        fa.flash_attention(z, z, z)
+    assert fa.launches == launches
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "hubert-xlarge"])
+def test_new_models_on_the_card_match_the_cpu(arch):
+    """2-layer smoke paligemma (prefix 4, one kv head) and hubert
+    (bidirectional) through the flash kernel on the card against the same
+    weights on the CPU, to tests/test_models.py's decode standard; one
+    launch a layer, counted under the config's mask."""
+    import copy
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.shapes import ShapeSpec, input_specs
+    from repro_torch.models import transformer as T
+
+    dev = _card()
+    cfg = smoke_config(arch, layers=2)
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(host).to(dev)
+    g = torch.Generator().manual_seed(1)
+    batch = {}
+    for name, spec in input_specs(cfg, ShapeSpec("t", 300, 2,
+                                                 "prefill")).items():
+        batch[name] = (torch.randint(0, cfg.vocab_size, spec.shape,
+                                     generator=g, dtype=torch.int32)
+                       if name == "tokens" else
+                       torch.randn(spec.shape, generator=g).to(spec.dtype))
+    kind = fa.mask_kind(cfg.causal, cfg.prefix_tokens)
+    before = fa.launches_by_mask[kind]
+    got, _ = T.forward(card, {n: t.to(dev) for n, t in batch.items()})
+    torch.cuda.synchronize()
+    assert fa.launches_by_mask[kind] - before == cfg.num_layers
+    want, _ = T.forward(host, batch)
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               rtol=0.15, atol=0.15)
+    agree = (got.float().cpu().argmax(-1) == want.float().argmax(-1))
+    assert agree.float().mean() > 0.95
 
 
 # ------------------------------------------------------------- hot_embed

@@ -160,10 +160,12 @@ def test_kernel_checks_its_operands():
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 32, "mma_sync"),
     (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 256, "mma_sync")])
 def test_variant_follows_dtype_and_head_dim(dtype, head_dim, want):
-    """The served bf16 head dims take the Hopper kernel, the other bf16
-    ones the mma.sync kernel, float32 the SIMT one; each is a named
+    """The served bf16 head dims but paligemma-3b's 256 take the Hopper
+    kernel, the other bf16 ones the mma.sync kernel, float32 the SIMT one
+    (at 16, 32, 64 and 128 only); each is a named
     variant with its own launch count, and the CPU counts none."""
     assert tf.variant(dtype, head_dim) == want
     assert set(tf.launches_by_variant) == set(tf.VARIANTS)
@@ -175,7 +177,7 @@ def test_variant_follows_dtype_and_head_dim(dtype, head_dim, want):
 
 @pytest.mark.parametrize("dtype,head_dim,error", [
     (torch.bfloat16, 48, ValueError), (torch.float32, 256, ValueError),
-    (torch.float16, 64, TypeError)])
+    (torch.float16, 64, TypeError), (torch.float32, 80, ValueError)])
 def test_variant_refuses_what_no_kernel_takes(dtype, head_dim, error):
     with pytest.raises(error):
         tf.variant(dtype, head_dim)

@@ -5,8 +5,8 @@ Both packages run ``smoke_config("minicpm-2b", layers=2)`` (and a few
 other smoke configs for the layer functions) on the same weights: the
 JAX package's ``init_params`` pytree, carried across with
 `from_jax_params`. Inputs are made from seeds with numpy. On the CPU the
-port's prefill attention is the flash kernel's plain version (float32 PV)
-where the reference's forward uses its chunked XLA path (bf16 PV), and
+port's prefill attention is the flash kernel's plain version, which
+rounds p to bf16 before PV as the reference's chunked XLA path does, and
 matmuls round to bf16 in both; each test states its tolerance.
 """
 from __future__ import annotations
@@ -33,8 +33,8 @@ from repro_torch.models import transformer as TT  # noqa: E402
 ARCH = "minicpm-2b"
 # bf16 results: within 2% of each value or of the result's largest
 # magnitude. bf16 keeps 8 bits (0.4%), and an intermediate that rounds one
-# unit apart in the two frameworks (XLA evaluates silu in bf16, torch in
-# float32 with one rounding) is carried through sums of d_ff terms.
+# unit apart in the two frameworks (a float32 reduction summed in another
+# order) is carried through sums of d_ff terms.
 BF16_FRAC = 2e-2
 # tests/test_models.py::test_decode_matches_forward
 DECODE_TOL = dict(rtol=0.15, atol=0.15)
@@ -165,8 +165,9 @@ def test_sdpa_chunked(arch, s):
 
 @pytest.mark.parametrize("s", [12, 2048])
 def test_sdpa_chunked_float32_pv_is_the_flash_oracle(s):
-    """``round_p=False``, decode's attention after a flash prefill, keeps
-    PV in float32 as the reference's flash-attention oracle does: the two
+    """``round_p=False``, decode's attention on the card after a flash
+    prefill, keeps PV in float32 as the reference's flash-attention
+    oracle does: the two
     agree to the bf16 rounding of the result."""
     from repro.kernels.flash_attn.ref import attention_ref
     cfg_j, cfg_t = jax_smoke("minicpm-2b", layers=1), smoke_config(
@@ -194,9 +195,9 @@ def _attn_params(params, layer=0):
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "qwen2.5-3b"])
 def test_apply_attention_prefill(arch):
-    """minicpm (MHA) and qwen2.5 (GQA, qkv bias) through
-    `causal_attention` (the flash kernel's plain version, float32 PV),
-    beside the reference's chunked path (bf16 PV)."""
+    """minicpm (MHA) and qwen2.5 (GQA, qkv bias) through `ops.attention`
+    (the flash kernel's plain version; on the CPU it rounds p to bf16 as
+    the reference's chunked path does)."""
     cfg_j, cfg_t, params, _ = _pair(arch)
     jp, tp = _attn_params(params)
     x = np.random.default_rng(4).standard_normal((2, 20, cfg_j.d_model))
@@ -293,11 +294,19 @@ def test_forward_matches_the_reference(minicpm):
 def test_forward_gqa_matches_the_reference():
     """qwen2.5 (GQA, qkv bias, no hot vocabulary), 2 layers: the port's
     prefill attention is the flash kernel's plain version on the grouped
-    k and v (float32 PV), the reference's its chunked path (bf16 PV); the
-    same tolerance and argmax standard as minicpm's forward."""
+    k and v, which rounds p to bf16 as the reference's chunked path does,
+    so layer 0's attention equals the reference's bit for bit; the logits
+    meet minicpm's tolerance and argmax standard."""
     cfg_j, cfg_t, params, model = _pair("qwen2.5-3b")
     assert cfg_t.num_kv_heads < cfg_t.num_heads
     assert TL.flash_eligible(cfg_t, "cpu") is True
+    jp, tp = _attn_params(params)
+    x = np.random.default_rng(11).standard_normal((1, 24, cfg_j.d_model))
+    jx, tx = _bf16(x)
+    pos = np.arange(24, dtype=np.int32)
+    want_attn, _ = JL.apply_attention(jp, jx, cfg_j, jnp.asarray(pos))
+    got_attn, _ = TL.apply_attention(tp, tx, cfg_t, torch.from_numpy(pos))
+    np.testing.assert_array_equal(_f32(got_attn), _f32(want_attn))
     tokens = _tokens(cfg_j, (1, 24), seed=2)
     want, _ = JT.forward(params, {"tokens": jnp.asarray(tokens)}, cfg_j)
     got, _ = TT.forward(model, {"tokens": torch.from_numpy(tokens)})
@@ -453,21 +462,24 @@ def test_from_jax_params_copies_every_leaf(minicpm):
     ("qwen2.5-3b", None), ("paligemma-3b", "prefix-LM"),
     ("hubert-xlarge", "non-causal"), ("mixtral-8x7b", None)])
 def test_unported_attention_raises_on_the_card(arch, what):
-    """On the card prefill attention is the kernel or nothing: a config it
-    does not take raises (the check runs before any tensor work); on the
-    CPU it takes the reference's chunked path. The GQA configs (``what``
-    None: qwen2.5-3b, and mixtral-8x7b with its sliding window) are taken
-    by the kernel, at full width as in the smoke config."""
+    """On the card prefill attention is the kernel or nothing. The kernel
+    now takes every attention family of the ``attn`` trunk, at full width
+    as in the smoke config, on the card and on the CPU: grouped kv
+    (``what`` None: qwen2.5-3b, and mixtral-8x7b with its sliding window),
+    paligemma-3b's prefix-LM mask over one kv head at head dim 256, and
+    hubert-xlarge's bidirectional encoder at head dim 80 (ROADMAP A8.9b,
+    done). Only a head dim the kernel lacks still raises
+    (`test_head_dim_the_kernel_lacks_raises_on_the_card`)."""
     for cfg in (smoke_config(arch, layers=1), get_config(arch)):
         if what is None:
             assert cfg.num_kv_heads < cfg.num_heads
-            assert TL.flash_eligible(cfg, torch.device("cuda")) is True
-            assert TL.flash_eligible(cfg, "cpu") is True
-            continue
-        with pytest.raises(NotImplementedError,
-                           match=f"{what}.*ROADMAP A8.9b"):
-            TL.flash_eligible(cfg, torch.device("cuda"))
-        assert TL.flash_eligible(cfg, "cpu") is False
+        elif what == "prefix-LM":
+            assert cfg.causal and cfg.prefix_tokens > 0
+        else:
+            assert not cfg.causal
+        assert TL.flash_eligible(cfg, torch.device("cuda")) is True
+        assert TL.flash_eligible(cfg, "cpu") is True
+    assert get_config(arch).head_dim in TL.HEAD_DIMS
     assert TL.flash_eligible(smoke_config(ARCH, layers=1), "cuda") is True
 
 
@@ -475,13 +487,19 @@ def test_unported_attention_raises_on_the_card(arch, what):
 def test_head_dim_the_kernel_lacks_raises_on_the_card(head_dim):
     """A causal MHA config whose head dim the kernel was not built for is
     refused at `flash_eligible`, before any work, naming A8.9b; on the CPU
-    it takes the chunked path."""
+    it takes the chunked path. Head dim 80 (hubert-xlarge's) is built now:
+    it is taken on both devices, and the CPU runs the kernel's plain
+    version."""
     cfg = dataclasses.replace(smoke_config(ARCH, layers=1),
                               head_dim=head_dim)
-    with pytest.raises(NotImplementedError,
-                       match=f"head dim {head_dim}.*ROADMAP A8.9b"):
-        TL.flash_eligible(cfg, torch.device("cuda"))
-    assert TL.flash_eligible(cfg, "cpu") is False
+    if head_dim in TL.HEAD_DIMS:
+        assert TL.flash_eligible(cfg, torch.device("cuda")) is True
+        assert TL.flash_eligible(cfg, "cpu") is True
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=f"head dim {head_dim}.*ROADMAP A8.9b"):
+            TL.flash_eligible(cfg, torch.device("cuda"))
+        assert TL.flash_eligible(cfg, "cpu") is False
     model = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     logits, _ = TT.forward(model, {"tokens": torch.arange(
         6, dtype=torch.int32).reshape(1, 6)})
@@ -552,11 +570,11 @@ def test_serve_main_defaults_are_the_references(monkeypatch):
 
 
 def test_serve_main_default_arch_is_refused_on_the_card(monkeypatch):
-    """The default (qwen2.5-3b, GQA) is no longer refused on the card:
-    `flash_eligible` takes it there (the run is stopped right after that
-    check, since this host has no card to make weights on). A config the
-    kernel does not take is still refused before any weights, naming
-    A8.9b."""
+    """The default (qwen2.5-3b, GQA) and paligemma-3b (prefix-LM, head dim
+    256) are not refused on the card: `flash_eligible` takes them there
+    (the run is stopped right after that check, since this host has no
+    card to make weights on). hubert-xlarge, an encoder, is refused before
+    any weights, as in the reference: it has no decode step."""
     class _Reached(Exception):
         pass
 
@@ -570,12 +588,14 @@ def test_serve_main_default_arch_is_refused_on_the_card(monkeypatch):
     with pytest.raises(_Reached) as got:
         TS.main(["--smoke", "--layers", "1"])
     assert got.value.args == ("qwen2.5-3b", "cuda", True)
+    with pytest.raises(_Reached) as got:
+        TS.main(["--arch", "paligemma-3b", "--smoke", "--layers", "1"])
+    assert got.value.args == ("paligemma-3b", "cuda", True)
     monkeypatch.setattr(TL, "flash_eligible", eligible)
     monkeypatch.setattr(TT, "init_params", lambda *a, **kw: pytest.fail(
         "weights made before the config was refused"))
-    with pytest.raises(NotImplementedError,
-                       match="paligemma-3b.*prefix-LM.*ROADMAP A8.9b"):
-        TS.main(["--arch", "paligemma-3b", "--smoke", "--layers", "1"])
+    with pytest.raises(SystemExit, match="encoder-only arch has no decode"):
+        TS.main(["--arch", "hubert-xlarge", "--smoke", "--layers", "1"])
 
 
 def test_serve_main_on_the_cpu(capsys):
