@@ -98,9 +98,10 @@ weights from ``init_params`` on the card, seed 7):
    (tests/test_models.py::test_decode_matches_forward); a position agrees
    where the top tokens are equal or tie to within one bf16 unit of the
    forward's top logit.
-9. Card against CPU: the config cut to 2 layers, the same weights on the
-   CPU (plain versions) and the card (kernels), a 256-token prompt, the
-   same standard.
+9. Card against CPU: the config cut to 2 layers (a hybrid keeps its
+   shared block on the second, as ``configs/smoke_config`` cuts), the same
+   weights on the CPU (plain versions) and the card (kernels), a
+   256-token prompt, the same standard.
 10. Serve: ``serve_loop`` at full depth, 8 synthetic requests (seed 0), 4
     slots, ``max_len`` 512, greedy; every request completes with
     ``max_new`` tokens and every decode step launches the hot-slab kernel
@@ -140,6 +141,27 @@ head: 945,131,520 parameters): the encoder forward on 32,768 frames
 timing beside ``is_causal=False`` SDPA. An encoder has no decode step
 (``configs/shapes.cell_supported``), so phases 8 and 10 are skipped and
 say so. Both library calls round p to bf16.
+
+Then phases 7-11 on the two recurrent trunks at full width and depth,
+weights from ``init_params`` on the card (seed 7):
+rwkv6-3b (32 RWKV6 layers, d 2560, 40 wkv heads of 64, d_ff 8960, vocab
+65,536, layernorm; 3,094,451,200 parameters, where the config's analytic
+``param_count`` gives 2,642,575,360: both are printed) with no attention,
+so 0 flash launches and 1 hot-slab launch a prefill and no flash check
+(it says so); and zamba2-1.2b (38 Mamba2 layers, d 2048, d_inner 4096, 64
+SSM heads of 64, state 64, chunk 64; a shared attention + gelu MLP block,
+32 heads of 64, applied before the Mamba block at layers 5, 11, 17, 23,
+29 and 35; vocab 32,000; 1,153,536,128 parameters), so 6 flash launches
+a prefill, all ``wgmma``, causal, multi-head, held to the plain version
+on the shared block's real q/k/v at its first application (the trunk run
+through layers 0-4, then the block's norm1), and timed beside
+``is_causal=True`` SDPA. Decode against forward on 64 tokens (both
+chunked forms); card against CPU on 2 layers cut as ``smoke_config``
+cuts (zamba2 keeps the shared block on its second); ``serve_loop`` with
+one hot-slab launch a decode step. Then each trunk's scan on layer 0
+(`time_scan`: the chunked wkv, the SSD; plain torch, its carried state
+a Python loop of one launch a chunk): its device ms, busy ms, device ops
+a call and the host launches a prefill.
 
 Then the MoE slice, moonshot-v1-16b-a3b at full width (d 2048, 16 heads
 of 128, 64 experts of d_ff 1408, top-6, 2 shared experts), its depth cut
@@ -200,6 +222,8 @@ ARCH = "minicpm-2b"
 GQA_ARCH = "qwen2.5-3b"
 PREFIX_ARCH = "paligemma-3b"    # prefix-LM, one kv head, head dim 256
 ENCODER_ARCH = "hubert-xlarge"  # bidirectional encoder, head dim 80
+RWKV_ARCH = "rwkv6-3b"          # attention-free: time-mix + channel-mix
+HYBRID_ARCH = "zamba2-1.2b"     # Mamba2 with a shared attention block
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_LAYERS = 16                 # of 48: what one 80 GB card holds in f32
 PREFILL_SHAPE = "prefill_32k"   # configs/shapes.py; its batch of 32 cut to 1
@@ -935,14 +959,27 @@ def token_stream(model):
             m.cfg = cfg
 
 
-def layer0_heads(model, batch):
-    """Layer 0's (B·H, S, dh) q and (B·KV, S, dh) k and v, as
-    `apply_attention` hands them to the flash kernel."""
+def first_attention_heads(model, batch):
+    """The (B·H, S, dh) q and (B·KV, S, dh) k and v that the prefill's
+    first attention hands the flash kernel, as `apply_attention` makes
+    them, and where they come from: layer 0's, or a hybrid's shared block
+    at its first application (the trunk run up to that layer, then the
+    block's norm1). None for a trunk without attention (rwkv)."""
     import torch
     from repro_torch.models.layers import _dense, apply_norm, apply_rope
     from repro_torch.models.transformer import embed_inputs
-    cfg, blk = model.cfg, model.layers[0]
-    x = apply_norm(blk.norm1, embed_inputs(model, batch), cfg)
+    cfg = model.cfg
+    if not cfg.attn_positions:
+        return None
+    first = cfg.attn_positions[0]
+    x = embed_inputs(model, batch)
+    if model.shared_attn is None:
+        blk, where = model.layers[0], "layer0"
+    else:
+        for layer in model.layers[:first]:
+            x, _ = layer(x)
+        blk, where = model.shared_attn, f"shared block at layer {first}"
+    x = apply_norm(blk.norm1, x, cfg)
     b, s = x.shape[:2]
     dh = cfg.head_dim
     pos = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -955,7 +992,7 @@ def layer0_heads(model, batch):
         return t.transpose(1, 2).reshape(b * n, s, dh).contiguous()
     kv = cfg.num_kv_heads
     return (heads("q", cfg.num_heads), heads("k", kv),
-            heads("v", kv, rope=False))
+            heads("v", kv, rope=False), where)
 
 
 def lm_launches() -> dict:
@@ -1006,12 +1043,13 @@ def flash_mask(cfg) -> dict:
 
 
 def flash_launches(cfg, calls: int) -> dict:
-    """The flash launches of ``calls`` forwards: one a layer, all through
-    the variant of ``cfg``'s head dim, grouped and masked as its
-    attention is."""
+    """The flash launches of ``calls`` forwards: one an attention layer
+    (a hybrid's: one an application of its shared block; none for rwkv),
+    all through the variant of ``cfg``'s head dim, grouped and masked as
+    its attention is."""
     import torch
     from repro_torch.kernels.flash_attn import flash_attn as fa
-    n = cfg.num_layers * calls
+    n = len(cfg.attn_positions) * calls
     v = fa.variant(torch.bfloat16, cfg.head_dim)
     kind = fa.mask_kind(cfg.causal, cfg.prefix_tokens)
     return {"flash_attn": n,
@@ -1027,7 +1065,7 @@ def prefill(dev, model, batch) -> dict:
     (`lm_batch`)."""
     import torch
     from repro_torch.models.layers import hot_vocab_size
-    from repro_torch.models.transformer import forward
+    from repro_torch.models.transformer import forward, trunk_kind
 
     cfg = model.cfg
     batch = on(dev, batch)
@@ -1066,16 +1104,23 @@ def prefill(dev, model, batch) -> dict:
           f"({n_tokens / seconds:.1f} tokens/s), launches {launches}, "
           f"peak {peak:.1f} GiB, logits finite, aux {float(aux):.4f}")
     del logits
-    q, k, v = layer0_heads(model, batch)
-    mask = flash_mask(cfg)
-    err = flash_check("layer0 served, rows 0-1", q, k, v, rows=(0, 1),
-                      tol=FLASH_SERVED_TOL, **mask)
-    s4 = 4096
-    err = max(err, flash_check(
-        "layer0 all heads", *(t[:, :s4].contiguous() for t in (q, k, v)),
-        tol=FLASH_SERVED_TOL, **mask))
-    out = {"launches": launches, "seconds": seconds, "err": err,
-           "hot_err": 0.0, "q": q, "k": k, "v": v, "ids": None}
+    heads = first_attention_heads(model, batch)
+    out = {"launches": launches, "seconds": seconds, "err": 0.0,
+           "hot_err": 0.0, "q": None, "ids": None}
+    if heads is None:
+        print(f"flash_attention[{cfg.name}]: no flash check: the "
+              f"{trunk_kind(cfg)} trunk has no attention")
+    else:
+        q, k, v, where = heads
+        mask = flash_mask(cfg)
+        err = flash_check(f"{where} served, rows 0-1", q, k, v, rows=(0, 1),
+                          tol=FLASH_SERVED_TOL, **mask)
+        s4 = 4096
+        err = max(err, flash_check(
+            f"{where} all heads",
+            *(t[:, :s4].contiguous() for t in (q, k, v)),
+            tol=FLASH_SERVED_TOL, **mask))
+        out.update(err=err, q=q, k=k, v=v)
     if tokens is not None:
         out["ids"] = tokens.reshape(-1)
         out["hot_err"] = hot_check("prefill served", out["ids"],
@@ -1235,7 +1280,7 @@ def bf16_unit(x):
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
 
 
-def hold_logits(name, got, want) -> None:
+def hold_logits(name, got, want, held: bool = True) -> None:
     """``got`` against ``want`` ((1, n, V) float32, one device) at
     DECODE_TOL with argmax agreement > 0.95
     (tests/test_models.py::test_decode_matches_forward), the one standard
@@ -1248,7 +1293,7 @@ def hold_logits(name, got, want) -> None:
     has such near-ties among its 163,840 logits at a few positions in a
     hundred. The spread of ``want`` is printed beside the largest
     difference: the two scale together (moonshot's logits have a scale of
-    1, minicpm's of 1/9)."""
+    1, minicpm's of 1/9). With ``held`` False it only prints."""
     import torch
     same = want.argmax(-1) == got.argmax(-1)
     best = want.amax(-1)
@@ -1259,7 +1304,9 @@ def hold_logits(name, got, want) -> None:
           f"{float(want.std()):.4f}), argmax agreement {agree:.4f} "
           f"({float(same.float().mean()):.4f} for the same token; where "
           f"not, want's top logit leads got's pick by "
-          f"{[round(float(v), 5) for v in (best - picked)[~same]]})")
+          f"{[round(float(v), 5) for v in (best - picked)[~same]][:40]})")
+    if not held:
+        return
     torch.testing.assert_close(got, want, **DECODE_TOL)
     if agree <= 0.95:
         raise AssertionError(f"{name}: argmax agreement {agree}")
@@ -1307,9 +1354,115 @@ def decode_consistency(dev, model, tokens) -> None:
     forward's expert choices (`models.moe.RouteTape`): a choice parted at
     a near-tie moves a token's output by a whole expert's share and every
     later layer and position with it, in the reference too. A prefix-LM
-    runs as a pure token stream (`token_stream`)."""
+    runs as a pure token stream (`token_stream`). A recurrent trunk's
+    decode is held layer by layer (`layer_forced_decode`)."""
+    from repro_torch.models.transformer import trunk_kind
+    if trunk_kind(model.cfg) != "attn":
+        layer_forced_decode(dev, model, tokens)
+        return
     with token_stream(model):
         _decode_consistency(dev, model, tokens)
+
+
+class BlockTape:
+    """Every block call of a model, in call order: `record` keeps each
+    call's input and output; `replay` feeds each call the recorded input
+    to the same call, through ``pick`` (a slice or a device move), and
+    holds its output to the recorded one (``pick``ed too) at DECODE_TOL.
+
+    For the recurrent trunks (rwkv, hybrid) with random weights: they
+    amplify a rounding difference layer by layer, in the reference too
+    (its own decode parts from its forward beyond the decode standard
+    from 6 of rwkv6-3b's layers on, tests/ssm_depth_witness.py), and
+    RWKV6's per-head group norm turns a head's output at position 1,
+    (r_1·k_0) v_0, into ±v_0 by the sign of r_1·k_0, which two runs that
+    round differently can flip where it is near zero. Fed each other's
+    inputs, two runs differ by one block's rounding at a time. A step
+    calls the blocks in the forward's order (a hybrid's shared block
+    before its Mamba block), so a step's n-th call is the forward's
+    n-th."""
+
+    def __init__(self, model):
+        self.blocks = [b for b in (*model.layers, model.shared_attn)
+                       if b is not None]
+        self.ins, self.outs = [], []
+        self.call, self.worst = 0, (0.0, 0)
+
+    @contextlib.contextmanager
+    def _hooks(self, *pairs):
+        hooks = [h for b in self.blocks for kind, fn in pairs
+                 for h in [getattr(b, kind)(fn)]]
+        try:
+            yield self
+        finally:
+            for h in hooks:
+                h.remove()
+
+    def record(self):
+        def keep(mod, args, out):
+            self.ins.append(args[0])
+            self.outs.append(out[0])
+        return self._hooks(("register_forward_hook", keep))
+
+    def replay(self, pick):
+        import torch
+
+        def force(mod, args):
+            return (pick(self.ins[self.call]), *args[1:])
+
+        def check(mod, args, out):
+            want = pick(self.outs[self.call]).float()
+            got = out[0].float().to(want.device)
+            torch.testing.assert_close(got, want, **DECODE_TOL)
+            self.worst = max(self.worst, (float((got - want).abs().max()),
+                                          self.call))
+            self.call += 1
+        self.call, self.worst = 0, (0.0, 0)
+        return self._hooks(("register_forward_pre_hook", force),
+                           ("register_forward_hook", check))
+
+
+def layer_forced_decode(dev, model, tokens) -> None:
+    """Phase 8 for the recurrent trunks: the free-running decode at full
+    depth is printed, not held; the decode is held on a run whose blocks
+    are fed the forward's inputs (`BlockTape`): every block output of
+    every step at DECODE_TOL, and the logits by `hold_logits`."""
+    import torch
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_cache)
+    cfg = model.cfg
+    tokens = tokens.to(dev)
+    n = tokens.shape[1]
+    tape = BlockTape(model)
+    with tape.record():
+        full = forward(model, {"tokens": tokens})[0].float()
+    calls, pos = len(tape.ins), [0]
+
+    def decode(after=lambda i: None):
+        cache, steps = init_cache(cfg, 1, n, device=dev), []
+        for i in range(n):
+            pos[0] = i
+            lg, cache = decode_step(model, cache, tokens[:, i:i + 1])
+            steps.append(lg[:, 0].float())
+            after(i)
+        return torch.stack(steps, dim=1)
+
+    hold_logits(f"decode vs forward, free-running over {cfg.num_layers} "
+                f"layers (printed, not held)", decode(), full, held=False)
+    worst = (0.0, 0, 0)
+
+    def after(i):
+        nonlocal worst
+        worst = max(worst, (*tape.worst, i))
+        tape.call, tape.worst = 0, (0.0, 0)
+    with tape.replay(lambda t: t[:, pos[0]:pos[0] + 1]):
+        dec = decode(after)
+    print(f"decode vs forward, each block fed the forward's input: {calls} "
+          f"block calls a step, {n} steps, every block output within "
+          f"rtol/atol 0.15; the largest difference {worst[0]:.4f} at call "
+          f"{worst[1]}, step {worst[2]}")
+    hold_logits("decode vs forward, each block fed the forward's input",
+                dec, full)
 
 
 def _decode_consistency(dev, model, tokens) -> None:
@@ -1345,28 +1498,49 @@ def _decode_consistency(dev, model, tokens) -> None:
 
 
 def card_vs_cpu(dev, cfg, batch) -> None:
-    """Phase 9: the config cut to 2 layers, the same weights on both, the
-    same ``batch`` (`lm_batch`); the CPU rounds p to bf16 before PV as the
-    reference does, the card keeps it float32. For MoE the card's free
-    routing is held by `routing_check` and its logits on a run that
-    replays the CPU's expert choices (see `decode_consistency`)."""
+    """Phase 9: the config cut to 2 layers (a hybrid's second one flagged
+    for the shared block, as ``smoke_config`` cuts), the same weights on
+    both, the same ``batch`` (`lm_batch`); the CPU rounds p to bf16
+    before PV as the reference does, the card keeps it float32. For MoE
+    the card's free routing is held by `routing_check` and its logits on
+    a run that replays the CPU's expert choices (see
+    `decode_consistency`); for a recurrent trunk the free run is printed
+    and the card is held on a run whose blocks are fed the CPU's inputs
+    (`BlockTape`)."""
     import copy
     import dataclasses
     import torch
     from repro_torch.models.moe import RouteTape
-    from repro_torch.models.transformer import forward, init_params
-    cut = dataclasses.replace(cfg, num_layers=2,
-                              block_pattern=cfg.block_pattern[:2])
+    from repro_torch.models.transformer import (forward, init_params,
+                                                trunk_kind)
+    # configs.smoke_config's rule: a hybrid keeps its shared block last
+    pattern = cfg.block_pattern[:2]
+    if "shared_attn" in cfg.block_pattern and "shared_attn" not in pattern:
+        pattern = pattern[:-1] + ("shared_attn",)
+    cut = dataclasses.replace(cfg, num_layers=2, block_pattern=pattern)
     host = init_params(cut, torch.Generator().manual_seed(SEED), "cpu")
     card = copy.deepcopy(host).to(dev)
     t0 = time.perf_counter()
-    with RouteTape() as host_tape:
+    tape = BlockTape(host)
+    with RouteTape() as host_tape, tape.record():
         want = forward(host, batch)[0].float()
     name = (f"card vs CPU, 2 layers (CPU forward "
             f"{time.perf_counter() - t0:.1f} s)")
     with RouteTape() as card_tape:
         got = forward(card, on(dev, batch))[0].float().cpu()
-    if cut.is_moe:
+    if trunk_kind(cut) != "attn":
+        # see `BlockTape`: held block by block, the free run printed
+        hold_logits(name + ", free-running (printed, not held)", got, want,
+                    held=False)
+        card_tape = BlockTape(card)
+        card_tape.ins, card_tape.outs = tape.ins, tape.outs
+        with card_tape.replay(lambda t: t.to(dev)):
+            got = forward(card, on(dev, batch))[0].float().cpu()
+        print(f"{name}, each block fed the CPU's input: every block output "
+              f"within rtol/atol 0.15; the largest difference "
+              f"{card_tape.worst[0]:.4f} at call {card_tape.worst[1]}")
+        name += ", each block fed the CPU's input"
+    elif cut.is_moe:
         routing_check(name, host_tape, torch.stack(card_tape.experts), got,
                       want)
         with RouteTape(host_tape.experts):
@@ -1464,23 +1638,15 @@ def decode_profile(dev, model, steps: int = 5) -> None:
               f"{name[:90]}")
 
 
-def time_lm_kernels(model, pre: dict) -> dict:
-    """Phase 11: both LM kernels at the prefill's shapes (the hot-slab
-    gather only where the input is tokens)."""
+def time_flash(cfg, q, k, v) -> dict:
+    """Phase 11's flash timing on the prefill's real q, k, v."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attn import flash_attn as fa
     from repro_torch.kernels.flash_attn.ref import attention_ref, visible
-    from repro_torch.kernels.hot_embed import hot_embed as he
-    from repro_torch.kernels.hot_embed.ref import hot_gather_ref
-    from repro_torch.models.layers import hot_vocab_size
 
-    kept = (fa.launches, dict(fa.launches_by_variant),
-            dict(fa.launches_by_mask), fa.launches_grouped, he.launches)
-    cfg = model.cfg
     mask = flash_mask(cfg)
-    q, k, v = pre["q"], pre["k"], pre["v"]
     bh, s, d = q.shape
     group = fa.kv_group(q, k, v)
 
@@ -1542,7 +1708,26 @@ def time_lm_kernels(model, pre: dict) -> dict:
           f"faithful_bound_ms={flash['faithful_bound_ms']:.4f} "
           f"({faithful:.4e} FLOPs, {faithful / flash['ms'] / 1e9:.1f} "
           f"TFLOP/s)")
-    out = {"flash_attn": flash}
+    return flash
+
+
+def time_lm_kernels(model, pre: dict) -> dict:
+    """Phase 11: both LM kernels at the prefill's shapes (flash where the
+    trunk has attention, the hot-slab gather where the input is
+    tokens)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    from repro_torch.kernels.hot_embed import hot_embed as he
+    from repro_torch.kernels.hot_embed.ref import hot_gather_ref
+    from repro_torch.models.layers import hot_vocab_size
+
+    kept = (fa.launches, dict(fa.launches_by_variant),
+            dict(fa.launches_by_mask), fa.launches_grouped, he.launches)
+    cfg = model.cfg
+    out = {}
+    if pre["q"] is not None:
+        out["flash_attn"] = time_flash(cfg, pre["q"], pre["k"], pre["v"])
     if pre["ids"] is None:
         (fa.launches, fa.launches_by_variant, fa.launches_by_mask,
          fa.launches_grouped, he.launches) = kept
@@ -1732,24 +1917,87 @@ def time_gmm(model, pre: dict) -> tuple[dict, float]:
     return timing, err
 
 
+def time_scan(model, batch) -> dict:
+    """The recurrent trunk's scan on layer 0 at the prefill's shapes, on
+    the inputs the layer hands it: rwkv's chunked wkv (`_wkv_chunked`) or
+    the hybrid's SSD (`ssd_chunked`), plain torch. Device ms from CUDA
+    events, the device's busy ms and the device ops one call launches
+    from `torch.profiler`; times the layers, those ops are the scan's
+    host launches a prefill, one a chunk of them the state loop's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import mamba2, rwkv6
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.transformer import embed_inputs, trunk_kind
+    cfg, blk = model.cfg, model.layers[0]
+    x = apply_norm(blk.norm1, embed_inputs(model, batch), cfg)
+    s = x.shape[1]
+    if trunk_kind(cfg) == "rwkv":
+        h, dh = rwkv6.heads_of(cfg)
+        r, k, v, _, logw = rwkv6._wkv_inputs(blk.rwkv, x)
+        name, chunk = "wkv (_wkv_chunked)", rwkv6.WKV_CHUNK
+
+        def scan():
+            return rwkv6._wkv_chunked(r, k, v, logw, blk.rwkv["u_bonus"], h,
+                                      dh)
+    else:
+        _, xh, dt, b, c, _ = mamba2._mixer_inputs(blk.mamba, x, cfg)
+        name, chunk = "SSD (ssd_chunked)", cfg.ssm_chunk
+
+        def scan():
+            return mamba2.ssd_chunked(xh, dt, b, c, blk.mamba["a_log"],
+                                      chunk)
+    del x
+    ms = cuda_ms(scan, reps=3, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        scan()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    chunks, layers = s // chunk, cfg.num_layers
+    out = {"scan": name, "ms": ms, "wall_ms": wall_ms,
+           "busy_ms": busy_ms if ops else None, "ops": len(ops),
+           "state_loop_launches": chunks,
+           "prefill_launches": len(ops) * layers,
+           "prefill_state_loop_launches": chunks * layers}
+    print(f"scan: {cfg.name} layer 0 {name} at S={s}, {chunks} chunks of "
+          f"{chunk}: ms={ms:.4f} (CUDA events, 3 calls), wall_ms="
+          f"{wall_ms:.4f} (one synchronised call), device busy "
+          + (f"{busy_ms:.4f} ms, {len(ops)} device ops a call"
+             if ops else "not measured (the profiler recorded no device "
+             "time)")
+          + f"; {chunks} of them the state loop's (one a chunk); a "
+          f"prefill of {layers} layers: {len(ops) * layers} launches, "
+          f"{chunks * layers} from the state loops")
+    return out
+
+
 def run_lm(dev, cfg, full_cfg=None) -> dict:
     """Phases 7-11 (and 13 for MoE) on one LM config, weights from
     ``init_params`` on the card (seed 7), its inputs from
     ``configs/shapes.input_specs`` (`lm_batch`). Phases whose cell
     ``cell_supported`` rules out (an encoder's decode: consistency, serve,
-    decode profile) are skipped and say so. Frees the model before it
-    returns."""
+    decode profile) are skipped and say so. A recurrent trunk's scan is
+    timed on layer 0 (`time_scan`). Frees the model before it returns."""
     import dataclasses
     import torch
     from repro_torch.configs.shapes import SHAPES, cell_supported
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import init_params, trunk_kind
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                         dev)
     torch.cuda.synchronize()
     print(f"init_params: {cfg.name}, L={cfg.num_layers}, "
-          f"{cfg.param_count()} parameters (float32 masters) in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{sum(p.numel() for p in model.parameters())} parameters "
+          f"(float32 masters; the config's analytic param_count "
+          f"{cfg.param_count()}) in {time.perf_counter() - t0:.1f} s")
     if full_cfg is not None:
         print(f"cut: {cfg.num_layers} of {full_cfg.num_layers} layers at "
               f"full width; the full config has {full_cfg.param_count()} "
@@ -1758,7 +2006,8 @@ def run_lm(dev, cfg, full_cfg=None) -> dict:
     seq = PREFILL_TOKENS or shape.seq_len
     tokens = (None if cfg.input_mode == "embeddings"
               else token_source(cfg, seq))
-    pre = prefill(dev, model, lm_batch(cfg, tokens, 1, seq))
+    batch = lm_batch(cfg, tokens, 1, seq)
+    pre = prefill(dev, model, batch)
     decode, why = cell_supported(cfg, SHAPES["decode_32k"])
     if decode:
         decode_consistency(dev, model, tokens(2, 64))
@@ -1778,6 +2027,8 @@ def run_lm(dev, cfg, full_cfg=None) -> dict:
     if cfg.is_moe:
         out["gmm_timing"], err = time_gmm(model, pre)
         out["gmm_err"] = max(pre["moe"]["err"], err)
+    if trunk_kind(cfg) != "attn":
+        out["scan"] = time_scan(model, on(dev, batch))
     del model, pre
     torch.cuda.empty_cache()
     return out
@@ -1861,13 +2112,16 @@ def run(torch, corpora: dict) -> int:
     pali = timed(f"7-11 {PREFIX_ARCH}", run_lm, dev, get_config(PREFIX_ARCH))
     hubert = timed(f"7, 9, 11 {ENCODER_ARCH}", run_lm, dev,
                    get_config(ENCODER_ARCH))
+    rwkv = timed(f"7-11 {RWKV_ARCH}", run_lm, dev, get_config(RWKV_ARCH))
+    zamba = timed(f"7-11 {HYBRID_ARCH}", run_lm, dev,
+                  get_config(HYBRID_ARCH))
 
     gmm_err = timed("12 moe_gmm checks", gmm_kernel_cases, dev)
     full = get_config(MOE_ARCH)
     cut = dataclasses.replace(full, num_layers=MOE_LAYERS,
                               block_pattern=("attn",) * MOE_LAYERS)
     moe = timed(f"13 {MOE_ARCH}", run_lm, dev, cut, full)
-    runs = (mini, qwen, pali, hubert, moe)
+    runs = (mini, qwen, pali, hubert, rwkv, zamba, moe)
 
     def launches(name):
         return sum(r[w].get(name, 0) for r in runs for w in ("pre", "serve"))
@@ -1898,6 +2152,7 @@ def run(torch, corpora: dict) -> int:
         GQA_ARCH: qwen["timing"]["flash_attn"],
         PREFIX_ARCH: pali["timing"]["flash_attn"],
         ENCODER_ARCH: hubert["timing"]["flash_attn"],
+        HYBRID_ARCH: zamba["timing"]["flash_attn"],
         MOE_ARCH: moe["timing"]["flash_attn"],
     }, {
         "name": "hot_embed",
@@ -1909,6 +2164,8 @@ def run(torch, corpora: dict) -> int:
         **mini["timing"]["hot_embed"],
         GQA_ARCH: qwen["timing"]["hot_embed"],
         PREFIX_ARCH: pali["timing"]["hot_embed"],
+        RWKV_ARCH: rwkv["timing"]["hot_embed"],
+        HYBRID_ARCH: zamba["timing"]["hot_embed"],
         MOE_ARCH: moe["timing"]["hot_embed"],
     }, {
         "name": "moe_gmm",
@@ -1921,6 +2178,8 @@ def run(torch, corpora: dict) -> int:
         "max_abs_err": max(gmm_err, moe["gmm_err"]),
         **moe["gmm_timing"],
     }]
+    for r in (rwkv, zamba):
+        print(f"scan: {json.dumps(r['scan'])}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -52,8 +52,9 @@ def _meta(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     """Meta-tensor stand-ins for every model input (no allocation). A
-    decode cell's cache comes from ``init_cache(..., device="meta")``,
-    which raises for a trunk the port lacks (ROADMAP A8.3)."""
+    decode cell's cache comes from ``init_cache(..., device="meta")``:
+    the reference's leaves for every trunk (RWKV's and Mamba2's states,
+    and a hybrid's shared attention cache, too)."""
     b, s = shape.global_batch, shape.seq_len
     i32 = torch.int32
     if shape.kind == "decode":

@@ -17,10 +17,15 @@ as they are:
 
 On the card each decode step launches the hot-slab embedding kernel once;
 decode attention is the plain chunked version over the cache, as in the
-reference, which has no kernel there.
+reference, which has no kernel there. Every trunk serves: attention
+(K/V cache), RWKV6 (rwkv6-3b: token-shift and wkv states) and the Mamba2
+hybrid (zamba2-1.2b: conv and SSD states, plus the shared attention
+block's K/V).
 
 Usage:
   python -m repro_torch.launch.serve --arch minicpm-2b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -67,16 +72,19 @@ def synthetic_requests(n: int, vocab: int, seed: int = 0,
 def _reset_slot(cache, slot: int, kind: str):
     """Zero one batch slot of the cache (new request admission), in place.
 
-    Only entries laid out ``(L, B, ...)`` with ``L != 1`` are touched, the
-    reference's test, kept as it is (a one-layer model is not reset)."""
+    Every leaf of ``cache["layers"]`` and ``cache["shared"]``, however
+    nested (RWKV's ``tm``/``cm``), laid out ``(L, B, ...)`` with ``L != 1``
+    is touched, the reference's test, kept as it is (a one-layer model is
+    not reset)."""
     def z(x):
+        if isinstance(x, dict):
+            return {k: z(v) for k, v in x.items()}
         if x.dim() >= 2 and x.shape[0] != 1:
             x[:, slot] = 0
         return x
-    layers = {k: z(v) for k, v in cache["layers"].items()}
-    out = dict(cache, layers=layers)
+    out = dict(cache, layers=z(cache["layers"]))
     if "shared" in cache:
-        out["shared"] = {k: z(v) for k, v in cache["shared"].items()}
+        out["shared"] = z(cache["shared"])
     return out
 
 

@@ -1,16 +1,26 @@
-"""Model trunk: the decoder/encoder stack of the ``attn`` family.
+"""Model trunk: the decoder/encoder stack covering all 10 archs.
 
-The PyTorch port of ``src/repro/models/transformer.py`` for the ``attn``
-trunk (dense attention + MLP blocks). A `Transformer` holds the master
-params in float32 as ``nn.ParameterDict``s, one `AttnBlock` per layer in
-an ``nn.ModuleList``; a Python loop over the blocks takes the place of the
-reference's ``lax.scan`` over stacked layer params.
+The PyTorch port of ``src/repro/models/transformer.py``. Three trunk
+variants, chosen from the config (`trunk_kind`), share one entry point:
+
+* ``attn``   — dense / MoE / VLM / audio stacks: one `AttnBlock` a layer
+  (attention + MLP, or for an MoE config `moe.apply_moe`, the
+  grouped-matmul kernel on the card);
+* ``rwkv``   — RWKV6 stacks: one `RwkvBlock` a layer (time-mix +
+  channel-mix, `models/rwkv6.py`);
+* ``hybrid`` — Mamba2 stacks (`MambaBlock`, `models/mamba2.py`) with one
+  *shared* `AttnBlock` applied before the Mamba block at every layer the
+  config flags ``shared_attn`` (zamba2).
+
+A `Transformer` holds the master params in float32 as
+``nn.ParameterDict``s, its blocks in an ``nn.ModuleList``; a Python loop
+over the blocks takes the place of the reference's ``lax.scan`` over
+stacked layer params.
 
 Modes: prefill (`forward`: logits and the MoE auxiliary loss) and decode
-(`decode_step`: one token against a KV cache). A block's FFN is the MLP,
-or for an MoE config `moe.apply_moe` (the grouped-matmul kernel on the
-card). Not ported yet: the ``rwkv`` and ``hybrid`` trunks (ROADMAP A8.3)
-and training (``loss_fn``, ``chunked_xent``: A8.5).
+(`decode_step`: one token against the cache: K/V for attention, the
+token-shift and wkv states for RWKV, the conv and SSD states for Mamba2).
+Not ported yet: training (``loss_fn``, ``chunked_xent``: A8.5).
 
 Weights come from one of two places:
 
@@ -35,7 +45,10 @@ from .layers import (COMPUTE_DTYPE, apply_attention, apply_mlp, apply_norm,
                      bf16_scalar, embed_tokens, flash_eligible, init_attention,
                      init_attn_cache, init_embedding, init_mlp, init_norm,
                      lm_logits)
+from .mamba2 import apply_mamba, init_mamba, init_mamba_cache
 from .moe import apply_moe, init_moe
+from .rwkv6 import (apply_rwkv_channelmix, apply_rwkv_timemix, init_rwkv,
+                    init_rwkv_cache)
 
 
 def trunk_kind(cfg: ModelConfig) -> str:
@@ -46,11 +59,10 @@ def trunk_kind(cfg: ModelConfig) -> str:
     return "attn"
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    kind = trunk_kind(cfg)
-    if kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind} trunk is not ported yet: ROADMAP A8.3")
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _params(tree: dict) -> nn.ParameterDict:
@@ -91,17 +103,66 @@ class AttnBlock(nn.Module):
         return x32.to(COMPUTE_DTYPE) + f * scale, new_c, aux
 
 
+class RwkvBlock(nn.Module):
+    """Pre-norm RWKV6 time-mix + channel-mix, plain residuals (the
+    reference's ``_rwkv_block``)."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.norm1 = _params(params["norm1"])
+        self.norm2 = _params(params["norm2"])
+        self.rwkv = _params(params["rwkv"])
+
+    def forward(self, x, cache=None):
+        """Returns (x, new_cache); new_cache holds new tensors in decode
+        (``{"tm": ..., "cm": ...}``), None in prefill."""
+        cfg = self.cfg
+        h, n_tm = apply_rwkv_timemix(
+            self.rwkv, apply_norm(self.norm1, x, cfg), cfg,
+            None if cache is None else cache["tm"])
+        # norm2 reads the residual sum before its bf16 rounding, as in
+        # `AttnBlock` (the reference's compiled block)
+        x32 = x.float() + h.float()
+        f, n_cm = apply_rwkv_channelmix(
+            self.rwkv, apply_norm(self.norm2, x32, cfg), cfg,
+            None if cache is None else cache["cm"])
+        return (x32.to(COMPUTE_DTYPE) + f,
+                None if cache is None else {"tm": n_tm, "cm": n_cm})
+
+
+class MambaBlock(nn.Module):
+    """Pre-norm Mamba2 mixer with a plain residual (the reference's
+    ``_mamba_block``)."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.norm1 = _params(params["norm1"])
+        self.mamba = _params(params["mamba"])
+
+    def forward(self, x, cache=None):
+        h, new_c = apply_mamba(self.mamba, apply_norm(self.norm1, x, self.cfg),
+                               self.cfg, cache)
+        return x + h, new_c
+
+
+_BLOCKS = {"attn": AttnBlock, "rwkv": RwkvBlock, "hybrid": MambaBlock}
+
+
 class Transformer(nn.Module):
-    """Embedding, ``num_layers`` `AttnBlock`s and the final norm; the LM
+    """Embedding, ``num_layers`` blocks of the config's trunk (and a
+    hybrid's one ``shared_attn`` `AttnBlock`) and the final norm; the LM
     head is the tied table or a separate ``head``."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.embed = _params(params["embed"])
-        self.layers = nn.ModuleList(AttnBlock(cfg, lp)
-                                    for lp in params["layers"])
+        block = _BLOCKS[trunk_kind(cfg)]
+        self.layers = nn.ModuleList(block(cfg, lp) for lp in params["layers"])
+        self.shared_attn = (AttnBlock(cfg, params["shared_attn"])
+                            if "shared_attn" in cfg.block_pattern else None)
         self.final_norm = _params(params["final_norm"])
         if len(self.layers) != cfg.num_layers:
             raise ValueError(f"{len(self.layers)} layers for a "
@@ -113,61 +174,95 @@ class Transformer(nn.Module):
 
 
 # =========================================================== initialization
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                dev: torch.device) -> dict:
+    norm1 = init_norm(cfg, device=dev)
+    if kind == "attn":
+        return {"norm1": norm1, "norm2": init_norm(cfg, device=dev),
+                "attn": init_attention(gen, cfg),
+                "ffn": (init_moe(gen, cfg) if cfg.is_moe
+                        else init_mlp(gen, cfg))}
+    if kind == "rwkv":
+        return {"norm1": norm1, "norm2": init_norm(cfg, device=dev),
+                "rwkv": init_rwkv(gen, cfg)}
+    return {"norm1": norm1, "mamba": init_mamba(gen, cfg)}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: str | torch.device | None = None) -> Transformer:
     """Random weights drawn on ``generator``, which lives on ``device``,
-    with the reference's distributions."""
-    _check_ported(cfg)
+    with the reference's distributions, for any of the three trunks."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"the generator is on {generator.device}, the "
                          f"model on {dev}")
-    layers = [{"norm1": init_norm(cfg, device=dev),
-               "norm2": init_norm(cfg, device=dev),
-               "attn": init_attention(generator, cfg),
-               "ffn": (init_moe(generator, cfg) if cfg.is_moe
-                       else init_mlp(generator, cfg))}
-              for _ in range(cfg.num_layers)]
-    return Transformer(cfg, {"embed": init_embedding(generator, cfg),
-                             "layers": layers,
-                             "final_norm": init_norm(cfg, device=dev)})
+    kind = trunk_kind(cfg)
+    params = {"embed": init_embedding(generator, cfg),
+              "layers": [_init_layer(generator, cfg, kind, dev)
+                         for _ in range(cfg.num_layers)],
+              "final_norm": init_norm(cfg, device=dev)}
+    if "shared_attn" in cfg.block_pattern:
+        params["shared_attn"] = {
+            "norm1": init_norm(cfg, device=dev),
+            "norm2": init_norm(cfg, device=dev),
+            "attn": init_attention(generator, cfg),
+            "ffn": init_mlp(generator, cfg)}
+    return Transformer(cfg, params)
 
 
 def from_jax_params(cfg: ModelConfig, tree: dict,
                     device: str | torch.device | None = None) -> Transformer:
     """The reference's param pytree, with ``np.asarray`` on each leaf, as
     a `Transformer` on ``device``: the ``(L, ...)`` layer leaves, nested
-    ones (the MoE's ``shared``) too, are unstacked into one block each,
-    and every leaf is copied."""
+    ones (the MoE's ``shared``, RWKV's and Mamba2's) too, are unstacked
+    into one block each, a hybrid's ``shared_attn`` (not stacked) is
+    taken as it is, and every leaf is copied."""
     dev = resolve_device(device)
 
     def put(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
-    def tree_map(fn, t):
-        if isinstance(t, dict):
-            return {k: tree_map(fn, v) for k, v in t.items()}
-        return fn(t)
-
-    layers = [tree_map(lambda a, i=i: put(np.asarray(a)[i]), tree["layers"])
+    layers = [_tree_map(lambda a, i=i: put(np.asarray(a)[i]), tree["layers"])
               for i in range(cfg.num_layers)]
-    return Transformer(cfg, {"embed": tree_map(put, tree["embed"]),
-                             "layers": layers,
-                             "final_norm": tree_map(put, tree["final_norm"])})
+    params = {"embed": _tree_map(put, tree["embed"]), "layers": layers,
+              "final_norm": _tree_map(put, tree["final_norm"])}
+    if "shared_attn" in tree:
+        params["shared_attn"] = _tree_map(put, tree["shared_attn"])
+    return Transformer(cfg, params)
 
 
 # ================================================================= caches
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: str | torch.device | None = None) -> dict:
-    """``{"layers": {"k", "v": (L, B, T, KV, dh) bf16, "length": (L,)
-    int32}, "pos": 0-d int32}``, the reference's layout, all zeros."""
-    _check_ported(cfg)
+    """The reference's layout, all zeros: ``{"layers": ..., "pos": 0-d
+    int32}`` with the layer leaves stacked ``(L, B, ...)``:
+
+    * ``attn``: ``{"k", "v": (L, B, T, KV, dh) bf16, "length": (L,) int32}``;
+    * ``rwkv``: ``{"tm": {"shift": (L, B, d), "wkv": (L, B, H, dh, dh)},
+      "cm": {"shift": (L, B, d)}}``, float32;
+    * ``hybrid``: ``{"conv": (L, B, W-1, C) bf16, "ssd": (L, B, H, N, P)
+      float32}``, and beside ``layers`` a ``"shared"`` attention cache
+      whose leading dim counts the shared block's applications.
+    """
     dev = resolve_device(device)
-    one = init_attn_cache(cfg, batch, max_len, device=dev)
-    layers = {k: v.expand(cfg.num_layers, *v.shape).clone()
-              for k, v in one.items()}
-    return {"layers": layers,
-            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    kind = trunk_kind(cfg)
+    if kind == "attn":
+        one = init_attn_cache(cfg, batch, max_len, device=dev)
+    elif kind == "rwkv":
+        one = init_rwkv_cache(cfg, batch, device=dev)
+    else:
+        one = init_mamba_cache(cfg, batch, device=dev)
+
+    def stacked(tree, n):
+        return _tree_map(lambda v: v.expand(n, *v.shape).clone(), tree)
+
+    cache = {"layers": stacked(one, cfg.num_layers),
+             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    napp = sum(b == "shared_attn" for b in cfg.block_pattern)
+    if napp:
+        cache["shared"] = stacked(
+            init_attn_cache(cfg, batch, max_len, device=dev), napp)
+    return cache
 
 
 # ============================================================== public API
@@ -184,16 +279,66 @@ def embed_inputs(model: Transformer, batch: dict) -> torch.Tensor:
     return x
 
 
+def _layer_cache(tree: dict, i: int) -> dict:
+    """Entry ``i`` of a stacked cache tree (views: writes reach the
+    stack)."""
+    return _tree_map(lambda t: t[i], tree)
+
+
+def _write(dst: dict, src: dict) -> None:
+    """Copy a block's new decode state into its cache entry, in place."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _write(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def _run_trunk(model: Transformer, x, positions, cache=None):
+    """The blocks in order; at a hybrid's layer flagged ``shared_attn`` the
+    shared `AttnBlock` runs before the Mamba block, on its own cache slot
+    (the reference's ``app_idx``). Returns (x, aux, lengths,
+    shared_lengths): aux the MoE loss summed over the layers (zero
+    without MoE) and, in decode, each attention cache entry's new
+    ``length``. A decode's K/V and recurrent states are written into
+    ``cache`` in place."""
+    cfg = model.cfg
+    decode = cache is not None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    lengths, shared_lengths = [], []
+    for i, block in enumerate(model.layers):
+        lc = _layer_cache(cache["layers"], i) if decode else None
+        if cfg.block_pattern[i] == "shared_attn":
+            sc = (_layer_cache(cache["shared"], len(shared_lengths))
+                  if decode else None)
+            x, new_sc, _ = model.shared_attn(x, positions, sc)
+            if decode:
+                shared_lengths.append(new_sc["length"])
+        if isinstance(block, AttnBlock):
+            x, new_c, a = block(x, positions, lc)
+            if decode:
+                lengths.append(new_c["length"])
+            elif a is not None:
+                aux = aux + a
+        else:
+            x, new_c = block(x, lc)
+            if decode:
+                _write(lc, new_c)
+    return x, aux, lengths, shared_lengths
+
+
 def forward(model: Transformer, batch: dict, mesh=None):
     """Prefill forward. batch: tokens (B,S) and/or embeds/prefix
     (`embed_inputs`).
 
     Returns (logits (B,S,V) bf16, aux_loss summed over the layers). On
-    the card each layer's attention is one flash-kernel launch with the
-    config's mask (causal, sliding-window, prefix-LM or bidirectional),
-    an MoE layer's experts three grouped-matmul launches and the token
-    embedding one hot-slab launch; a config the kernel does not take
-    raises before any work.
+    the card each attention layer (a hybrid's: each application of the
+    shared block) is one flash-kernel launch with the config's mask
+    (causal, sliding-window, prefix-LM or bidirectional), an MoE layer's
+    experts three grouped-matmul launches and the token embedding one
+    hot-slab launch; a config the kernel does not take raises before any
+    work. The RWKV and Mamba2 layers' scans are plain torch (a Python
+    loop over chunks for the carried state).
     """
     cfg = model.cfg
     if mesh is not None:
@@ -202,11 +347,7 @@ def forward(model: Transformer, batch: dict, mesh=None):
     flash_eligible(cfg, dev)
     x = embed_inputs(model, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=dev)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for block in model.layers:
-        x, _, a = block(x, positions)
-        if a is not None:
-            aux = aux + a
+    x, aux, _, _ = _run_trunk(model, x, positions)
     x = apply_norm(model.final_norm, x, cfg)
     return lm_logits(model.embed, x, cfg), aux
 
@@ -215,23 +356,23 @@ def decode_step(model: Transformer, cache: dict, tokens, mesh=None):
     """One decode step. tokens: (B, 1). Returns (logits (B,1,V), cache);
     the MoE auxiliary loss is dropped, as in the reference.
 
-    The returned cache shares the K/V tensors of the one passed in, which
-    are written in place; its ``length`` and ``pos`` are new tensors.
+    The returned cache shares the tensors of the one passed in, which
+    are written in place (K/V, and the RWKV and Mamba2 states); its
+    ``length`` leaves and ``pos`` are new tensors.
     """
     if mesh is not None:
         raise NotImplementedError("sharded decode: ROADMAP A8.8")
     cfg = model.cfg
     x = embed_tokens(model.embed, tokens, cfg)
     positions = cache["pos"][None].to(torch.int32)
+    x, _, lengths, shared_lengths = _run_trunk(model, x, positions, cache)
     layers = cache["layers"]
-    lengths = []
-    for i, block in enumerate(model.layers):
-        x, new_c, _ = block(x, positions, {"k": layers["k"][i],
-                                           "v": layers["v"][i],
-                                           "length": layers["length"][i]})
-        lengths.append(new_c["length"])
-    new_cache = {"layers": {"k": layers["k"], "v": layers["v"],
-                            "length": torch.stack(lengths)},
+    if lengths:
+        layers = dict(layers, length=torch.stack(lengths))
+    new_cache = {"layers": layers,
                  "pos": cache["pos"] + positions.shape[-1]}
+    if "shared" in cache:
+        new_cache["shared"] = dict(cache["shared"],
+                                   length=torch.stack(shared_lengths))
     x = apply_norm(model.final_norm, x, cfg)
     return lm_logits(model.embed, x, cfg), new_cache

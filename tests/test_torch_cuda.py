@@ -29,7 +29,9 @@ float32 result: bf16 products are exact in float32, so only the order of
 the sums differs. A bf16 result must equal the kernel's float32 result
 rounded to bf16: the kernel rounds the same sums once. Each of its two
 bf16 variants (``wgmma``, ``splitk``) is held so, forced by ``variant=``;
-their bits need not agree with each other.
+their bits need not agree with each other. The smoke models of every
+trunk (attention, RWKV6, the Mamba2 hybrid) are held to the same weights
+on the CPU at tests/test_models.py's decode standard.
 """
 from __future__ import annotations
 
@@ -691,6 +693,51 @@ def test_new_models_on_the_card_match_the_cpu(arch):
                                rtol=0.15, atol=0.15)
     agree = (got.float().cpu().argmax(-1) == want.float().argmax(-1))
     assert agree.float().mean() > 0.95
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_ssm_trunks_on_the_card_match_the_cpu(arch):
+    """2-layer smoke rwkv6 (time-mix and channel-mix) and zamba2 (Mamba2
+    with the shared attention block at its last layer): the prefill on
+    the card against the same weights on the CPU at S 304 (the chunked
+    wkv and SSD forms) to tests/test_models.py's decode
+    standard, with one flash launch per application of the shared block
+    and one hot-slab launch; then teacher-forced decode against the
+    card's forward, and the server."""
+    import copy
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import serve_loop, synthetic_requests
+    from repro_torch.models import transformer as T
+
+    dev = _card()
+    cfg = smoke_config(arch, layers=2)
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(host).to(dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 304)).astype(np.int32))
+    fl, hl = fa.launches, he.launches
+    got, _ = T.forward(card, {"tokens": tokens.to(dev)})
+    torch.cuda.synchronize()
+    assert (fa.launches - fl, he.launches - hl) == (
+        len(cfg.attn_positions), 1)
+    want, _ = T.forward(host, {"tokens": tokens})
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               rtol=0.15, atol=0.15)
+    agree = (got.float().cpu().argmax(-1) == want.float().argmax(-1))
+    assert agree.float().mean() > 0.95
+    cache = T.init_cache(cfg, 2, 24, device=dev)
+    steps = []
+    for i in range(24):
+        lg, cache = T.decode_step(card, cache, tokens[:, i:i + 1].to(dev))
+        steps.append(lg[:, 0].float())
+    full = got[:, :24].float()
+    torch.testing.assert_close(torch.stack(steps, 1), full, rtol=0.15,
+                               atol=0.15)
+    done = serve_loop(cfg, card, synthetic_requests(4, cfg.vocab_size),
+                      batch_slots=2)
+    assert sorted(r.rid for r in done) == [0, 1, 2, 3]
+    assert all(len(r.out) == r.max_new for r in done)
 
 
 # ------------------------------------------------------------- hot_embed

@@ -93,6 +93,8 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch.launch.serve, repro_torch.configs\n"
             "import repro_torch.configs.shapes\n"
             "import repro_torch.data.pipeline, repro_torch.locality.vocab\n"
+            "import repro_torch.models.rwkv6, repro_torch.models.mamba2\n"
+            "import repro_torch.locality\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -510,11 +510,28 @@ def test_head_dim_the_kernel_lacks_raises_on_the_card(head_dim):
 @pytest.mark.parametrize("arch,row", [
     ("rwkv6-3b", "A8.3"), ("zamba2-1.2b", "A8.3")])
 def test_unported_trunks_raise(arch, row):
-    cfg = smoke_config(arch, layers=2)
-    with pytest.raises(NotImplementedError, match=row):
-        TT.init_params(cfg, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match=row):
-        TT.init_cache(cfg, 1, 4, device="cpu")
+    """The two trunks that raised until ROADMAP ``row`` was done now build:
+    weights on the CPU, and caches on the CPU and on ``meta`` with the
+    reference's leaves (tests/test_torch_ssm.py holds them to the
+    reference)."""
+    assert row == "A8.3"
+    cfg_j, cfg = jax_smoke(arch, layers=2), smoke_config(arch, layers=2)
+    kind = TT.trunk_kind(cfg)
+    assert kind == {"rwkv6-3b": "rwkv", "zamba2-1.2b": "hybrid"}[arch]
+    model = TT.init_params(cfg, torch.Generator(), "cpu")
+    assert len(model.layers) == 2
+    assert (model.shared_attn is not None) == (kind == "hybrid")
+    want = jax.eval_shape(lambda: JT.init_cache(cfg_j, 1, 4))
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items()
+                    for k, v in leaves(sub, path + (key,)).items()}
+        return {path: (tuple(tree.shape),
+                       str(tree.dtype).removeprefix("torch."))}
+    for dev in ("cpu", "meta"):
+        got = TT.init_cache(cfg, 1, 4, device=dev)
+        assert leaves(got) == leaves(want)
 
 
 def test_mesh_raises(minicpm):
