@@ -15,9 +15,11 @@ any CUDA work, joined before it exits), beside phases 1-5.
    at once) and print the build seconds, then ptxas's registers, shared
    memory and spills of both SpMV kernels (``csr_spmv_merge``,
    ``csr_spmv_carries``), of the Hopper flash kernel
-   (``flash_fwd_bf16_wgmma``) and of its ``mma.sync`` kernels
-   (``flash_fwd_bf16_mma``, d 16, 32 and 256), of both bf16 grouped-matmul
-   kernels (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``).
+   (``flash_fwd_bf16_wgmma``, with and without the row log-sum-exp) and
+   of its ``mma.sync`` kernels (``flash_fwd_bf16_mma``, d 16, 32 and 256),
+   of the flash backward's two kernels (``flash_bwd_dq_bf16``,
+   ``flash_bwd_dkdv_bf16``), of both bf16 grouped-matmul kernels
+   (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``).
 3. Kernel check: ``csr_spmv`` against its plain PyTorch version on the
    card (ragged rows, empty rows, a graph with no edges, a bucketed
    upload with sentinel edges of value 0; a 100k-edge hub across many
@@ -199,6 +201,37 @@ the card (seed 7), after the minicpm model is freed:
     a sweep of both kernels over 4 to 32,768 tokens of layer 0's routing,
     with the kernel the rule picks and a repeat's bits.
 
+Then training, after the MoE model is freed:
+
+14. Training. The flash backward kernels (``flash_bwd_dq_bf16``,
+    ``flash_bwd_dkdv_bf16``) at a qwen2.5-3b microbatch's attention (32
+    query rows of 4,096 over 4 kv rows, d 128, causal) and a minicpm-2b
+    one's (72 rows, d 64): FlashAttention's standard, each of dq, dk and
+    dv at most 2x (plus 1e-3) the max error of the plain bf16 path
+    against a float64 autograd oracle, a repeat's bits equal, and the
+    plain version (``attention_bwd_ref``) at rtol 2e-2 of the largest
+    gradient; timed at the first shape beside the plain version, the
+    bound (five products at the bf16 rate) and the backward alone of
+    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    (timed only, on the backend it takes). Then qwen2.5-3b at full width
+    and depth (36 layers, 3,085,938,688 parameters, remat on) trained
+    for 6 steps through ``train.steps.make_train_step`` with
+    ``TrainConfig(microbatch=2)`` (the reference's defaults otherwise): 8
+    x 4,096 tokens a step (``train_4k``'s sequence, its batch of 256 cut
+    to 8) from the Zipf corpus through the vocab LOrder
+    (``data.pipeline.DataLoader``, ``VocabReorder.apply_to_params``),
+    microbatches of 2; each step's
+    loss, grad norm, seconds, tokens/s and peak memory; 36 x 4 x 2 flash
+    forward launches a step (the replay), 144 of each backward kernel and
+    4 hot-slab launches, counted from zero over the steps; every loss
+    finite, the last 3's mean below the first 3's, and, on one microbatch
+    first, no gradient leaf all zero. Then one microbatch's loss and
+    gradients on the card against the CPU, the width cut to 2 layers, 1 x
+    512 tokens (the loss within 1e-2, each leaf within 5e-2 relative L2);
+    then tests/test_system.py's resume test through ``launch/train.main``
+    at that cut (``--depth 2``), checkpoints in a temporary directory. The
+    full-depth run saves no checkpoint.
+
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -239,6 +272,14 @@ DECODE_TOL = dict(rtol=0.15, atol=0.15)
 GMM_TOL = dict(rtol=1e-4, atol=1e-4)   # float32 sums of exact products
 ROUTE_TIE = 1e-3        # router margin (probability) that rounding can cross
 SWEEP_TOKENS = (4, 8, 16, 64, 256, 768, 1024, 4096, 32_768)   # phase 13
+TRAIN_ARCH = GQA_ARCH           # phase 14: the reference trainer's default
+TRAIN_SEQ = 4096                # configs/shapes.py's train_4k
+TRAIN_BATCH = 8                 # train_4k's global batch of 256, cut to 8
+TRAIN_MICROBATCH = 2
+TRAIN_STEPS = 6
+# the backward checks: (BH, KV, S, d) of a qwen2.5-3b microbatch (2 x 16
+# heads over 2 x 2 kv heads, d 128) and of a minicpm-2b one (2 x 36, d 64)
+BWD_SHAPES = ((32, 4, 4096, 128), (72, 72, 4096, 64))
 # k-NN: SIFT1M's width (d 128) with 16,384 of its 1,000,000 base vectors:
 # the host NSW builder takes about 9 ms an insert
 KNN_VECTORS, KNN_DIM, KNN_K = 16_384, 128, 16
@@ -1508,16 +1549,12 @@ def card_vs_cpu(dev, cfg, batch) -> None:
     and the card is held on a run whose blocks are fed the CPU's inputs
     (`BlockTape`)."""
     import copy
-    import dataclasses
     import torch
+    from repro_torch.launch.train import cut_depth
     from repro_torch.models.moe import RouteTape
     from repro_torch.models.transformer import (forward, init_params,
                                                 trunk_kind)
-    # configs.smoke_config's rule: a hybrid keeps its shared block last
-    pattern = cfg.block_pattern[:2]
-    if "shared_attn" in cfg.block_pattern and "shared_attn" not in pattern:
-        pattern = pattern[:-1] + ("shared_attn",)
-    cut = dataclasses.replace(cfg, num_layers=2, block_pattern=pattern)
+    cut = cut_depth(cfg, 2)   # a hybrid keeps its shared block last
     host = init_params(cut, torch.Generator().manual_seed(SEED), "cpu")
     card = copy.deepcopy(host).to(dev)
     t0 = time.perf_counter()
@@ -2034,6 +2071,354 @@ def run_lm(dev, cfg, full_cfg=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------- training
+def _plain_attention(q, k, v, causal: bool = True):
+    """Attention in the inputs' dtype throughout, k and v repeated per
+    query row: in bf16 FlashAttention's plain bf16 path, in float64 its
+    oracle."""
+    import torch
+    bh, s, d = q.shape
+    group = bh // k.shape[0]
+    k, v = k.repeat_interleave(group, 0), v.repeat_interleave(group, 0)
+    logits = torch.einsum("bqd,bkd->bqk", q, k) * d ** -0.5
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        logits = torch.where((pos[:, None] >= pos[None])[None], logits,
+                             -1e30)
+    return torch.einsum("bqk,bkd->bqd", torch.softmax(logits, dim=-1), v)
+
+
+def _grads_of(fn, q, k, v, do, dtype):
+    import torch
+    leaves = [t.detach().to(dtype).requires_grad_(True) for t in (q, k, v)]
+    return torch.autograd.grad(fn(*leaves), leaves, do.to(dtype))
+
+
+def flash_bwd_check(name, bh, kv, s, d, dev) -> float:
+    """The backward kernels at FlashAttention's standard: dq, dk and dv
+    each at most 2x (plus 1e-3) the max error of the plain bf16 path
+    against a float64 autograd oracle, both taken a kv head's query group
+    at a time; a repeat gives the same bits; held to the plain version
+    (`attention_bwd_ref`, the same recompute in float32) at rtol 2e-2 and
+    2e-2 of the largest gradient. Returns the max |err| against the plain
+    version."""
+    import torch
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    from repro_torch.kernels.flash_attn.ref import attention_bwd_ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + d)
+
+    def draw(rows):
+        return torch.randn((rows, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, do, k, v = draw(bh), draw(bh), draw(kv), draw(kv)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash backward[{name}]: two runs differ")
+    group = bh // kv
+    err = {c: 0.0 for c in "qkv"}
+    base = dict(err)
+    heads = max(1, 8 // group)          # kv heads a chunk: 8 query rows
+    for j in range(0, kv, heads):
+        rows = slice(j * group, (j + heads) * group)
+        kvr = slice(j, j + heads)
+        args = (q[rows], k[kvr], v[kvr], do[rows])
+        oracle = _grads_of(_plain_attention, *args, torch.float64)
+        plain = _grads_of(_plain_attention, *args, torch.bfloat16)
+        mine = (got[0][rows], got[1][kvr], got[2][kvr])
+        for c, g, o_, p_ in zip("qkv", mine, oracle, plain):
+            err[c] = max(err[c], float((g.double() - o_).abs().max()))
+            base[c] = max(base[c], float((p_.double() - o_).abs().max()))
+        del oracle, plain
+    for c in "qkv":
+        if err[c] > 2 * base[c] + 1e-3:
+            raise AssertionError(
+                f"flash backward[{name}] d{c}: {err[c]:.3e} against the "
+                f"float64 oracle, the plain bf16 path's {base[c]:.3e}")
+    want = attention_bwd_ref(q, k, v, o, lse, do)
+    plain_err = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2 * scale)
+        plain_err = max(plain_err, float((g.float() - w.float()).abs().max()))
+    print(f"flash backward[{name}]: (BH, S, d)=({bh}, {s}, {d}) over {kv} "
+          f"kv rows, causal; max |err| against the float64 oracle "
+          + ", ".join(f"d{c} {err[c]:.3e} (plain bf16 path {base[c]:.3e})"
+                      for c in "qkv")
+          + f"; against attention_bwd_ref {plain_err:.3e}; bits repeat")
+    return plain_err
+
+
+def time_flash_bwd(bh, kv, s, d, dev) -> dict:
+    """The backward kernels timed at qwen2.5-3b's training shape (a
+    microbatch of 2 sequences of 4,096: 32 query rows over 4 kv rows, d
+    128, causal): the kernels, their plain version, and the backward alone
+    of ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    on the backend it takes. The bound: the five products of the math, 2·d
+    FLOPs a visible (row, key) pair each, at the card's bf16 rate."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    from repro_torch.kernels.flash_attn.ref import attention_bwd_ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(rows):
+        return torch.randn((rows, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, do, k, v = draw(bh), draw(bh), draw(kv), draw(kv)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    out = {"ms": cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                         reps=10, warmup=2),
+           # the training forward's call, for the step's breakdown
+           "forward_lse_ms": cuda_ms(lambda: fa.flash_attention_lse(q, k, v),
+                                     reps=10, warmup=2),
+           "plain_ms": cuda_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do),
+                               reps=1, warmup=1)}
+    backend = None
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION):
+        leaves = [t[None].detach().requires_grad_(True) for t in (q, k, v)]
+        try:
+            with sdpa_kernel(b):
+                y = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                   enable_gqa=True)
+                torch.autograd.grad(y, leaves, do[None], retain_graph=True)
+        except RuntimeError:
+            continue
+        backend = b
+        break
+    if backend is None:
+        raise AssertionError("no SDPA backend takes a grouped causal "
+                             "backward")
+    with sdpa_kernel(backend):
+        out["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            y, leaves, do[None], retain_graph=True), reps=10, warmup=2)
+    pairs = s * (s + 1) // 2
+    flops = 5 * 2 * d * pairs * bh
+    nbytes = (4 * bh + 4 * kv) * s * d * 2 + bh * s * 4
+    ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    out.update(bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               library=f"F.scaled_dot_product_attention(is_causal=True, "
+                       f"enable_gqa=True) backward on {backend.name}")
+    print(f"flash backward timing: (BH, S, d)=({bh}, {s}, {d}) over {kv} kv "
+          f"rows, causal: ms={out['ms']:.4f} (two launches: dq, dkdv; "
+          f"{flops / out['ms'] / 1e9:.1f} TFLOP/s of the five products, "
+          f"{1.4 * flops / out['ms'] / 1e9:.1f} of the seven issued) "
+          f"forward with lse {out['forward_lse_ms']:.4f} ms; "
+          f"plain_ms={out['plain_ms']:.4f} library_ms="
+          f"{out['library_ms']:.4f} ({out['library']}, p rounded to bf16) "
+          f"bound_ms={out['bound_ms']:.4f} ({flops:.4e} FLOPs)")
+    return out
+
+
+def train_full_depth(dev) -> dict:
+    """qwen2.5-3b at full width and depth (36 layers, remat on) trained for
+    `TRAIN_STEPS` steps through `train.steps.make_train_step`: a global
+    batch of `TRAIN_BATCH` x `TRAIN_SEQ` tokens (``train_4k``'s sequence;
+    its batch of 256 cut to 8) from the Zipf corpus through the vocab
+    LOrder (``data.pipeline.DataLoader``), microbatches of 2 sequences.
+    The launch counts are zeroed just before the steps and read just
+    after; one microbatch first checks that no gradient leaf is all zero
+    (a kernel output without an autograd graph would leave one so)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, DataLoader
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    from repro_torch.launch.train import build_vocab_reorder
+    from repro_torch.models.transformer import (init_params, loss_fn,
+                                                param_tree)
+    from repro_torch.train.optim import TrainConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    if not cfg.remat:
+        raise AssertionError(f"{cfg.name} trains with remat")
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH)
+    vr = build_vocab_reorder(cfg, dc)
+    vr.apply_to_params(model)
+    opt = init_opt_state(param_tree(model))
+    torch.cuda.synchronize()
+    print(f"train: {cfg.name} L={cfg.num_layers} {n_params} parameters, "
+          f"remat {cfg.remat_policy}, weights, LOrder and AdamW state in "
+          f"{time.perf_counter() - t0:.1f} s")
+    loader = DataLoader(dc, vr, start_step=1)   # batch 0 built the LOrder
+    try:
+        batches = [torch.from_numpy(next(loader)["tokens"])
+                   for _ in range(TRAIN_STEPS)]
+    finally:
+        loader.close()
+
+    # one microbatch's gradients: every leaf reached
+    mb = {"tokens": batches[0][:TRAIN_MICROBATCH].to(dev)}
+    for p in model.parameters():
+        p.requires_grad_(True)
+    reset_lm_launches()
+    bwd0 = dict(fa.launches_bwd)
+    loss, _ = loss_fn(model, mb)
+    loss.backward()
+    torch.cuda.synchronize()
+    one = {**lm_launches(), "flash_bwd_dq": fa.launches_bwd["dq"] - bwd0["dq"],
+           "flash_bwd_dkdv": fa.launches_bwd["dkdv"] - bwd0["dkdv"]}
+    zero = [n for n, p in model.named_parameters()
+            if p.grad is None or not bool(p.grad.any())]
+    bad = [n for n, p in model.named_parameters()
+           if not bool(torch.isfinite(p.grad).all())]
+    for p in model.parameters():
+        p.grad = None
+        p.requires_grad_(False)
+    if zero or bad:
+        raise AssertionError(f"gradient leaves all zero {zero[:8]} or not "
+                             f"finite {bad[:8]}")
+    print(f"train: one microbatch's backward reaches all "
+          f"{len(list(model.parameters()))} leaves, none all zero; launches "
+          f"{one}")
+
+    # the reference's TrainConfig defaults: lr 3e-4 after 100 warmup
+    # steps, so these steps run at 3e-6 to 1.8e-5
+    tc = TrainConfig(microbatch=TRAIN_MICROBATCH)
+    step = make_train_step(cfg, tc)
+    losses, rows = [], []
+    reset_lm_launches()
+    bwd0 = dict(fa.launches_bwd)
+    for i, tokens in enumerate(batches):
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        model, opt, m = step(model, opt, {"tokens": tokens.to(dev)})
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses.append(loss)
+        rows.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                     "lr": float(m["lr"]), "seconds": dt,
+                     "tokens_per_s": tokens.numel() / dt, "peak_gib": peak})
+        print(f"train step {i}: loss {loss:.4f} grad_norm "
+              f"{rows[-1]['grad_norm']:.3f} lr {rows[-1]['lr']:.2e} "
+              f"{dt:.3f} s ({rows[-1]['tokens_per_s']:.1f} tokens/s) peak "
+              f"{peak:.1f} GiB")
+    launches = {**lm_launches(),
+                "flash_bwd_dq": fa.launches_bwd["dq"] - bwd0["dq"],
+                "flash_bwd_dkdv": fa.launches_bwd["dkdv"] - bwd0["dkdv"]}
+    micro = TRAIN_STEPS * TRAIN_BATCH // TRAIN_MICROBATCH
+    layers = cfg.num_layers
+    expected = {**flash_launches(cfg, 2 * micro), "hot_embed": micro,
+                **gmm_launches(cfg, 0, 0), "flash_bwd_dq": layers * micro,
+                "flash_bwd_dkdv": layers * micro}
+    if launches != expected:
+        raise AssertionError(f"training launches {launches}, expected "
+                             f"{expected}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"training losses {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"training loss does not fall: {losses}")
+    per_step = {k: v // TRAIN_STEPS for k, v in launches.items()}
+    print(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens, "
+          f"losses {[round(x, 4) for x in losses]}, the last 3's mean "
+          f"{np.mean(losses[-3:]):.4f} below the first 3's "
+          f"{np.mean(losses[:3]):.4f}; launches a step {per_step}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": rows}
+
+
+def train_card_vs_cpu(dev) -> None:
+    """One microbatch's loss and gradients, qwen2.5-3b's width cut to 2
+    layers, 1 x 512 tokens, the same weights on the CPU (plain versions,
+    p rounded to bf16 before PV as the reference does) and the card
+    (kernels, PV in float32): the loss within 1e-2 relative, each leaf's
+    relative L2 error within 5e-2."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+    from repro_torch.models.transformer import init_params, loss_fn
+
+    cfg = cut_depth(get_config(TRAIN_ARCH), 2)
+    host = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    card = copy.deepcopy(host).to(dev)
+    tokens = token_source(cfg, 512)(1, 512)
+    out = []
+    t0 = time.perf_counter()
+    for model, d in ((host, "cpu"), (card, dev)):
+        for p in model.parameters():
+            p.requires_grad_(True)
+        loss, _ = loss_fn(model, {"tokens": tokens.to(d)})
+        loss.backward()
+        out.append((float(loss.detach()), {n: p.grad.float().cpu()
+                                  for n, p in model.named_parameters()}))
+        if d == "cpu":
+            cpu_s = time.perf_counter() - t0
+    (want, gw), (got, gg) = out
+    if abs(got - want) > 1e-2 * abs(want):
+        raise AssertionError(f"train card vs CPU: loss {got} against {want}")
+    rel = {n: float((gg[n] - gw[n]).norm() / gw[n].norm().clamp(min=1e-30))
+           for n in gw}
+    worst = max(rel, key=rel.get)
+    if rel[worst] > 5e-2:
+        raise AssertionError(f"train card vs CPU: {worst}'s gradient parts "
+                             f"by {rel[worst]:.3e} (relative L2)")
+    print(f"train card vs CPU, 2 layers, 1x512 tokens (CPU forward and "
+          f"backward {cpu_s:.1f} s): loss {got:.6f} against {want:.6f}; the "
+          f"worst leaf {worst} at {rel[worst]:.3e} relative L2, "
+          f"{len(rel)} leaves")
+
+
+def train_resume(dev) -> None:
+    """tests/test_system.py::test_train_resume_continues through
+    ``launch.train.main`` on the card, qwen2.5-3b's width cut to 2 layers:
+    steps 0-9 straight, then 0-4, a "crash", and ``--resume`` for 5-9,
+    all with ``--total-steps 10``; the first five losses of two runs at
+    rtol 1e-5, the resumed ones at rtol/atol 5e-3. The checkpoints go to a
+    temporary directory, deleted after."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.launch.train import main as train_main
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    args = ["--arch", TRAIN_ARCH, "--depth", "2", "--seq-len", "32",
+            "--global-batch", "2", "--ckpt-dir", tmp, "--ckpt-every", "5",
+            "--total-steps", "10", "--no-vocab-reorder", "--log-every",
+            "100", "--device", str(dev)]
+    try:
+        full = train_main(["--steps", "10"] + args)
+        shutil.rmtree(tmp)
+        part = train_main(["--steps", "5"] + args)
+        cont = train_main(["--steps", "10", "--resume"] + args)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    np.testing.assert_allclose(part[:5], full[:5], rtol=1e-5)
+    np.testing.assert_allclose(cont, full[5:], rtol=5e-3, atol=5e-3)
+    print(f"train resume: 2 layers at full width, losses 5-9 straight "
+          f"{[round(x, 5) for x in full[5:]]}, resumed "
+          f"{[round(x, 5) for x in cont]}")
+
+
+def train_phase(dev) -> dict:
+    """Phase 14: training. The backward kernels checked and timed, then
+    qwen2.5-3b trained at full width and depth, the card's gradients held
+    to the CPU's, and a resume through ``launch/train.main``."""
+    err = max(flash_bwd_check("qwen2.5-3b microbatch, GQA", *BWD_SHAPES[0],
+                              dev),
+              flash_bwd_check("minicpm-2b microbatch, MHA", *BWD_SHAPES[1],
+                              dev))
+    timing = time_flash_bwd(*BWD_SHAPES[0], dev)
+    run = train_full_depth(dev)
+    train_card_vs_cpu(dev)
+    train_resume(dev)
+    return {"err": err, "timing": timing, **run}
+
+
 def timed(label: str, fn, *args):
     """``fn(*args)``, its wall seconds printed under ``label``."""
     t0 = time.perf_counter()
@@ -2083,6 +2468,8 @@ def run(torch, corpora: dict) -> int:
                          ("csr_spmv", "csr_spmv_carries"),
                          ("flash_attn", "flash_fwd_bf16_wgmma"),
                          ("flash_attn", "flash_fwd_bf16_mma"),
+                         ("flash_attn", "flash_bwd_dq_bf16"),
+                         ("flash_attn", "flash_bwd_dkdv_bf16"),
                          ("moe_gmm", "gmm_bf16_wgmma"),
                          ("moe_gmm", "gmm_bf16_splitk")):
         for line in _build.ptxas_report(name, kernel):
@@ -2121,10 +2508,12 @@ def run(torch, corpora: dict) -> int:
     cut = dataclasses.replace(full, num_layers=MOE_LAYERS,
                               block_pattern=("attn",) * MOE_LAYERS)
     moe = timed(f"13 {MOE_ARCH}", run_lm, dev, cut, full)
+    train = timed("14 training", train_phase, dev)
     runs = (mini, qwen, pali, hubert, rwkv, zamba, moe)
 
     def launches(name):
-        return sum(r[w].get(name, 0) for r in runs for w in ("pre", "serve"))
+        return (sum(r[w].get(name, 0) for r in runs for w in ("pre", "serve"))
+                + train["launches"].get(name, 0))
 
     kernels = [{
         "name": "csr_spmv",
@@ -2155,6 +2544,19 @@ def run(torch, corpora: dict) -> int:
         HYBRID_ARCH: zamba["timing"]["flash_attn"],
         MOE_ARCH: moe["timing"]["flash_attn"],
     }, {
+        "name": "flash_attn_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "none: no TPU kernel; the reference differentiates "
+                    "src/repro/models/layers.py:117 (_sdpa_chunked) in XLA",
+        "launches": launches("flash_bwd_dq") + launches("flash_bwd_dkdv"),
+        "launches_by_kernel": {"dq": launches("flash_bwd_dq"),
+                               "dkdv": launches("flash_bwd_dkdv")},
+        "max_abs_err": train["err"],
+        **{k: train["timing"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library": train["timing"]["library"],
+    }, {
         "name": "hot_embed",
         "route": "cuda",
         "source": "src/repro_torch/csrc/hot_embed.cu",
@@ -2180,6 +2582,7 @@ def run(torch, corpora: dict) -> int:
     }]
     for r in (rwkv, zamba):
         print(f"scan: {json.dumps(r['scan'])}")
+    print(f"train: {json.dumps(train['steps'])}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
     print(card)
     print(json.dumps({"kernels": kernels}))

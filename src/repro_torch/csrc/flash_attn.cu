@@ -108,6 +108,20 @@ struct Mask {
     const int prefix_tile = p > 0 ? (p - 1) / tile : 0;
     return diag > prefix_tile ? diag : prefix_tile;
   }
+
+  // The backward's walk the other way round, over the query rows that
+  // can see a key tile's keys k0 .. k_last: the first such row (0 when
+  // non-causal or when the tile starts inside the prefix, else the
+  // diagonal) and the last (the window's far edge, else the last row).
+  __device__ __forceinline__ int first_row(int k0) const {
+    return (!causal || k0 < prefix) ? 0 : k0;
+  }
+  __device__ __forceinline__ int last_row(int k_last) const {
+    if (causal && window > 0 && k_last + window - 1 < s - 1) {
+      return k_last + window - 1;
+    }
+    return s - 1;
+  }
 };
 
 // --------------------------- bf16 at d 16, 32 and 256: mma.sync
@@ -183,13 +197,17 @@ struct MmaTile {
   static_assert(kSmemBytes <= 232448, "more than a block's shared memory");
 };
 
-template <int D>
+// kLse: also write each row's log-sum-exp of its scaled logits (natural
+// log, float32, (BH, S)) for the backward; the inference instantiation
+// (kLse false) is the kernel as it was.
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, int bh_count, int group,
-                   Mask mask, float scale, int num_q_tiles) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int bh_count, int group, Mask mask, float scale,
+                   int num_q_tiles) {
   using T = MmaTile<D>;
   constexpr int kLd = T::kLd;
   constexpr int kK = D / 16;   // k-steps of QK^T
@@ -341,6 +359,13 @@ flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
 
   const float d0 = fmaxf(l0, 1e-30f);
   const float d1 = fmaxf(l1, 1e-30f);
+  if constexpr (kLse) {   // l0 and l1 are whole in every lane of the quad
+    if (t == 0) {
+      const long long lb = static_cast<long long>(bh) * s;
+      if (row0 < s) lse[lb + row0] = m0 + logf(d0);
+      if (row1 < s) lse[lb + row1] = m1 + logf(d1);
+    }
+  }
 #pragma unroll
   for (int n = 0; n < kN; ++n) {
     const int col = n * 8 + t * 2;
@@ -478,23 +503,36 @@ flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
-                int group, Mask mask, float scale, cudaStream_t st) {
+template <int D, bool kLse>
+int launch_bf16_as(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int bh, int group, Mask mask, float scale,
+                   cudaStream_t st) {
   using T = MmaTile<D>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::kSmemBytes);
+      flash_fwd_bf16_mma<D, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
   const int tiles = (mask.s + kTile - 1) / kTile;
-  flash_fwd_bf16_mma<D><<<tiles * bh, kMmaThreads, T::kSmemBytes, st>>>(
+  flash_fwd_bf16_mma<D, kLse><<<tiles * bh, kMmaThreads, T::kSmemBytes,
+                                st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      bh, group, mask, scale, tiles);
+      lse, bh, group, mask, scale, tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int bh, int group, Mask mask, float scale,
+                cudaStream_t st) {
+  return lse == nullptr
+             ? launch_bf16_as<D, false>(q, k, v, o, nullptr, bh, group, mask,
+                                        scale, st)
+             : launch_bf16_as<D, true>(q, k, v, o, static_cast<float*>(lse),
+                                       bh, group, mask, scale, st);
 }
 
 template <int D>
@@ -949,13 +987,18 @@ __device__ __forceinline__ void issue_pv(float (&acc)[N],
 // softmax (it does: the new P reuses the old P's registers), so the
 // overlap that counts is the one between the two warpgroups, which take
 // turns to issue their products (named barriers 1 and 2).
-template <int D>
+//
+// kLse: also write each row's log-sum-exp (natural log, float32, (BH, S))
+// for the backward, after the stores of O; the inference instantiation
+// (kLse false) is the kernel as it was.
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
-                     __nv_bfloat16* __restrict__ o, int bh_count, int group,
-                     Mask mask, float scale_log2, int num_q_tiles) {
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int bh_count, int group, Mask mask, float scale_log2,
+                     int num_q_tiles) {
   using H = Hopper<D>;
   constexpr int kAcc = H::kWidth / 2;   // O accumulator floats a thread
   extern __shared__ uint8_t smem_raw[];
@@ -1138,6 +1181,14 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
             __floats2bfloat162_rn(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
       }
     }
+    if constexpr (kLse) {   // m is in log2 units; l is whole in the quad
+      if (t == 0) {
+        constexpr float kLn2 = 0.6931471805599453f;
+        const long long lb = static_cast<long long>(bh) * s;
+        if (row0 < s) lse[lb + row0] = (m0 + log2f(d0)) * kLn2;
+        if (row1 < s) lse[lb + row1] = (m1 + log2f(d1)) * kLn2;
+      }
+    }
   }
 }
 
@@ -1171,7 +1222,7 @@ EncodeTiled tensor_map_encoder() {
 // 0, a cudaError_t, or minus a CUresult if a tensor map is refused.
 template <int D>
 int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o,
-                      int bh, int group, Mask mask, float scale,
+                      void* lse, int bh, int group, Mask mask, float scale,
                       cudaStream_t st) {
   using H = Hopper<D>;
   const EncodeTiled encode = tensor_map_encoder();
@@ -1204,16 +1255,429 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o,
       return -static_cast<int>(r);
     }
   }
+  auto kernel = lse == nullptr ? flash_fwd_bf16_wgmma<D, false>
+                               : flash_fwd_bf16_wgmma<D, true>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      H::kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, H::kSmemBytes);
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
   const int tiles = (s + kRows - 1) / kRows;
-  flash_fwd_bf16_wgmma<D><<<tiles * bh, kHopperThreads, H::kSmemBytes, st>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), bh, group,
-      mask, scale * kLog2e, tiles);
+  kernel<<<tiles * bh, kHopperThreads, H::kSmemBytes, st>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), bh, group, mask, scale * kLog2e, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------- backward, bf16 mma.sync
+//
+// The gradient of the forward above, from its row log-sum-exp (natural
+// log, written by the kLse instantiations). With s = scale * q . k,
+// p = exp(s - lse), delta_i = sum_d dO[i, d] * O[i, d] and
+// dS = p * (dO . v - delta):
+//   dV[j] = sum_i p[i, j] dO[i],  dK[j] = scale * sum_i dS[i, j] q[i],
+//   dQ[i] = scale * sum_j dS[i, j] k[j],
+// summed over the rows i that see key j (the forward's one Mask) and, for
+// dK and dV, over the `group` query heads that share a kv head.
+//
+// It replaces no TPU kernel: the reference trains by XLA's autodiff of its
+// plain chunked attention (src/repro/models/layers.py, _sdpa_chunked) and
+// its Pallas kernel has no VJP. It is here because the port's forward runs
+// the flash kernel, whose outputs carry no autograd graph.
+//
+// Two kernels, so that nothing is summed with atomics and a result repeats
+// bit for bit:
+//  * flash_bwd_dq_bf16: one block per (query head, 64-row query tile), four
+//    warps of 16 rows. Its prologue computes delta for its rows (float32,
+//    from the bf16 O and dO) and writes it out for the second kernel; then
+//    it walks the key tiles the rows see (the forward's range), recomputes
+//    S and P, dP = dO V^T, and accumulates dQ += dS K in registers.
+//  * flash_bwd_dkdv_bf16: one block per (kv head, 64-key tile), four warps
+//    of 16 keys. It walks the group's query heads and, for each, the
+//    32-row query tiles that can see the tile (Mask::first_row, last_row),
+//    recomputes S^T = K Q^T and P^T, dP^T = V dO^T, and accumulates
+//    dV += P^T dO and dK += dS^T Q in registers: one block owns a kv row's
+//    dK and dV, so the sum over the grouped heads needs no second pass.
+// Products are mma.sync m16n8k16 on bf16 operands with float32 sums; P and
+// dS are rounded to bf16 as operands (FlashAttention's own rounding).
+// K, V, Q and dO tiles sit in shared memory with rows padded to D + 8;
+// fragments of a transposed operand are gathered two bf16 at a time.
+//
+// Bound: operations. The five products of the math (S, dP, dV, dK, dQ) are
+// 2 * d * pairs FLOPs each, pairs the (row, key) pairs the mask lets
+// through; the two-kernel design recomputes S and dP once more (seven in
+// all) to avoid atomics. Bytes: q, k, v, O, dO and the three gradients
+// once, far below the products at long S.
+constexpr int kBwdThreads = 128;   // four warps of 16 rows (dq) or keys
+constexpr int kBwdKeys = 64;       // dkdv: keys a block
+constexpr int kBwdRows = 32;       // dkdv: query rows an iteration
+constexpr int kDqRows = 64;        // dq: query rows a block
+constexpr int kDqKeys = 64;        // dq: keys an iteration
+constexpr float kLog2eBwd = 1.4426950408889634f;
+
+template <int D>
+struct BwdTile {
+  static constexpr int kLd = D + 8;
+  // K and V tiles, Q and dO tiles, then lse and delta of the rows
+  static constexpr int kDkdvBytes =
+      (2 * kBwdKeys + 2 * kBwdRows) * kLd * 2 + 2 * kBwdRows * 4;
+  // Q and dO tiles (O in the K slot for the prologue), K and V tiles, then
+  // lse and delta of the rows
+  static constexpr int kDqBytes =
+      (2 * kDqRows + 2 * kDqKeys) * kLd * 2 + 2 * kDqRows * 4;
+  static_assert(kDkdvBytes <= 232448 && kDqBytes <= 232448,
+                "more than a block's shared memory");
+};
+
+// Rows [r0, r0 + kN) of an (s, D) bf16 matrix into shared memory with row
+// stride D + 8; rows at or past s are zero.
+template <int D, int kN>
+__device__ __forceinline__ void load_rows_bf16(
+    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int r0,
+    int s) {
+  constexpr int kChunks = D / 8;
+  constexpr int kLd = D + 8;
+  for (int c = threadIdx.x; c < kN * kChunks; c += kBwdThreads) {
+    const int row = c / kChunks;
+    const int col = (c % kChunks) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + row < s) {
+      val = __ldg(reinterpret_cast<const uint4*>(
+          src + static_cast<long long>(r0 + row) * D + col));
+    }
+    *reinterpret_cast<uint4*>(dst + row * kLd + col) = val;
+  }
+}
+
+// C[16 x 8 nb] += A[16 x D] B^T where A's rows are rows r .. r + 15 of tile
+// `a` and B's are rows 8 nb .. of tile `b` (both row-major, stride kLd,
+// sum over their D columns): S = Q K^T, dP = dO V^T and their transposes.
+template <int D, int kNb>
+__device__ __forceinline__ void mma_abt(float (&c)[kNb][4],
+                                        const __nv_bfloat16* a,
+                                        const __nv_bfloat16* b, int r, int g,
+                                        int t) {
+  constexpr int kLd = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    a_fragment<kLd>(af, a, r + g, kk * 16 + t * 2);
+#pragma unroll
+    for (int nb = 0; nb < kNb; ++nb) {
+      const __nv_bfloat16* br = b + (nb * 8 + g) * kLd + kk * 16 + t * 2;
+      mma_bf16(c[nb], af, *reinterpret_cast<const uint32_t*>(br),
+               *reinterpret_cast<const uint32_t*>(br + 8));
+    }
+  }
+}
+
+// acc[16 x D] += X[16 x 16 ks] B where X is the accumulator-layout tile x
+// (16 rows by 8 kNb columns, rounded to bf16 as the A operand) and B's
+// rows 0 .. 8 kNb - 1 are rows of tile `b` (row-major, stride kLd): dQ +=
+// dS K, dV += P^T dO, dK += dS^T Q.
+template <int D, int kNb>
+__device__ __forceinline__ void mma_xb(float (&acc)[D / 8][4],
+                                       const float (&x)[kNb][4],
+                                       const __nv_bfloat16* b, int g,
+                                       int t) {
+  constexpr int kLd = D + 8;
+#pragma unroll
+  for (int ks = 0; ks < kNb / 2; ++ks) {
+    uint32_t af[4];
+    af[0] = pack2(__float2bfloat16_rn(x[2 * ks][0]),
+                  __float2bfloat16_rn(x[2 * ks][1]));
+    af[1] = pack2(__float2bfloat16_rn(x[2 * ks][2]),
+                  __float2bfloat16_rn(x[2 * ks][3]));
+    af[2] = pack2(__float2bfloat16_rn(x[2 * ks + 1][0]),
+                  __float2bfloat16_rn(x[2 * ks + 1][1]));
+    af[3] = pack2(__float2bfloat16_rn(x[2 * ks + 1][2]),
+                  __float2bfloat16_rn(x[2 * ks + 1][3]));
+    const __nv_bfloat16* br = b + (ks * 16 + t * 2) * kLd + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const __nv_bfloat16* bc = br + n * 8;
+      mma_bf16(acc[n], af, pack2(bc[0], bc[kLd]),
+               pack2(bc[8 * kLd], bc[9 * kLd]));
+    }
+  }
+}
+
+// Rows row0 and row1 (row0 + 8) of a 16 x D accumulator, times `mul`, as
+// bf16 into a row-major (s, D) matrix at `base`.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst,
+                                           long long base,
+                                           const float (&acc)[D / 8][4],
+                                           int row0, int s, int t, float mul) {
+  const int row1 = row0 + 8;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + t * 2;
+    if (row0 < s) {
+      *reinterpret_cast<uint32_t*>(dst + base +
+                                   static_cast<long long>(row0) * D + col) =
+          pack2(__float2bfloat16_rn(acc[n][0] * mul),
+                __float2bfloat16_rn(acc[n][1] * mul));
+    }
+    if (row1 < s) {
+      *reinterpret_cast<uint32_t*>(dst + base +
+                                   static_cast<long long>(row1) * D + col) =
+          pack2(__float2bfloat16_rn(acc[n][2] * mul),
+                __float2bfloat16_rn(acc[n][3] * mul));
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ o,
+                  const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse, float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, int bh_count, int group,
+                  Mask mask, float scale, int num_q_tiles) {
+  using T = BwdTile<D>;
+  constexpr int kLd = T::kLd;
+  constexpr int kNb = kDqKeys / 8;
+  extern __shared__ __align__(16) uint8_t bwd_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
+  __nv_bfloat16* dos = qs + kDqRows * kLd;
+  __nv_bfloat16* ks = dos + kDqRows * kLd;
+  __nv_bfloat16* vs = ks + kDqKeys * kLd;
+  float* lse_s = reinterpret_cast<float*>(vs + kDqKeys * kLd);
+  float* delta_s = lse_s + kDqRows;
+
+  const int s = mask.s;
+  const int qt = num_q_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
+  const int bh = static_cast<int>(blockIdx.x % bh_count);
+  const long long base = static_cast<long long>(bh) * s * D;
+  const long long kv_base = static_cast<long long>(bh / group) * s * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int q0 = qt * kDqRows;
+  const int row0 = q0 + warp * 16 + g;
+  const int row1 = row0 + 8;
+  const float scale_log2 = scale * kLog2eBwd;
+
+  load_rows_bf16<D, kDqRows>(qs, q + base, q0, s);
+  load_rows_bf16<D, kDqRows>(dos, dout + base, q0, s);
+  load_rows_bf16<D, kDqRows>(ks, o + base, q0, s);   // O, for delta
+  __syncthreads();
+  {   // delta of row q0 + tid / 2: two threads, half the columns each
+    const int r = threadIdx.x / 2;
+    const int c0 = (threadIdx.x % 2) * (D / 2);
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int c = c0; c < c0 + D / 2; ++c) {
+      acc = fmaf(__bfloat162float(dos[r * kLd + c]),
+                 __bfloat162float(ks[r * kLd + c]), acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (threadIdx.x % 2 == 0) {
+      const bool in = q0 + r < s;
+      const long long at = static_cast<long long>(bh) * s + q0 + r;
+      delta_s[r] = acc;
+      lse_s[r] = in ? lse[at] * kLog2eBwd : 0.0f;
+      if (in) {
+        delta[at] = acc;
+      }
+    }
+  }
+  __syncthreads();
+  const float lse0 = lse_s[warp * 16 + g], lse1 = lse_s[warp * 16 + g + 8];
+  const float dl0 = delta_s[warp * 16 + g], dl1 = delta_s[warp * 16 + g + 8];
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  }
+  // query and key tiles align (64 each): tile qt holds the rows' own keys
+  const int kt_end = mask.last_tile(qt, kDqKeys);
+  for (int kt = mask.first_tile(q0, kDqKeys); kt <= kt_end; ++kt) {
+    __syncthreads();
+    load_rows_bf16<D, kDqKeys>(ks, k + kv_base, kt * kDqKeys, s);
+    load_rows_bf16<D, kDqKeys>(vs, v + kv_base, kt * kDqKeys, s);
+    __syncthreads();
+    float sc[kNb][4], dp[kNb][4];
+#pragma unroll
+    for (int nb = 0; nb < kNb; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[nb][e] = 0.0f;
+        dp[nb][e] = 0.0f;
+      }
+    }
+    mma_abt<D, kNb>(sc, qs, ks, warp * 16, g, t);
+    mma_abt<D, kNb>(dp, dos, vs, warp * 16, g, t);
+#pragma unroll
+    for (int nb = 0; nb < kNb; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt * kDqKeys + nb * 8 + t * 2 + (e & 1);
+        const int row = e < 2 ? row0 : row1;
+        const float p =
+            row < s && mask.visible(key, row)
+                ? exp2f(fmaf(sc[nb][e], scale_log2, -(e < 2 ? lse0 : lse1)))
+                : 0.0f;
+        sc[nb][e] = p * (dp[nb][e] - (e < 2 ? dl0 : dl1));   // dS
+      }
+    }
+    mma_xb<D, kNb>(acc, sc, ks, g, t);
+  }
+  store_rows<D>(dq, base, acc, row0, s, t, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int kv_count, int group,
+                    Mask mask, float scale) {
+  using T = BwdTile<D>;
+  constexpr int kLd = T::kLd;
+  constexpr int kNb = kBwdRows / 8;
+  extern __shared__ __align__(16) uint8_t bwd_smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
+  __nv_bfloat16* vs = ks + kBwdKeys * kLd;
+  __nv_bfloat16* qs = vs + kBwdKeys * kLd;
+  __nv_bfloat16* dos = qs + kBwdRows * kLd;
+  float* lse_s = reinterpret_cast<float*>(dos + kBwdRows * kLd);
+  float* delta_s = lse_s + kBwdRows;
+
+  const int s = mask.s;
+  // key tile 0 first: under a causal mask it has the most rows to walk
+  const int kt = static_cast<int>(blockIdx.x / kv_count);
+  const int kvh = static_cast<int>(blockIdx.x % kv_count);
+  const long long kv_base = static_cast<long long>(kvh) * s * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int k0 = kt * kBwdKeys;
+  const int key0 = k0 + warp * 16 + g;
+  const int key1 = key0 + 8;
+  const float scale_log2 = scale * kLog2eBwd;
+
+  load_rows_bf16<D, kBwdKeys>(ks, k + kv_base, k0, s);
+  load_rows_bf16<D, kBwdKeys>(vs, v + kv_base, k0, s);
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dka[n][e] = 0.0f;
+      dva[n][e] = 0.0f;
+    }
+  }
+  const int last_key = (k0 + kBwdKeys < s ? k0 + kBwdKeys : s) - 1;
+  const int qt0 = mask.first_row(k0) / kBwdRows;
+  const int qt1 = mask.last_row(last_key) / kBwdRows;
+  for (int h = 0; h < group; ++h) {
+    const int bh = kvh * group + h;
+    const long long base = static_cast<long long>(bh) * s * D;
+    for (int qt = qt0; qt <= qt1; ++qt) {
+      const int q0 = qt * kBwdRows;
+      __syncthreads();
+      load_rows_bf16<D, kBwdRows>(qs, q + base, q0, s);
+      load_rows_bf16<D, kBwdRows>(dos, dout + base, q0, s);
+      if (threadIdx.x < kBwdRows) {
+        const int r = q0 + threadIdx.x;
+        const long long at = static_cast<long long>(bh) * s + r;
+        lse_s[threadIdx.x] = r < s ? lse[at] * kLog2eBwd : 0.0f;
+        delta_s[threadIdx.x] = r < s ? delta[at] : 0.0f;
+      }
+      __syncthreads();
+      float st[kNb][4], dpt[kNb][4];
+#pragma unroll
+      for (int nb = 0; nb < kNb; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[nb][e] = 0.0f;
+          dpt[nb][e] = 0.0f;
+        }
+      }
+      mma_abt<D, kNb>(st, ks, qs, warp * 16, g, t);    // S^T = K Q^T
+      mma_abt<D, kNb>(dpt, vs, dos, warp * 16, g, t);  // dP^T = V dO^T
+#pragma unroll
+      for (int nb = 0; nb < kNb; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nb * 8 + t * 2 + (e & 1);   // row q0 + c
+          const int row = q0 + c;
+          const int key = e < 2 ? key0 : key1;
+          const float p =
+              row < s && mask.visible(key, row)
+                  ? exp2f(fmaf(st[nb][e], scale_log2, -lse_s[c]))
+                  : 0.0f;
+          st[nb][e] = p;
+          dpt[nb][e] = p * (dpt[nb][e] - delta_s[c]);   // dS^T
+        }
+      }
+      mma_xb<D, kNb>(dva, st, dos, g, t);    // dV += P^T dO
+      mma_xb<D, kNb>(dka, dpt, qs, g, t);    // dK += dS^T Q
+    }
+  }
+  store_rows<D>(dk, kv_base, dka, key0, s, t, scale);
+  store_rows<D>(dv, kv_base, dva, key0, s, t, 1.0f);
+}
+
+template <int D>
+int launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, const void* lse, void* delta, void* dq,
+                  int bh, int group, Mask mask, float scale,
+                  cudaStream_t st) {
+  using T = BwdTile<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kDqBytes);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int tiles = (mask.s + kDqRows - 1) / kDqRows;
+  flash_bwd_dq_bf16<D><<<tiles * bh, kBwdThreads, T::kDqBytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), bh, group, mask, scale, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_dkdv(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, int bh, int group, Mask mask,
+                    float scale, cudaStream_t st) {
+  using T = BwdTile<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kDkdvBytes);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int tiles = (mask.s + kBwdKeys - 1) / kBwdKeys;
+  const int kv = bh / group;
+  flash_bwd_dkdv_bf16<D><<<tiles * kv, kBwdThreads, T::kDkdvBytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), kv,
+      group, mask, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1229,9 +1693,11 @@ Mask make_mask(int s, int window, int causal, int prefix) {
 // take the wgmma kernel, d 16, 32 and 256 the mma.sync one. causal 0 sees
 // every key (window and prefix are then ignored); causal 1 with prefix P
 // lets the rows below P see every key below P.
+// lse: null, or a float32 (bh, s) buffer that takes each row's log-sum-exp
+// of its scaled logits (natural log) for the backward.
 extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
-                               void* o, int bh, int group, int s, int d,
-                               float scale, int window, int causal,
+                               void* o, void* lse, int bh, int group, int s,
+                               int d, float scale, int window, int causal,
                                int prefix, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (group < 1 || bh % group != 0) {
@@ -1239,24 +1705,31 @@ extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
   }
   const Mask m = make_mask(s, window, causal, prefix);
   switch (d) {
-    case 16: return launch_bf16<16>(q, k, v, o, bh, group, m, scale, st);
-    case 32: return launch_bf16<32>(q, k, v, o, bh, group, m, scale, st);
-    case 256: return launch_bf16<256>(q, k, v, o, bh, group, m, scale, st);
-    case 64: return launch_bf16_wgmma<64>(q, k, v, o, bh, group, m, scale, st);
-    case 80: return launch_bf16_wgmma<80>(q, k, v, o, bh, group, m, scale, st);
+    case 16:
+      return launch_bf16<16>(q, k, v, o, lse, bh, group, m, scale, st);
+    case 32:
+      return launch_bf16<32>(q, k, v, o, lse, bh, group, m, scale, st);
+    case 256:
+      return launch_bf16<256>(q, k, v, o, lse, bh, group, m, scale, st);
+    case 64:
+      return launch_bf16_wgmma<64>(q, k, v, o, lse, bh, group, m, scale, st);
+    case 80:
+      return launch_bf16_wgmma<80>(q, k, v, o, lse, bh, group, m, scale, st);
     case 128:
-      return launch_bf16_wgmma<128>(q, k, v, o, bh, group, m, scale, st);
+      return launch_bf16_wgmma<128>(q, k, v, o, lse, bh, group, m, scale,
+                                    st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// float32: d in {16, 32, 64, 128}; otherwise as flash_attn_bf16.
+// float32: d in {16, 32, 64, 128}; lse must be null (no float32 backward);
+// otherwise as flash_attn_bf16.
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
-                              void* o, int bh, int group, int s, int d,
-                              float scale, int window, int causal, int prefix,
-                              void* stream) {
+                              void* o, void* lse, int bh, int group, int s,
+                              int d, float scale, int window, int causal,
+                              int prefix, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (group < 1 || bh % group != 0) {
+  if (group < 1 || bh % group != 0 || lse != nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Mask m = make_mask(s, window, causal, prefix);
@@ -1265,6 +1738,62 @@ extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
     case 32: return launch_f32<32>(q, k, v, o, bh, group, m, scale, st);
     case 64: return launch_f32<64>(q, k, v, o, bh, group, m, scale, st);
     case 128: return launch_f32<128>(q, k, v, o, bh, group, m, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward, bf16 at d in {16, 32, 64, 80, 128}, in two launches on one
+// stream: first flash_bwd_dq (dq, and delta (bh, s) float32 for the second),
+// then flash_bwd_dkdv (dk and dv). q, o, dout and dq: (bh, s, d); k, v, dk
+// and dv: (bh / group, s, d); lse: the forward's (bh, s). The mask and
+// scale are the forward's.
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const void* lse,
+                            void* delta, void* dq, int bh, int group, int s,
+                            int d, float scale, int window, int causal,
+                            int prefix, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (group < 1 || bh % group != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Mask m = make_mask(s, window, causal, prefix);
+  switch (d) {
+#define FLASH_BWD_DQ(D)                                                     \
+  case D:                                                                   \
+    return launch_bwd_dq<D>(q, k, v, o, dout, lse, delta, dq, bh, group, m, \
+                            scale, st);
+    FLASH_BWD_DQ(16)
+    FLASH_BWD_DQ(32)
+    FLASH_BWD_DQ(64)
+    FLASH_BWD_DQ(80)
+    FLASH_BWD_DQ(128)
+#undef FLASH_BWD_DQ
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, void* dk, void* dv, int bh,
+                              int group, int s, int d, float scale,
+                              int window, int causal, int prefix,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (group < 1 || bh % group != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Mask m = make_mask(s, window, causal, prefix);
+  switch (d) {
+#define FLASH_BWD_DKDV(D)                                                  \
+  case D:                                                                  \
+    return launch_bwd_dkdv<D>(q, k, v, dout, lse, delta, dk, dv, bh, group, \
+                              m, scale, st);
+    FLASH_BWD_DKDV(16)
+    FLASH_BWD_DKDV(32)
+    FLASH_BWD_DKDV(64)
+    FLASH_BWD_DKDV(80)
+    FLASH_BWD_DKDV(128)
+#undef FLASH_BWD_DKDV
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

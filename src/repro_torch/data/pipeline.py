@@ -12,14 +12,17 @@ nothing of ``repro``. The corpus is generated, not downloaded:
 * **Deterministic sharding** — sample ``i`` of host ``h`` depends only on
   (seed, h, i): restartable from any step with no state files, and two
   hosts never emit the same sequence.
-
-The reference's prefetching ``DataLoader`` is not copied: nothing in the
-port trains yet. Callers map a batch through `locality.vocab.VocabReorder`
-themselves, as the loader's hook does.
+* **Host prefetch** — `DataLoader`, the trainer's loader, keeps a bounded
+  queue of ready batches filled by a background thread, and maps token
+  ids through an attached `locality.vocab.VocabReorder` on the host (the
+  paper's reordering deployed as preprocessing). Other callers map a batch
+  themselves, as the loader's hook does.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 
 import numpy as np
 
@@ -35,6 +38,7 @@ class DataConfig:
     topic_concentration: float = 0.25   # fraction of tokens from the topic
     num_hosts: int = 1
     host_id: int = 0
+    prefetch: int = 2
 
     @property
     def host_batch(self) -> int:
@@ -82,6 +86,63 @@ class ZipfCommunityCorpus:
         rows = [self.sample_doc((cfg.host_id, step, r), cfg.seq_len)
                 for r in range(cfg.host_batch)]
         return np.stack(rows)
+
+
+class DataLoader:
+    """Prefetching host loader with an optional vocab permutation."""
+
+    def __init__(self, cfg: DataConfig, vocab_reorder=None,
+                 start_step: int = 0):
+        self.cfg = cfg
+        self.corpus = ZipfCommunityCorpus(cfg)
+        self.vocab_reorder = vocab_reorder
+        self._step = start_step
+        self._q: queue.Queue = queue.Queue(maxsize=max(1, cfg.prefetch))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _produce(self, step: int) -> dict:
+        tokens = self.corpus.batch(step)
+        if self.vocab_reorder is not None:
+            tokens = self.vocab_reorder.map_tokens(tokens).astype(np.int32)
+        return {"tokens": tokens, "step": step}
+
+    def _worker(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = self._produce(step)
+            while not self._stop.is_set():
+                try:
+                    self._q.put(batch, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def __next__(self) -> dict:
+        return self._q.get()
+
+    def __iter__(self):
+        return self
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2.0)
+
+
+def token_histogram(cfg: DataConfig, num_batches: int = 4) -> np.ndarray:
+    """Empirical token counts (hot-vocab calibration / vocab-LOrder input)."""
+    corpus = ZipfCommunityCorpus(cfg)
+    counts = np.zeros(cfg.vocab_size, dtype=np.int64)
+    for s in range(num_batches):
+        np.add.at(counts, corpus.batch(s).reshape(-1), 1)
+    return counts
 
 
 def corpus_sample(cfg: DataConfig, num_batches: int = 2) -> np.ndarray:

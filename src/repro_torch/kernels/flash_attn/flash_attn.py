@@ -54,6 +54,22 @@ On a CPU tensor the wrapper runs the plain version (`ref.attention_ref`),
 which on bf16 rounds p to bf16 before PV as the reference's model path
 (``layers._sdpa_chunked``) does; on a CUDA tensor it launches a kernel or
 raises.
+
+The backward (`flash_attention_bwd`, reached through `flash_attention_grad`,
+an ``autograd.Function``) has no TPU counterpart: the reference trains by
+XLA's autodiff of its plain chunked attention, and its Pallas kernel has no
+VJP. The port's forward runs the kernel, whose output carries no autograd
+graph, so the gradient is two more CUDA kernels in the same source
+(``flash_bwd_dq_bf16``, ``flash_bwd_dkdv_bf16``: ``mma.sync`` in bf16 with
+float32 sums, no atomics, so a result repeats bit for bit). They take the
+forward's row log-sum-exp, which the forward kernels write when asked
+(`flash_attention_lse`), and every mask of the forward, in bfloat16 at the
+head dims of `BWD_HEAD_DIMS`; anything else raises before any launch
+(ROADMAP A8.5c). What bounds them is operations: the five products of the
+math are ``2·d·pairs`` FLOPs each (pairs the (row, key) pairs the mask lets
+through), about 0.35 ms at (BH 32, S 4096, d 128) causal on the card's
+989 TFLOP/s; the two-kernel design recomputes S and dP once more (seven
+products) to need no atomics. The plain version is `ref.attention_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -61,9 +77,10 @@ import ctypes
 
 import torch
 
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)      # bfloat16
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128)       # bfloat16, the backward
 WGMMA_HEAD_DIMS = (64, 80, 128)
 F32_HEAD_DIMS = (16, 32, 64, 128)
 VARIANTS = ("wgmma", "mma_sync", "simt")
@@ -77,6 +94,8 @@ launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 launches_by_mask = dict.fromkeys(MASKS, 0)
 launches_grouped = 0
+# Backward launches, by kernel: two per `flash_attention_bwd` call on the card.
+launches_bwd = {"dq": 0, "dkdv": 0}
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -104,20 +123,33 @@ def mask_kind(causal: bool, prefix: int) -> str:
 _fns: dict = {}
 
 
-def _kernel(dtype: torch.dtype):
-    fn = _fns.get(dtype)
+# (bh, group, s, d, scale, window, causal, prefix, stream) after the pointers
+_TAIL = [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [
+    ctypes.c_void_p]
+
+
+def _bind(name: str, pointers: int):
+    fn = _fns.get(name)
     if fn is None:
         from .. import _build
-        lib = _build.load("flash_attn")
-        fn = (lib.flash_attn_bf16 if dtype == torch.bfloat16
-              else lib.flash_attn_f32)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+        fn = getattr(_build.load("flash_attn"), name)
+        fn.argtypes = [ctypes.c_void_p] * pointers + _TAIL
         fn.restype = ctypes.c_int
-        _fns[dtype] = fn
+        _fns[name] = fn
     return fn
+
+
+def _kernel(dtype: torch.dtype):
+    return _bind("flash_attn_bf16" if dtype == torch.bfloat16
+                 else "flash_attn_f32", 5)
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc < 0:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a TMA "
+                           f"tensor map (CUresult {-rc})")
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
 def kv_group(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
@@ -157,6 +189,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     return group
 
 
+def _mask_args(window: int, causal: bool, prefix: int) -> tuple[int, int]:
+    """Checked (window, prefix): both 0 for a non-causal call."""
+    if window < 0 or prefix < 0:
+        raise ValueError(f"window ({window}) and prefix ({prefix}) must not "
+                         f"be negative")
+    return (window, prefix) if causal else (0, 0)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: float | None = None, window: int = 0,
                     causal: bool = True, prefix: int = 0) -> torch.Tensor:
@@ -170,39 +210,154 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The kernel keeps PV in float32; the plain version on a CPU tensor
     rounds p to bf16 first when q is bf16, as the reference's model does.
     """
-    global launches, launches_grouped
-    if window < 0 or prefix < 0:
-        raise ValueError(f"window ({window}) and prefix ({prefix}) must not "
-                         f"be negative")
-    if not causal:
-        window = prefix = 0
+    window, prefix = _mask_args(window, causal, prefix)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, sm_scale=sm_scale, window=window,
                              causal=causal, prefix=prefix,
                              round_p=q.dtype == torch.bfloat16)
+    return _forward(q, k, v, sm_scale, window, causal, prefix, False)[0]
+
+
+def _forward(q, k, v, sm_scale, window, causal, prefix, with_lse: bool):
+    """The forward kernel on CUDA tensors: (out, lse or None)."""
+    global launches, launches_grouped
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
     group = _check(q, k, v)
+    if with_lse and q.dtype != torch.bfloat16:
+        raise NotImplementedError("the float32 kernel writes no log-sum-exp "
+                                  "(no float32 backward): ROADMAP A8.5c")
     bh, s, d = q.shape
     scale = (d ** -0.5) if sm_scale is None else float(sm_scale)
     out = torch.empty_like(q)
+    lse = (torch.empty((bh, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if bh == 0 or s == 0:
-        return out
+        return out, lse
     fn = _kernel(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                bh, group, s, d, scale, int(window), int(bool(causal)),
-                int(prefix), stream)
-    if rc < 0:
-        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled "
-                           f"refused a TMA tensor map (CUresult {-rc})")
-    if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+                None if lse is None else lse.data_ptr(), bh, group, s, d,
+                scale, int(window), int(bool(causal)), int(prefix), stream)
+    _raise_on(rc, "flash_attention")
     launches += 1
     launches_by_variant[variant(q.dtype, d)] += 1
     launches_by_mask[mask_kind(causal, prefix)] += 1
     if group > 1:
         launches_grouped += 1
-    return out
+    return out, lse
+
+
+def check_backward(q: torch.Tensor) -> None:
+    """Raises `NotImplementedError` unless the backward kernels take q's
+    dtype and head dim (bfloat16 at `BWD_HEAD_DIMS`)."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the flash backward takes bfloat16 at head dims "
+            f"{BWD_HEAD_DIMS}, not {q.dtype} at {q.shape[-1]}: ROADMAP A8.5c")
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, sm_scale: float | None = None, window: int = 0,
+                        causal: bool = True, prefix: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention`, and each row's log-sum-exp of its scaled,
+    masked logits ((BH, S) float32, natural log), which the backward
+    needs. On the card the forward kernel writes both; on a CPU tensor
+    the plain versions compute them."""
+    window, prefix = _mask_args(window, causal, prefix)
+    if q.device.type == "cpu":
+        kw = dict(sm_scale=sm_scale, window=window, causal=causal,
+                  prefix=prefix)
+        return (attention_ref(q, k, v, round_p=q.dtype == torch.bfloat16,
+                              **kw), attention_lse_ref(q, k, **kw))
+    return _forward(q, k, v, sm_scale, window, causal, prefix, True)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *,
+                        sm_scale: float | None = None, window: int = 0,
+                        causal: bool = True, prefix: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention` at q, k, v, given its output ``o``,
+    its ``lse`` (`flash_attention_lse`) and the output's gradient ``do``
+    ((BH, S, d) like q); dk and dv are summed over the query heads that
+    share a kv row. On the card: `flash_bwd_dq_bf16` (which also writes
+    rowsum(dO·O) for the second kernel), then `flash_bwd_dkdv_bf16`, on the
+    current stream, no synchronisation; a dtype or head dim they do not
+    take raises before any launch. On a CPU tensor: `ref.attention_bwd_ref`.
+    """
+    window, prefix = _mask_args(window, causal, prefix)
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, sm_scale=sm_scale,
+                                 window=window, causal=causal, prefix=prefix)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not "
+                         f"{q.device}")
+    check_backward(q)
+    group = _check(q, k, v)
+    bh, s, d = q.shape
+    for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
+                                  ("do", do, q.shape, q.dtype),
+                                  ("lse", lse, (bh, s), torch.float32)):
+        if (t.shape != shape or t.dtype != dtype or t.device != q.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"{tuple(shape)} {dtype} tensor on {q.device}")
+    scale = (d ** -0.5) if sm_scale is None else float(sm_scale)
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    if bh == 0 or s == 0:
+        return dq, dk, dv
+    delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    tail = (bh, group, s, d, scale, int(window), int(bool(causal)),
+            int(prefix))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bind("flash_bwd_dq", 8)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *tail, stream)
+        _raise_on(rc, "flash_bwd_dq")
+        launches_bwd["dq"] += 1
+        rc = _bind("flash_bwd_dkdv", 8)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *tail, stream)
+        _raise_on(rc, "flash_bwd_dkdv")
+        launches_bwd["dkdv"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with its row log-sum-exp saved, and the backward
+    kernels as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, window, causal, prefix):
+        o, lse = flash_attention_lse(q, k, v, sm_scale=sm_scale,
+                                     window=window, causal=causal,
+                                     prefix=prefix)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = dict(sm_scale=sm_scale, window=window, causal=causal,
+                        prefix=prefix)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.mask)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, sm_scale: float | None = None, window: int = 0,
+                         causal: bool = True,
+                         prefix: int = 0) -> torch.Tensor:
+    """`flash_attention` that autograd differentiates through the backward
+    kernels. Raises before any launch where they do not take the call
+    (`check_backward`)."""
+    check_backward(q)
+    return _FlashAttention.apply(q, k, v, sm_scale, window, causal, prefix)

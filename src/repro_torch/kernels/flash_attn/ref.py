@@ -63,3 +63,67 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     vp).to(q.dtype)
         del logits, p
     return out
+
+
+def _expand(t: torch.Tensor, group: int) -> torch.Tensor:
+    return t.repeat_interleave(group, dim=0) if group > 1 else t
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      sm_scale: float | None = None, window: int = 0,
+                      causal: bool = True, prefix: int = 0) -> torch.Tensor:
+    """(BH, S) float32: each row's log-sum-exp (natural log) of its scaled
+    float32 logits over the keys `visible` lets it see, queries in chunks
+    of `Q_CHUNK`."""
+    bh, s, d = q.shape
+    k32 = _expand(k, bh // k.shape[0]).float()
+    scale = (d ** -0.5) if sm_scale is None else sm_scale
+    pos = torch.arange(s, device=q.device)
+    out = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    for i in range(0, s, max(1, min(Q_CHUNK, s))):
+        rows = slice(i, i + Q_CHUNK)
+        logits = torch.einsum("bqd,bkd->bqk", q[:, rows].float(), k32) * scale
+        mask = visible(pos[rows], pos, causal=causal, prefix=prefix,
+                       window=window)
+        out[:, rows] = torch.logsumexp(
+            torch.where(mask[None], logits, -1e30), dim=-1)
+    return out
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, sm_scale: float | None = None,
+                      window: int = 0, causal: bool = True, prefix: int = 0
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention at q (BH, S, d) and k, v (BH / group, S,
+    d), from its output ``o``, its row log-sum-exp ``lse`` (BH, S) and the
+    output's gradient ``do``: the flash backward's recompute, in float32,
+    queries in chunks of `Q_CHUNK`. With s = scale·q·k, p = exp(s − lse)
+    on the keys `visible` lets a row see (0 elsewhere), Δ = rowsum(dO·O)
+    and dS = p·(dO·vᵀ − Δ): dV = pᵀdO, dK = scale·dSᵀq, dQ = scale·dS·k;
+    dk and dv are summed over the ``group`` query rows of each kv row.
+    Results in q's dtype."""
+    bh, s, d = q.shape
+    group = bh // k.shape[0]
+    scale = (d ** -0.5) if sm_scale is None else sm_scale
+    k32, v32 = _expand(k, group).float(), _expand(v, group).float()
+    pos = torch.arange(s, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k32.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v32.shape, dtype=torch.float32, device=q.device)
+    for i in range(0, s, max(1, min(Q_CHUNK, s))):
+        rows = slice(i, i + Q_CHUNK)
+        qc, doc = q[:, rows].float(), do[:, rows].float()
+        logits = torch.einsum("bqd,bkd->bqk", qc, k32) * scale
+        mask = visible(pos[rows], pos, causal=causal, prefix=prefix,
+                       window=window)
+        p = torch.where(mask[None], torch.exp(logits - lse[:, rows, None]),
+                        0.0)
+        delta = (doc * o[:, rows].float()).sum(-1, keepdim=True)
+        ds = p * (torch.einsum("bqd,bkd->bqk", doc, v32) - delta)
+        dv += torch.einsum("bqk,bqd->bkd", p, doc)
+        dk += torch.einsum("bqk,bqd->bkd", ds, qc) * scale
+        dq[:, rows] = torch.einsum("bqk,bkd->bqd", ds, k32) * scale
+        del logits, p, ds
+    if group > 1:
+        dk = dk.reshape(-1, group, s, d).sum(1)
+        dv = dv.reshape(-1, group, s, d).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

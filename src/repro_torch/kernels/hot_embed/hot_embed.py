@@ -17,6 +17,13 @@ way.
 
 On a CPU tensor the wrapper runs the plain version (`ref.hot_gather_ref`);
 on a CUDA tensor it launches the kernel or raises.
+
+`hot_gather_grad` is the same gather as an ``autograd.Function``: its
+backward adds the output gradient's rows of hot ids into the slab's
+gradient (``index_add_``, in float32). The reference's gradient of this
+lookup is XLA's scatter-add, the transpose of its ``take``, outside any
+Pallas kernel (its Pallas kernel has no VJP), so the backward is a library
+call here too, not a hand-written kernel.
 """
 from __future__ import annotations
 
@@ -90,3 +97,27 @@ def hot_gather(ids: torch.Tensor, hot_slab: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"hot_gather launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+class _HotGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ids, hot_slab):
+        ctx.save_for_backward(ids)
+        ctx.slab_shape = hot_slab.shape
+        return hot_gather(ids, hot_slab)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (ids,) = ctx.saved_tensors
+        grad = None
+        if ctx.needs_input_grad[1]:
+            grad = grad_out.new_zeros(ctx.slab_shape)
+            hot = ids < ctx.slab_shape[0]
+            grad.index_add_(0, ids[hot].long(), grad_out[hot])
+        return None, grad
+
+
+def hot_gather_grad(ids: torch.Tensor, hot_slab: torch.Tensor) -> torch.Tensor:
+    """`hot_gather` that passes the slab's gradient: the rows of the output
+    gradient whose ids are hot, added into the slab's rows."""
+    return _HotGather.apply(ids, hot_slab)

@@ -6,13 +6,14 @@ laid over the zeros the kernel leaves for cold ids, as the reference's
 wrapper does in XLA (``src/repro/kernels/hot_embed/ops.py:27-32``). The
 reference pads the ids to 512-id blocks for its TPU grid
 (``ops.py:20-21``); the CUDA kernel takes any count, so the port drops the
-padding.
+padding. Both parts pass the table's gradient: the hot rows through
+`hot_embed.hot_gather_grad`, the cold overlay through torch's own gather.
 """
 from __future__ import annotations
 
 import torch
 
-from .hot_embed import hot_gather
+from .hot_embed import hot_gather_grad
 
 
 def hot_cold_lookup(ids: torch.Tensor, table: torch.Tensor,
@@ -20,7 +21,7 @@ def hot_cold_lookup(ids: torch.Tensor, table: torch.Tensor,
     """``table[ids]`` for ids of any shape, with rows below ``hot_size``
     served by the kernel on the card (its plain version on the CPU)."""
     flat = ids.reshape(-1).to(torch.int32).contiguous()
-    hot_rows = hot_gather(flat, table[:hot_size])
+    hot_rows = hot_gather_grad(flat, table[:hot_size])
     is_cold = flat >= hot_size
     # an all-hot table (hot_size == vocab) clips the placeholder index, as
     # the reference's take(mode="clip") does

@@ -7,7 +7,10 @@ version on the CPU.
   total zero, bf16 operands giving a bf16 result. The reference's model
   computes it in XLA and never reaches its TPU kernel; the port computes
   it with the kernel. The group offsets are a cumulative sum on the
-  device, so nothing is read back to the host.
+  device, so nothing is read back to the host. The kernel has no
+  backward yet: on the card a call that autograd would differentiate
+  raises (ROADMAP A8.5b); on the CPU autograd runs through the plain
+  version.
 * `grouped_matmul` keeps the reference wrapper's padded contract
   (``src/repro/kernels/moe_gmm/ops.py:12``): rows padded to ``TILE_M``
   per group, one expert id per row tile, a float32 result.
@@ -31,6 +34,13 @@ def ragged_dot(x: torch.Tensor, w: torch.Tensor,
     """x (M, K) rows sorted by group, w (E, K, N), group_sizes (E,) ->
     (M, N) in x's dtype: group e's rows times ``w[e]``, summed in float32
     and rounded once; rows past ``sum(group_sizes)`` are zero."""
+    if (x.device.type == "cuda" and torch.is_grad_enabled()
+            and (x.requires_grad or w.requires_grad)):
+        # the kernel's output carries no autograd graph: training through
+        # it would leave the experts' gradients silently at zero
+        raise NotImplementedError(
+            "the grouped matmul has no backward on the card yet: ROADMAP "
+            "A8.5b")
     offs = _offsets(group_sizes.to(torch.int32))
     return gmm(x.contiguous(), w.contiguous(), offs, out_dtype=x.dtype)
 

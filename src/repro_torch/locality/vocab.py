@@ -7,17 +7,23 @@ and co-occurrence is community-structured (topics). We build a directed
 co-occurrence graph from a corpus sample — vertex = token id, edge u→v for
 each adjacent pair (u, v) within a window — and run the LOrder algorithm
 on it. The resulting permutation maps hot tokens to a contiguous low-id
-slab, whose rows the ``hot_embed`` kernel serves.
+slab, whose rows the ``hot_embed`` kernel serves:
 
-The reference's ``apply_to_params`` (a JAX take over the embedding rows)
-and its frequency-sort fallback are not copied: the port's weights are
-drawn at random, so permuting their rows would change nothing measured.
+* the embedding table's rows (and an untied head's columns) are permuted
+  once at init (`VocabReorder.apply_to_params`, in place on a
+  `models.transformer.Transformer`);
+* the data pipeline maps token ids through the permutation on the host.
+
+`vocab_permutation` is exact LOrder; `degree_permutation` is the
+DBG-style lightweight fallback (frequency binning) for when no corpus
+sample is at hand.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..core.csr import Graph, from_edges, validate_permutation
 from ..core.lorder import lorder
@@ -30,6 +36,19 @@ class VocabReorder:
     inverse: np.ndarray
     hot_size: int
     scheme: str
+
+    def apply_to_params(self, model):
+        """Permute a `Transformer`'s table rows (and an untied head's
+        columns) in place, as the reference's ``take`` over ``inverse``
+        does; returns the model."""
+        inv = torch.from_numpy(self.inverse).to(model.device)
+        with torch.no_grad():
+            table = model.embed["table"]
+            table.copy_(table.index_select(0, inv))
+            if "head" in model.embed:
+                head = model.embed["head"]
+                head.copy_(head.index_select(1, inv))
+        return model
 
     def map_tokens(self, tokens: np.ndarray) -> np.ndarray:
         return self.perm[tokens]
@@ -78,3 +97,16 @@ def hot_coverage(corpus: np.ndarray, reorder: VocabReorder) -> float:
     the metric the hot_embed kernel's win is proportional to."""
     mapped = reorder.map_tokens(np.asarray(corpus).reshape(-1))
     return float((mapped < reorder.hot_size).mean())
+
+
+def degree_permutation(token_counts: np.ndarray,
+                       hot_fraction: float = 0.05) -> VocabReorder:
+    """Frequency-sort fallback (DBG-flavoured; no graph needed)."""
+    n = len(token_counts)
+    order = np.argsort(-np.asarray(token_counts, dtype=np.int64),
+                       kind="stable")
+    perm = np.empty(n, dtype=np.int64)
+    perm[order] = np.arange(n)
+    inv = order.astype(np.int64)
+    hot = max(1, int(n * hot_fraction))
+    return VocabReorder(perm, inv, hot, scheme="frequency")

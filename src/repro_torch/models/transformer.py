@@ -17,16 +17,25 @@ A `Transformer` holds the master params in float32 as
 over the blocks takes the place of the reference's ``lax.scan`` over
 stacked layer params.
 
-Modes: prefill (`forward`: logits and the MoE auxiliary loss) and decode
+Modes: prefill (`forward`: logits and the MoE auxiliary loss), decode
 (`decode_step`: one token against the cache: K/V for attention, the
-token-shift and wkv states for RWKV, the conv and SSD states for Mamba2).
-Not ported yet: training (``loss_fn``, ``chunked_xent``: A8.5).
+token-shift and wkv states for RWKV, the conv and SSD states for Mamba2)
+and training (`loss_fn`: next-token or frame-label cross-entropy through
+`chunked_xent`, plus the MoE auxiliary loss). The parameters are frozen
+(``requires_grad=False``) for serving; a train step
+(``train/steps.py``) turns their gradients on for its own duration. While
+autograd records and ``cfg.remat`` is set, each block runs under
+``torch.utils.checkpoint`` (non-reentrant): only the block outputs are
+kept and each block is replayed in the backward. Both of the reference's
+``remat_policy`` values keep just that: its ``save_attn`` names the block
+output, which is its scan carry, and ``full`` keeps the carry too.
 
 Weights come from one of two places:
 
 * `from_jax_params` takes the JAX package's param pytree (numpy leaves)
   and unstacks its ``(L, ...)`` layer leaves, so both packages can run
-  the same weights (the tests do).
+  the same weights (the tests do); `to_jax_params` is its inverse, the
+  layout of the checkpoints (``ckpt/manager.py``).
 * `init_params` draws them on a ``torch.Generator``, from the same
   distributions as the reference's ``init_params`` (normal times the same
   scales, ones and zeros for norms). The values differ from JAX's for
@@ -38,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .config import ModelConfig
@@ -172,6 +182,67 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed["table"].device
 
+    def records_grad(self) -> bool:
+        """Whether autograd records this model's ops: grad mode is on and a
+        parameter requires its gradient (a train step's, not serving)."""
+        return torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters())
+
+
+def _pd_tree(pd) -> dict:
+    """A (nested) ``ParameterDict`` as a dict of its parameters."""
+    return {k: _pd_tree(v) if isinstance(v, nn.ParameterDict) else v
+            for k, v in pd.items()}
+
+
+def _block_tree(block: nn.Module) -> dict:
+    return {name: _pd_tree(child) for name, child in block.named_children()}
+
+
+def param_tree(model: Transformer) -> dict:
+    """The model's parameters (the tensors themselves) in the reference's
+    tree, with ``"layers"`` a list of one dict a layer: the port's layout,
+    which the optimizer (``train/optim.py``) walks."""
+    tree = {"embed": _pd_tree(model.embed),
+            "layers": [_block_tree(b) for b in model.layers],
+            "final_norm": _pd_tree(model.final_norm)}
+    if model.shared_attn is not None:
+        tree["shared_attn"] = _block_tree(model.shared_attn)
+    return tree
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` that later in-place updates cannot reach."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _stack(items: list):
+    if isinstance(items[0], dict):
+        return {k: _stack([it[k] for it in items]) for k in items[0]}
+    return np.stack([_host(t) for t in items])
+
+
+def stack_layers(tree: dict) -> dict:
+    """A tree in the port's layout (`param_tree`, or optimizer moments
+    shaped like it) as numpy in the reference's: ``"layers"`` stacked to
+    ``(L, ...)``, every leaf a host copy."""
+    out = {k: _tree_map(_host, v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = _stack(tree["layers"])
+    return out
+
+
+def unstack_layers(tree: dict, num_layers: int,
+                   device: str | torch.device) -> dict:
+    """`stack_layers` reversed: float32 tensors on ``device``, the
+    ``(L, ...)`` layer leaves split into a list of one dict a layer."""
+    def put(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    out = {k: _tree_map(put, v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [_tree_map(lambda a, i=i: put(np.asarray(a)[i]),
+                               tree["layers"]) for i in range(num_layers)]
+    return out
+
 
 # =========================================================== initialization
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
@@ -217,18 +288,14 @@ def from_jax_params(cfg: ModelConfig, tree: dict,
     ones (the MoE's ``shared``, RWKV's and Mamba2's) too, are unstacked
     into one block each, a hybrid's ``shared_attn`` (not stacked) is
     taken as it is, and every leaf is copied."""
-    dev = resolve_device(device)
+    return Transformer(cfg, unstack_layers(tree, cfg.num_layers,
+                                           resolve_device(device)))
 
-    def put(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
-    layers = [_tree_map(lambda a, i=i: put(np.asarray(a)[i]), tree["layers"])
-              for i in range(cfg.num_layers)]
-    params = {"embed": _tree_map(put, tree["embed"]), "layers": layers,
-              "final_norm": _tree_map(put, tree["final_norm"])}
-    if "shared_attn" in tree:
-        params["shared_attn"] = _tree_map(put, tree["shared_attn"])
-    return Transformer(cfg, params)
+def to_jax_params(model: Transformer) -> dict:
+    """`from_jax_params` reversed: the reference's param pytree as numpy
+    host copies, the layer leaves stacked to ``(L, ...)``."""
+    return stack_layers(param_tree(model))
 
 
 # ================================================================= caches
@@ -306,22 +373,28 @@ def _run_trunk(model: Transformer, x, positions, cache=None):
     decode = cache is not None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     lengths, shared_lengths = [], []
+    if cfg.remat and not decode and model.records_grad():
+        def run(block, *args):   # keep the block's output only; replay it
+            return checkpoint(block, *args, use_reentrant=False)
+    else:
+        def run(block, *args):
+            return block(*args)
     for i, block in enumerate(model.layers):
         lc = _layer_cache(cache["layers"], i) if decode else None
         if cfg.block_pattern[i] == "shared_attn":
             sc = (_layer_cache(cache["shared"], len(shared_lengths))
                   if decode else None)
-            x, new_sc, _ = model.shared_attn(x, positions, sc)
+            x, new_sc, _ = run(model.shared_attn, x, positions, sc)
             if decode:
                 shared_lengths.append(new_sc["length"])
         if isinstance(block, AttnBlock):
-            x, new_c, a = block(x, positions, lc)
+            x, new_c, a = run(block, x, positions, lc)
             if decode:
                 lengths.append(new_c["length"])
             elif a is not None:
                 aux = aux + a
         else:
-            x, new_c = block(x, lc)
+            x, new_c = run(block, x, lc)
             if decode:
                 _write(lc, new_c)
     return x, aux, lengths, shared_lengths
@@ -376,3 +449,78 @@ def decode_step(model: Transformer, cache: dict, tokens, mesh=None):
                                    length=torch.stack(shared_lengths))
     x = apply_norm(model.final_norm, x, cfg)
     return lm_logits(model.embed, x, cfg), new_cache
+
+
+# ---------------------------------------------------------------- loss
+def chunked_xent(model: Transformer, x_final, targets, mask):
+    """Memory-bounded softmax cross-entropy (the reference's): the sequence
+    in chunks of ``cfg.loss_chunk`` (halved until it divides S), each
+    chunk's float32 logits computed under a checkpoint, so the full
+    (B, S, V) logits never live at once. Returns the mean loss over the
+    mask plus the z-loss, ``1e-4·Σ lse²`` over the same mean."""
+    cfg = model.cfg
+    s = x_final.shape[1]
+    c = min(cfg.loss_chunk, s)
+    while s % c:
+        c //= 2
+
+    def body(xi, ti, mi):
+        logits = lm_logits(model.embed, xi, cfg).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ti[..., None].long())[..., 0]
+        return ((lse - gold) * mi).sum(), (torch.square(lse) * mi).sum()
+
+    if model.records_grad():
+        def run(*args):
+            return checkpoint(body, *args, use_reentrant=False)
+    else:
+        run = body
+    loss = zloss = torch.zeros((), dtype=torch.float32,
+                               device=x_final.device)
+    for i in range(0, s, c):
+        part, z = run(x_final[:, i:i + c], targets[:, i:i + c],
+                      mask[:, i:i + c])
+        loss, zloss = loss + part, zloss + z
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return loss / denom + 1e-4 * zloss / denom
+
+
+def loss_fn(model: Transformer, batch: dict, mesh=None):
+    """Next-token (or, for an encoder, frame-label) cross-entropy plus
+    ``router_aux_coef`` times the MoE auxiliary loss. Returns (loss,
+    {"ce", "aux"}), 0-d float32 tensors.
+
+    A token model's targets are its tokens rolled one to the left with the
+    last position masked (rolled rather than sliced, so S keeps its chunk
+    size); a prefix-LM's prefix positions carry target 0 at weight 0. An
+    embedding-fed model takes ``batch["targets"]``, shifted the same way
+    unless it is an encoder (frame labels)."""
+    if mesh is not None:
+        raise NotImplementedError("sharded loss: ROADMAP A8.8")
+    cfg = model.cfg
+    dev = model.device
+    flash_eligible(cfg, dev)
+    x = embed_inputs(model, batch)
+    if cfg.input_mode == "embeddings":
+        targets = batch["targets"]
+        mask = torch.ones(targets.shape, dtype=torch.float32, device=dev)
+        shift = not cfg.is_encoder
+    else:
+        targets = batch["tokens"]
+        mask = torch.ones(targets.shape, dtype=torch.float32, device=dev)
+        if cfg.prefix_tokens > 0:
+            pad = torch.zeros((x.shape[0], cfg.prefix_tokens),
+                              dtype=targets.dtype, device=dev)
+            targets = torch.cat([pad, targets], dim=1)
+            mask = torch.cat([pad.float(), mask], dim=1)
+        shift = True
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=dev)
+    x, aux, _, _ = _run_trunk(model, x, positions)
+    x = apply_norm(model.final_norm, x, cfg)
+    if shift:
+        targets = torch.roll(targets, -1, dims=1)
+        mask = torch.roll(mask, -1, dims=1)
+        mask[:, -1] = 0.0
+    ce = chunked_xent(model, x, targets, mask)
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux}

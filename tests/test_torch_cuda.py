@@ -48,7 +48,8 @@ from repro_torch.kernels.csr_spmv import csr_spmv as spmv_mod  # noqa: E402
 from repro_torch.kernels.csr_spmv.ref import (csr_spmv_blocked_ref,  # noqa: E402
                                              csr_spmv_ref)
 from repro_torch.kernels.flash_attn import flash_attn as fa  # noqa: E402
-from repro_torch.kernels.flash_attn.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import (attention_bwd_ref,  # noqa: E402
+                                               attention_ref)
 from repro_torch.kernels.hot_embed import hot_embed as he  # noqa: E402
 from repro_torch.kernels.hot_embed.ops import hot_cold_lookup  # noqa: E402
 from repro_torch.kernels.hot_embed.ref import hot_gather_ref  # noqa: E402
@@ -1116,3 +1117,213 @@ def test_moe_model_on_the_card_matches_the_cpu():
     assert sorted(r.rid for r in done) == [0, 1, 2, 3]
     assert all(len(r.out) == r.max_new for r in done)
     assert gmm_mod.launches > gl
+
+
+# ------------------------------------------------- flash backward (training)
+def _plain_attention(q, k, v, mask):
+    """Plain attention in the inputs' dtype throughout (logits, softmax
+    and both products), k and v repeated per query row: in bf16 the plain
+    bf16 path of FlashAttention's own standard, in float64 its oracle."""
+    from repro_torch.kernels.flash_attn.ref import visible
+    bh, s, d = q.shape
+    group = bh // k.shape[0]
+    k, v = k.repeat_interleave(group, 0), v.repeat_interleave(group, 0)
+    pos = torch.arange(s, device=q.device)
+    logits = torch.einsum("bqd,bkd->bqk", q, k) * d ** -0.5
+    seen = visible(pos, pos, **mask)
+    p = torch.softmax(torch.where(seen[None], logits, -1e30), dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v)
+
+
+def flash_backward_holds(q, k, v, do, mask, name=""):
+    """FlashAttention's standard: dq, dk and dv of the kernels, each at
+    most 2x (plus 1e-3) the max error of the plain bf16 path against a
+    float64 autograd oracle; a second backward repeats the bits; returns
+    the kernels' (dq, dk, dv)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention_grad(*leaves, **mask)
+    out.backward(do)
+    got = [t.grad for t in leaves]
+    again = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention_grad(*again, **mask).backward(do)
+    for a, b in zip(got, (t.grad for t in again)):
+        assert torch.equal(a, b), f"{name}: a second backward differs"
+    oracle = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    _plain_attention(*oracle, mask).backward(do.double())
+    plain = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    _plain_attention(*plain, mask).backward(do)
+    for label, g, o, p in zip("qkv", got, oracle, plain):
+        err = float((g.double() - o.grad).abs().max())
+        base = float((p.grad.double() - o.grad).abs().max())
+        assert err <= 2 * base + 1e-3, (
+            f"{name} d{label}: {err:.3e} against the plain bf16 path's "
+            f"{base:.3e}")
+    return got
+
+
+@pytest.mark.parametrize("mask", [
+    dict(causal=True), dict(causal=True, window=48),
+    dict(causal=True, prefix=70), dict(causal=False)],
+    ids=["causal", "window", "prefix", "bidirectional"])
+@pytest.mark.parametrize("d", fa.BWD_HEAD_DIMS)
+@pytest.mark.parametrize("bh,kv,s", [(4, 4, 200), (8, 2, 130), (4, 1, 64)])
+def test_flash_backward_holds_the_flashattention_standard(bh, kv, s, d, mask):
+    """The backward kernels (multi-head and grouped, every mask, S not a
+    multiple of a tile) against a float64 oracle, at FlashAttention's
+    standard; two launches a backward, one of each kernel."""
+    dev = _card()
+    rng = np.random.default_rng(bh * s + d)
+    q, do = (torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((kv, s, d)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    before = dict(fa.launches_bwd)
+    flash_backward_holds(q, k, v, do, mask)
+    assert {n: fa.launches_bwd[n] - before[n] for n in before} == {
+        "dq": 2, "dkdv": 2}
+
+
+@pytest.mark.parametrize("d", [64, 128, 16])
+def test_flash_lse_keeps_the_output_bits(d):
+    """The forward with its log-sum-exp gives the bits of the forward
+    without it, and the log-sum-exp of the plain version to 1e-4."""
+    from repro_torch.kernels.flash_attn.ref import attention_lse_ref
+    dev = _card()
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.standard_normal((8, 300, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((2, 300, d)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    for mask in (dict(causal=True), dict(causal=True, prefix=40),
+                 dict(causal=False)):
+        o, lse = fa.flash_attention_lse(q, k, v, **mask)
+        assert torch.equal(o, fa.flash_attention(q, k, v, **mask))
+        torch.testing.assert_close(lse, attention_lse_ref(q, k, **mask),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_flash_backward_matches_its_plain_version():
+    """The kernels against `attention_bwd_ref` on the kernels' own o and
+    lse, at qwen2.5-3b's heads (16 over 2 kv heads, d 128): the same
+    recompute, where only the bf16 rounding of p and dS as operands
+    differs."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    q, do = (torch.from_numpy(rng.standard_normal((16, 512, 128)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 512, 128)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    o, lse = fa.flash_attention_lse(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = attention_bwd_ref(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2 * scale)
+
+
+def test_flash_backward_refuses_before_a_launch():
+    """float32 and head dim 256 have no backward kernel: the call raises
+    before the forward launches (ROADMAP A8.5c)."""
+    dev = _card()
+    fwd, bwd = fa.launches, dict(fa.launches_bwd)
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
+        z = torch.zeros(2, 64, d, device=dev, dtype=dtype,
+                        requires_grad=True)
+        with pytest.raises(NotImplementedError, match="A8.5c"):
+            fa.flash_attention_grad(z, z, z)
+    assert fa.launches == fwd and fa.launches_bwd == bwd
+
+
+def test_hot_gather_passes_the_slab_gradient():
+    """The hot/cold lookup's table gradient on the card equals the CPU's
+    (the hot rows through the kernel's autograd Function, the cold ones
+    through torch's gather), to float32 sums in another order."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    table = rng.standard_normal((1000, 32)).astype(np.float32)
+    ids = rng.integers(0, 1000, (6, 50)).astype(np.int32)
+    grad = rng.standard_normal((6, 50, 32)).astype(np.float32)
+    got = []
+    for d in (dev, torch.device("cpu")):
+        t = torch.from_numpy(table).to(d).requires_grad_(True)
+        launches = he.launches
+        hot_cold_lookup(torch.from_numpy(ids).to(d), t, 128).backward(
+            torch.from_numpy(grad).to(d))
+        assert he.launches - launches == (d.type == "cuda")
+        got.append(t.grad.cpu())
+    assert got[0][:128].abs().sum() > 0
+    torch.testing.assert_close(got[0], got[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b"])
+def test_training_on_the_card_matches_the_cpu(arch):
+    """Smoke qwen2.5-3b (grouped kv) and minicpm-2b (multi-head), 2
+    layers, remat on: one microbatch's loss and gradients on the card
+    (the flash backward kernels, one pair a layer; the hot-slab gradient)
+    against the same weights on the CPU, the loss within 1e-2 and each
+    leaf's relative L2 error within 5e-2 (the card keeps PV in float32,
+    the CPU rounds p to bf16 first); then two `make_train_step` steps on
+    each, losses within 1e-2."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optim import TrainConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    dev = _card()
+    cfg = dataclasses.replace(smoke_config(arch, layers=2), remat=True)
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(host).to(dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32))
+    grads, losses = [], []
+    for model, d in ((host, "cpu"), (card, dev)):
+        for p in model.parameters():
+            p.requires_grad_(True)
+        before = dict(fa.launches_bwd)
+        loss, _ = T.loss_fn(model, {"tokens": tokens[:2].to(d)})
+        loss.backward()
+        if d == dev:
+            assert fa.launches_bwd["dq"] - before["dq"] == cfg.num_layers
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()})
+        for p in model.parameters():
+            p.grad = None
+            p.requires_grad_(False)
+    assert losses[1] == pytest.approx(losses[0], rel=1e-2)
+    for n, want in grads[0].items():
+        assert bool(grads[1][n].any()), n
+        rel = float((grads[1][n] - want).norm() / want.norm().clamp(
+            min=1e-30))
+        assert rel < 5e-2, (n, rel)
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=0, schedule="const",
+                     microbatch=2)
+    step = make_train_step(cfg, tc)
+    out = []
+    for model, d in ((host, "cpu"), (card, dev)):
+        opt = init_opt_state(T.param_tree(model))
+        for _ in range(2):
+            model, opt, m = step(model, opt, {"tokens": tokens.to(d)})
+        out.append(float(m["loss"]))
+    assert out[1] == pytest.approx(out[0], rel=1e-2)
+
+
+def test_grouped_matmul_refuses_training_on_the_card():
+    """The grouped matmul has no backward kernel yet: a call that autograd
+    would differentiate raises before it launches (ROADMAP A8.5b), rather
+    than leaving the experts' gradients at zero."""
+    dev = _card()
+    x = torch.zeros(8, 16, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    w = torch.zeros(2, 16, 8, device=dev, dtype=torch.bfloat16)
+    sizes = torch.tensor([4, 4], device=dev)
+    launches = gmm_mod.launches
+    with pytest.raises(NotImplementedError, match="A8.5b"):
+        ragged_dot(x, w, sizes)
+    assert gmm_mod.launches == launches
+    with torch.no_grad():
+        assert ragged_dot(x, w, sizes).shape == (8, 8)

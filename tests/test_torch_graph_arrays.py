@@ -95,6 +95,8 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch.data.pipeline, repro_torch.locality.vocab\n"
             "import repro_torch.models.rwkv6, repro_torch.models.mamba2\n"
             "import repro_torch.locality\n"
+            "import repro_torch.train.optim, repro_torch.train.steps\n"
+            "import repro_torch.ckpt.manager, repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
