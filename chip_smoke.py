@@ -17,8 +17,10 @@ any CUDA work, joined before it exits), beside phases 1-5.
    ``csr_spmv_carries``), of the Hopper flash kernel
    (``flash_fwd_bf16_wgmma``, with and without the row log-sum-exp) and
    of its ``mma.sync`` kernels (``flash_fwd_bf16_mma``, d 16, 32 and 256),
-   of the flash backward's two kernels (``flash_bwd_dq_bf16``,
-   ``flash_bwd_dkdv_bf16``), of both bf16 grouped-matmul kernels
+   of the flash backward's kernels (``flash_bwd_dq_bf16``,
+   ``flash_bwd_dkdv_bf16`` at d 16 and 32; ``flash_bwd_dq_wgmma``,
+   ``flash_bwd_dkdv_wgmma`` at d 64, 80 and 128), of both bf16
+   grouped-matmul kernels
    (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``).
 3. Kernel check: ``csr_spmv`` against its plain PyTorch version on the
    card (ragged rows, empty rows, a graph with no edges, a bucketed
@@ -203,15 +205,20 @@ the card (seed 7), after the minicpm model is freed:
 
 Then training, after the MoE model is freed:
 
-14. Training. The flash backward kernels (``flash_bwd_dq_bf16``,
-    ``flash_bwd_dkdv_bf16``) at a qwen2.5-3b microbatch's attention (32
-    query rows of 4,096 over 4 kv rows, d 128, causal) and a minicpm-2b
-    one's (72 rows, d 64): FlashAttention's standard, each of dq, dk and
-    dv at most 2x (plus 1e-3) the max error of the plain bf16 path
-    against a float64 autograd oracle, a repeat's bits equal, and the
-    plain version (``attention_bwd_ref``) at rtol 2e-2 of the largest
-    gradient; timed at the first shape beside the plain version, the
-    bound (five products at the bf16 rate) and the backward alone of
+14. Training. The flash backward's Hopper kernels
+    (``flash_bwd_dq_wgmma``, ``flash_bwd_dkdv_wgmma``) at a qwen2.5-3b
+    microbatch's attention (32 query rows of 4,096 over 4 kv rows, d 128,
+    causal) and a minicpm-2b one's (72 rows, d 64): FlashAttention's
+    standard, each of dq, dk and dv at most 2x (plus 1e-3) the max error
+    of the plain bf16 path against a float64 autograd oracle, a repeat's
+    bits equal, and the plain version (``attention_bwd_ref``) at rtol 2e-2
+    of the largest gradient; the same checks of the ``mma.sync`` pair
+    (``flash_bwd_dq_bf16``, ``flash_bwd_dkdv_bf16``) at qwen2.5-3b's
+    microbatch with d 32; each check's two calls launch both kernels of
+    its variant and no other; the Hopper kernels timed at both shapes, each kernel alone and
+    the pair, with each kernel's TFLOP/s of its own products, beside the
+    plain version, the bound (five products at the bf16 rate; also seven,
+    what the two kernels issue) and the backward alone of
     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
     (timed only, on the backend it takes). Then qwen2.5-3b at full width
     and depth (36 layers, 3,085,938,688 parameters, remat on) trained
@@ -222,10 +229,12 @@ Then training, after the MoE model is freed:
     (``data.pipeline.DataLoader``, ``VocabReorder.apply_to_params``),
     microbatches of 2; each step's
     loss, grad norm, seconds, tokens/s and peak memory; 36 x 4 x 2 flash
-    forward launches a step (the replay), 144 of each backward kernel and
-    4 hot-slab launches, counted from zero over the steps; every loss
-    finite, the last 3's mean below the first 3's, and, on one microbatch
-    first, no gradient leaf all zero. Then one microbatch's loss and
+    forward launches a step (the replay), 144 of each backward kernel (all
+    ``wgmma``) and 4 hot-slab launches, counted from zero over the steps;
+    every loss finite, the last 3's mean below the first 3's, and, on one
+    microbatch first, no gradient leaf all zero; then ``torch.profiler``
+    over one more step: the device's busy share and its ten costliest
+    device operations. Then one microbatch's loss and
     gradients on the card against the CPU, the width cut to 2 layers, 1 x
     512 tokens (the loss within 1e-2, each leaf within 5e-2 relative L2);
     then tests/test_system.py's resume test through ``launch/train.main``
@@ -280,6 +289,8 @@ TRAIN_STEPS = 6
 # the backward checks: (BH, KV, S, d) of a qwen2.5-3b microbatch (2 x 16
 # heads over 2 x 2 kv heads, d 128) and of a minicpm-2b one (2 x 36, d 64)
 BWD_SHAPES = ((32, 4, 4096, 128), (72, 72, 4096, 64))
+# the mma.sync pair's check, at qwen2.5-3b's microbatch with d 32
+BWD_MMA_SYNC_SHAPE = (32, 4, 4096, 32)
 # k-NN: SIFT1M's width (d 128) with 16,384 of its 1,000,000 base vectors:
 # the host NSW builder takes about 9 ms an insert
 KNN_VECTORS, KNN_DIM, KNN_K = 16_384, 128, 16
@@ -2094,11 +2105,12 @@ def _grads_of(fn, q, k, v, do, dtype):
     return torch.autograd.grad(fn(*leaves), leaves, do.to(dtype))
 
 
-def flash_bwd_check(name, bh, kv, s, d, dev) -> float:
+def flash_bwd_check(name, variant, bh, kv, s, d, dev) -> float:
     """The backward kernels at FlashAttention's standard: dq, dk and dv
     each at most 2x (plus 1e-3) the max error of the plain bf16 path
     against a float64 autograd oracle, both taken a kv head's query group
-    at a time; a repeat gives the same bits; held to the plain version
+    at a time; a repeat gives the same bits; both calls launch the two
+    kernels of ``variant`` and nothing else; held to the plain version
     (`attention_bwd_ref`, the same recompute in float32) at rtol 2e-2 and
     2e-2 of the largest gradient. Returns the max |err| against the plain
     version."""
@@ -2112,11 +2124,16 @@ def flash_bwd_check(name, bh, kv, s, d, dev) -> float:
             torch.bfloat16)
     q, do, k, v = draw(bh), draw(bh), draw(kv), draw(kv)
     o, lse = fa.flash_attention_lse(q, k, v)
+    by0 = dict(fa.launches_bwd_by_variant)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do)
     again = fa.flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"flash backward[{name}]: two runs differ")
+    launched = {x: fa.launches_bwd_by_variant[x] - by0[x] for x in by0}
+    if launched != {x: 4 if x == variant else 0 for x in by0}:
+        raise AssertionError(f"flash backward[{name}]: launches by variant "
+                             f"{launched}, expected 4 {variant}")
     group = bh // kv
     err = {c: 0.0 for c in "qkv"}
     base = dict(err)
@@ -2145,7 +2162,7 @@ def flash_bwd_check(name, bh, kv, s, d, dev) -> float:
                                    atol=2e-2 * scale)
         plain_err = max(plain_err, float((g.float() - w.float()).abs().max()))
     print(f"flash backward[{name}]: (BH, S, d)=({bh}, {s}, {d}) over {kv} "
-          f"kv rows, causal; max |err| against the float64 oracle "
+          f"kv rows, causal, {variant}; max |err| against the float64 oracle "
           + ", ".join(f"d{c} {err[c]:.3e} (plain bf16 path {base[c]:.3e})"
                       for c in "qkv")
           + f"; against attention_bwd_ref {plain_err:.3e}; bits repeat")
@@ -2153,12 +2170,16 @@ def flash_bwd_check(name, bh, kv, s, d, dev) -> float:
 
 
 def time_flash_bwd(bh, kv, s, d, dev) -> dict:
-    """The backward kernels timed at qwen2.5-3b's training shape (a
-    microbatch of 2 sequences of 4,096: 32 query rows over 4 kv rows, d
-    128, causal): the kernels, their plain version, and the backward alone
-    of ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-    on the backend it takes. The bound: the five products of the math, 2·d
-    FLOPs a visible (row, key) pair each, at the card's bf16 rate."""
+    """The backward kernels timed at one of `BWD_SHAPES` (causal): each
+    kernel alone (`flash_attn.backward_launches`; the dk/dv kernel reads
+    the dq kernel's rows, written once before), the pair as
+    `flash_attention_bwd` runs it, their plain version, and the backward
+    alone of ``F.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)`` on the backend it takes. The bound: the five
+    products of the math, 2·d FLOPs a visible (row, key) pair each, at the
+    card's bf16 rate (and the seven the two kernels issue: dq recomputes S
+    and dP); each kernel's TFLOP/s counts its own products (dq: S, dP, dQ;
+    dk/dv: S, dP, dV, dK)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -2171,8 +2192,14 @@ def time_flash_bwd(bh, kv, s, d, dev) -> dict:
             torch.bfloat16)
     q, do, k, v = draw(bh), draw(bh), draw(kv), draw(kv)
     o, lse = fa.flash_attention_lse(q, k, v)
-    out = {"ms": cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
-                         reps=10, warmup=2),
+    _, launch_dq, launch_dkdv = fa.backward_launches(q, k, v, o, lse, do)
+    launch_dq()
+    out = {"shape": [bh, kv, s, d],
+           "variant": fa.bwd_variant(q.dtype, d),
+           "ms": cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                         reps=20, warmup=2),
+           "dq_ms": cuda_ms(launch_dq, reps=20, warmup=2),
+           "dkdv_ms": cuda_ms(launch_dkdv, reps=20, warmup=2),
            # the training forward's call, for the step's breakdown
            "forward_lse_ms": cuda_ms(lambda: fa.flash_attention_lse(q, k, v),
                                      reps=10, warmup=2),
@@ -2197,22 +2224,54 @@ def time_flash_bwd(bh, kv, s, d, dev) -> dict:
     with sdpa_kernel(backend):
         out["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
             y, leaves, do[None], retain_graph=True), reps=10, warmup=2)
-    pairs = s * (s + 1) // 2
-    flops = 5 * 2 * d * pairs * bh
+    product = 2 * d * (s * (s + 1) // 2) * bh    # FLOPs of one product
     nbytes = (4 * bh + 4 * kv) * s * d * 2 + bh * s * 4
-    ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 5 * product / BF16_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out.update(bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               bound7_ms=7 * product / BF16_FLOPS * 1e3,
+               dq_tflops=3 * product / out["dq_ms"] / 1e9,
+               dkdv_tflops=4 * product / out["dkdv_ms"] / 1e9,
                library=f"F.scaled_dot_product_attention(is_causal=True, "
                        f"enable_gqa=True) backward on {backend.name}")
     print(f"flash backward timing: (BH, S, d)=({bh}, {s}, {d}) over {kv} kv "
-          f"rows, causal: ms={out['ms']:.4f} (two launches: dq, dkdv; "
-          f"{flops / out['ms'] / 1e9:.1f} TFLOP/s of the five products, "
-          f"{1.4 * flops / out['ms'] / 1e9:.1f} of the seven issued) "
-          f"forward with lse {out['forward_lse_ms']:.4f} ms; "
-          f"plain_ms={out['plain_ms']:.4f} library_ms="
-          f"{out['library_ms']:.4f} ({out['library']}, p rounded to bf16) "
-          f"bound_ms={out['bound_ms']:.4f} ({flops:.4e} FLOPs)")
+          f"rows, causal, {out['variant']}: ms={out['ms']:.4f} (dq "
+          f"{out['dq_ms']:.4f} ms, {out['dq_tflops']:.1f} TFLOP/s of its "
+          f"three products; dkdv {out['dkdv_ms']:.4f} ms, "
+          f"{out['dkdv_tflops']:.1f} TFLOP/s of its four; "
+          f"{5 * product / out['ms'] / 1e9:.1f} TFLOP/s of the five, "
+          f"{7 * product / out['ms'] / 1e9:.1f} of the seven issued) forward "
+          f"with lse {out['forward_lse_ms']:.4f} ms; plain_ms="
+          f"{out['plain_ms']:.4f} library_ms={out['library_ms']:.4f} "
+          f"({out['library']}, p rounded to bf16) bound_ms="
+          f"{out['bound_ms']:.4f} at five products ({5 * product:.4e} "
+          f"FLOPs), {out['bound7_ms']:.4f} at seven")
+    return out
+
+
+def ptxas_numbers(name: str, kernel: str) -> dict:
+    """ptxas's registers, spill stores and loads (bytes) and stack frame
+    of each instantiation of ``kernel`` in library ``name``, keyed by its
+    head dim, from the build log."""
+    import re
+    from repro_torch.kernels import _build
+    out: dict = {}
+    dim = None
+    for line in _build.ptxas_report(name, kernel):
+        m = re.search(r"ILi(\d+)E", line)
+        if "Compiling entry function" in line and m:
+            dim = m.group(1)
+            out[dim] = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and dim:
+            out[dim].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and dim:
+            out[dim]["registers"] = int(m.group(1))
     return out
 
 
@@ -2291,6 +2350,7 @@ def train_full_depth(dev) -> dict:
     losses, rows = [], []
     reset_lm_launches()
     bwd0 = dict(fa.launches_bwd)
+    by0 = dict(fa.launches_bwd_by_variant)
     for i, tokens in enumerate(batches):
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
@@ -2309,12 +2369,15 @@ def train_full_depth(dev) -> dict:
               f"{peak:.1f} GiB")
     launches = {**lm_launches(),
                 "flash_bwd_dq": fa.launches_bwd["dq"] - bwd0["dq"],
-                "flash_bwd_dkdv": fa.launches_bwd["dkdv"] - bwd0["dkdv"]}
+                "flash_bwd_dkdv": fa.launches_bwd["dkdv"] - bwd0["dkdv"],
+                **{f"flash_bwd_{k}": fa.launches_bwd_by_variant[k] - by0[k]
+                   for k in by0}}
     micro = TRAIN_STEPS * TRAIN_BATCH // TRAIN_MICROBATCH
     layers = cfg.num_layers
     expected = {**flash_launches(cfg, 2 * micro), "hot_embed": micro,
                 **gmm_launches(cfg, 0, 0), "flash_bwd_dq": layers * micro,
-                "flash_bwd_dkdv": layers * micro}
+                "flash_bwd_dkdv": layers * micro,
+                "flash_bwd_wgmma": 2 * layers * micro, "flash_bwd_mma_sync": 0}
     if launches != expected:
         raise AssertionError(f"training launches {launches}, expected "
                              f"{expected}")
@@ -2327,9 +2390,58 @@ def train_full_depth(dev) -> dict:
           f"losses {[round(x, 4) for x in losses]}, the last 3's mean "
           f"{np.mean(losses[-3:]):.4f} below the first 3's "
           f"{np.mean(losses[:3]):.4f}; launches a step {per_step}")
+    profile = profile_train_step(
+        step, model, opt, {"tokens": batches[-1].to(dev)},
+        float(np.mean([r["seconds"] for r in rows])))
     del model, opt
     torch.cuda.empty_cache()
-    return {"launches": launches, "steps": rows}
+    return {"launches": launches, "steps": rows, "profile": profile}
+
+
+def profile_train_step(step, model, opt, batch, step_s: float) -> dict:
+    """``torch.profiler`` over one more full-depth training step (after
+    the timed ones and their launch counts): the device's busy time (the
+    union of the device operations' spans) against the profiled step's
+    wall and against ``step_s``, the timed steps' mean, and the ten device
+    operations that take the most time, summed by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t_prof = time.perf_counter()
+    # the device's activity alone (the host's ops, some 10^5 of them, take
+    # long to record and parse)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        raise AssertionError("train profile: the profiler recorded no "
+                             "device operation")
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in ops):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    by_name: dict = {}
+    for e in ops:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"train profile: one step, wall {wall:.3f} s under the profiler "
+          f"(timed steps {step_s:.3f} s), device busy {busy_us / 1e6:.3f} s "
+          f"({100 * busy_us / 1e6 / wall:.1f}% of the profiled wall, "
+          f"{100 * busy_us / 1e6 / step_s:.1f}% of a timed step), "
+          f"{len(ops)} device ops; profiling took "
+          f"{time.perf_counter() - t_prof:.1f} s")
+    for name, us in top:
+        print(f"train profile:   {us / 1e3:9.3f} ms  "
+              f"{100 * us / busy_us:5.1f}%  {name[:90]}")
+    return {"wall_s": wall, "busy_s": busy_us / 1e6, "device_ops": len(ops),
+            "top": [{"name": n[:120], "ms": us / 1e3} for n, us in top]}
 
 
 def train_card_vs_cpu(dev) -> None:
@@ -2408,11 +2520,13 @@ def train_phase(dev) -> dict:
     """Phase 14: training. The backward kernels checked and timed, then
     qwen2.5-3b trained at full width and depth, the card's gradients held
     to the CPU's, and a resume through ``launch/train.main``."""
-    err = max(flash_bwd_check("qwen2.5-3b microbatch, GQA", *BWD_SHAPES[0],
-                              dev),
-              flash_bwd_check("minicpm-2b microbatch, MHA", *BWD_SHAPES[1],
-                              dev))
-    timing = time_flash_bwd(*BWD_SHAPES[0], dev)
+    err = max(flash_bwd_check("qwen2.5-3b microbatch, GQA", "wgmma",
+                              *BWD_SHAPES[0], dev),
+              flash_bwd_check("minicpm-2b microbatch, MHA", "wgmma",
+                              *BWD_SHAPES[1], dev),
+              flash_bwd_check("qwen2.5-3b microbatch at d 32, GQA",
+                              "mma_sync", *BWD_MMA_SYNC_SHAPE, dev))
+    timing = [time_flash_bwd(*shape, dev) for shape in BWD_SHAPES]
     run = train_full_depth(dev)
     train_card_vs_cpu(dev)
     train_resume(dev)
@@ -2470,6 +2584,8 @@ def run(torch, corpora: dict) -> int:
                          ("flash_attn", "flash_fwd_bf16_mma"),
                          ("flash_attn", "flash_bwd_dq_bf16"),
                          ("flash_attn", "flash_bwd_dkdv_bf16"),
+                         ("flash_attn", "flash_bwd_dq_wgmma"),
+                         ("flash_attn", "flash_bwd_dkdv_wgmma"),
                          ("moe_gmm", "gmm_bf16_wgmma"),
                          ("moe_gmm", "gmm_bf16_splitk")):
         for line in _build.ptxas_report(name, kernel):
@@ -2552,10 +2668,17 @@ def run(torch, corpora: dict) -> int:
         "launches": launches("flash_bwd_dq") + launches("flash_bwd_dkdv"),
         "launches_by_kernel": {"dq": launches("flash_bwd_dq"),
                                "dkdv": launches("flash_bwd_dkdv")},
+        "launches_by_variant": {"wgmma": launches("flash_bwd_wgmma"),
+                                "mma_sync": launches("flash_bwd_mma_sync")},
         "max_abs_err": train["err"],
-        **{k: train["timing"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "library": train["timing"]["library"],
+        **{k: train["timing"][0][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound7_ms", "dq_ms", "dkdv_ms", "dq_tflops", "dkdv_tflops")},
+        "library": train["timing"][0]["library"],
+        "shape": train["timing"][0]["shape"],
+        ARCH: train["timing"][1],
+        "ptxas": {k: ptxas_numbers("flash_attn", k) for k in (
+            "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")},
     }, {
         "name": "hot_embed",
         "route": "cuda",
@@ -2583,6 +2706,7 @@ def run(torch, corpora: dict) -> int:
     for r in (rwkv, zamba):
         print(f"scan: {json.dumps(r['scan'])}")
     print(f"train: {json.dumps(train['steps'])}")
+    print(f"train profile: {json.dumps(train['profile'])}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
     print(card)
     print(json.dumps({"kernels": kernels}))

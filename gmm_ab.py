@@ -27,20 +27,12 @@ name and power limit.
 """
 from __future__ import annotations
 
-import json
 import pathlib
-import subprocess
 import sys
-import time
+
+import ab_harness
 
 E, D, D_FF, TOPK = 64, 2048, 1408, 6
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def child(root: pathlib.Path) -> dict:
@@ -61,29 +53,7 @@ def child(root: pathlib.Path) -> dict:
                                 .astype(np.int32)).to(dev)
 
     def device_ms(fn, reps):
-        for _ in range(3):
-            fn()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(20_000_000)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / reps
-
-    def host_ms(fn, reps=200):
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        seconds = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        return seconds / reps * 1e3
+        return ab_harness.device_ms(fn, reps, behind_sleep=True)
 
     def chunk_sweep(gm, x, w, offs):
         """Device ms of the split-K kernel at 1-8 K chunks (bf16 out)."""
@@ -121,7 +91,7 @@ def child(root: pathlib.Path) -> dict:
                 return gm.gmm(x, w, offs, out_dtype=bf16)
             key = f"{shape} {name}"
             if shape == "decode":
-                out[key] = {"host_ms": host_ms(call),
+                out[key] = {"host_ms": ab_harness.host_ms(call),
                             "device_ms": device_ms(call, 100)}
                 if hasattr(gm, "splitk_plan"):
                     out[key + " chunks"] = chunk_sweep(gm, x, w, offs)
@@ -132,24 +102,5 @@ def child(root: pathlib.Path) -> dict:
     return out
 
 
-def main(argv: list[str]) -> int:
-    if len(argv) == 3 and argv[1] == "--child":
-        print(json.dumps(child(pathlib.Path(argv[2]).resolve())))
-        return 0
-    roots = argv[1:] or ["."]
-    print(f"card: {card_line()}")
-    for root in roots:
-        proc = subprocess.run([sys.executable, __file__, "--child", root],
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            return proc.returncode
-        for key, value in json.loads(proc.stdout.splitlines()[-1]).items():
-            print(f"gmm_ab [{root}] {key}: " + ", ".join(
-                f"{k} {v:.4f}" for k, v in value.items()))
-    print(card_line())
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main(sys.argv))
+    sys.exit(ab_harness.main(sys.argv, __file__, "gmm_ab", child))

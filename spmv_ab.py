@@ -41,22 +41,16 @@ the arrays alone give how the gathers spread (`gather_stats`).
 """
 from __future__ import annotations
 
-import json
 import pathlib
 import subprocess
 import sys
 import time
 
+import ab_harness
+
 ROOT = pathlib.Path(__file__).resolve().parent
 GRAPH = ROOT / "build" / "spmv_ab_graph.npz"
 SEED = 7
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def make_graph() -> None:
@@ -110,23 +104,10 @@ def child(root: pathlib.Path) -> dict:
                                rtol=1e-5, atol=1e-6)
     if not torch.equal(got, again):
         raise AssertionError("two runs differ")
-    for _ in range(10):
-        call()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        call()
-    host = (time.perf_counter() - t0) / 200 * 1e3
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(100):
-        call()
-    stop.record()
-    torch.cuda.synchronize()
-    return {"device_ms": start.elapsed_time(stop) / 100, "host_ms": host}
+    host = ab_harness.host_ms(call)
+    return {"device_ms": ab_harness.device_ms(call, 100, warmup=0,
+                                              behind_sleep=True),
+            "host_ms": host}
 
 
 FLOOR_CU = r"""
@@ -212,44 +193,22 @@ def floor() -> None:
             if fn(ix.data_ptr(), val.data_ptr(), x.data_ptr(),
                   out.data_ptr(), e, blocks, mode, stream) != 0:
                 raise RuntimeError("gather_floor launch failed")
-        for _ in range(3):
-            call()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(100):
-            call()
-        stop.record()
-        torch.cuda.synchronize()
         print(f"spmv_ab floor [{what}]: device_ms "
-              f"{start.elapsed_time(stop) / 100:.4f} ({e} edges)")
+              f"{ab_harness.device_ms(call, 100):.4f} ({e} edges)")
 
 
 def main(argv: list[str]) -> int:
     if len(argv) == 3 and argv[1] == "--child":
-        print(json.dumps(child(pathlib.Path(argv[2]).resolve())))
-        return 0
-    print(f"card: {card_line()}")
+        return ab_harness.main(argv, __file__, "spmv_ab", child)
+    print(f"card: {ab_harness.card_line()}")
     if not GRAPH.exists():
         make_graph()
     if argv[1:] == ["--floor"]:
         gather_stats()
         floor()
-        print(card_line())
+        print(ab_harness.card_line())
         return 0
-    roots = argv[1:] or ["."]
-    for root in roots:
-        proc = subprocess.run([sys.executable, __file__, "--child", root],
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            return proc.returncode
-        value = json.loads(proc.stdout.splitlines()[-1])
-        print(f"spmv_ab [{root}]: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in value.items()))
-    print(card_line())
-    return 0
+    return ab_harness.compare(__file__, "spmv_ab", argv[1:] or ["."])
 
 
 if __name__ == "__main__":

@@ -810,6 +810,26 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 64, float32) (+)= A (64 x 16, smem) * B (16 x 64, smem), both
+// K-major; `accumulate` 0 overwrites d. The backward's S, dP and their
+// transposes.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t desc_a,
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 #undef ACC8
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -1269,7 +1289,7 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------- backward, bf16 mma.sync
+// ------------------------------- backward, bf16 at d 16 and 32: mma.sync
 //
 // The gradient of the forward above, from its row log-sum-exp (natural
 // log, written by the kLse instantiations). With s = scale * q . k,
@@ -1286,7 +1306,7 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o,
 // the flash kernel, whose outputs carry no autograd graph.
 //
 // Two kernels, so that nothing is summed with atomics and a result repeats
-// bit for bit:
+// bit for bit (d 64, 80 and 128 take the Hopper kernels further below):
 //  * flash_bwd_dq_bf16: one block per (query head, 64-row query tile), four
 //    warps of 16 rows. Its prologue computes delta for its rows (float32,
 //    from the bf16 O and dO) and writes it out for the second kernel; then
@@ -1681,6 +1701,812 @@ int launch_bwd_dkdv(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ----------------------------- backward, bf16 at d 64, 80 and 128: Hopper
+//
+// The same gradient as the mma.sync kernels above, in two kernels built
+// like the forward's Hopper design (flash_fwd_bf16_wgmma). Like those, they
+// replace no TPU kernel: the reference trains by XLA's autodiff of
+// _sdpa_chunked (src/repro/models/layers.py) and its Pallas kernel has no
+// VJP; they exist because the port's forward runs the flash kernel, whose
+// output carries no autograd graph.
+//
+//  * flash_bwd_dq_wgmma: one block per (query head, 128-row query tile),
+//    the last tiles first (they see the most keys). Its consumers first
+//    compute delta = rowsum(dO * O) for their rows from device memory and
+//    write it, with lse * log2 e, into `rows` ((2, BH, S_pad) float32,
+//    S_pad = S rounded up to 128, zero past S) for the second kernel.
+//    Q and dO arrive once; K and V stream through the ring in 64-key
+//    steps. Per step: S = Q K^T and dP = dO V^T (wgmma, both operands
+//    K-major from shared memory), P = exp2(S scale log2 e - lse log2 e),
+//    dS = P (dP - delta), dQ += dS K (dS rounded to bf16 from registers
+//    as the A operand, K as an MN-major B operand: the transpose bit).
+//  * flash_bwd_dkdv_wgmma: one block per (query head, 128-key tile), key
+//    tile 0 first (under a causal mask it has the most rows to walk). K
+//    and V arrive once; Q, dO and their rows of `rows` stream through the
+//    ring in 64-row steps, over the rows that can see the tile
+//    (Mask::first_row, last_row). Per step: S^T = K Q^T and dP^T = V dO^T
+//    (both K-major), P^T and dS^T as above with lse and delta by column,
+//    dV += P^T dO and dK += dS^T Q (P^T and dS^T from registers, dO and
+//    Q MN-major). Under grouped-query attention (group > 1) each block
+//    writes its float32 dK and dV to `partial` (row-major, a (128, w)
+//    matrix each) and counts itself done on the (kv head, key tile)'s
+//    counter (atomicAdd after __threadfence); the block that finds the
+//    count at group - 1 sums the group's partials in head order 0 ..
+//    group - 1, stores dK and dV in bf16 and sets the counter back to 0.
+//    The order of the sum is fixed, so a result repeats bit for bit; no
+//    float is summed with atomics. At group 1 the block sums its own
+//    partial, one head, the same way.
+//
+// Both: one producer warpgroup (setmaxnreg 24; one thread issues the TMA
+// copies, 128-byte swizzled boxes of 64 columns over 3-D maps of (BH, S,
+// d) and (BH / g, S, d), tiles past S and columns past d zero-filled) and
+// two consumer warpgroups of 64 rows (dq) or keys (dkdv) each (setmaxnreg
+// 240), a ring of two stages with `full` and `empty` mbarriers as in the
+// forward (three and four were no faster), no __syncthreads in the loop.
+// Each consumer issues S and dP as two wgmma groups and computes P while
+// dP runs; dkdv then issues dV += P^T dO and computes dS while it runs.
+// The two consumers' products and elementwise work interleave on the SM
+// without named barriers. P and dS are rounded to bf16 as operands
+// (FlashAttention's rounding); every sum is float32. Steps no pair of
+// which the mask lets through skip their products; only steps the mask
+// cuts test each pair (Mask::visible). d 80 runs in 128-column tiles
+// as the forward does: S and dP stop at column 80, the other products run
+// over 128 columns of which the last 48 are zero and not stored.
+//
+// What this does about the mma.sync kernels' limits: every product is a
+// wgmma (the only way to the card's bf16 rate); loads are TMA copies that
+// run while the tensor cores work, signalled by mbarriers; no operand is
+// gathered from shared memory by scalar loads (the transposed operands are
+// MN-major descriptors); and the work item is a (query head, key tile), so
+// under grouped-query attention the group's heads run on as many SMs in
+// parallel (1,024 blocks at qwen2.5-3b's microbatch, not 256 that each
+// walk 8 heads in series), their sum order fixed by the counter.
+//
+// Bound: operations. The five products of the math are 2 * d * pairs FLOPs
+// each: at qwen2.5-3b's training microbatch (BH 32 over 4 kv rows, S 4096,
+// d 128, causal) 3.4368e11 FLOPs, 0.3475 ms at 989 TFLOP/s; dq recomputes
+// S and dP, so seven are issued, 0.4865 ms.
+//
+// Registers (ptxas, sm_90a, from the build log chip_smoke.py prints): both
+// kernels report 168 (the launch's count; the consumers run at 240 after
+// setmaxnreg) with no spills and no wgmma serialised, at d 64, 80 and 128.
+// At d 128 a dkdv consumer holds dK and dV (128 floats), S^T and dP^T (64)
+// and P^T and dS^T as bf16 operands (32): two things keep that under 240.
+// The dK/dV epilogue is one path for every group (a second branch that
+// used the accumulators made ptxas spill them in the loop and serialise
+// every wgmma), and K's and V's shared-memory addresses are made
+// opaque at each step, so that their descriptors are rebuilt there rather
+// than held in registers across the loop.
+constexpr int kBwKeys = 128;                 // dkdv: keys a block
+constexpr int kBwRows = 64;                  // dkdv: query rows a step
+constexpr int kBqRows = 128;                 // dq: query rows a block
+constexpr int kBqKeys = 64;                  // dq: keys a step
+constexpr int kHalfPanel = 64 * 128;         // 64 rows x 64 bf16
+
+template <int D>
+struct HopperBwd {
+  static constexpr int kPanels = Hopper<D>::kPanels;
+  static constexpr int kWidth = Hopper<D>::kWidth;   // columns of a tile
+  static constexpr int kAcc = kWidth / 2;       // floats of a 64-row sum
+  static constexpr int kBig = Hopper<D>::kTileBytes;   // a 128-row tile
+  static constexpr int kSmall = kPanels * kHalfPanel;  // a 64-row tile
+  static constexpr int kStages = 2;
+  static constexpr int kRowBytes = 2 * kBwRows * 4;    // lse and delta
+  // dkdv: K, V, then kStages x Q, kStages x dO, kStages x (lse, delta);
+  // dq: Q, dO, then kStages x K, kStages x V. Then the mbarriers.
+  static constexpr int kDkdvSmem =
+      2 * kBig + kStages * (2 * kSmall + kRowBytes) + 128 + 1024;
+  static constexpr int kDqSmem = 2 * kBig + kStages * 2 * kSmall + 128 + 1024;
+  static_assert(8 * (2 * kStages + 1) <= 128, "barriers overflow their slot");
+  static_assert(kDkdvSmem <= 232448 && kDqSmem <= 232448,
+                "more than a block's shared memory");
+};
+
+// %ctaid.x and %tid.x, read anew: volatile, so that the compiler does not
+// keep an earlier read (or what was computed from it) in a register.
+__device__ __forceinline__ uint32_t ctaid_x() {
+  uint32_t x;
+  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(x));
+  return x;
+}
+
+__device__ __forceinline__ uint32_t tid_x() {
+  uint32_t x;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(x));
+  return x;
+}
+
+// One 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Whether the mask lets every pair of rows r0 .. r1 and keys k0 .. k1
+// through (no pair needs testing), or none (the products add nothing).
+__device__ __forceinline__ bool all_visible(const Mask& m, int r0, int r1,
+                                            int k0, int k1) {
+  if (r1 >= m.s || k1 >= m.s) {
+    return false;
+  }
+  return !m.causal || (r0 >= k1 && (m.window <= 0 || r1 - k0 < m.window));
+}
+
+__device__ __forceinline__ bool none_visible(const Mask& m, int r0, int r1,
+                                             int k0, int k1) {
+  if (r0 >= m.s || k0 >= m.s) {
+    return true;
+  }
+  if (!m.causal) {
+    return false;
+  }
+  const bool above = k0 > r1 && !(r0 < m.prefix && k0 < m.prefix);
+  return above || (m.window > 0 && r0 - k1 >= m.window);
+}
+
+// P (or P^T) of one 64 x 64 step, in place on S's accumulator: p =
+// exp2(s * scale_log2 - lse2) where the mask lets (row, key) through, else
+// 0; with kPack also packed as A operands in `pa` (4 k-steps of 16
+// columns; see the forward's fragment layouts). `at(i, row, key, lse2)`
+// gives element i's row, key and lse2.
+template <bool kPack, typename At>
+__device__ __forceinline__ void p_tile(float (&sc)[32], uint32_t (&pa)[4][4],
+                                       bool edge, const Mask& mask,
+                                       float scale_log2, At at) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    // keeps the compiler from hoisting every k-step's loads of lse (16
+    // registers in dkdv) above the first one's arithmetic
+    asm volatile("" ::: "memory");
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = 8 * kk + e;
+      int row, key;
+      float lse2;
+      at(i, row, key, lse2);
+      const bool seen = !edge || (row < mask.s && mask.visible(key, row));
+      sc[i] = seen ? exp2_approx(fmaf(sc[i], scale_log2, -lse2)) : 0.0f;
+    }
+    if constexpr (kPack) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = bf16x2_bits(__floats2bfloat162_rn(
+            sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]));
+      }
+    }
+  }
+}
+
+// dS (or dS^T) = p * (dp - delta) in place on dP's accumulator, packed as
+// A operands in `pd`; `delta_of(i)` gives element i's delta.
+template <typename Delta>
+__device__ __forceinline__ void ds_tile(const float (&p)[32], float (&dp)[32],
+                                        uint32_t (&pd)[4][4],
+                                        Delta delta_of) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    asm volatile("" ::: "memory");
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = 8 * kk + e;
+      dp[i] = p[i] * (dp[i] - delta_of(i));
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      pd[kk][r] = bf16x2_bits(
+          __floats2bfloat162_rn(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]));
+    }
+  }
+}
+
+// Rows `row` and `row + 8` of a 64 x kWidth accumulator, times `mul`, as
+// bf16 into columns 0 .. D - 1 of a row-major (s, D) matrix at `dst`.
+template <int D, int N>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ dst,
+                                          const float (&acc)[N], int row,
+                                          int s, int t, float mul) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col >= D) {
+      continue;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      if (r < s) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            dst + static_cast<long long>(r) * D + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul,
+                                  acc[4 * j + 2 * h + 1] * mul);
+      }
+    }
+  }
+}
+
+// Rows `row` and `row + 8` of a 64 x W float32 accumulator into a
+// row-major float32 (rows, W) matrix at `dst`, every column.
+template <int W, int N>
+__device__ __forceinline__ void store_acc_f32(float* __restrict__ dst,
+                                              const float (&acc)[N], int row,
+                                              int t) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      __stcg(reinterpret_cast<float2*>(dst + (row + 8 * h) * W + 8 * j +
+                                       2 * t),
+             make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+    }
+  }
+}
+
+// dK and dV of one key tile from the group's float32 partials: `src`
+// holds head 0's (kBwKeys, W) dK then its dV, head h at + h * head floats;
+// each element is summed over the heads in order 0 .. group - 1, and dK
+// is scaled, as bf16 into rows k0 .. of (s, D) dk and dv.
+template <int D, int W>
+__device__ __forceinline__ void sum_heads_store(
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    const float* src, long long head, int group, int k0, int s, float scale,
+    int tid) {
+  constexpr int kQuads = kBwKeys * W / 4;   // float4 of one matrix
+  const float4* in = reinterpret_cast<const float4*>(src);
+  const long long head4 = head / 4;
+#pragma unroll 4
+  for (int i = tid; i < 2 * kQuads; i += kConsumers) {
+    float4 sum = __ldcg(in + i);
+    for (int h = 1; h < group; ++h) {
+      const float4 x = __ldcg(in + h * head4 + i);
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    const bool is_v = i >= kQuads;
+    const int e = 4 * (i - (is_v ? kQuads : 0));
+    const int key = k0 + e / W;
+    const int col = e % W;
+    if (key < s && col < D) {
+      const float mul = is_v ? 1.0f : scale;
+      __nv_bfloat162 lo = __floats2bfloat162_rn(sum.x * mul, sum.y * mul);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(sum.z * mul, sum.w * mul);
+      uint2 packed = make_uint2(bf16x2_bits(lo), bf16x2_bits(hi));
+      *reinterpret_cast<uint2*>((is_v ? dv : dk) +
+                                static_cast<long long>(key) * D + col) =
+          packed;
+    }
+  }
+}
+
+// Sum of eight products of bf16 pairs: x . y over one 16-byte chunk each.
+__device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+  const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+    acc = fmaf(a.x, b.x, acc);
+    acc = fmaf(a.y, b.y, acc);
+  }
+  return acc;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ rows,
+                   __nv_bfloat16* __restrict__ dq, int bh_count, int group,
+                   Mask mask, float scale, int num_q_tiles) {
+  using H = HopperBwd<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdo = sq + H::kBig;
+  const uint32_t sk = sdo + H::kBig;                 // stage i at + i kSmall
+  const uint32_t sv = sk + H::kStages * H::kSmall;
+  const uint32_t bars = sv + H::kStages * H::kSmall;
+  const uint32_t qd_bar = bars + 16 * H::kStages;
+  // full[i] at bars + 8i, empty[i] at bars + 8(kStages + i)
+
+  const int s = mask.s;
+  const int s_pad = num_q_tiles * kBqRows;
+  const int qt = num_q_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
+  const int bh = static_cast<int>(blockIdx.x % bh_count);
+  const int q0 = qt * kBqRows;
+  const int kt0 = mask.first_tile(q0, kBqKeys);
+  const int diag = (q0 + kBqRows < s ? q0 + kBqRows : s) - 1;
+  const int n_steps = mask.last_tile(diag / kBqKeys, kBqKeys) - kt0 + 1;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < H::kStages; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + 8 * (H::kStages + i), kConsumers);
+    }
+    mbar_init(qd_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      const int kvh = bh / group;
+      mbar_expect_tx(qd_bar, 2 * H::kBig);
+#pragma unroll
+      for (int p = 0; p < H::kPanels; ++p) {
+        tma_load(sq + p * kPanelBytes, &tm_q, qd_bar, 64 * p, q0, bh);
+        tma_load(sdo + p * kPanelBytes, &tm_do, qd_bar, 64 * p, q0, bh);
+      }
+      for (int i = 0; i < n_steps; ++i) {
+        const int stage = i % H::kStages;
+        const uint32_t full = bars + 8 * stage;
+        if (i >= H::kStages) {
+          mbar_wait(bars + 8 * (H::kStages + stage), (i / H::kStages - 1) & 1);
+        }
+        mbar_expect_tx(full, 2 * H::kSmall);
+        const int key0 = (kt0 + i) * kBqKeys;
+#pragma unroll
+        for (int p = 0; p < H::kPanels; ++p) {
+          const uint32_t off = stage * H::kSmall + p * kHalfPanel;
+          tma_load(sk + off, &tm_k, full, 64 * p, key0, kvh);
+          tma_load(sv + off, &tm_v, full, 64 * p, key0, kvh);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = threadIdx.x / kWgThreads - 1;   // rows 64cw .. 64cw + 63
+    const int warp = (threadIdx.x % kWgThreads) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int row_lo = q0 + cw * 64;
+    const int row0 = row_lo + warp * 16 + g;       // and row0 + 8
+    const float scale_log2 = scale * kLog2e;
+
+    // delta and lse * log2 e of rows row0 and row0 + 8, whole in each lane
+    // of the quad (lane t sums 16-byte chunks t, t + 4, ...); lane 0
+    // writes both into `rows` for the dkdv kernel, zero past S.
+    float lse2[2], delta[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      float acc = 0.0f;
+      lse2[h] = 0.0f;
+      if (r < s) {
+        const long long at = static_cast<long long>(bh) * s + r;
+        const uint4* a = reinterpret_cast<const uint4*>(dout + at * D);
+        const uint4* b = reinterpret_cast<const uint4*>(o + at * D);
+        for (int c = t; c < D / 8; c += 4) {
+          acc = dot8(__ldg(a + c), __ldg(b + c), acc);
+        }
+        lse2[h] = lse[at] * kLog2e;
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      delta[h] = acc;
+      if (t == 0) {
+        const long long at = static_cast<long long>(bh) * s_pad + r;
+        rows[at] = lse2[h];
+        rows[static_cast<long long>(bh_count) * s_pad + at] = acc;
+      }
+    }
+
+    float dqa[H::kAcc];
+#pragma unroll
+    for (int i = 0; i < H::kAcc; ++i) {
+      dqa[i] = 0.0f;
+    }
+    const uint32_t q_rows = sq + cw * 64 * 128;    // this warpgroup's rows
+    const uint32_t do_rows = sdo + cw * 64 * 128;
+    mbar_wait(qd_bar, 0);
+    for (int i = 0; i < n_steps; ++i) {
+      const int stage = i % H::kStages;
+      const int k0 = (kt0 + i) * kBqKeys;
+      mbar_wait(bars + 8 * stage, (i / H::kStages) & 1);
+      if (!none_visible(mask, row_lo, row_lo + 63, k0, k0 + kBqKeys - 1)) {
+        const uint32_t ks = sk + stage * H::kSmall;
+        const uint32_t vs = sv + stage * H::kSmall;
+        float sc[32], dp[32];
+        uint32_t pd[4][4];
+        hold(sc);
+        hold(dp);
+        hold(dqa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t big = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+          const uint32_t small = (kk / 4) * kHalfPanel + (kk % 4) * 32;
+          wgmma_ss64(sc, kmajor_desc(q_rows + big), kmajor_desc(ks + small),
+                     kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t big = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+          const uint32_t small = (kk / 4) * kHalfPanel + (kk % 4) * 32;
+          wgmma_ss64(dp, kmajor_desc(do_rows + big), kmajor_desc(vs + small),
+                     kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();   // S is in; dP may still run
+        hold(sc);
+        // element 4j + e: row row0 (+ 8 for e >= 2), key k0 + 8j + 2t + e % 2
+        p_tile<false>(sc, pd,   // P stays float32 here: pd is not written
+                      !all_visible(mask, row_lo, row_lo + 63, k0,
+                                   k0 + kBqKeys - 1),
+                      mask, scale_log2,
+                      [&](int x, int& row, int& key, float& l) {
+                        const int h = (x % 4) / 2;
+                        row = row0 + 8 * h;
+                        key = k0 + 8 * (x / 4) + 2 * t + (x % 2);
+                        l = lse2[h];
+                      });
+        wgmma_wait<0>();
+        hold(dp);
+        ds_tile(sc, dp, pd, [&](int x) { return delta[(x % 4) / 2]; });
+        hold(pd);
+        hold(dqa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBqKeys / 16; ++kk) {
+          wgmma_pv(dqa, pd[kk], sw128_desc(ks + kk * 16 * 128, kHalfPanel,
+                                           1024));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(dqa);
+        hold(pd);
+      }
+      mbar_arrive(bars + 8 * (H::kStages + stage));
+    }
+    store_acc<D>(dq + static_cast<long long>(bh) * s * D, dqa, row0, s, t,
+                 scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const float* __restrict__ rows,
+                     float* __restrict__ partial, int* __restrict__ counters,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int bh_count, int group,
+                     Mask mask, float scale, int num_k_tiles) {
+  using H = HopperBwd<D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int last_block;
+  uint8_t* smem =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sk = smem_addr(smem);
+  const uint32_t sv = sk + H::kBig;
+  const uint32_t sq = sv + H::kBig;                  // stage i at + i kSmall
+  const uint32_t sdo = sq + H::kStages * H::kSmall;
+  const uint32_t srow = sdo + H::kStages * H::kSmall;   // + i kRowBytes
+  const uint32_t bars = srow + H::kStages * H::kRowBytes;
+  const uint32_t kv_bar = bars + 16 * H::kStages;
+
+  const int s = mask.s;
+  const int s_pad = ((s + kBqRows - 1) / kBqRows) * kBqRows;
+  const int kt = static_cast<int>(blockIdx.x / bh_count);
+  const int bh = static_cast<int>(blockIdx.x % bh_count);
+  const int kvh = bh / group;
+  const int k0 = kt * kBwKeys;
+  const int step0 = mask.first_row(k0) / kBwRows;
+  const int k_last = (k0 + kBwKeys < s ? k0 + kBwKeys : s) - 1;
+  const int n_steps = mask.last_row(k_last) / kBwRows - step0 + 1;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < H::kStages; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + 8 * (H::kStages + i), kConsumers);
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_bar, 2 * H::kBig);
+#pragma unroll
+      for (int p = 0; p < H::kPanels; ++p) {
+        tma_load(sk + p * kPanelBytes, &tm_k, kv_bar, 64 * p, k0, kvh);
+        tma_load(sv + p * kPanelBytes, &tm_v, kv_bar, 64 * p, k0, kvh);
+      }
+      const float* lse_rows = rows + static_cast<long long>(bh) * s_pad;
+      const float* delta_rows =
+          rows + static_cast<long long>(bh_count + bh) * s_pad;
+      for (int i = 0; i < n_steps; ++i) {
+        const int stage = i % H::kStages;
+        const uint32_t full = bars + 8 * stage;
+        if (i >= H::kStages) {
+          mbar_wait(bars + 8 * (H::kStages + stage), (i / H::kStages - 1) & 1);
+        }
+        mbar_expect_tx(full, 2 * H::kSmall + H::kRowBytes);
+        const int q0 = (step0 + i) * kBwRows;
+#pragma unroll
+        for (int p = 0; p < H::kPanels; ++p) {
+          const uint32_t off = stage * H::kSmall + p * kHalfPanel;
+          tma_load(sq + off, &tm_q, full, 64 * p, q0, bh);
+          tma_load(sdo + off, &tm_do, full, 64 * p, q0, bh);
+        }
+        const uint32_t r = srow + stage * H::kRowBytes;
+        bulk_load(r, lse_rows + q0, kBwRows * 4, full);
+        bulk_load(r + kBwRows * 4, delta_rows + q0, kBwRows * 4, full);
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = threadIdx.x / kWgThreads - 1;   // keys 64cw .. 64cw + 63
+    const int warp = (threadIdx.x % kWgThreads) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int key_lo = k0 + cw * 64;
+    const int key0 = key_lo + warp * 16 + g;       // and key0 + 8
+    const float scale_log2 = scale * kLog2e;
+
+    float dka[H::kAcc], dva[H::kAcc];
+#pragma unroll
+    for (int i = 0; i < H::kAcc; ++i) {
+      dka[i] = 0.0f;
+      dva[i] = 0.0f;
+    }
+    uint32_t k_rows = sk + cw * 64 * 128;    // this warpgroup's keys
+    uint32_t v_rows = sv + cw * 64 * 128;
+    mbar_wait(kv_bar, 0);
+    for (int i = 0; i < n_steps; ++i) {
+      const int stage = i % H::kStages;
+      const int q0 = (step0 + i) * kBwRows;
+      mbar_wait(bars + 8 * stage, (i / H::kStages) & 1);
+      // K's and V's descriptors are the same at every step: rebuilt here
+      // rather than held in registers across the loop (see the note)
+      asm volatile("" : "+r"(k_rows), "+r"(v_rows));
+      if (!none_visible(mask, q0, q0 + kBwRows - 1, key_lo, key_lo + 63)) {
+        const uint32_t qs = sq + stage * H::kSmall;
+        const uint32_t dos = sdo + stage * H::kSmall;
+        const float* lse_s = reinterpret_cast<const float*>(
+            smem + (srow - sk) + stage * H::kRowBytes);
+        const float* delta_s = lse_s + kBwRows;
+        float st[32], dpt[32];
+        uint32_t pa[4][4], pd[4][4];
+        hold(st);
+        hold(dpt);
+        hold(dka);
+        hold(dva);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t big = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+          const uint32_t small = (kk / 4) * kHalfPanel + (kk % 4) * 32;
+          wgmma_ss64(st, kmajor_desc(k_rows + big), kmajor_desc(qs + small),
+                     kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t big = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+          const uint32_t small = (kk / 4) * kHalfPanel + (kk % 4) * 32;
+          wgmma_ss64(dpt, kmajor_desc(v_rows + big),
+                     kmajor_desc(dos + small), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();   // S^T is in; dP^T may still run
+        hold(st);
+        // element 4j + e: key key0 (+ 8 for e >= 2), row q0 + 8j + 2t + e % 2
+        p_tile<true>(st, pa,
+                     !all_visible(mask, q0, q0 + kBwRows - 1, key_lo,
+                                  key_lo + 63),
+                     mask, scale_log2,
+                     [&](int x, int& row, int& key, float& l) {
+                       const int c = 8 * (x / 4) + 2 * t + (x % 2);
+                       row = q0 + c;
+                       key = key0 + 8 * ((x % 4) / 2);
+                       l = lse_s[c];
+                     });
+        hold(pa);
+        hold(dva);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBwRows / 16; ++kk) {   // dV += P^T dO
+          wgmma_pv(dva, pa[kk], sw128_desc(dos + kk * 16 * 128, kHalfPanel,
+                                           1024));
+        }
+        wgmma_commit();
+        wgmma_wait<1>();   // dP^T is in; dV may still run
+        hold(dpt);
+        ds_tile(st, dpt, pd, [&](int x) {
+          return delta_s[8 * (x / 4) + 2 * t + (x % 2)];
+        });
+        hold(pd);
+        hold(dka);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBwRows / 16; ++kk) {   // dK += dS^T Q
+          wgmma_pv(dka, pd[kk], sw128_desc(qs + kk * 16 * 128, kHalfPanel,
+                                           1024));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(dka);
+        hold(dva);
+        hold(pa);
+        hold(pd);
+      }
+      mbar_arrive(bars + 8 * (H::kStages + stage));
+    }
+
+    // The block's indices again, from the special registers, so that none
+    // is held across the loop
+    const int item = static_cast<int>(ctaid_x());
+    const int kt_e = item / bh_count;
+    const int bh_e = item % bh_count;
+    const int kvh_e = bh_e / group;
+    const int k0_e = kt_e * kBwKeys;
+    const int ctid = static_cast<int>(tid_x()) - kWgThreads;
+    const int t_e = ctid % 4;
+    const int row_e = ctid / 4 % 8 + 16 * (ctid / 32);   // key0 - k0
+    // This head's float32 dK and dV, row-major (kBwKeys, kWidth) each,
+    // into `partial`; the last of the group's blocks to finish (at group 1
+    // the block itself) sums them in head order from memory and stores dK
+    // and dV. One path for every group (see the note above).
+    constexpr int kPart = kBwKeys * H::kWidth;
+    float* mine = partial + (static_cast<long long>(bh_e) * num_k_tiles +
+                             kt_e) * 2 * kPart;
+    store_acc_f32<H::kWidth>(mine, dka, row_e, t_e);
+    store_acc_f32<H::kWidth>(mine + kPart, dva, row_e, t_e);
+    __threadfence();
+    named_sync(1, kConsumers);
+    if (ctid == 0) {
+      last_block = 1;
+      if (group > 1) {
+        int* count =
+            counters + static_cast<long long>(kvh_e) * num_k_tiles + kt_e;
+        last_block = atomicAdd(count, 1) == group - 1;
+        if (last_block) {
+          *count = 0;   // ready for the next call
+        }
+      }
+    }
+    named_sync(1, kConsumers);
+    if (last_block) {
+      __threadfence();
+      const long long kv_base = static_cast<long long>(kvh_e) * s * D;
+      sum_heads_store<D, H::kWidth>(
+          dk + kv_base, dv + kv_base,
+          partial + (static_cast<long long>(kvh_e) * group * num_k_tiles +
+                     kt_e) * 2 * kPart,
+          static_cast<long long>(num_k_tiles) * 2 * kPart, group, k0_e, s,
+          scale, ctid);
+    }
+  }
+}
+
+// A 3-D tensor map over a (n, s, D) bf16 tensor in boxes of 64 columns x
+// `box_rows` rows x 1, 128-byte swizzled; columns and rows past the
+// tensor's are zero-filled. 0, or the CUresult of a refusal.
+int encode_rows(EncodeTiled encode, CUtensorMap* map, const void* ptr, int n,
+                int s, int D, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(D) * 2,
+      static_cast<cuuint64_t>(s) * static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return static_cast<int>(encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// The four maps of a backward kernel: q and dO of (bh, s, D) in boxes of
+// `q_rows` rows, k and v of (bh / group, s, D) in boxes of `k_rows`.
+// 0, or minus the CUresult of a refusal.
+int encode_bwd_maps(CUtensorMap (&maps)[4], const void* q, const void* dout,
+                    const void* k, const void* v, int bh, int group, int s,
+                    int D, int q_rows, int k_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) {
+    return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  }
+  const void* ptrs[4] = {q, dout, k, v};
+  for (int i = 0; i < 4; ++i) {
+    const int r = encode_rows(encode, &maps[i], ptrs[i],
+                              i < 2 ? bh : bh / group, s, D,
+                              i < 2 ? q_rows : k_rows);
+    if (r != 0) {
+      return -r;
+    }
+  }
+  return 0;
+}
+
+template <int D>
+int launch_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* lse,
+                        void* rows, void* dq, int bh, int group, Mask mask,
+                        float scale, cudaStream_t st) {
+  using H = HopperBwd<D>;
+  CUtensorMap maps[4];
+  const int rc = encode_bwd_maps(maps, q, dout, k, v, bh, group, mask.s, D,
+                                 kBqRows, kBqKeys);
+  if (rc != 0) {
+    return rc;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      H::kDqSmem);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int tiles = (mask.s + kBqRows - 1) / kBqRows;
+  flash_bwd_dq_wgmma<D><<<tiles * bh, kHopperThreads, H::kDqSmem, st>>>(
+      maps[0], maps[1], maps[2], maps[3],
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(rows),
+      static_cast<__nv_bfloat16*>(dq), bh, group, mask, scale, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_dkdv_wgmma(const void* q, const void* k, const void* v,
+                          const void* dout, const void* rows, void* partial,
+                          void* counters, void* dk, void* dv, int bh,
+                          int group, Mask mask, float scale,
+                          cudaStream_t st) {
+  using H = HopperBwd<D>;
+  if (partial == nullptr || (group > 1 && counters == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap maps[4];
+  const int rc = encode_bwd_maps(maps, q, dout, k, v, bh, group, mask.s, D,
+                                 kBwRows, kBwKeys);
+  if (rc != 0) {
+    return rc;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      H::kDkdvSmem);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int tiles = (mask.s + kBwKeys - 1) / kBwKeys;
+  flash_bwd_dkdv_wgmma<D><<<tiles * bh, kHopperThreads, H::kDkdvSmem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(rows),
+      static_cast<float*>(partial), static_cast<int*>(counters),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), bh,
+      group, mask, scale, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Mask make_mask(int s, int window, int causal, int prefix) {
   return causal ? Mask{s, window, prefix, 1} : Mask{s, 0, 0, 0};
 }
@@ -1742,7 +2568,8 @@ extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
   }
 }
 
-// The backward, bf16 at d in {16, 32, 64, 80, 128}, in two launches on one
+// The mma.sync backward, bf16 at d in {16, 32} (d 64, 80 and 128 take the
+// Hopper kernels below), in two launches on one
 // stream: first flash_bwd_dq (dq, and delta (bh, s) float32 for the second),
 // then flash_bwd_dkdv (dk and dv). q, o, dout and dq: (bh, s, d); k, v, dk
 // and dv: (bh / group, s, d); lse: the forward's (bh, s). The mask and
@@ -1764,9 +2591,6 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             scale, st);
     FLASH_BWD_DQ(16)
     FLASH_BWD_DQ(32)
-    FLASH_BWD_DQ(64)
-    FLASH_BWD_DQ(80)
-    FLASH_BWD_DQ(128)
 #undef FLASH_BWD_DQ
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1790,10 +2614,65 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
                               m, scale, st);
     FLASH_BWD_DKDV(16)
     FLASH_BWD_DKDV(32)
-    FLASH_BWD_DKDV(64)
-    FLASH_BWD_DKDV(80)
-    FLASH_BWD_DKDV(128)
 #undef FLASH_BWD_DKDV
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The Hopper backward, bf16 at d in {64, 80, 128}, in two launches on one
+// stream: first flash_bwd_dq_wgmma (dq, and `rows`: (2, bh, s_pad)
+// float32, lse * log2 e then rowsum(dO * O), s_pad = s rounded up to 128,
+// zero past s), then flash_bwd_dkdv_wgmma (dk and dv). The second needs
+// `partial`, bh * ceil(s / 128) * 128 * 2 * w float32 (w = 64 at d 64,
+// else 128), and, with group > 1, `counters`, (bh / group) * ceil(s / 128)
+// int32 that are 0 on entry and are left at 0 (null at group 1).
+// Other arguments as flash_bwd_dq and flash_bwd_dkdv.
+extern "C" int flash_bwd_dq_wgmma(const void* q, const void* k,
+                                  const void* v, const void* o,
+                                  const void* dout, const void* lse,
+                                  void* rows, void* dq, int bh, int group,
+                                  int s, int d, float scale, int window,
+                                  int causal, int prefix, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (group < 1 || bh % group != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Mask m = make_mask(s, window, causal, prefix);
+  switch (d) {
+#define FLASH_BWD_DQ_WGMMA(D)                                             \
+  case D:                                                                 \
+    return launch_bwd_dq_wgmma<D>(q, k, v, o, dout, lse, rows, dq, bh,    \
+                                  group, m, scale, st);
+    FLASH_BWD_DQ_WGMMA(64)
+    FLASH_BWD_DQ_WGMMA(80)
+    FLASH_BWD_DQ_WGMMA(128)
+#undef FLASH_BWD_DQ_WGMMA
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int flash_bwd_dkdv_wgmma(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* rows, void* partial,
+                                    void* counters, void* dk, void* dv,
+                                    int bh, int group, int s, int d,
+                                    float scale, int window, int causal,
+                                    int prefix, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (group < 1 || bh % group != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Mask m = make_mask(s, window, causal, prefix);
+  switch (d) {
+#define FLASH_BWD_DKDV_WGMMA(D)                                           \
+  case D:                                                                 \
+    return launch_bwd_dkdv_wgmma<D>(q, k, v, dout, rows, partial,         \
+                                    counters, dk, dv, bh, group, m, scale, \
+                                    st);
+    FLASH_BWD_DKDV_WGMMA(64)
+    FLASH_BWD_DKDV_WGMMA(80)
+    FLASH_BWD_DKDV_WGMMA(128)
+#undef FLASH_BWD_DKDV_WGMMA
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -59,17 +59,33 @@ The backward (`flash_attention_bwd`, reached through `flash_attention_grad`,
 an ``autograd.Function``) has no TPU counterpart: the reference trains by
 XLA's autodiff of its plain chunked attention, and its Pallas kernel has no
 VJP. The port's forward runs the kernel, whose output carries no autograd
-graph, so the gradient is two more CUDA kernels in the same source
-(``flash_bwd_dq_bf16``, ``flash_bwd_dkdv_bf16``: ``mma.sync`` in bf16 with
-float32 sums, no atomics, so a result repeats bit for bit). They take the
-forward's row log-sum-exp, which the forward kernels write when asked
-(`flash_attention_lse`), and every mask of the forward, in bfloat16 at the
-head dims of `BWD_HEAD_DIMS`; anything else raises before any launch
-(ROADMAP A8.5c). What bounds them is operations: the five products of the
-math are ``2·d·pairs`` FLOPs each (pairs the (row, key) pairs the mask lets
-through), about 0.35 ms at (BH 32, S 4096, d 128) causal on the card's
-989 TFLOP/s; the two-kernel design recomputes S and dP once more (seven
-products) to need no atomics. The plain version is `ref.attention_bwd_ref`.
+graph, so the gradient is two more CUDA kernels in the same source, a dq
+kernel (which also writes rowsum(dO·O) for the other) and a dk/dv kernel,
+chosen by `bwd_variant`; neither variant falls back to the other:
+
+* ``"wgmma"``, bfloat16 at head dims 64, 80 and 128
+  (``flash_bwd_dq_wgmma``, ``flash_bwd_dkdv_wgmma``): the forward's Hopper
+  design (TMA ring, producer warpgroup, two consumer warpgroups, ``wgmma``
+  with the transposed operands as MN-major descriptors). The dk/dv kernel's
+  work item is a (query head, 128-key tile); under grouped-query attention
+  each writes its float32 dK and dV and the last of a group's blocks to
+  finish sums them in head order (a counter in device memory), so no float
+  is summed with atomics and a result repeats bit for bit.
+* ``"mma_sync"``, bfloat16 at head dims 16 and 32 (``flash_bwd_dq_bf16``,
+  ``flash_bwd_dkdv_bf16``): warp-level ``mma.sync``; one dk/dv block owns a
+  kv row's key tile and walks its group's heads in series.
+
+Both take the forward's row log-sum-exp, which the forward kernels write
+when asked (`flash_attention_lse`), and every mask of the forward, in
+bfloat16 at the head dims of `BWD_HEAD_DIMS`; anything else raises before
+any launch (ROADMAP A8.5c). P and dS are rounded to bf16 as operands. What
+bounds them is operations: the five products of the math are ``2·d·pairs``
+FLOPs each (pairs the (row, key) pairs the mask lets through), about 0.35
+ms at (BH 32, S 4096, d 128) causal on the card's 989 TFLOP/s; the
+two-kernel design recomputes S and dP once more (seven products) to need
+no atomics. The plain version is `ref.attention_bwd_ref`;
+`ref.attention_bwd_tiled_ref` models the ``wgmma`` kernels' tiles and sum
+order.
 """
 from __future__ import annotations
 
@@ -94,8 +110,10 @@ launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 launches_by_mask = dict.fromkeys(MASKS, 0)
 launches_grouped = 0
-# Backward launches, by kernel: two per `flash_attention_bwd` call on the card.
+# Backward launches, by kernel (two per `flash_attention_bwd` call on the
+# card), and by variant (`bwd_variant`: both kernels of a call count).
 launches_bwd = {"dq": 0, "dkdv": 0}
+launches_bwd_by_variant = {"wgmma": 0, "mma_sync": 0}
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -253,10 +271,7 @@ def _forward(q, k, v, sm_scale, window, causal, prefix, with_lse: bool):
 def check_backward(q: torch.Tensor) -> None:
     """Raises `NotImplementedError` unless the backward kernels take q's
     dtype and head dim (bfloat16 at `BWD_HEAD_DIMS`)."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the flash backward takes bfloat16 at head dims "
-            f"{BWD_HEAD_DIMS}, not {q.dtype} at {q.shape[-1]}: ROADMAP A8.5c")
+    bwd_variant(q.dtype, q.shape[-1])
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -276,26 +291,35 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(q, k, v, sm_scale, window, causal, prefix, True)
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *,
-                        sm_scale: float | None = None, window: int = 0,
-                        causal: bool = True, prefix: int = 0
-                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of `flash_attention` at q, k, v, given its output ``o``,
-    its ``lse`` (`flash_attention_lse`) and the output's gradient ``do``
-    ((BH, S, d) like q); dk and dv are summed over the query heads that
-    share a kv row. On the card: `flash_bwd_dq_bf16` (which also writes
-    rowsum(dO·O) for the second kernel), then `flash_bwd_dkdv_bf16`, on the
-    current stream, no synchronisation; a dtype or head dim they do not
-    take raises before any launch. On a CPU tensor: `ref.attention_bwd_ref`.
-    """
-    window, prefix = _mask_args(window, causal, prefix)
-    if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, o, lse, do, sm_scale=sm_scale,
-                                 window=window, causal=causal, prefix=prefix)
+def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernels that take ``dtype`` at ``head_dim``:
+    ``"wgmma"`` for bfloat16 at 64, 80 and 128, ``"mma_sync"`` for
+    bfloat16 at 16 and 32; anything else raises `NotImplementedError`
+    (`check_backward`)."""
+    if dtype != torch.bfloat16 or head_dim not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the flash backward takes bfloat16 at head dims "
+            f"{BWD_HEAD_DIMS}, not {dtype} at {head_dim}: ROADMAP A8.5c")
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+# the wgmma backward's tiles: 128 keys a dk/dv block, 128 rows a dq block
+_BWD_TILE = 128
+
+
+def backward_launches(q, k, v, o, lse, do, *, sm_scale: float | None = None,
+                      window: int = 0, causal: bool = True, prefix: int = 0):
+    """The backward on CUDA tensors, checked and set up but not launched:
+    ``((dq, dk, dv), launch_dq, launch_dkdv)``, the outputs (empty until
+    both have run, in that order, on the current stream) and one callable
+    a kernel, each launching it once and counting it. Raises before any
+    work on what the kernels do not take. BH and S must not be 0.
+    `flash_attention_bwd` calls both; `chip_smoke.py` times each alone."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not "
                          f"{q.device}")
-    check_backward(q)
+    window, prefix = _mask_args(window, causal, prefix)
+    kind = bwd_variant(q.dtype, q.shape[-1])
     group = _check(q, k, v)
     bh, s, d = q.shape
     for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
@@ -305,29 +329,77 @@ def flash_attention_bwd(q, k, v, o, lse, do, *,
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                              f"{tuple(shape)} {dtype} tensor on {q.device}")
+    if bh == 0 or s == 0:
+        raise ValueError("backward_launches needs BH and S above 0")
     scale = (d ** -0.5) if sm_scale is None else float(sm_scale)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
-    if bh == 0 or s == 0:
-        return dq, dk, dv
-    delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     tail = (bh, group, s, d, scale, int(window), int(bool(causal)),
             int(prefix))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _bind("flash_bwd_dq", 8)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *tail, stream)
-        _raise_on(rc, "flash_bwd_dq")
-        launches_bwd["dq"] += 1
-        rc = _bind("flash_bwd_dkdv", 8)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *tail, stream)
-        _raise_on(rc, "flash_bwd_dkdv")
-        launches_bwd["dkdv"] += 1
-    return dq, dk, dv
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if kind == "wgmma":
+        tiles = -(-s // _BWD_TILE)
+        # lse·log2 e and rowsum(dO·O), rows padded to whole dq tiles
+        rows = torch.empty((2, bh, tiles * _BWD_TILE), **f32)
+        # each head's float32 dK and dV a key tile, summed over the group
+        # in head order by the group's last block (its counter)
+        width = 64 if d == 64 else 128
+        partial = torch.empty(bh * tiles * _BWD_TILE * 2 * width, **f32)
+        counters = (torch.zeros((bh // group) * tiles, dtype=torch.int32,
+                                device=q.device) if group > 1 else None)
+        dq_args = ("flash_bwd_dq_wgmma", 8, q, k, v, o, do, lse, rows, dq)
+        dkdv_args = ("flash_bwd_dkdv_wgmma", 9, q, k, v, do, rows, partial,
+                     counters, dk, dv)
+    else:
+        delta = torch.empty((bh, s), **f32)
+        dq_args = ("flash_bwd_dq", 8, q, k, v, o, do, lse, delta, dq)
+        dkdv_args = ("flash_bwd_dkdv", 8, q, k, v, do, lse, delta, dk, dv)
+
+    def launcher(which: str, name: str, pointers: int, *tensors):
+        fn = _bind(name, pointers)
+
+        def launch() -> None:
+            # the pointers from the tensors the closure holds, so that every
+            # buffer the kernel writes lives as long as the launch can run
+            ptrs = [None if t is None else t.data_ptr() for t in tensors]
+            with torch.cuda.device(q.device):
+                stream = torch.cuda.current_stream(q.device).cuda_stream
+                rc = fn(*ptrs, *tail, stream)
+            _raise_on(rc, name)
+            launches_bwd[which] += 1
+            launches_bwd_by_variant[kind] += 1
+        return launch
+    return ((dq, dk, dv), launcher("dq", *dq_args),
+            launcher("dkdv", *dkdv_args))
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *,
+                        sm_scale: float | None = None, window: int = 0,
+                        causal: bool = True, prefix: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention` at q, k, v, given its output ``o``,
+    its ``lse`` (`flash_attention_lse`) and the output's gradient ``do``
+    ((BH, S, d) like q); dk and dv are summed over the query heads that
+    share a kv row. On the card: the dq kernel of `bwd_variant` (which
+    also writes rowsum(dO·O) for the second kernel), then its dk/dv
+    kernel, on the current stream, no synchronisation; a dtype or head dim
+    they do not take raises before any launch. On a CPU tensor:
+    `ref.attention_bwd_ref`.
+    """
+    window, prefix = _mask_args(window, causal, prefix)
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, sm_scale=sm_scale,
+                                 window=window, causal=causal, prefix=prefix)
+    if q.device.type == "cuda" and (q.shape[0] == 0 or q.shape[1] == 0):
+        check_backward(q)
+        _check(q, k, v)
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    out, launch_dq, launch_dkdv = backward_launches(
+        q, k, v, o, lse, do, sm_scale=sm_scale, window=window, causal=causal,
+        prefix=prefix)
+    launch_dq()
+    launch_dkdv()
+    return out
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -127,3 +127,55 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, sm_scale: float | None = None,
         dk = dk.reshape(-1, group, s, d).sum(1)
         dv = dv.reshape(-1, group, s, d).sum(1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# the wgmma backward kernels' steps: 64 query rows (dk/dv) and 64 keys (dq)
+BWD_STEP = 64
+
+
+def attention_bwd_tiled_ref(q, k, v, o, lse, do, *,
+                            sm_scale: float | None = None, window: int = 0,
+                            causal: bool = True, prefix: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """`attention_bwd_ref` in the ``wgmma`` backward kernels' arithmetic and
+    sum order (``csrc/flash_attn.cu``, ``flash_bwd_dq_wgmma`` and
+    ``flash_bwd_dkdv_wgmma``), for S small enough to hold (BH, S, S).
+
+    p = exp2(s·scale·log2 e − lse·log2 e) on the pairs `visible` lets
+    through, dS = p·(dO·vᵀ − Δ), both rounded to bf16 as operands, every
+    sum float32: dQ accumulates dS·k over key steps of `BWD_STEP` in
+    ascending order; each query head's float32 dK and dV partials
+    accumulate dSᵀ·q and pᵀ·dO over query steps of `BWD_STEP` in ascending
+    order (a step the mask keeps out adds exact zeros, as the kernel's
+    skipped step adds nothing); then the ``group`` heads that share a kv
+    row are summed in head order, ((h0 + h1) + h2) + ..., as the last block
+    of a group does. Results in q's dtype."""
+    bh, s, d = q.shape
+    group = bh // k.shape[0]
+    scale = (d ** -0.5) if sm_scale is None else sm_scale
+    log2e = 1.4426950408889634
+    q32, do32 = q.float(), do.float()
+    k32, v32 = _expand(k, group).float(), _expand(v, group).float()
+    pos = torch.arange(s, device=q.device)
+    seen = visible(pos, pos, causal=causal, prefix=prefix, window=window)
+    logits = torch.einsum("bqd,bkd->bqk", q32, k32)
+    p = torch.where(seen[None], torch.exp2(
+        logits * (scale * log2e) - (lse.float() * log2e)[..., None]), 0.0)
+    delta = (do32 * o.float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bqd,bkd->bqk", do32, v32) - delta)
+    p16, ds16 = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dq = torch.zeros_like(q32)
+    dk = torch.zeros_like(k32)
+    dv = torch.zeros_like(v32)
+    for i in range(0, s, BWD_STEP):
+        cut = slice(i, i + BWD_STEP)
+        dq += torch.einsum("bqk,bkd->bqd", ds16[:, :, cut], k32[:, cut])
+        dk += torch.einsum("bqk,bqd->bkd", ds16[:, cut], q32[:, cut])
+        dv += torch.einsum("bqk,bqd->bkd", p16[:, cut], do32[:, cut])
+    dk, dv = (t.reshape(-1, group, s, d) for t in (dk, dv))
+    dk_sum, dv_sum = dk[:, 0], dv[:, 0]
+    for h in range(1, group):
+        dk_sum, dv_sum = dk_sum + dk[:, h], dv_sum + dv[:, h]
+    return ((dq * scale).to(q.dtype), (dk_sum * scale).to(k.dtype),
+            dv_sum.to(v.dtype))

@@ -1235,6 +1235,89 @@ def test_flash_backward_refuses_before_a_launch():
     assert fa.launches == fwd and fa.launches_bwd == bwd
 
 
+# (BH, KV, S, mask) across the wgmma backward's tiles (128 keys a dk/dv
+# block, 64 rows a step; 128 rows a dq block, 64 keys a step): S not a
+# multiple of 128 and S below 64; group 8 (qwen2.5-3b's), 16 and 1; a
+# window that ends inside a 128-key tile; a prefix that crosses one
+WGMMA_BWD_CASES = [
+    (16, 2, 300, dict(causal=True)),
+    (16, 1, 200, dict(causal=True)),
+    (4, 4, 40, dict(causal=True)),
+    (8, 1, 333, dict(causal=True, window=100)),
+    (4, 4, 260, dict(causal=True, window=100)),
+    (16, 2, 300, dict(causal=True, prefix=150)),
+    (4, 4, 200, dict(causal=True, prefix=150, window=90)),
+    (8, 1, 200, dict(causal=False)),
+    (4, 4, 40, dict(causal=False)),
+]
+WGMMA_BWD_IDS = ["g8-s300", "g16-s200", "g1-s40", "g8-window", "g1-window",
+                 "g8-prefix", "g1-prefix-window", "g8-bidirectional",
+                 "g1-s40-bidirectional"]
+
+
+def _bwd_inputs(bh, kv, s, d, seed, dev):
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((kv, s, d)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", WGMMA_BWD_CASES, ids=WGMMA_BWD_IDS)
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+def test_wgmma_backward_holds_the_flashattention_standard(d, case):
+    """The Hopper backward kernels (``flash_bwd_dq_wgmma``,
+    ``flash_bwd_dkdv_wgmma``) at FlashAttention's standard against a
+    float64 oracle, with repeatable bits, on shapes that cross their
+    tiles; both backwards launch the ``wgmma`` kernels, one of each."""
+    bh, kv, s, mask = case
+    dev = _card()
+    q, k, v, do = _bwd_inputs(bh, kv, s, d, bh * s + d, dev)
+    before = dict(fa.launches_bwd_by_variant)
+    flash_backward_holds(q, k, v, do, mask, name=f"d{d}")
+    assert {n: fa.launches_bwd_by_variant[n] - before[n] for n in before} == {
+        "wgmma": 4, "mma_sync": 0}
+
+
+@pytest.mark.parametrize("d", fa.BWD_HEAD_DIMS)
+def test_flash_backward_launches_its_variant(d):
+    """One backward launches its variant's two kernels: ``wgmma`` at head
+    dims 64, 80 and 128, ``mma_sync`` at 16 and 32."""
+    dev = _card()
+    q, k, v, do = _bwd_inputs(8, 2, 130, d, d, dev)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    before = dict(fa.launches_bwd_by_variant)
+    fa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = fa.bwd_variant(torch.bfloat16, d)
+    assert {n: fa.launches_bwd_by_variant[n] - before[n] for n in before} == {
+        n: 2 * (n == want) for n in before}
+
+
+@pytest.mark.parametrize("mask", [dict(causal=True), dict(causal=True,
+                                                            prefix=300),
+                                  dict(causal=False)],
+                         ids=["causal", "prefix", "bidirectional"])
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+def test_wgmma_backward_matches_its_tiled_model(d, mask):
+    """The Hopper kernels against their plain model
+    (`ref.attention_bwd_tiled_ref`: P and dS rounded to bf16 as operands,
+    the same steps, the group summed in head order) on the kernels' own o
+    and lse, at qwen2.5-3b's heads (16 over 2 kv heads): only float32 sums
+    inside a product, ex2.approx and a bf16 unit of P or dS where the two
+    round on either side of a tie part them."""
+    from repro_torch.kernels.flash_attn.ref import attention_bwd_tiled_ref
+    dev = _card()
+    q, k, v, do = _bwd_inputs(16, 2, 700, d, d + 1, dev)
+    o, lse = fa.flash_attention_lse(q, k, v, **mask)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    want = attention_bwd_tiled_ref(q, k, v, o, lse, do, **mask)
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=1e-2,
+                                   atol=5e-3 * scale)
+
+
 def test_hot_gather_passes_the_slab_gradient():
     """The hot/cold lookup's table gradient on the card equals the CPU's
     (the hot rows through the kernel's autograd Function, the cold ones
