@@ -21,7 +21,8 @@ any CUDA work, joined before it exits), beside phases 1-5.
    ``flash_bwd_dkdv_bf16`` at d 16 and 32; ``flash_bwd_dq_wgmma``,
    ``flash_bwd_dkdv_wgmma`` at d 64, 80 and 128), of both bf16
    grouped-matmul kernels
-   (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``).
+   (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``) and of its weight-gradient
+   kernel (``gmm_bf16_tgmm``).
 3. Kernel check: ``csr_spmv`` against its plain PyTorch version on the
    card (ragged rows, empty rows, a graph with no edges, a bucketed
    upload with sentinel edges of value 0; a 100k-edge hub across many
@@ -241,6 +242,37 @@ Then training, after the MoE model is freed:
     at that cut (``--depth 2``), checkpoints in a temporary directory. The
     full-depth run saves no checkpoint.
 
+    Then, after qwen's model is freed, MoE training (`moe_train_phase`).
+    ``tgmm``, the grouped matmul's weight-gradient kernel
+    (``gmm_bf16_tgmm``), against its plain version at the smoke, served
+    and K 136 / N 200 widths and M 333, with empty groups, one group
+    holding every row, rows past the total and two groups holding all
+    rows (float32 at rtol/atol 1e-4, the bf16 result that one rounded, a
+    repeat's bits equal), and dX and dW through ``ragged_dot``'s autograd
+    Function at two of them. moonshot-v1-16b-a3b at full width, 4 of its
+    48 layers (3,022,536,704 parameters), trained as qwen is (remat on, 6
+    steps of 8 x 4,096 tokens in microbatches of 2, one profiled step):
+    each layer a microbatch launches 3 ``moe_gmm`` (``wgmma``) in the
+    forward, 3 in the replay and 3 for dX, and 3 ``tgmm``: 144 and 48 a
+    step, asserted; no gradient leaf all zero on the first microbatch,
+    whose layer-0 weight-gradient operands (its real expert-sorted rows
+    and dY) are kept: layer 0's group sizes, ``tgmm`` and dX held to
+    their plain versions on them, and ``tgmm`` timed there at the gate
+    and down products beside its plain version, its bound (2.835e11
+    FLOPs at the bf16 rate, 0.287 ms) and ``torch._grouped_mm(xT, dY,
+    offs=)`` (timed only), and dX through ``gmm`` reading the expert
+    stack transposed, beside a transposed copy and ``gmm`` on it. Then 2
+    layers at full width, 1 x 512 tokens, remat on in both runs: the
+    card, replaying the CPU's expert choices (``models.moe.RouteTape``),
+    against the CPU (loss 1e-2, each leaf 5e-2 relative L2, none all
+    zero), and on the card remat on against off over the same
+    parameters, its own routing: the replay routes as the forward did and
+    every gradient is equal bit for bit.
+    Then the resume test on smoke moonshot (``--smoke``: a full-width save
+    of even one layer is about 15 GB), and smoke moonshot's checkpoint
+    tree (params and AdamW moments) through save, restore and
+    ``load_state`` on the card, bit for bit.
+
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -286,6 +318,8 @@ TRAIN_SEQ = 4096                # configs/shapes.py's train_4k
 TRAIN_BATCH = 8                 # train_4k's global batch of 256, cut to 8
 TRAIN_MICROBATCH = 2
 TRAIN_STEPS = 6
+MOE_TRAIN_LAYERS = 4            # phase 14: moonshot trained, 4 of 48 layers
+MOE_GRAD_LAYERS = 2             # its card-vs-CPU and remat-bits checks
 # the backward checks: (BH, KV, S, d) of a qwen2.5-3b microbatch (2 x 16
 # heads over 2 x 2 kv heads, d 128) and of a minicpm-2b one (2 x 36, d 64)
 BWD_SHAPES = ((32, 4, 4096, 128), (72, 72, 4096, 64))
@@ -1059,7 +1093,8 @@ def lm_launches() -> dict:
             "flash_attn_non_causal": fa.launches_by_mask["non_causal"],
             "hot_embed": he.launches, "moe_gmm": gm.launches,
             "moe_gmm_wgmma": gm.launches_by_variant["wgmma"],
-            "moe_gmm_splitk": gm.launches_by_variant["splitk"]}
+            "moe_gmm_splitk": gm.launches_by_variant["splitk"],
+            "moe_gmm_tgmm": gm.launches_by_variant["tgmm"]}
 
 
 def reset_lm_launches() -> None:
@@ -1072,19 +1107,25 @@ def reset_lm_launches() -> None:
     gm.launches_by_variant = dict.fromkeys(gm.VARIANTS, 0)
 
 
-def gmm_launches(cfg, tokens: int, calls: int) -> dict:
+def gmm_launches(cfg, tokens: int, calls: int, backwards: int = 0) -> dict:
     """The ``moe_gmm`` launches of ``calls`` forwards or decode steps of
-    ``tokens`` tokens each: gate, up and down in every MoE layer, all
-    through the variant that `moe_gmm.variant` picks for tokens x top-k
-    rows (moonshot: ``wgmma`` at the prefill, ``splitk`` at a decode
-    step)."""
+    ``tokens`` tokens each, ``backwards`` of them differentiated: gate, up
+    and down in every MoE layer, all through the variant that
+    `moe_gmm.variant` picks for tokens x top-k rows (moonshot: ``wgmma``
+    at the prefill and a training microbatch, ``splitk`` at a decode
+    step), and in a backward dX of each product through ``wgmma`` (the
+    stack read transposed, at any row count) and its dW through
+    ``tgmm``."""
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
-    out = {"moe_gmm": 0, "moe_gmm_wgmma": 0, "moe_gmm_splitk": 0}
+    out = {"moe_gmm": 0, "moe_gmm_wgmma": 0, "moe_gmm_splitk": 0,
+           "moe_gmm_tgmm": 0}
     if cfg.is_moe:
-        n = 3 * cfg.num_layers * calls
+        fwd, bwd = (3 * cfg.num_layers * c for c in (calls, backwards))
         v = gm.variant(tokens * cfg.experts_per_token, cfg.num_experts,
                        cfg.d_model, cfg.d_ff)
-        out.update({"moe_gmm": n, f"moe_gmm_{v}": n})
+        out.update({"moe_gmm": fwd + bwd, "moe_gmm_tgmm": bwd})
+        out[f"moe_gmm_{v}"] += fwd
+        out["moe_gmm_wgmma"] += bwd
     return out
 
 
@@ -2250,16 +2291,18 @@ def time_flash_bwd(bh, kv, s, d, dev) -> dict:
     return out
 
 
-def ptxas_numbers(name: str, kernel: str) -> dict:
+def ptxas_numbers(name: str, kernel: str,
+                  key: str = r"ILi(\d+)E") -> dict:
     """ptxas's registers, spill stores and loads (bytes) and stack frame
-    of each instantiation of ``kernel`` in library ``name``, keyed by its
-    head dim, from the build log."""
+    of each instantiation of ``kernel`` in library ``name``, keyed by the
+    template argument that ``key`` captures in its mangled name (by
+    default a head dim), from the build log."""
     import re
     from repro_torch.kernels import _build
     out: dict = {}
     dim = None
     for line in _build.ptxas_report(name, kernel):
-        m = re.search(r"ILi(\d+)E", line)
+        m = re.search(key, line)
         if "Compiling entry function" in line and m:
             dim = m.group(1)
             out[dim] = {}
@@ -2275,27 +2318,30 @@ def ptxas_numbers(name: str, kernel: str) -> dict:
     return out
 
 
-def train_full_depth(dev) -> dict:
-    """qwen2.5-3b at full width and depth (36 layers, remat on) trained for
-    `TRAIN_STEPS` steps through `train.steps.make_train_step`: a global
-    batch of `TRAIN_BATCH` x `TRAIN_SEQ` tokens (``train_4k``'s sequence;
-    its batch of 256 cut to 8) from the Zipf corpus through the vocab
-    LOrder (``data.pipeline.DataLoader``), microbatches of 2 sequences.
-    The launch counts are zeroed just before the steps and read just
-    after; one microbatch first checks that no gradient leaf is all zero
-    (a kernel output without an autograd graph would leave one so)."""
+def train_full_width(dev, cfg) -> dict:
+    """``cfg`` at full width (qwen2.5-3b at its full depth, moonshot cut
+    in depth), remat on, trained for `TRAIN_STEPS` steps through
+    `train.steps.make_train_step`: a global batch of `TRAIN_BATCH` x
+    `TRAIN_SEQ` tokens (``train_4k``'s sequence; its batch of 256 cut to
+    8) from the Zipf corpus through the vocab LOrder
+    (``data.pipeline.DataLoader``), microbatches of 2 sequences. The
+    launch counts are zeroed just before the steps and read just after;
+    one microbatch first checks that no gradient leaf is all zero (a
+    kernel output without an autograd graph would leave one so) and, for
+    an MoE, keeps layer 0's weight-gradient operands (`tgmm`'s x, dy and
+    offsets of its three products, from that backward) and its bf16
+    expert stacks under ``"layer0"``."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, DataLoader
     from repro_torch.kernels.flash_attn import flash_attn as fa
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.launch.train import build_vocab_reorder
     from repro_torch.models.transformer import (init_params, loss_fn,
                                                 param_tree)
     from repro_torch.train.optim import TrainConfig, init_opt_state
     from repro_torch.train.steps import make_train_step
 
-    cfg = get_config(TRAIN_ARCH)
     if not cfg.remat:
         raise AssertionError(f"{cfg.name} trains with remat")
     t0 = time.perf_counter()
@@ -2308,8 +2354,9 @@ def train_full_depth(dev) -> dict:
     vr.apply_to_params(model)
     opt = init_opt_state(param_tree(model))
     torch.cuda.synchronize()
-    print(f"train: {cfg.name} L={cfg.num_layers} {n_params} parameters, "
-          f"remat {cfg.remat_policy}, weights, LOrder and AdamW state in "
+    print(f"train: {cfg.name} L={cfg.num_layers} {n_params} parameters "
+          f"(param_count {cfg.param_count()}), remat {cfg.remat_policy}, "
+          f"weights, LOrder and AdamW state in "
           f"{time.perf_counter() - t0:.1f} s")
     loader = DataLoader(dc, vr, start_step=1)   # batch 0 built the LOrder
     try:
@@ -2324,8 +2371,18 @@ def train_full_depth(dev) -> dict:
         p.requires_grad_(True)
     reset_lm_launches()
     bwd0 = dict(fa.launches_bwd)
-    loss, _ = loss_fn(model, mb)
-    loss.backward()
+    kept = []   # the last 3 weight gradients: layer 0's, in backward order
+    tgmm = gmm_ops.tgmm
+
+    def keep(x, dy, offs, **kw):
+        kept[:] = kept[-2:] + [(x.detach(), dy.detach(), offs)]
+        return tgmm(x, dy, offs, **kw)
+    gmm_ops.tgmm = keep
+    try:
+        loss, _ = loss_fn(model, mb)
+        loss.backward()
+    finally:
+        gmm_ops.tgmm = tgmm
     torch.cuda.synchronize()
     one = {**lm_launches(), "flash_bwd_dq": fa.launches_bwd["dq"] - bwd0["dq"],
            "flash_bwd_dkdv": fa.launches_bwd["dkdv"] - bwd0["dkdv"]}
@@ -2342,6 +2399,25 @@ def train_full_depth(dev) -> dict:
     print(f"train: one microbatch's backward reaches all "
           f"{len(list(model.parameters()))} leaves, none all zero; launches "
           f"{one}")
+    layer0 = None
+    if cfg.is_moe:
+        # autograd runs a layer's down product's backward first and the
+        # gate's last
+        down, gate = kept[0], kept[-1]
+        if (down[0].shape[1], gate[0].shape[1]) != (cfg.d_ff, cfg.d_model):
+            raise AssertionError("layer 0's weight gradients came in another "
+                                 "order")
+        ffn = model.layers[0].ffn
+        layer0 = {"gate": gate, "down": down,
+                  **{n: ffn[n].to(torch.bfloat16)
+                     for n in ("w_gate", "w_down")}}
+        sizes = (down[2][1:] - down[2][:-1]).tolist()
+        print(f"train: layer 0's routing at a microbatch: "
+              f"{int(down[2][-1])} rows over {cfg.num_experts} experts "
+              f"({int(down[2][-1]) / cfg.num_experts:.1f} a group on "
+              f"average), group sizes min {min(sizes)} max {max(sizes)}, "
+              f"{sizes.count(0)} empty: {sizes}")
+    del kept
 
     # the reference's TrainConfig defaults: lr 3e-4 after 100 warmup
     # steps, so these steps run at 3e-6 to 1.8e-5
@@ -2363,7 +2439,7 @@ def train_full_depth(dev) -> dict:
         rows.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
                      "lr": float(m["lr"]), "seconds": dt,
                      "tokens_per_s": tokens.numel() / dt, "peak_gib": peak})
-        print(f"train step {i}: loss {loss:.4f} grad_norm "
+        print(f"train step {i} [{cfg.name}]: loss {loss:.4f} grad_norm "
               f"{rows[-1]['grad_norm']:.3f} lr {rows[-1]['lr']:.2e} "
               f"{dt:.3f} s ({rows[-1]['tokens_per_s']:.1f} tokens/s) peak "
               f"{peak:.1f} GiB")
@@ -2373,11 +2449,16 @@ def train_full_depth(dev) -> dict:
                 **{f"flash_bwd_{k}": fa.launches_bwd_by_variant[k] - by0[k]
                    for k in by0}}
     micro = TRAIN_STEPS * TRAIN_BATCH // TRAIN_MICROBATCH
-    layers = cfg.num_layers
+    layers = len(cfg.attn_positions)
+    bwd = fa.bwd_variant(torch.bfloat16, cfg.head_dim)
+    # the forward and its replay, then the backward, each microbatch
     expected = {**flash_launches(cfg, 2 * micro), "hot_embed": micro,
-                **gmm_launches(cfg, 0, 0), "flash_bwd_dq": layers * micro,
+                **gmm_launches(cfg, TRAIN_MICROBATCH * TRAIN_SEQ, 2 * micro,
+                               micro),
+                "flash_bwd_dq": layers * micro,
                 "flash_bwd_dkdv": layers * micro,
-                "flash_bwd_wgmma": 2 * layers * micro, "flash_bwd_mma_sync": 0}
+                **{f"flash_bwd_{k}": 2 * layers * micro if k == bwd else 0
+                   for k in by0}}
     if launches != expected:
         raise AssertionError(f"training launches {launches}, expected "
                              f"{expected}")
@@ -2386,16 +2467,17 @@ def train_full_depth(dev) -> dict:
     if not np.mean(losses[-3:]) < np.mean(losses[:3]):
         raise AssertionError(f"training loss does not fall: {losses}")
     per_step = {k: v // TRAIN_STEPS for k, v in launches.items()}
-    print(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens, "
-          f"losses {[round(x, 4) for x in losses]}, the last 3's mean "
-          f"{np.mean(losses[-3:]):.4f} below the first 3's "
+    print(f"train [{cfg.name}]: {TRAIN_STEPS} steps of {TRAIN_BATCH}x"
+          f"{TRAIN_SEQ} tokens, losses {[round(x, 4) for x in losses]}, the "
+          f"last 3's mean {np.mean(losses[-3:]):.4f} below the first 3's "
           f"{np.mean(losses[:3]):.4f}; launches a step {per_step}")
     profile = profile_train_step(
         step, model, opt, {"tokens": batches[-1].to(dev)},
         float(np.mean([r["seconds"] for r in rows])))
     del model, opt
     torch.cuda.empty_cache()
-    return {"launches": launches, "steps": rows, "profile": profile}
+    return {"launches": launches, "steps": rows, "profile": profile,
+            "layer0": layer0}
 
 
 def profile_train_step(step, model, opt, batch, step_s: float) -> dict:
@@ -2444,6 +2526,47 @@ def profile_train_step(step, model, opt, batch, step_s: float) -> dict:
             "top": [{"name": n[:120], "ms": us / 1e3} for n, us in top]}
 
 
+def loss_and_grads(model, batch, tape=None) -> tuple[float, dict]:
+    """One microbatch's loss and every leaf's gradient (float32, on the
+    CPU) of ``model`` on ``batch`` (on the model's device), inside
+    ``tape`` (a `models.moe.RouteTape`) if one is given; the parameters
+    are frozen again after."""
+    import torch
+    from repro_torch.models.transformer import loss_fn
+    for p in model.parameters():
+        p.requires_grad_(True)
+    try:
+        with tape if tape is not None else contextlib.nullcontext():
+            loss, _ = loss_fn(model, batch)
+            loss.backward()
+        grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    finally:
+        for p in model.parameters():
+            p.grad = None
+            p.requires_grad_(False)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    return float(loss.detach()), grads
+
+
+def hold_grads(label: str, got, want, got_loss, want_loss) -> tuple:
+    """The card's loss within 1e-2 relative of the CPU's and each leaf's
+    relative L2 error within 5e-2, no leaf all zero on the card. Returns
+    (worst leaf, its error, the leaves' count)."""
+    if abs(got_loss - want_loss) > 1e-2 * abs(want_loss):
+        raise AssertionError(f"{label}: loss {got_loss} against {want_loss}")
+    zero = [n for n in got if not bool(got[n].any())]
+    if zero:
+        raise AssertionError(f"{label}: gradient leaves all zero {zero[:8]}")
+    rel = {n: float((got[n] - want[n]).norm()
+                    / want[n].norm().clamp(min=1e-30)) for n in want}
+    worst = max(rel, key=rel.get)
+    if rel[worst] > 5e-2:
+        raise AssertionError(f"{label}: {worst}'s gradient parts by "
+                             f"{rel[worst]:.3e} (relative L2)")
+    return worst, rel[worst], len(rel)
+
+
 def train_card_vs_cpu(dev) -> None:
     """One microbatch's loss and gradients, qwen2.5-3b's width cut to 2
     layers, 1 x 512 tokens, the same weights on the CPU (plain versions,
@@ -2454,54 +2577,41 @@ def train_card_vs_cpu(dev) -> None:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.train import cut_depth
-    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.models.transformer import init_params
 
     cfg = cut_depth(get_config(TRAIN_ARCH), 2)
     host = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     card = copy.deepcopy(host).to(dev)
     tokens = token_source(cfg, 512)(1, 512)
-    out = []
     t0 = time.perf_counter()
-    for model, d in ((host, "cpu"), (card, dev)):
-        for p in model.parameters():
-            p.requires_grad_(True)
-        loss, _ = loss_fn(model, {"tokens": tokens.to(d)})
-        loss.backward()
-        out.append((float(loss.detach()), {n: p.grad.float().cpu()
-                                  for n, p in model.named_parameters()}))
-        if d == "cpu":
-            cpu_s = time.perf_counter() - t0
-    (want, gw), (got, gg) = out
-    if abs(got - want) > 1e-2 * abs(want):
-        raise AssertionError(f"train card vs CPU: loss {got} against {want}")
-    rel = {n: float((gg[n] - gw[n]).norm() / gw[n].norm().clamp(min=1e-30))
-           for n in gw}
-    worst = max(rel, key=rel.get)
-    if rel[worst] > 5e-2:
-        raise AssertionError(f"train card vs CPU: {worst}'s gradient parts "
-                             f"by {rel[worst]:.3e} (relative L2)")
+    want_loss, want = loss_and_grads(host, {"tokens": tokens})
+    cpu_s = time.perf_counter() - t0
+    got_loss, got = loss_and_grads(card, {"tokens": tokens.to(dev)})
+    worst, err, leaves = hold_grads("train card vs CPU", got, want, got_loss,
+                                    want_loss)
     print(f"train card vs CPU, 2 layers, 1x512 tokens (CPU forward and "
-          f"backward {cpu_s:.1f} s): loss {got:.6f} against {want:.6f}; the "
-          f"worst leaf {worst} at {rel[worst]:.3e} relative L2, "
-          f"{len(rel)} leaves")
+          f"backward {cpu_s:.1f} s): loss {got_loss:.6f} against "
+          f"{want_loss:.6f}; the worst leaf {worst} at {err:.3e} relative "
+          f"L2, {leaves} leaves")
 
 
-def train_resume(dev) -> None:
+def train_resume(dev, arch: str, cut: list) -> None:
     """tests/test_system.py::test_train_resume_continues through
-    ``launch.train.main`` on the card, qwen2.5-3b's width cut to 2 layers:
-    steps 0-9 straight, then 0-4, a "crash", and ``--resume`` for 5-9,
-    all with ``--total-steps 10``; the first five losses of two runs at
-    rtol 1e-5, the resumed ones at rtol/atol 5e-3. The checkpoints go to a
-    temporary directory, deleted after."""
+    ``launch.train.main`` on the card, ``arch`` cut by ``cut`` (qwen2.5-3b:
+    ``--depth 2``, its full width; moonshot: ``--smoke``, since a
+    full-width save of even one layer is about 15 GB): steps 0-9
+    straight, then 0-4, a "crash", and ``--resume`` for 5-9, all with
+    ``--total-steps 10``; the first five losses of two runs at rtol 1e-5,
+    the resumed ones at rtol/atol 5e-3. The checkpoints go to a temporary
+    directory, deleted after."""
     import shutil
     import tempfile
     import numpy as np
     from repro_torch.launch.train import main as train_main
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    args = ["--arch", TRAIN_ARCH, "--depth", "2", "--seq-len", "32",
-            "--global-batch", "2", "--ckpt-dir", tmp, "--ckpt-every", "5",
-            "--total-steps", "10", "--no-vocab-reorder", "--log-every",
-            "100", "--device", str(dev)]
+    args = ["--arch", arch, *cut, "--seq-len", "32", "--global-batch", "2",
+            "--ckpt-dir", tmp, "--ckpt-every", "5", "--total-steps", "10",
+            "--no-vocab-reorder", "--log-every", "100", "--device", str(dev)]
     try:
         full = train_main(["--steps", "10"] + args)
         shutil.rmtree(tmp)
@@ -2511,15 +2621,340 @@ def train_resume(dev) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     np.testing.assert_allclose(part[:5], full[:5], rtol=1e-5)
     np.testing.assert_allclose(cont, full[5:], rtol=5e-3, atol=5e-3)
-    print(f"train resume: 2 layers at full width, losses 5-9 straight "
+    print(f"train resume [{arch} {' '.join(cut)}]: losses 5-9 straight "
           f"{[round(x, 5) for x in full[5:]]}, resumed "
           f"{[round(x, 5) for x in cont]}")
+
+
+# ------------------------------------------------ phase 14: MoE training
+def tgmm_check(name, x, dy, offs, verbose: bool = True) -> float:
+    """The weight-gradient kernel against its plain version on the same
+    card tensors: the float32 result at GMM_TOL (exact bf16 products
+    summed in another order), the bf16 result equal to it rounded once, a
+    repeat's bits equal, groups with no rows zero. Returns max |err|."""
+    import torch
+    from repro_torch.kernels.moe_gmm import moe_gmm as gm
+    from repro_torch.kernels.moe_gmm.ref import tgmm_grouped_ref
+    got = gm.tgmm(x, dy, offs)
+    again = gm.tgmm(x, dy, offs)
+    half = gm.tgmm(x, dy, offs, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"tgmm[{name}]: two runs differ")
+    want = tgmm_grouped_ref(x, dy, offs)
+    torch.testing.assert_close(got, want, **GMM_TOL)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(half, got.to(torch.bfloat16)):
+        raise AssertionError(f"tgmm[{name}]: the bf16 result is not the "
+                             f"float32 one rounded")
+    sizes = (offs[1:] - offs[:-1]).tolist()
+    empty = [g for g, c in enumerate(sizes) if c <= 0]
+    if empty and got[empty].any():
+        raise AssertionError(f"tgmm[{name}]: a group with no rows is not "
+                             f"zero")
+    if verbose:
+        print(f"tgmm[{name}]: M={x.shape[0]} K={x.shape[1]} N={dy.shape[1]} "
+              f"E={len(sizes)} rows={min(int(offs[-1]), x.shape[0])} empty "
+              f"groups={len(empty)}; max_abs_err {err:.3e} (largest |dW| "
+              f"{float(want.abs().max()):.3e})")
+    return err
+
+
+def dx_check(name, x, w, dy, offs) -> float:
+    """`ragged_dot`'s backward through its autograd Function on the card:
+    dX is the `gmm` kernel's float32 sum over the expert stack read
+    transposed, rounded once (held to the plain version at GMM_TOL), dW
+    the `tgmm` kernel's; a repeat gives the same bits. Returns dX's max
+    |err|."""
+    import torch
+    from repro_torch.kernels.moe_gmm import moe_gmm as gm
+    from repro_torch.kernels.moe_gmm.ops import ragged_dot
+    from repro_torch.kernels.moe_gmm.ref import gmm_grouped_ref
+    sizes = offs[1:] - offs[:-1]
+    grads = []
+    for _ in range(2):
+        a = x.clone().requires_grad_(True)
+        b = w.clone().requires_grad_(True)
+        ragged_dot(a, b, sizes).backward(dy)
+        grads.append((a.grad, b.grad))
+    torch.cuda.synchronize()
+    (dx, dw), (dx2, dw2) = grads
+    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+        raise AssertionError(f"ragged_dot backward[{name}]: two runs differ")
+    dx32 = gm.gmm(dy, w, offs, out_dtype=torch.float32, w_transposed=True)
+    want = gmm_grouped_ref(dy, w.transpose(1, 2), offs)
+    torch.testing.assert_close(dx32, want, **GMM_TOL)
+    if not torch.equal(dx, dx32.to(torch.bfloat16)):
+        raise AssertionError(f"ragged_dot backward[{name}]: dX is not the "
+                             f"kernel's float32 sum rounded once")
+    if not torch.equal(dw, gm.tgmm(x, dy, offs, out_dtype=torch.bfloat16)):
+        raise AssertionError(f"ragged_dot backward[{name}]: dW is not the "
+                             f"tgmm kernel's")
+    err = float((dx32 - want).abs().max())
+    print(f"ragged_dot backward[{name}]: dX through gmm (wgmma, the stack "
+          f"read transposed) max_abs_err {err:.3e}, dW through tgmm, bits "
+          f"repeat")
+    return err
+
+
+def tgmm_kernel_cases(dev) -> float:
+    """`tgmm` against its plain version at the smoke (64/128), served
+    (2048/1408 and 1408/2048) and K 136 / N 200 widths and at M 333 (not
+    a multiple of 128), with empty groups, one group holding every row,
+    rows past the groups' total, and only two groups holding rows; then
+    dX and dW through `ragged_dot`'s Function at two of them."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 14)
+
+    def normal(shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+    err = 0.0
+    for m, k, n, e in ((40, 64, 128, 4), (40, 128, 64, 4),
+                       (1000, 2048, 1408, 64), (1000, 1408, 2048, 64),
+                       (333, 2048, 1408, 64), (228, 136, 200, 3)):
+        x, dy = normal((m, k)), normal((m, n))
+        for case in ("skewed", "one_group", "short", "two_groups"):
+            sizes = np.zeros(e, np.int64)
+            if case == "one_group":
+                sizes[e // 2] = m
+            elif case == "short":            # rows past the total
+                sizes[:] = rng.multinomial(m - 13, np.ones(e) / e)
+            elif case == "two_groups":       # every other group empty
+                sizes[[0, e - 1]] = [m // 3, m - m // 3]
+            else:                            # skewed, with empty groups
+                pz = 1.0 / (1 + np.arange(e)) ** 1.2
+                sizes[:] = rng.multinomial(m, pz / pz.sum())
+                sizes[1] = 0
+            offs = torch.from_numpy(np.concatenate(
+                [[0], np.cumsum(sizes)]).astype(np.int32)).to(dev)
+            err = max(err, tgmm_check(f"{case}", x, dy, offs))
+            if case == "skewed" and k in (2048, 136):
+                w = normal((e, k, n), k ** -0.5)
+                err = max(err, dx_check(f"{case} {m}x{k}x{n}", x, w, dy,
+                                        offs))
+    return err
+
+
+def time_tgmm(layer0: dict) -> dict:
+    """`tgmm` at a training microbatch's shapes (layer 0's real rows and
+    dY, kept from the first microbatch's backward): the gate product's
+    weight gradient (xᵀ (2048 x 49,152) @ dY (49,152 x 1408) over 64
+    groups) and the down product's (its transpose widths), each beside
+    its plain version, the bound (operations at the bf16 rate, bytes at
+    HBM's: x and dY read once, dW written once) and one PyTorch call as a
+    yardstick, ``torch._grouped_mm(xᵀ, dY, offs=)`` (timed only; the port
+    never calls it); then dX through `gmm` reading the expert stack
+    transposed, beside a transposed copy of the stack and `gmm` on it
+    (the copy and the kernel apart)."""
+    import torch
+    from repro_torch.kernels.moe_gmm import moe_gmm as gm
+    from repro_torch.kernels.moe_gmm.ref import tgmm_grouped_ref
+    kept = gm.launches, dict(gm.launches_by_variant)
+    bf16 = torch.bfloat16
+    out = {}
+    for name, (x, dy, offs), w in (("gate", layer0["gate"], layer0["w_gate"]),
+                                   ("down", layer0["down"],
+                                    layer0["w_down"])):
+        m, k = x.shape
+        n, e = dy.shape[1], offs.shape[0] - 1
+        rows = min(int(offs[-1]), m)
+        flops = 2 * rows * k * n
+        nbytes = 2 * rows * (k + n) + 2 * e * k * n + 4 * (e + 1)
+        ops_ms = flops / BF16_FLOPS * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ends = offs[1:]
+        row = {"ms": cuda_ms(lambda: gm.tgmm(x, dy, offs, out_dtype=bf16),
+                             reps=20),
+               "plain_ms": cuda_ms(lambda: tgmm_grouped_ref(x, dy, offs, bf16),
+                                   reps=2, warmup=1),
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "library_ms": cuda_ms(
+                   lambda: torch._grouped_mm(x.t(), dy, offs=ends), reps=20),
+               "shape": f"xT ({k} x {rows}) @ dY ({rows} x {n}), {e} groups"}
+        print(f"tgmm timing [{name}]: {row['shape']}: ms={row['ms']:.4f} "
+              f"({flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{100 * row['bound_ms'] / row['ms']:.1f}% of the bound) "
+              f"plain_ms={row['plain_ms']:.4f} library_ms="
+              f"{row['library_ms']:.4f} (torch._grouped_mm(xT, dY, offs=)) "
+              f"bound_ms={row['bound_ms']:.4f} ({flops:.4e} FLOPs, {ops_ms:.4f}"
+              f" ms at the bf16 rate; {nbytes} bytes, {bytes_ms:.4f} ms at "
+              f"HBM's)")
+        wt = w.transpose(1, 2).contiguous()
+        dx_ms = cuda_ms(lambda: gm.gmm(dy, w, offs, out_dtype=bf16,
+                                       w_transposed=True), reps=20)
+        copy_ms = cuda_ms(lambda: w.transpose(1, 2).contiguous(), reps=20)
+        kernel_ms = cuda_ms(lambda: gm.gmm(dy, wt, offs, out_dtype=bf16),
+                            reps=20)
+        # dX reads dY and the used experts' weights, writes (M, K)
+        used = int(((offs[1:] - offs[:-1]) > 0).sum())
+        dx_bytes = 2 * rows * n + 2 * used * k * n + 2 * m * k + 4 * (e + 1)
+        dx_bound = max(ops_ms, dx_bytes / HBM_BYTES_PER_S * 1e3)
+        row["dx"] = {"ms": dx_ms, "bound_ms": dx_bound, "copy_ms": copy_ms,
+                     "gmm_on_copy_ms": kernel_ms}
+        print(f"dX timing [{name}]: gmm(dY ({rows} x {n}), w[e]T of the ({e} "
+              f"x {k} x {n}) stack) {dx_ms:.4f} ms (wgmma reading it "
+              f"transposed; {flops / dx_ms / 1e9:.1f} TFLOP/s, bound "
+              f"{dx_bound:.4f}); a transposed copy instead {copy_ms:.4f} ms "
+              f"({2 * e * k * n} bytes) plus gmm on it {kernel_ms:.4f} ms")
+        out[name] = row
+        del wt
+    gm.launches, gm.launches_by_variant = kept   # not the main path's
+    return out
+
+
+def moe_train_card_vs_cpu(dev) -> dict:
+    """moonshot's width cut to `MOE_GRAD_LAYERS` layers, 1 x 512 tokens,
+    remat on in both runs (the config's own setting): one microbatch's
+    loss and gradients on the CPU (plain versions) and on the card
+    (kernels), the card replaying the CPU's expert choices
+    (`models.moe.RouteTape`: with remat each run routes a layer in the
+    forward and again in the backward's replay, in the same order), at
+    `hold_grads`'s standard. Then the card's own routing, remat on and off
+    over the same parameters: the replay routes as the forward did, and
+    every gradient is equal bit for bit."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+    from repro_torch.models.moe import RouteTape
+    from repro_torch.models.transformer import (Transformer, init_params,
+                                                param_tree)
+
+    cfg = cut_depth(get_config(MOE_ARCH), MOE_GRAD_LAYERS)
+    if not cfg.remat:
+        raise AssertionError(f"{cfg.name} trains with remat")
+    layers = cfg.num_layers
+    host = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    tokens = token_source(cfg, 512)(1, 512)
+    t0 = time.perf_counter()
+    tape = RouteTape()
+    want_loss, want = loss_and_grads(host, {"tokens": tokens}, tape)
+    cpu_s = time.perf_counter() - t0
+    card = copy.deepcopy(host).to(dev)
+    del host
+    batch = {"tokens": tokens.to(dev)}
+    if len(tape.experts) != 2 * layers:
+        raise AssertionError(f"{len(tape.experts)} routing calls with remat "
+                             f"at {layers} layers")
+    got_loss, got = loss_and_grads(card, batch, RouteTape(tape.experts))
+    worst, err, leaves = hold_grads("MoE train card vs CPU", got, want,
+                                    got_loss, want_loss)
+    print(f"train card vs CPU [{cfg.name}], {layers} layers at full width, "
+          f"1x512 tokens, remat on, the CPU's routing replayed (CPU forward "
+          f"and backward {cpu_s:.1f} s): loss {got_loss:.6f} against "
+          f"{want_loss:.6f}; the worst leaf {worst} at {err:.3e} relative "
+          f"L2, {leaves} leaves, none all zero")
+    del want, got
+
+    on_tape, off_tape = RouteTape(), RouteTape()
+    _, on = loss_and_grads(card, batch, on_tape)
+    plain = Transformer(dataclasses.replace(cfg, remat=False),
+                        param_tree(card))
+    _, off = loss_and_grads(plain, batch, off_tape)
+    fwd, replay = on_tape.experts[:layers], on_tape.experts[layers:]
+    if not (len(replay) == len(off_tape.experts) == layers and all(
+            torch.equal(a, b) for a, b in zip(fwd, replay[::-1])) and all(
+            torch.equal(a, b) for a, b in zip(fwd, off_tape.experts))):
+        raise AssertionError("the remat replay routed otherwise")
+    differ = [n for n in on if not torch.equal(on[n], off[n])]
+    if differ:
+        raise AssertionError(f"remat on and off give other gradient bits: "
+                             f"{differ[:8]}")
+    parted = sum(int((a != b).any(-1).sum())
+                 for a, b in zip(fwd, tape.experts[:layers]))
+    print(f"train remat bits [{cfg.name}]: {layers} layers on the card, its "
+          f"own routing (replay = forward at every layer; {parted} of "
+          f"{layers * tokens.numel()} token choices part from the CPU's), "
+          f"all {len(on)} gradient leaves equal bit for bit with remat on "
+          f"and off")
+    del card, plain, on, off
+    torch.cuda.empty_cache()
+    return {"worst_rel_l2": err, "cpu_s": cpu_s}
+
+
+def ckpt_round_trip(dev) -> None:
+    """An MoE's checkpoint tree on the card (tests/test_torch_ckpt.py:46
+    on the CPU): smoke moonshot after one train step, its params and
+    AdamW moments through `launch.train.train_state` (the reference's
+    stacked layout on the host), `CheckpointManager` save and restore,
+    and `load_state` back onto the card, every leaf bit for bit."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.train import load_state, train_state
+    from repro_torch.models.transformer import (init_params, param_tree,
+                                                stack_layers, to_jax_params)
+    from repro_torch.train.optim import TrainConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+    cfg = smoke_config(MOE_ARCH, layers=2)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    opt = init_opt_state(param_tree(model))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(SEED))
+    model, opt, _ = make_train_step(cfg, TrainConfig(warmup_steps=0))(
+        model, opt, {"tokens": tokens.to(dev)})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        CheckpointManager(tmp).save(3, train_state(model, opt),
+                                    blocking=True)
+        step, state = CheckpointManager(tmp).restore()
+    back, opt2 = load_state(cfg, state, dev)
+
+    def same(a, b) -> bool:
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        return np.array_equal(a, b)
+    if step != 3 or int(opt2["step"]) != int(opt["step"]) or not (
+            same(to_jax_params(back), to_jax_params(model))
+            and same(stack_layers(opt2["mu"]), stack_layers(opt["mu"]))
+            and same(stack_layers(opt2["nu"]), stack_layers(opt["nu"]))):
+        raise AssertionError("the MoE checkpoint does not round-trip")
+    print(f"checkpoint round trip [{cfg.name} smoke, on {dev}]: every "
+          f"param and AdamW moment (the experts' stacks and the router "
+          f"included) bit for bit")
+
+
+def moe_train_phase(dev) -> dict:
+    """Phase 14's MoE part, after qwen2.5-3b's model is freed: `tgmm`
+    checked on the card, moonshot trained at full width and
+    `MOE_TRAIN_LAYERS` layers, `tgmm` and dX checked on layer 0's real
+    rows and timed there, the card's gradients against the CPU's and
+    remat's bits, a resume through ``launch/train.main`` and a checkpoint
+    round trip."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+    t0 = time.perf_counter()
+    err = tgmm_kernel_cases(dev)
+    run = train_full_width(dev, cut_depth(get_config(MOE_ARCH),
+                                          MOE_TRAIN_LAYERS))
+    layer0 = run.pop("layer0")
+    for name, w in (("gate", layer0["w_gate"]), ("down", layer0["w_down"])):
+        x, dy, offs = layer0[name]
+        err = max(err, tgmm_check(f"layer0 train {name}", x, dy, offs),
+                  dx_check(f"layer0 train {name}", x, w, dy, offs))
+    run["timing"] = time_tgmm(layer0)
+    del layer0
+    run["card_vs_cpu"] = moe_train_card_vs_cpu(dev)
+    train_resume(dev, MOE_ARCH, ["--smoke"])
+    ckpt_round_trip(dev)
+    run["err"] = err
+    print(f"phase 14 [{MOE_ARCH}]: {time.perf_counter() - t0:.1f} s wall")
+    return run
 
 
 def train_phase(dev) -> dict:
     """Phase 14: training. The backward kernels checked and timed, then
     qwen2.5-3b trained at full width and depth, the card's gradients held
-    to the CPU's, and a resume through ``launch/train.main``."""
+    to the CPU's, and a resume through ``launch/train.main``; then the
+    same for moonshot-v1-16b-a3b's MoE (`moe_train_phase`)."""
+    from repro_torch.configs import get_config
     err = max(flash_bwd_check("qwen2.5-3b microbatch, GQA", "wgmma",
                               *BWD_SHAPES[0], dev),
               flash_bwd_check("minicpm-2b microbatch, MHA", "wgmma",
@@ -2527,10 +2962,15 @@ def train_phase(dev) -> dict:
               flash_bwd_check("qwen2.5-3b microbatch at d 32, GQA",
                               "mma_sync", *BWD_MMA_SYNC_SHAPE, dev))
     timing = [time_flash_bwd(*shape, dev) for shape in BWD_SHAPES]
-    run = train_full_depth(dev)
+    run = train_full_width(dev, get_config(TRAIN_ARCH))
+    run.pop("layer0")
     train_card_vs_cpu(dev)
-    train_resume(dev)
-    return {"err": err, "timing": timing, **run}
+    train_resume(dev, TRAIN_ARCH, ["--depth", "2"])
+    moe = moe_train_phase(dev)
+    launches = {k: run["launches"].get(k, 0) + moe["launches"].get(k, 0)
+                for k in {**run["launches"], **moe["launches"]}}
+    return {"err": err, "timing": timing, **run, "launches": launches,
+            "moe": moe}
 
 
 def timed(label: str, fn, *args):
@@ -2587,7 +3027,8 @@ def run(torch, corpora: dict) -> int:
                          ("flash_attn", "flash_bwd_dq_wgmma"),
                          ("flash_attn", "flash_bwd_dkdv_wgmma"),
                          ("moe_gmm", "gmm_bf16_wgmma"),
-                         ("moe_gmm", "gmm_bf16_splitk")):
+                         ("moe_gmm", "gmm_bf16_splitk"),
+                         ("moe_gmm", "gmm_bf16_tgmm")):
         for line in _build.ptxas_report(name, kernel):
             print(f"ptxas: {line}")
     smem = _build.load("csr_spmv").csr_spmv_smem_bytes()
@@ -2702,11 +3143,30 @@ def run(torch, corpora: dict) -> int:
                                 "splitk": launches("moe_gmm_splitk")},
         "max_abs_err": max(gmm_err, moe["gmm_err"]),
         **moe["gmm_timing"],
+    }, {
+        "name": "moe_gmm_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_gmm.cu",
+        "replaces": "none: no TPU kernel; the reference differentiates "
+                    "lax.ragged_dot (src/repro/models/moe.py:51-54) in XLA",
+        "kernel": "gmm_bf16_tgmm",
+        "launches": launches("moe_gmm_tgmm"),
+        "max_abs_err": train["moe"]["err"],
+        **{k: train["moe"]["timing"]["gate"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "dx")},
+        "library": "torch._grouped_mm(xT, dY, offs=)",
+        "down": train["moe"]["timing"]["down"],
+        "ptxas": ptxas_numbers("moe_gmm", "gmm_bf16_tgmm",
+                               r"tgmmI(f|13__nv_bfloat16)E"),
     }]
     for r in (rwkv, zamba):
         print(f"scan: {json.dumps(r['scan'])}")
     print(f"train: {json.dumps(train['steps'])}")
     print(f"train profile: {json.dumps(train['profile'])}")
+    print(f"train [{MOE_ARCH}]: {json.dumps(train['moe']['steps'])}")
+    print(f"train profile [{MOE_ARCH}]: "
+          f"{json.dumps(train['moe']['profile'])}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -17,6 +17,11 @@ a seed, at moonshot-v1-16b-a3b's widths (64 experts, d 2048, d_ff 1408):
   sleep, so the host cannot starve the device);
 * a 32,768-token prefill's gate and down products (196,608 rows over a
   seeded skewed routing): device milliseconds over 5 calls.
+* for a checkout whose wrapper has the weight-gradient kernel
+  (``moe_gmm.tgmm``), a training microbatch's weight gradients (8,192
+  tokens x top-6 = 49,152 rows over a seeded skewed routing; xᵀ (2048 x
+  49,152) @ dY (49,152 x 1408) for the gate product and the transpose
+  widths for the down product): device milliseconds over 10 calls.
 
 Every call uses the wrapper's own choice of kernel. For a checkout whose
 wrapper has the split-K kernel (``moe_gmm.splitk_plan``), the decode
@@ -99,6 +104,17 @@ def child(root: pathlib.Path) -> dict:
                 out[key] = {"device_ms": device_ms(call, 5)}
             del x
         del w
+        if hasattr(gm, "tgmm"):
+            train = rng.multinomial(8_192 * TOPK, p)
+            x = torch.randn(int(train.sum()), k, device=dev).to(bf16)
+            dy = torch.randn(int(train.sum()), n, device=dev).to(bf16)
+            offs = offsets(train)
+
+            def grad_call():
+                return gm.tgmm(x, dy, offs, out_dtype=bf16)
+            out[f"train {name} tgmm"] = {"device_ms": device_ms(grad_call,
+                                                                10)}
+            del x, dy
     return out
 
 

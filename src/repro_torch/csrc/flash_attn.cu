@@ -1219,8 +1219,18 @@ using EncodeTiled = CUresult (*)(
     CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled from libcuda, found through the runtime so the
-// library needs no -lcuda; null if it cannot be found.
+// library needs no -lcuda; null if it cannot be found. Each call also
+// makes the current device's primary context current on the calling
+// thread: a thread that has run no CUDA work yet (autograd's backward
+// worker, when a backward kernel here is its first) has none, and the
+// encoder refuses every map there (CUDA_ERROR_INVALID_CONTEXT). Since
+// CUDA 12 cudaSetDevice initializes and binds that context; if it fails,
+// the encoder's refusal reports it.
 EncodeTiled tensor_map_encoder() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaSetDevice(dev);
+  }
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

@@ -31,7 +31,9 @@
 //    and columns or K past the edge: TMA fills what lies outside the
 //    tensor with zeros, and the epilogue writes only rows [r0, r1) and
 //    columns below N. Blocks are numbered column tile fastest, so the
-//    blocks in flight share x rows and w[e] in L2.
+//    blocks in flight share x rows and w[e] in L2. Its kWt instantiation
+//    takes w as (E, N, K) and multiplies by w[e]^T, reading the stack
+//    K-major (the backward's dX, with no transposed copy).
 //  * "splitk", bf16 operands at decode-sized M (gmm_bf16_splitk). Bound
 //    by bytes: a decode step's 24 rows touch up to 24 experts' whole
 //    weights, 5.8 MB each at 2048 x 1408. K is split into `splits` chunks
@@ -51,6 +53,19 @@
 //  * "simt", float32 operands (gmm_f32_simt): SIMT float32 FMAs, a 64 x 64
 //    tile per block of 256 threads, each 4 x 4 outputs, K in slices of 16.
 //    Only the reference's float32 test cases reach it.
+//
+// And the weight gradient of the bf16 product, which no TPU kernel has
+// (the reference differentiates lax.ragged_dot in XLA):
+//  * "tgmm" (gmm_bf16_tgmm): dW[e] = x_e^T dy_e, a grouped reduction over
+//    each expert's rows. Bound by operations at a training microbatch
+//    (49,152 rows x 2048 x 1408: 2.8e11 FLOPs against 0.71 GB). One block
+//    owns one (group, 128-row K tile, 128-column N tile) of dW, reads the
+//    group's offsets on the device and walks its rows in ascending order
+//    through a cp.async ring into mma.sync (m16n8k16, float32
+//    accumulators), both operands read with ldmatrix.trans as they lie in
+//    memory. No atomics and no split over rows, so a repeated call gives
+//    the same bits. mma.sync and not wgmma: right and simple first; a
+//    wgmma redesign reads x^T from a 128-byte-swizzled MN-major tile.
 //
 // Bits: every kernel sums each output element in a fixed order, without
 // atomics, so a call repeated on the same inputs gives the same bits. The
@@ -262,8 +277,9 @@ __device__ __forceinline__ void hold(float (&r)[N]) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
 // d (64 x 256, float32) (+)= A (64 x 16, smem, K-major) * B (16 x 256,
-// smem, MN-major: the transpose bit of B is set); `accumulate` 0
-// overwrites d.
+// smem): MN-major with the transpose bit of B set (kTnspB 1), K-major
+// without it (0); `accumulate` 0 overwrites d.
+template <int kTnspB>
 __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t desc_a,
                                           uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -287,13 +303,13 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t desc_a,
       " %104, %105, %106, %107, %108, %109, %110, %111,"
       " %112, %113, %114, %115, %116, %117, %118, %119,"
       " %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, 1;\n"
+      " %128, %129, p, 1, 1, 0, %131;\n"
       "}\n"
       : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
         ACC8(d, 40), ACC8(d, 48), ACC8(d, 56), ACC8(d, 64), ACC8(d, 72),
         ACC8(d, 80), ACC8(d, 88), ACC8(d, 96), ACC8(d, 104), ACC8(d, 112),
         ACC8(d, 120)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTnspB));
 }
 
 #undef ACC8
@@ -301,11 +317,16 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t desc_a,
 // One block = one (row tile, 256-column tile); blockIdx.x counts column
 // tiles fastest. Shared memory: kWgStages stages of (x slice, w slice),
 // then the mbarriers: full[i] at bars + 8i, empty[i] at bars + 8(S + i).
+// kWt: w holds (E, N, K) and the product takes w[e]^T, K contiguous: a
+// slice of it is one TMA box of 256 rows (output columns) x 64 K, the
+// K-major B operand (wgmma's transpose bit clear), laid out as x's slice
+// is. The grouped matmul's backward takes dX = dY w[e]^T so, with no
+// transposed copy of the expert stack.
 //
 // Accumulator layout of m64nNk16 (warp w of a warpgroup owns rows 16w ..
 // 16w + 15 of its 64; lane = 4g + t): acc[4j + 0, 1] = row g, columns
 // 8j + 2t, + 1; acc[4j + 2, 3] = row g + 8, the same columns.
-template <typename Out>
+template <typename Out, bool kWt>
 __global__ void __launch_bounds__(kWgThreads, 1)
 gmm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_x,
                const __grid_constant__ CUtensorMap tm_w,
@@ -351,10 +372,14 @@ gmm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_x,
         const uint32_t a = base + stage * kStageBytes;
         mbar_expect_tx(full, kStageBytes);
         tma_load_2d(a, &tm_x, full, s * kWgDepth, r0);
+        if constexpr (kWt) {
+          tma_load_3d(a + kATileBytes, &tm_w, full, s * kWgDepth, n0, expert);
+        } else {
 #pragma unroll
-        for (int p = 0; p < kWgCols / 64; ++p) {
-          tma_load_3d(a + kATileBytes + p * kPanelBytes, &tm_w, full,
-                      n0 + 64 * p, s * kWgDepth, expert);
+          for (int p = 0; p < kWgCols / 64; ++p) {
+            tma_load_3d(a + kATileBytes + p * kPanelBytes, &tm_w, full,
+                        n0 + 64 * p, s * kWgDepth, expert);
+          }
         }
       }
     }
@@ -376,9 +401,15 @@ gmm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_x,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kWgDepth / 16; ++kk) {
-        // k-step kk: bytes 32kk of each x row, K-rows 16kk .. of each panel
-        wgmma_256(acc, kmajor_desc(a + 32 * kk),
-                  mnmajor_desc(b + kk * 16 * 128), 1);
+        // k-step kk: bytes 32kk of each x row, K-rows 16kk .. of each
+        // panel (or, kWt, bytes 32kk of each w^T row)
+        if constexpr (kWt) {
+          wgmma_256<0>(acc, kmajor_desc(a + 32 * kk),
+                       kmajor_desc(b + 32 * kk), 1);
+        } else {
+          wgmma_256<1>(acc, kmajor_desc(a + 32 * kk),
+                       mnmajor_desc(b + kk * 16 * 128), 1);
+        }
       }
       wgmma_commit();
       wgmma_wait<1>();   // slice s - 1's products are done: free its stage
@@ -730,6 +761,208 @@ gmm_f32_simt(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// ------------------------------------- bf16 weight gradient (tgmm)
+// dW[e] = x[offs[e]:offs[e+1]]^T @ dy[offs[e]:offs[e+1]]: (E, K, N) from
+// (M, K) x and (M, N) dy. One block of 8 warps owns a 128 x 128 tile of
+// one group's dW and walks the group's rows in ascending order, 32 rows a
+// step, through a 3-stage cp.async ring; warp (wk, wn) keeps a 64 x 32
+// float32 accumulator (4 x 4 mma.sync m16n8k16 tiles). Both operands are
+// staged as they lie in memory, a row of x (K contiguous) or of dy (N
+// contiguous) per staged row, and read with ldmatrix.trans: for the A
+// operand (x^T: the mma's M is K, its reduction dimension the rows) and
+// for the B operand (dy: reduction dimension the rows, N contiguous) the
+// transposed 8 x 8 loads give the fragments directly. Staged rows are
+// kTgPitch bf16 long (272 bytes), so the 8 rows an ldmatrix reads fall in
+// 8 different 16-byte bank groups. Longer steps and deeper rings did not
+// make it faster on the card: the mma.sync and ldmatrix issue bounds it,
+// not its loads.
+constexpr int kTgTile = 128;                  // dW rows (K) and columns (N)
+constexpr int kTgStep = 32;                   // rows of x and dy a stage
+constexpr int kTgStages = 3;
+constexpr int kTgThreads = 256;               // 2 (K) x 4 (N) warps
+constexpr int kTgPitch = kTgTile + 8;         // bf16 a staged row
+constexpr int kTgStageElems = kTgStep * kTgPitch;
+constexpr int kTgSmemBytes = kTgStages * 2 * kTgStageElems * 2;
+static_assert(kTgSmemBytes <= 232448, "more than a block's shared memory");
+// 16-byte copies of one operand a thread a stage
+constexpr int kTgCopies = kTgStep * kTgTile / 8 / kTgThreads;
+static_assert(kTgCopies * kTgThreads * 8 == kTgStep * kTgTile,
+              "a stage's operand is whole 16-byte copies a thread");
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  // src-size 0 copies nothing and fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four transposed 8 x 8 bf16 matrices; lanes 8i .. 8i + 7 give the row
+// addresses of matrix i, and register i of lane l holds elements
+// (2(l % 4), l / 4) and (2(l % 4) + 1, l / 4) of matrix i as stored.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// blockIdx = (N tile, K tile, group). Rows past the group (or past M),
+// and columns past K or N, are staged as zeros; a group with no rows
+// writes its tiles as zeros. Each dW element is one float32 sum over the
+// group's rows in ascending order (16 rows an mma), rounded once.
+//
+// Accumulator layout of m16n8k16 (lane = 4g + t): d[0, 1] = row g,
+// columns 2t, 2t + 1; d[2, 3] = row g + 8, the same columns.
+template <typename Out>
+__global__ void __launch_bounds__(kTgThreads)
+gmm_bf16_tgmm(const __nv_bfloat16* __restrict__ x,
+              const __nv_bfloat16* __restrict__ dy,
+              const int* __restrict__ offs, Out* __restrict__ out, int m,
+              int k, int n) {
+  extern __shared__ __align__(128) uint8_t tg_smem[];
+  const int e = blockIdx.z;
+  const int k0 = blockIdx.y * kTgTile;
+  const int n0 = blockIdx.x * kTgTile;
+  const int lo = min(max(__ldg(offs + e), 0), m);
+  const int hi = max(min(__ldg(offs + e + 1), m), lo);
+  const int steps = (hi - lo + kTgStep - 1) / kTgStep;
+  const uint32_t xs = smem_addr(tg_smem);                   // [stage][row][k]
+  const uint32_t ds = xs + kTgStages * kTgStageElems * 2;   // [stage][row][n]
+
+  // step s's rows into stage `stage`: copies c = tid + 256 i of each
+  // operand, row c / 16, 8 columns (16 bytes) at 8 (c % 16)
+  auto load = [&](int stage, int s) {
+#pragma unroll
+    for (int i = 0; i < kTgCopies; ++i) {
+      const int c = threadIdx.x + i * kTgThreads;
+      const int row = c / 16;
+      const int col = (c % 16) * 8;
+      const int r = lo + s * kTgStep + row;
+      const uint32_t off = (stage * kTgStageElems + row * kTgPitch + col) * 2;
+      const bool xv = r < hi && k0 + col < k;
+      cp_async16(xs + off,
+                 xv ? x + static_cast<long long>(r) * k + k0 + col : x, xv);
+      const bool dv = r < hi && n0 + col < n;
+      cp_async16(ds + off,
+                 dv ? dy + static_cast<long long>(r) * n + n0 + col : dy, dv);
+    }
+  };
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wk = warp / 4;   // dW rows 64wk .. 64wk + 63 of the tile
+  const int wn = warp % 4;   // dW columns 32wn .. 32wn + 31 of the tile
+  const int mat = lane / 8;  // the 8 x 8 matrix this lane addresses
+  // x^T fragments: matrix i holds staged rows 8(i / 2) .., K columns
+  // 8(i % 2) .. of a 16 x 16 A tile; dy fragments: matrix i holds staged
+  // rows 8(i % 2) .., N columns 8(i / 2) .. of two 16 x 8 B tiles
+  const int a_row = (mat / 2) * 8 + lane % 8;
+  const int a_col = wk * 64 + (mat % 2) * 8;
+  const int b_row = (mat % 2) * 8 + lane % 8;
+  const int b_col = wn * 32 + (mat / 2) * 8;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[i][j][c] = 0.0f;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int s = 0; s < kTgStages - 1; ++s) {
+    if (s < steps) {
+      load(s, s);
+    }
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kTgStages - 2>();   // step s has landed
+    __syncthreads();                  // and step s - 1's stage is free
+    const int next = s + kTgStages - 1;
+    if (next < steps) {
+      load(next % kTgStages, next);
+    }
+    cp_async_commit();
+    const int stage = s % kTgStages;
+    const uint32_t xa = xs + stage * kTgStageElems * 2;
+    const uint32_t da = ds + stage * kTgStageElems * 2;
+#pragma unroll
+    for (int kk = 0; kk < kTgStep; kk += 16) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ldmatrix_x4_trans(
+            a[i], xa + ((kk + a_row) * kTgPitch + a_col + 16 * i) * 2);
+      }
+      uint32_t b[2][4];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        ldmatrix_x4_trans(
+            b[p], da + ((kk + b_row) * kTgPitch + b_col + 16 * p) * 2);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // B tile j: columns 8j of the warp's 32; b[p][0, 1] are rows
+          // 0-7 and 8-15 of columns 16p .., b[p][2, 3] of 16p + 8 ..
+          mma_16816(acc[i][j], a[i], b[j / 2][2 * (j % 2)],
+                    b[j / 2][2 * (j % 2) + 1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  Out* dst = out + static_cast<long long>(e) * k * n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + wk * 64 + 16 * i + lane / 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + wn * 32 + 8 * j + 2 * (lane % 4);
+      if (col >= n) {
+        continue;
+      }
+      if (row < k) {
+        store2(dst + static_cast<long long>(row) * n + col, acc[i][j][0],
+               acc[i][j][1]);
+      }
+      if (row + 8 < k) {
+        store2(dst + static_cast<long long>(row + 8) * n + col, acc[i][j][2],
+               acc[i][j][3]);
+      }
+    }
+  }
+}
+
 // Row tiles of bm rows over all groups: at most ceil(M / bm) + E + 1.
 int row_tiles(int m, int num_groups, int bm) {
   return (m + bm - 1) / bm + num_groups + 1;
@@ -742,8 +975,18 @@ using EncodeTiled = CUresult (*)(
     CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled from libcuda, found through the runtime so the
-// library needs no -lcuda; null if it cannot be found.
+// library needs no -lcuda; null if it cannot be found. Each call also
+// makes the current device's primary context current on the calling
+// thread: a thread that has run no CUDA work yet (autograd's backward
+// worker, when a backward kernel here is its first) has none, and the
+// encoder refuses every map there (CUDA_ERROR_INVALID_CONTEXT). Since
+// CUDA 12 cudaSetDevice initializes and binds that context; if it fails,
+// the encoder's refusal reports it.
 EncodeTiled tensor_map_encoder() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaSetDevice(dev);
+  }
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -775,7 +1018,7 @@ CUresult encode_bf16(EncodeTiled encode, CUtensorMap* map, int rank,
 }
 
 // 0, a cudaError_t, or minus a CUresult if a tensor map is refused.
-template <typename Out>
+template <typename Out, bool kWt>
 int launch_wgmma(const void* x, const void* w, const int* offs, void* out,
                  int m, int k, int n, int num_groups, cudaStream_t st) {
   const EncodeTiled encode = tensor_map_encoder();
@@ -791,25 +1034,27 @@ int launch_wgmma(const void* x, const void* w, const int* offs, void* out,
   if (r != CUDA_SUCCESS) {
     return -static_cast<int>(r);
   }
-  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(n),
-                                static_cast<cuuint64_t>(k),
+  // w (E, K, N), N contiguous, in 64-column panels; or, kWt, (E, N, K),
+  // K contiguous, in one box of 256 rows of w^T
+  const cuuint64_t inner = kWt ? k : n;
+  const cuuint64_t w_dims[3] = {inner,
+                                static_cast<cuuint64_t>(kWt ? n : k),
                                 static_cast<cuuint64_t>(num_groups)};
   const cuuint64_t w_strides[2] = {
-      static_cast<cuuint64_t>(n) * 2,
-      static_cast<cuuint64_t>(k) * static_cast<cuuint64_t>(n) * 2};
-  const cuuint32_t w_box[3] = {64, kWgDepth, 1};
+      inner * 2, static_cast<cuuint64_t>(k) * static_cast<cuuint64_t>(n) * 2};
+  const cuuint32_t w_box[3] = {64, kWt ? kWgCols : kWgDepth, 1};
   r = encode_bf16(encode, &tm_w, 3, w, w_dims, w_strides, w_box);
   if (r != CUDA_SUCCESS) {
     return -static_cast<int>(r);
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      gmm_bf16_wgmma<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gmm_bf16_wgmma<Out, kWt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kWgSmemBytes);
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
   const int col_tiles = (n + kWgCols - 1) / kWgCols;
-  gmm_bf16_wgmma<Out>
+  gmm_bf16_wgmma<Out, kWt>
       <<<row_tiles(m, num_groups, kWgRows) * col_tiles, kWgThreads,
          kWgSmemBytes, st>>>(tm_x, tm_w, offs, static_cast<Out*>(out), m, k,
                              n, num_groups, col_tiles);
@@ -840,20 +1085,61 @@ int launch_splitk(const void* x, const void* w, const int* offs, void* out,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+template <typename Out>
+int launch_tgmm(const void* x, const void* dy, const int* offs, void* out,
+                int m, int k, int n, int num_groups, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      gmm_bf16_tgmm<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTgSmemBytes);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const dim3 grid((n + kTgTile - 1) / kTgTile, (k + kTgTile - 1) / kTgTile,
+                  num_groups);
+  gmm_bf16_tgmm<Out><<<grid, kTgThreads, kTgSmemBytes, st>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(dy), offs, static_cast<Out*>(out), m,
+      k, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// x, w: bf16; out: float32 when out_f32, else bf16. Shapes as above; the
-// wrapper checks them (M, K, N and E all positive), and M * N, M * K and
+// The weight gradient: x (M, K) and dy (M, N) bf16, out (E, K, N) float32
+// when out_f32, else bf16; every element of out is written (zeros for a
+// group with no rows). The wrapper checks the shapes (K, N and E
+// positive, K and N multiples of 8, E below 65,535), and M * K, M * N and
 // E * K * N stay below 2^31.
+extern "C" int moe_gmm_bf16_tgmm(const void* x, const void* dy,
+                                 const int* offs, void* out, int out_f32,
+                                 int m, int k, int n, int num_groups,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return out_f32 ? launch_tgmm<float>(x, dy, offs, out, m, k, n, num_groups,
+                                      st)
+                 : launch_tgmm<__nv_bfloat16>(x, dy, offs, out, m, k, n,
+                                              num_groups, st);
+}
+
+// x, w: bf16; out: float32 when out_f32, else bf16; w_t: w is (E, N, K)
+// and the product takes w[e]^T. Shapes as above; the wrapper checks them
+// (M, K, N and E all positive), and M * N, M * K and E * K * N stay
+// below 2^31.
 extern "C" int moe_gmm_bf16_wgmma(const void* x, const void* w,
                                   const int* offs, void* out, int out_f32,
-                                  int m, int k, int n, int num_groups,
-                                  void* stream) {
+                                  int w_t, int m, int k, int n,
+                                  int num_groups, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_f32 ? launch_wgmma<float>(x, w, offs, out, m, k, n, num_groups,
-                                       st)
-                 : launch_wgmma<__nv_bfloat16>(x, w, offs, out, m, k, n,
-                                               num_groups, st);
+  if (w_t) {
+    return out_f32 ? launch_wgmma<float, true>(x, w, offs, out, m, k, n,
+                                               num_groups, st)
+                   : launch_wgmma<__nv_bfloat16, true>(x, w, offs, out, m, k,
+                                                       n, num_groups, st);
+  }
+  return out_f32 ? launch_wgmma<float, false>(x, w, offs, out, m, k, n,
+                                              num_groups, st)
+                 : launch_wgmma<__nv_bfloat16, false>(x, w, offs, out, m, k,
+                                                      n, num_groups, st);
 }
 
 // As above; K chunk c covers rows [c * kc, min(K, (c + 1) * kc)), kc a

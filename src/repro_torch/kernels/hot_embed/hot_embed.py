@@ -20,10 +20,13 @@ on a CUDA tensor it launches the kernel or raises.
 
 `hot_gather_grad` is the same gather as an ``autograd.Function``: its
 backward adds the output gradient's rows of hot ids into the slab's
-gradient (``index_add_``, in float32). The reference's gradient of this
-lookup is XLA's scatter-add, the transpose of its ``take``, outside any
-Pallas kernel (its Pallas kernel has no VJP), so the backward is a library
-call here too, not a hand-written kernel.
+gradient (an accumulating ``index_put_``, in float32: on the card it
+sorts the ids and adds each row's duplicates in a fixed order, where
+``index_add_`` adds in atomics, so a repeated step gives the same bits).
+The reference's gradient of this lookup is XLA's scatter-add, the
+transpose of its ``take``, outside any Pallas kernel (its Pallas kernel
+has no VJP), so the backward is a library call here too, not a
+hand-written kernel.
 """
 from __future__ import annotations
 
@@ -113,7 +116,8 @@ class _HotGather(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             grad = grad_out.new_zeros(ctx.slab_shape)
             hot = ids < ctx.slab_shape[0]
-            grad.index_add_(0, ids[hot].long(), grad_out[hot])
+            grad.index_put_((ids[hot].long(),), grad_out[hot],
+                            accumulate=True)
         return None, grad
 
 

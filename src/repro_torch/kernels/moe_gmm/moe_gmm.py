@@ -17,7 +17,10 @@ the offsets, and nothing falls back from one to another:
   a producer warp keeps TMA copies of 64-deep K slices of x and of the
   group's weight in a 4-stage shared-memory ring, and two consumer
   warpgroups multiply them with ``wgmma`` (m64n256k16, float32
-  accumulators) into a 128 x 256 output tile inside one group.
+  accumulators) into a 128 x 256 output tile inside one group. With
+  ``w_transposed`` it takes w as (E, N, K) and multiplies by ``w[e]ᵀ``,
+  read K-major straight from the stack (the backward's dX, with no
+  transposed copy); that call takes this kernel at any M.
 * ``"splitk"``, bfloat16 at decode-sized M (a decode step's 24 rows
   over 64 experts, at most 4 a group), where bytes bound it: each used expert's weight
   streams once, split along K into chunks (`splitk_plan`) so the grid
@@ -29,6 +32,15 @@ the offsets, and nothing falls back from one to another:
 * ``"simt"``, float32 operands: float32 FMAs on the SIMT cores. The
   reference's float32 test cases need it; the model only calls bf16.
 
+`tgmm` is the weight gradient of the bf16 product, ``dW[e] = x_eᵀ dy_e``
+over each group's rows, through a fourth kernel, ``"tgmm"``
+(``gmm_bf16_tgmm``). No TPU kernel has it: the reference differentiates
+``lax.ragged_dot`` in XLA (``src/repro/models/moe.py:51-54``). One block
+owns a (group, 128 x 128 tile of dW) and walks the group's rows in
+ascending order into ``mma.sync`` tensor-core products with float32
+sums, rounded once: no atomics, no split over rows. `ops.ragged_dot`'s
+backward calls it for dW and `gmm` for dX.
+
 Each output element is summed in a fixed order without atomics, so a
 repeated call gives the same bits. The two bf16 variants do not give the
 same bits as each other (split-K adds the same exact products in another
@@ -39,6 +51,9 @@ What bounds it on an H100: operations at prefill (moonshot-v1-16b-a3b at
 32,768 tokens: 196,608 rows x 2048 x 1408 is 1.13e12 FLOPs against 2.3
 GB moved), bytes at decode (24 rows read up to 24 experts' weights, 138
 MB).
+`tgmm` is bound by operations at a training microbatch (8,192 tokens x
+top-6 = 49,152 rows: 2 x 49,152 x 2048 x 1408 = 2.8e11 FLOPs against
+0.71 GB).
 
 On a CPU tensor the wrapper runs the plain version
 (`ref.gmm_grouped_ref`); on a CUDA tensor it launches a kernel or
@@ -52,10 +67,10 @@ import functools
 import numpy as np
 import torch
 
-from .ref import gmm_grouped_ref
+from .ref import gmm_grouped_ref, tgmm_grouped_ref
 
 TILE_M = 128
-VARIANTS = ("wgmma", "splitk", "simt")
+VARIANTS = ("wgmma", "splitk", "simt", "tgmm")
 
 # bf16 calls with at most this many rows a group (M / E) take "splitk".
 # The sweep of chip_smoke.py's phase 13 (PERF.md §6) put the crossover
@@ -68,8 +83,9 @@ SPLITK_MAX_ROWS_PER_GROUP = 0.5
 SPLITK_SLOTS = 132 * 6
 SPLITK_MAX_CHUNKS = 8
 
-# Kernel launches since import (or since a caller last reset them), in all
-# and by variant. Only the CUDA branch below adds to them, once per
+# Kernel launches since import (or since a caller last reset them): of
+# `gmm` in all, and of every kernel by variant (`tgmm`'s under "tgmm",
+# not in `launches`). Only the CUDA branches below add to them, once per
 # launch (one a call).
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
@@ -109,16 +125,17 @@ def _kernel(name: str):
         fn = getattr(lib, "moe_gmm_bf16_" + name if name != "simt"
                      else "moe_gmm_f32")
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = {"wgmma": [p] * 4 + [i] * 5 + [p],
+        fn.argtypes = {"wgmma": [p] * 4 + [i] * 6 + [p],
                        "splitk": [p] * 4 + [i] * 7 + [p],
-                       "simt": [p] * 4 + [i] * 4 + [p]}[name]
+                       "simt": [p] * 4 + [i] * 4 + [p],
+                       "tgmm": [p] * 4 + [i] * 5 + [p]}[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor,
-           out_dtype: torch.dtype) -> None:
+           out_dtype: torch.dtype, w_t: bool) -> None:
     for name, t in (("w", w), ("group_offsets", offs)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -134,13 +151,14 @@ def _check(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor,
                else (torch.float32,))
     if out_dtype not in allowed:
         raise TypeError(f"{x.dtype} operands give {allowed}, not {out_dtype}")
-    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
-        raise ValueError(f"x must be (M, K) and w (E, K, N), got "
+    w_dims = "(E, N, K)" if w_t else "(E, K, N)"
+    if x.dim() != 2 or w.dim() != 3 or w.shape[2 if w_t else 1] != x.shape[1]:
+        raise ValueError(f"x must be (M, K) and w {w_dims}, got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if offs.shape != (w.shape[0] + 1,):
         raise ValueError(f"group_offsets must be ({w.shape[0] + 1},), got "
                          f"{tuple(offs.shape)}")
-    k, n = w.shape[1], w.shape[2]
+    k, n = x.shape[1], w.shape[1 if w_t else 2]
     if k % 8 or n % 8:
         raise ValueError(f"K ({k}) and N ({n}) must be multiples of 8")
     for name, t in (("x", x), ("w", w), ("group_offsets", offs)):
@@ -155,7 +173,15 @@ def _check(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor,
 
 
 def _pick(dtype: torch.dtype, m: int, e: int, k: int, n: int,
-          forced: str | None) -> str:
+          forced: str | None, w_t: bool = False) -> str:
+    if w_t:
+        if dtype != torch.bfloat16:
+            raise TypeError(f"a transposed expert stack takes bfloat16 "
+                            f"operands, not {dtype}")
+        if forced not in (None, "wgmma"):
+            raise ValueError(f"a transposed expert stack takes 'wgmma', not "
+                             f"{forced!r}")
+        return "wgmma"
     if dtype != torch.bfloat16:
         if forced not in (None, "simt"):
             raise ValueError(f"{dtype} operands take the 'simt' kernel, not "
@@ -170,7 +196,7 @@ def _pick(dtype: torch.dtype, m: int, e: int, k: int, n: int,
 
 
 def _launch(fn, name: str, x, w, offs, out, m: int, k: int, n: int,
-            e: int) -> int:
+            e: int, w_t: bool) -> int:
     """One kernel call on the current stream of x's card (the current
     device); returns the C entry point's code."""
     stream = torch._C._cuda_getCurrentRawStream(x.device.index)
@@ -179,17 +205,20 @@ def _launch(fn, name: str, x, w, offs, out, m: int, k: int, n: int,
         return fn(*ptrs, m, k, n, e, stream)
     out_f32 = int(out.dtype == torch.float32)
     if name == "wgmma":
-        return fn(*ptrs, out_f32, m, k, n, e, stream)
+        return fn(*ptrs, out_f32, int(w_t), m, k, n, e, stream)
     return fn(*ptrs, out_f32, m, k, n, e, *splitk_plan(m, e, k, n), stream)
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
         out_dtype: torch.dtype = torch.float32,
-        variant: str | None = None) -> torch.Tensor:
+        variant: str | None = None,
+        w_transposed: bool = False) -> torch.Tensor:
     """(M, K) x rows sorted by group, (E, K, N) w and (E+1,) int32 row
     offsets -> (M, N) in ``out_dtype``: rows ``[offs[e], offs[e+1])``
     times ``w[e]``, summed in float32 and rounded once; rows at or past
-    ``offs[E]`` are zero.
+    ``offs[E]`` are zero. With ``w_transposed`` w is (E, N, K) and the
+    rows are multiplied by ``w[e]ᵀ``: on the card the ``"wgmma"`` kernel
+    reads the stack K-major, at any M, for bfloat16 operands only.
 
     ``offs[0]`` is 0 and the offsets do not decrease; offsets past M are
     clipped to M. x and w are both float32 (float32 out) or both bfloat16
@@ -199,17 +228,20 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
     the kernel checks; the model never passes it.
     """
     global launches
+    w_t = bool(w_transposed)
     if x.device.type == "cpu":
         if variant is not None:
-            _pick(x.dtype, *x.shape[:1], *w.shape, variant)
-        return gmm_grouped_ref(x, w, group_offsets, out_dtype)
+            _pick(x.dtype, x.shape[0], w.shape[0], x.shape[1],
+                  w.shape[1 if w_t else 2], variant, w_t)
+        return gmm_grouped_ref(x, w.transpose(1, 2) if w_t else w,
+                               group_offsets, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"grouped matmul runs on cpu or cuda, not "
                          f"{x.device}")
-    _check(x, w, group_offsets, out_dtype)
+    _check(x, w, group_offsets, out_dtype, w_t)
     m, k = x.shape
-    e, _, n = w.shape
-    name = _pick(x.dtype, m, e, k, n, variant)
+    e, n = w.shape[0], w.shape[1 if w_t else 2]
+    name = _pick(x.dtype, m, e, k, n, variant, w_t)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
@@ -218,10 +250,11 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
     fn = _kernel(name)
     idx = x.device.index
     if idx == torch.cuda.current_device():
-        rc = _launch(fn, name, x, w, group_offsets, out, m, k, n, e)
+        rc = _launch(fn, name, x, w, group_offsets, out, m, k, n, e, w_t)
     else:
         with torch.cuda.device(idx):
-            rc = _launch(fn, name, x, w, group_offsets, out, m, k, n, e)
+            rc = _launch(fn, name, x, w, group_offsets, out, m, k, n, e,
+                         w_t)
     if rc < 0:
         raise RuntimeError(f"grouped matmul: cuTensorMapEncodeTiled refused "
                            f"a TMA tensor map (CUresult {-rc})")
@@ -230,6 +263,76 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
                            f"error {rc}")
     launches += 1
     launches_by_variant[name] += 1
+    return out
+
+
+def _check_tgmm(x: torch.Tensor, dy: torch.Tensor, offs: torch.Tensor,
+                out_dtype: torch.dtype) -> None:
+    for name, t in (("dy", dy), ("group_offsets", offs)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16:
+        raise TypeError(f"the weight gradient kernel takes bfloat16 x and dy, "
+                        f"not {x.dtype} and {dy.dtype}")
+    if offs.dtype != torch.int32:
+        raise TypeError(f"group_offsets must be torch.int32, got "
+                        f"{offs.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"bfloat16 operands give float32 or bfloat16, not "
+                        f"{out_dtype}")
+    if x.dim() != 2 or dy.dim() != 2 or dy.shape[0] != x.shape[0]:
+        raise ValueError(f"x must be (M, K) and dy (M, N), got "
+                         f"{tuple(x.shape)} and {tuple(dy.shape)}")
+    if offs.dim() != 1 or offs.shape[0] < 1:
+        raise ValueError(f"group_offsets must be (E + 1,), got "
+                         f"{tuple(offs.shape)}")
+    k, n, e = x.shape[1], dy.shape[1], offs.shape[0] - 1
+    if k % 8 or n % 8:
+        raise ValueError(f"K ({k}) and N ({n}) must be multiples of 8")
+    for name, t in (("x", x), ("dy", dy), ("group_offsets", offs)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if x.numel() >= 2**31 or dy.numel() >= 2**31 or e * k * n >= 2**31:
+        raise ValueError("x, dy and the output must each hold fewer than "
+                         "2^31 elements")
+    if e >= 65535:
+        raise ValueError(f"at most 65,534 groups, got {e}")
+
+
+def tgmm(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tensor, *,
+         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The weight gradient of `gmm`: (M, K) x and (M, N) dy, rows sorted
+    by group, and (E+1,) int32 row offsets -> (E, K, N) in ``out_dtype``,
+    ``out[e] = x[offs[e]:offs[e+1]]ᵀ @ dy[offs[e]:offs[e+1]]`` summed in
+    float32 and rounded once. A group with no rows gives zeros; rows at
+    or past ``offs[E]`` are ignored; offsets past M are clipped to M.
+
+    On the card x and dy are bfloat16 (float32 or bfloat16 out) and K and
+    N multiples of 8; float32 operands raise before any launch. Launches
+    on the current CUDA stream and does not synchronise. On CPU tensors
+    it runs the plain version (`ref.tgmm_grouped_ref`), any float dtype.
+    """
+    if x.device.type == "cpu":
+        return tgmm_grouped_ref(x, dy, group_offsets, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped matmul runs on cpu or cuda, not "
+                         f"{x.device}")
+    _check_tgmm(x, dy, group_offsets, out_dtype)
+    m, k = x.shape
+    n, e = dy.shape[1], group_offsets.shape[0] - 1
+    out = torch.empty((e, k, n), dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = _kernel("tgmm")
+    with torch.cuda.device(x.device):
+        stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+        rc = fn(x.data_ptr(), dy.data_ptr(), group_offsets.data_ptr(),
+                out.data_ptr(), int(out_dtype == torch.float32), m, k, n, e,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"grouped matmul launch failed (tgmm): CUDA error "
+                           f"{rc}")
+    launches_by_variant["tgmm"] += 1
     return out
 
 

@@ -7,10 +7,12 @@ version on the CPU.
   total zero, bf16 operands giving a bf16 result. The reference's model
   computes it in XLA and never reaches its TPU kernel; the port computes
   it with the kernel. The group offsets are a cumulative sum on the
-  device, so nothing is read back to the host. The kernel has no
-  backward yet: on the card a call that autograd would differentiate
-  raises (ROADMAP A8.5b); on the CPU autograd runs through the plain
-  version.
+  device, so nothing is read back to the host. Its backward
+  (`_RaggedDot`) is two hand-written kernels: dX is `gmm` of dY times
+  each ``w[e]ᵀ`` (the ``wgmma`` kernel reading the stack K-major, no
+  transposed copy), dW is `tgmm`; each a float32 sum rounded once to its
+  operand's dtype, as the plain version's autograd gives it. The CPU
+  goes through the same Function with the plain versions.
 * `grouped_matmul` keeps the reference wrapper's padded contract
   (``src/repro/kernels/moe_gmm/ops.py:12``): rows padded to ``TILE_M``
   per group, one expert id per row tile, a float32 result.
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .moe_gmm import TILE_M, gmm
+from .moe_gmm import TILE_M, gmm, tgmm
 
 
 def _offsets(counts: torch.Tensor) -> torch.Tensor:
@@ -29,20 +31,37 @@ def _offsets(counts: torch.Tensor) -> torch.Tensor:
     return offs
 
 
+class _RaggedDot(torch.autograd.Function):
+    """`gmm` with its backward: dX = `gmm` (dY, wᵀ), dW = `tgmm` (x, dY);
+    rows past the groups' total get a zero dX and add nothing to dW. On
+    the card both take bfloat16 only and raise before any launch
+    otherwise."""
+
+    @staticmethod
+    def forward(ctx, x, w, offs):
+        ctx.save_for_backward(x, w, offs)
+        return gmm(x, w, offs, out_dtype=x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, offs = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = gmm(dy, w, offs, out_dtype=x.dtype, w_transposed=True)
+        if ctx.needs_input_grad[1]:
+            dw = tgmm(x, dy, offs, out_dtype=w.dtype)
+        return dx, dw, None
+
+
 def ragged_dot(x: torch.Tensor, w: torch.Tensor,
                group_sizes: torch.Tensor) -> torch.Tensor:
     """x (M, K) rows sorted by group, w (E, K, N), group_sizes (E,) ->
     (M, N) in x's dtype: group e's rows times ``w[e]``, summed in float32
-    and rounded once; rows past ``sum(group_sizes)`` are zero."""
-    if (x.device.type == "cuda" and torch.is_grad_enabled()
-            and (x.requires_grad or w.requires_grad)):
-        # the kernel's output carries no autograd graph: training through
-        # it would leave the experts' gradients silently at zero
-        raise NotImplementedError(
-            "the grouped matmul has no backward on the card yet: ROADMAP "
-            "A8.5b")
+    and rounded once; rows past ``sum(group_sizes)`` are zero.
+    Differentiable in x and w."""
     offs = _offsets(group_sizes.to(torch.int32))
-    return gmm(x.contiguous(), w.contiguous(), offs, out_dtype=x.dtype)
+    return _RaggedDot.apply(x.contiguous(), w.contiguous(), offs)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,

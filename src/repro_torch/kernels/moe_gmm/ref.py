@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the grouped matmul (any device)."""
+"""Plain PyTorch versions of the grouped matmul and of its weight
+gradient (any device)."""
 from __future__ import annotations
 
 import torch
@@ -28,6 +29,28 @@ def gmm_grouped_ref(x: torch.Tensor, w: torch.Tensor,
         lo, hi = offs[e], offs[e + 1]
         if hi > lo:
             out[lo:hi] = x[lo:hi].float() @ w[e].float()
+    return out.to(out_dtype)
+
+
+def tgmm_grouped_ref(x: torch.Tensor, dy: torch.Tensor,
+                     group_offsets: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The weight gradient of the grouped matmul, one product per group:
+    ``out[e] = x[offs[e]:offs[e+1]]ᵀ @ dy[offs[e]:offs[e+1]]``, (E, K, N)
+    from (M, K) x and (M, N) dy, with both operands in float32 and the
+    result rounded once to ``out_dtype``. A group with no rows gives
+    zeros; rows at or past ``offs[E]`` are ignored. Offsets past M are
+    clipped to M.
+
+    Reads the offsets on the host (a sync on the card)."""
+    m, k, n = x.shape[0], x.shape[1], dy.shape[1]
+    e = group_offsets.shape[0] - 1
+    out = torch.zeros((e, k, n), dtype=torch.float32, device=x.device)
+    offs = group_offsets.clamp(0, m).tolist()
+    for g in range(e):
+        lo, hi = offs[g], offs[g + 1]
+        if hi > lo:
+            out[g] = x[lo:hi].float().T @ dy[lo:hi].float()
     return out.to(out_dtype)
 
 

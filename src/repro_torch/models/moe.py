@@ -14,6 +14,8 @@ Kept from the reference:
 * `_dispatch_local`: the stable sort by expert, a zero "parking" group
   for assignments a shard does not own, the ``replica`` split, and the
   combine in bf16, each token's k rows added in the order of the sort;
+  the gather of the sorted rows passes its gradient back the same way
+  (`_GatherRows`), as the transpose of the reference's gather adds it;
 * the unsorted control (``moe_locality_sort=False``), as plain einsums;
 * the shared experts as plain bf16 matmuls (`layers._dense`).
 
@@ -127,6 +129,34 @@ def _route(p, x_flat, cfg: ModelConfig):
     return experts, gates, aux
 
 
+class _GatherRows(torch.autograd.Function):
+    """``x_flat[tok]``, the expert-sorted rows, whose backward adds each
+    token's k gradient rows to zero one by one, in the order of the sort
+    (ascending expert id), rounding in the gradient's dtype after each
+    add: the order in which the reference's scatter-add (the transpose of
+    its gather) adds them on the CPU. ``dest[i]`` is sorted row i's slot
+    ``token * k + rank``. On the card autograd's own backward (an
+    accumulating index-put) adds in an order and a precision of the
+    library's choosing (bf16 summed in float32, rounded once), not the
+    reference's."""
+
+    @staticmethod
+    def forward(ctx, x_flat, tok, dest, k: int):
+        ctx.save_for_backward(dest)
+        ctx.k = k
+        return x_flat[tok]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dest,) = ctx.saved_tensors
+        rows = torch.empty_like(grad).index_copy_(0, dest, grad).view(
+            -1, ctx.k, grad.shape[-1])
+        dx = torch.zeros_like(rows[:, 0])
+        for j in range(ctx.k):
+            dx = dx + rows[:, j]
+        return dx, None, None, None
+
+
 def _dispatch_local(x_flat, experts, gates, w_gate, w_up, w_down,
                     num_local: int, base: int, replica=None):
     """Locality-sorted dispatch for experts [base, base+num_local).
@@ -146,18 +176,20 @@ def _dispatch_local(x_flat, experts, gates, w_gate, w_up, w_down,
     flat_e = torch.where(owned, flat_e, num_local)
     order = torch.argsort(flat_e, stable=True)          # the locality sort
     tok = order // k
-    xs = x_flat[tok]
-    group_sizes = torch.bincount(flat_e, minlength=num_local + 1)[:num_local]
-    ys = _expert_ffn_ragged(xs, w_gate, w_up, w_down, group_sizes)
-    w = (gates.reshape(-1)[order] * owned[order]).to(ys.dtype)
-    # The reference's segment_sum adds each token's k rows in bf16 in the
-    # order of the sort (ascending expert id). Scatter the weighted rows to
-    # (T, k, D) in that order and add them one by one: a fixed order, where
-    # index_add_ on the card would add in atomics.
+    # Sorted row i's slot: token tok[i], rank = its place among the
+    # token's k rows in the order of the sort (ascending expert id).
     _, jperm = torch.sort(flat_e.view(t, k), dim=1, stable=True)
     rank = torch.empty_like(jperm).scatter_(
         1, jperm, torch.arange(k, device=dev).expand(t, k).contiguous())
     dest = tok * k + rank.reshape(-1)[order]
+    xs = _GatherRows.apply(x_flat, tok, dest, k)
+    group_sizes = torch.bincount(flat_e, minlength=num_local + 1)[:num_local]
+    ys = _expert_ffn_ragged(xs, w_gate, w_up, w_down, group_sizes)
+    w = (gates.reshape(-1)[order] * owned[order]).to(ys.dtype)
+    # The reference's segment_sum adds each token's k rows in bf16 in the
+    # order of the sort. Scatter the weighted rows to (T, k, D) by slot and
+    # add them one by one: a fixed order, where index_add_ on the card
+    # would add in atomics.
     rows = torch.empty_like(ys).index_copy_(0, dest, ys * w[:, None])
     rows = rows.view(t, k, -1)
     y = rows[:, 0]

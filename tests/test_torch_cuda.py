@@ -36,6 +36,11 @@ on the CPU at tests/test_models.py's decode standard.
 from __future__ import annotations
 
 import hashlib
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -57,7 +62,8 @@ from repro_torch.kernels.moe_gmm import moe_gmm as gmm_mod  # noqa: E402
 from repro_torch.kernels.moe_gmm.ops import (grouped_matmul,  # noqa: E402
                                              ragged_dot)
 from repro_torch.kernels.moe_gmm.ref import (gmm_grouped_ref,  # noqa: E402
-                                             gmm_ref, gmm_splitk_ref)
+                                             gmm_ref, gmm_splitk_ref,
+                                             tgmm_grouped_ref)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -1395,18 +1401,272 @@ def test_training_on_the_card_matches_the_cpu(arch):
     assert out[1] == pytest.approx(out[0], rel=1e-2)
 
 
-def test_grouped_matmul_refuses_training_on_the_card():
-    """The grouped matmul has no backward kernel yet: a call that autograd
-    would differentiate raises before it launches (ROADMAP A8.5b), rather
-    than leaving the experts' gradients at zero."""
+def test_grouped_matmul_trains_on_the_card():
+    """`ragged_dot` under autograd on the card: the forward and dX launch
+    the `gmm` kernel (dX reading the expert stack transposed) and dW the
+    `tgmm` kernel, one launch each; each gradient is its kernel's float32
+    sum rounded once to bf16 and held to the plain path at GMM_TOL; rows
+    past the groups' total get a zero dX, an empty group a zero dW."""
     dev = _card()
-    x = torch.zeros(8, 16, device=dev, dtype=torch.bfloat16,
-                    requires_grad=True)
-    w = torch.zeros(2, 16, 8, device=dev, dtype=torch.bfloat16)
-    sizes = torch.tensor([4, 4], device=dev)
-    launches = gmm_mod.launches
-    with pytest.raises(NotImplementedError, match="A8.5b"):
-        ragged_dot(x, w, sizes)
-    assert gmm_mod.launches == launches
-    with torch.no_grad():
-        assert ragged_dot(x, w, sizes).shape == (8, 8)
+    rng = np.random.default_rng(5)
+    m, k, n, e = 300, 136, 200, 4
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        dev, torch.bfloat16).requires_grad_(True)
+    w = torch.from_numpy((k ** -0.5 * rng.standard_normal((e, k, n))).astype(
+        np.float32)).to(dev, torch.bfloat16).requires_grad_(True)
+    dy = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    sizes = torch.tensor([120, 0, 150, 17], device=dev)
+    offs = torch.zeros(e + 1, dtype=torch.int32, device=dev)
+    offs[1:] = sizes.cumsum(0)
+    before = dict(gmm_mod.launches_by_variant)
+    ragged_dot(x, w, sizes).backward(dy)
+    torch.cuda.synchronize()
+    launched = {v: gmm_mod.launches_by_variant[v] - before[v]
+                for v in before}
+    assert launched == {"wgmma": 2, "splitk": 0, "simt": 0, "tgmm": 1}
+    wt = w.detach().transpose(1, 2).contiguous()
+    dx32 = gmm_mod.gmm(dy, w.detach(), offs, out_dtype=torch.float32,
+                       w_transposed=True)
+    dw32 = gmm_mod.tgmm(x.detach(), dy, offs, out_dtype=torch.float32)
+    torch.testing.assert_close(dx32, gmm_mod.gmm(dy, wt, offs), **GMM_TOL)
+    torch.testing.assert_close(dx32, gmm_grouped_ref(dy, wt, offs),
+                               **GMM_TOL)
+    torch.testing.assert_close(dw32, tgmm_grouped_ref(x.detach(), dy, offs),
+                               **GMM_TOL)
+    assert torch.equal(x.grad, dx32.to(torch.bfloat16))
+    assert torch.equal(w.grad, dw32.to(torch.bfloat16))
+    assert not x.grad[287:].any() and not w.grad[1].any()
+    assert w.grad[0].any() and w.grad[2].any() and w.grad[3].any()
+
+
+@pytest.mark.parametrize("case", ["skewed", "one_group", "short", "empty"])
+@pytest.mark.parametrize("m,k,n,e", [
+    (40, 64, 128, 4), (40, 128, 64, 4),          # smoke moonshot widths
+    (1000, 2048, 1408, 64), (1000, 1408, 2048, 64),   # served widths
+    (333, 2048, 1408, 64),                        # M not a multiple of 128
+    (228, 136, 200, 3)])                          # K % 128, N % 128 != 0
+def test_tgmm_matches_plain_version(m, k, n, e, case):
+    """The weight-gradient kernel against `tgmm_grouped_ref` at GMM_TOL
+    (float32 out: exact bf16 products summed in another order), its bf16
+    result the float32 one rounded once, a repeat's bits equal, groups
+    with no rows zero, rows past offs[E] ignored, and three launches
+    counted under "tgmm" and nothing else."""
+    dev = _card()
+    rng = np.random.default_rng(m * k + n + e)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    dy = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    if case == "empty":                  # only 2 groups hold rows
+        sizes = np.zeros(e, np.int64)
+        sizes[[0, e - 1]] = [m // 3, m - m // 3]
+    else:
+        sizes = _sizes(rng, m, e, case)
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(
+        np.int32)).to(dev)
+    before = dict(gmm_mod.launches_by_variant)
+    got = gmm_mod.tgmm(x, dy, offs)
+    again = gmm_mod.tgmm(x, dy, offs)
+    half = gmm_mod.tgmm(x, dy, offs, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert gmm_mod.launches_by_variant == {**before,
+                                           "tgmm": before["tgmm"] + 3}
+    assert got.dtype == torch.float32 and got.shape == (e, k, n)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, tgmm_grouped_ref(x, dy, offs), **GMM_TOL)
+    assert torch.equal(half, got.to(torch.bfloat16))
+    for g in np.flatnonzero(sizes == 0):
+        assert not got[g].any()
+    total = int(sizes.sum())
+    if total < m:                        # rows past the total add nothing
+        torch.testing.assert_close(got, gmm_mod.tgmm(
+            x[:total].contiguous(), dy[:total].contiguous(), offs),
+            rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case,m,k,n,e", [
+    ("m1", 1, 1408, 2048, 64),
+    ("boundary", 228, 200, 136, 3),     # K % 64 != 0, N % 256 != 0
+    ("empty", 300, 1408, 2048, 64),
+    ("one_group", 1000, 2048, 1408, 64),
+    ("short", 1000, 1408, 2048, 64),
+    ("skewed", 1000, 2048, 1408, 64),
+    ("decode", 24, 1408, 2048, 64)])
+def test_gmm_takes_the_stack_transposed(case, m, k, n, e):
+    """``gmm(..., w_transposed=True)`` multiplies by each ``w[e]ᵀ`` of an
+    (E, N, K) stack through the ``wgmma`` kernel at any M (decode-sized
+    too), held to the plain version on the transposed view at GMM_TOL,
+    its bf16 result the float32 one rounded once, a repeat's bits equal,
+    rows past offs[E] zero, three launches under "wgmma"; other variants
+    and float32 operands raise before any launch."""
+    dev = _card()
+    rng = np.random.default_rng(m * k + n + e + 1)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    w = torch.from_numpy((k ** -0.5 * rng.standard_normal((e, n, k))).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    sizes = _variant_sizes(rng, case, m, e)
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(
+        np.int32)).to(dev)
+    before = dict(gmm_mod.launches_by_variant)
+    got = gmm_mod.gmm(x, w, offs, w_transposed=True)
+    again = gmm_mod.gmm(x, w, offs, w_transposed=True)
+    half = gmm_mod.gmm(x, w, offs, out_dtype=torch.bfloat16,
+                       w_transposed=True)
+    torch.cuda.synchronize()
+    assert gmm_mod.launches_by_variant == {**before,
+                                           "wgmma": before["wgmma"] + 3}
+    assert got.shape == (m, n) and torch.equal(got, again)
+    torch.testing.assert_close(
+        got, gmm_grouped_ref(x, w.transpose(1, 2), offs), **GMM_TOL)
+    assert torch.equal(half, got.to(torch.bfloat16))
+    assert not got[int(sizes.sum()):].any()
+    with pytest.raises(ValueError, match="'wgmma'"):
+        gmm_mod.gmm(x, w, offs, w_transposed=True, variant="splitk")
+    with pytest.raises(TypeError, match="bfloat16"):
+        gmm_mod.gmm(x.float(), w.float(), offs, w_transposed=True)
+    with pytest.raises(ValueError, match=r"\(E, N, K\)"):
+        gmm_mod.gmm(x, w.transpose(1, 2).contiguous(), offs,
+                    w_transposed=True)
+    assert gmm_mod.launches_by_variant["wgmma"] == before["wgmma"] + 3
+
+
+_FRESH_BACKWARD = {
+    "ragged_dot": """
+        from repro_torch.kernels.moe_gmm.ops import ragged_dot
+        x = torch.randn(256, 64, device="cuda").bfloat16().requires_grad_()
+        w = torch.randn(4, 64, 128, device="cuda").bfloat16()
+        y = ragged_dot(x, w, torch.full((4,), 64, device="cuda"))
+        y.backward(torch.ones_like(y))
+        grad = x.grad
+    """,
+    "flash_attention": """
+        from repro_torch.kernels.flash_attn.flash_attn import (
+            flash_attention_grad)
+        q = torch.randn(4, 256, 64, device="cuda").bfloat16().requires_grad_()
+        k, v = (torch.randn(4, 256, 64, device="cuda").bfloat16()
+                for _ in range(2))
+        o = flash_attention_grad(q, k, v)
+        o.backward(torch.ones_like(o))
+        grad = q.grad
+    """,
+}
+
+
+@pytest.mark.parametrize("op", sorted(_FRESH_BACKWARD))
+def test_backward_kernels_bind_a_fresh_thread(op):
+    """A backward whose first CUDA work on autograd's worker thread is a
+    TMA-fed kernel (the grouped matmul's dX reading the stack transposed,
+    the flash backward): that thread has no current context yet, and the
+    kernel binds the device's before it encodes its tensor maps. In a
+    process of its own, so that no earlier test has warmed the thread."""
+    _card()
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    code = "import torch\n" + textwrap.dedent(_FRESH_BACKWARD[op]) + (
+        "torch.cuda.synchronize()\n"
+        "assert bool(torch.isfinite(grad).all()) and bool(grad.any())\n")
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    done = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=900)
+    assert done.returncode == 0, done.stdout[-2000:] + done.stderr[-4000:]
+
+
+def test_tgmm_refuses_what_its_kernel_does_not_take():
+    """float32 (or mixed) operands, another offsets dtype, a device
+    mismatch, K or N not a multiple of 8, non-contiguous operands and
+    mismatched rows all raise before any launch."""
+    dev = _card()
+    x = torch.zeros(64, 32, device=dev, dtype=torch.bfloat16)
+    dy = torch.zeros(64, 16, device=dev, dtype=torch.bfloat16)
+    offs = torch.tensor([0, 40, 64], dtype=torch.int32, device=dev)
+    before = dict(gmm_mod.launches_by_variant)
+    with pytest.raises(TypeError, match="bfloat16"):
+        gmm_mod.tgmm(x.float(), dy.float(), offs)
+    with pytest.raises(TypeError, match="bfloat16"):
+        gmm_mod.tgmm(x, dy.float(), offs)
+    with pytest.raises(TypeError, match="int32"):
+        gmm_mod.tgmm(x, dy, offs.long())
+    with pytest.raises(ValueError, match="is on"):
+        gmm_mod.tgmm(x, dy.cpu(), offs)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gmm_mod.tgmm(x[:, :28].contiguous(), dy, offs)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_mod.tgmm(x.t().contiguous().t(), dy, offs)
+    with pytest.raises(ValueError, match="x must be"):
+        gmm_mod.tgmm(x[:32].contiguous(), dy, offs)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gmm_mod.tgmm(x, dy, offs, out_dtype=torch.float16)
+    xr = x.float().requires_grad_(True)
+    w = torch.zeros(2, 32, 16, device=dev, requires_grad=True)
+    y = ragged_dot(xr, w, torch.tensor([40, 24], device=dev))
+    with pytest.raises(TypeError, match="bfloat16"):
+        y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    assert gmm_mod.launches_by_variant["tgmm"] == before["tgmm"]
+
+
+def test_moe_training_on_the_card_matches_the_cpu():
+    """Smoke moonshot, 2 layers, remat on: one microbatch's loss and
+    gradients on the card against the same weights on the CPU, the card
+    replaying the CPU's expert choices (`models.moe.RouteTape`; with remat
+    both runs route each layer twice, in the same order), the loss within
+    1e-2 and each leaf's relative L2 error within 5e-2, no leaf all zero;
+    9 `gmm` launches a layer (the forward, the replay and dX of 3
+    products) and 3 `tgmm`; and on the card, the same gradients with
+    remat off and on a repeat, bit for bit."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import RouteTape
+
+    dev = _card()
+    cfg = dataclasses.replace(smoke_config("moonshot-v1-16b-a3b", layers=2),
+                              remat=True)
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+
+    def grads_of(model, d, tape):
+        for p in model.parameters():
+            p.requires_grad_(True)
+        with tape:
+            loss, _ = T.loss_fn(model, {"tokens": tokens.to(d)})
+            loss.backward()
+        out = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+            p.requires_grad_(False)
+        return float(loss.detach()), out
+
+    tape = RouteTape()
+    want_loss, want = grads_of(host, "cpu", tape)
+    card = copy.deepcopy(host).to(dev)
+    before = dict(gmm_mod.launches_by_variant)
+    got_loss, got = grads_of(card, dev, RouteTape(tape.experts))
+    torch.cuda.synchronize()
+    launched = {v: gmm_mod.launches_by_variant[v] - before[v]
+                for v in before}
+    v = gmm_mod.variant(tokens.numel() * cfg.experts_per_token,
+                        cfg.num_experts, cfg.d_model, cfg.d_ff)
+    expected = dict.fromkeys(before, 0)
+    expected[v] += 6 * cfg.num_layers        # the forward and its replay
+    expected["wgmma"] += 3 * cfg.num_layers  # dX, the stack read transposed
+    expected["tgmm"] = 3 * cfg.num_layers
+    assert launched == expected
+    assert got_loss == pytest.approx(want_loss, rel=1e-2)
+    for n, w in want.items():
+        assert bool(got[n].any()), n
+        rel = float((got[n] - w).norm() / w.norm().clamp(min=1e-30))
+        assert rel < 5e-2, (n, rel)
+    # without remat each layer routes once: the forward's choices alone
+    plain = T.init_params(dataclasses.replace(cfg, remat=False),
+                          torch.Generator().manual_seed(0), "cpu").to(dev)
+    _, no_remat = grads_of(plain, dev,
+                           RouteTape(tape.experts[:cfg.num_layers]))
+    _, again = grads_of(card, dev, RouteTape(tape.experts))
+    for n in got:
+        assert torch.equal(no_remat[n], got[n]), n
+        assert torch.equal(again[n], got[n]), n
