@@ -22,7 +22,9 @@ any CUDA work, joined before it exits), beside phases 1-5.
    ``flash_bwd_dkdv_wgmma`` at d 64, 80 and 128), of both bf16
    grouped-matmul kernels
    (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``) and of its weight-gradient
-   kernel (``gmm_bf16_tgmm``).
+   kernel (``gmm_bf16_tgmm``), with any line naming a kernel (ptxas's
+   C75xx advisories that it serialised ``wgmma``). ``gmm_bf16_tgmm``'s
+   two instantiations must show no spill and no such advisory.
 3. Kernel check: ``csr_spmv`` against its plain PyTorch version on the
    card (ragged rows, empty rows, a graph with no edges, a bucketed
    upload with sentinel edges of value 0; a 100k-edge hub across many
@@ -2291,21 +2293,30 @@ def time_flash_bwd(bh, kv, s, d, dev) -> dict:
     return out
 
 
+# the template argument (float or bf16 dW) in gmm_bf16_tgmm's mangled names
+TGMM_PTXAS_KEY = r"tgmmI(f|13__nv_bfloat16)E"
+
+
 def ptxas_numbers(name: str, kernel: str,
                   key: str = r"ILi(\d+)E") -> dict:
     """ptxas's registers, spill stores and loads (bytes) and stack frame
     of each instantiation of ``kernel`` in library ``name``, keyed by the
     template argument that ``key`` captures in its mangled name (by
-    default a head dim), from the build log."""
+    default a head dim), from the build log; ``serialized`` lists the
+    C75xx advisories that its ``wgmma``s were serialised."""
     import re
     from repro_torch.kernels import _build
     out: dict = {}
     dim = None
     for line in _build.ptxas_report(name, kernel):
         m = re.search(key, line)
+        if re.search(r"\(C75\d\d\)", line) and m:
+            out.setdefault(m.group(1), {}).setdefault(
+                "serialized", []).append(line)
+            continue
         if "Compiling entry function" in line and m:
             dim = m.group(1)
-            out[dim] = {}
+            out.setdefault(dim, {}).setdefault("serialized", [])
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m and dim:
@@ -2480,12 +2491,23 @@ def train_full_width(dev, cfg) -> dict:
             "layer0": layer0}
 
 
+# the port's hand-written kernels, by (a part of) their function names
+PORT_KERNELS = ("csr_spmv_merge", "csr_spmv_carries", "hot_gather",
+                "flash_fwd_bf16_wgmma", "flash_fwd_bf16_mma",
+                "flash_fwd_f32_simt", "flash_bwd_dq_wgmma",
+                "flash_bwd_dkdv_wgmma", "flash_bwd_dq_bf16",
+                "flash_bwd_dkdv_bf16", "gmm_bf16_wgmma", "gmm_bf16_splitk",
+                "gmm_bf16_tgmm", "gmm_f32_simt")
+
+
 def profile_train_step(step, model, opt, batch, step_s: float) -> dict:
     """``torch.profiler`` over one more full-depth training step (after
     the timed ones and their launch counts): the device's busy time (the
     union of the device operations' spans) against the profiled step's
-    wall and against ``step_s``, the timed steps' mean, and the ten device
-    operations that take the most time, summed by name."""
+    wall and against ``step_s``, the timed steps' mean, the ten device
+    operations that take the most time, summed by name, and the port's
+    hand-written kernels among the operations (`PORT_KERNELS`): each
+    one's ms and launches, wherever it ranks."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2510,8 +2532,13 @@ def profile_train_step(step, model, opt, batch, step_s: float) -> dict:
             busy_us += stop - max(start, end)
             end = stop
     by_name: dict = {}
+    ours: dict = {}
     for e in ops:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        kernel = next((k for k in PORT_KERNELS if k in e.name), None)
+        if kernel is not None:
+            ms, count = ours.get(kernel, (0.0, 0))
+            ours[kernel] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(f"train profile: one step, wall {wall:.3f} s under the profiler "
           f"(timed steps {step_s:.3f} s), device busy {busy_us / 1e6:.3f} s "
@@ -2522,8 +2549,13 @@ def profile_train_step(step, model, opt, batch, step_s: float) -> dict:
     for name, us in top:
         print(f"train profile:   {us / 1e3:9.3f} ms  "
               f"{100 * us / busy_us:5.1f}%  {name[:90]}")
+    for kernel, (ms, count) in sorted(ours.items()):
+        print(f"train profile: the port's {kernel}: {ms:.3f} ms, {count} "
+              f"launches, {100 * ms * 1e3 / busy_us:.1f}%")
     return {"wall_s": wall, "busy_s": busy_us / 1e6, "device_ops": len(ops),
-            "top": [{"name": n[:120], "ms": us / 1e3} for n, us in top]}
+            "top": [{"name": n[:120], "ms": us / 1e3} for n, us in top],
+            "port_kernels": {k: {"ms": ms, "launches": count}
+                             for k, (ms, count) in ours.items()}}
 
 
 def loss_and_grads(model, batch, tape=None) -> tuple[float, dict]:
@@ -3034,6 +3066,13 @@ def run(torch, corpora: dict) -> int:
     smem = _build.load("csr_spmv").csr_spmv_smem_bytes()
     print(f"csr_spmv_merge: {smem} bytes of dynamic shared memory "
           f"a block")
+    tgmm_ptxas = ptxas_numbers("moe_gmm", "gmm_bf16_tgmm", TGMM_PTXAS_KEY)
+    print(f"gmm_bf16_tgmm ptxas: {json.dumps(tgmm_ptxas)}")
+    if len(tgmm_ptxas) != 2 or any(
+            v.get("spill_stores", 1) or v.get("spill_loads", 1)
+            or v["serialized"] for v in tgmm_ptxas.values()):
+        raise AssertionError("gmm_bf16_tgmm: ptxas spilled, serialised its "
+                             "wgmma or left no report")
 
     err = timed("3 spmv checks", kernel_cases, dev)
     served = timed("4 graph serve", serve, dev, NUM_VERTICES)
@@ -3157,8 +3196,7 @@ def run(torch, corpora: dict) -> int:
             "dx")},
         "library": "torch._grouped_mm(xT, dY, offs=)",
         "down": train["moe"]["timing"]["down"],
-        "ptxas": ptxas_numbers("moe_gmm", "gmm_bf16_tgmm",
-                               r"tgmmI(f|13__nv_bfloat16)E"),
+        "ptxas": tgmm_ptxas,
     }]
     for r in (rwkv, zamba):
         print(f"scan: {json.dumps(r['scan'])}")

@@ -58,14 +58,18 @@
 // (the reference differentiates lax.ragged_dot in XLA):
 //  * "tgmm" (gmm_bf16_tgmm): dW[e] = x_e^T dy_e, a grouped reduction over
 //    each expert's rows. Bound by operations at a training microbatch
-//    (49,152 rows x 2048 x 1408: 2.8e11 FLOPs against 0.71 GB). One block
-//    owns one (group, 128-row K tile, 128-column N tile) of dW, reads the
-//    group's offsets on the device and walks its rows in ascending order
-//    through a cp.async ring into mma.sync (m16n8k16, float32
-//    accumulators), both operands read with ldmatrix.trans as they lie in
-//    memory. No atomics and no split over rows, so a repeated call gives
-//    the same bits. mma.sync and not wgmma: right and simple first; a
-//    wgmma redesign reads x^T from a 128-byte-swizzled MN-major tile.
+//    (49,152 rows x 2048 x 1408: 2.8e11 FLOPs against 0.71 GB). The
+//    forward's design turned on its side: TMA boxes of 64 rows of x and
+//    dy (the reduction) into a 3-stage ring, x^T read MN-major as
+//    wgmma's A operand (transpose-A set) and dy as its MN-major B, two
+//    consumer warpgroups on a 128 (K) x 256 (N) tile of one group's dW.
+//    A group averages 768 rows, so tiles are short: persistent blocks,
+//    one an SM, walk the tiles heaviest group first, the producer's
+//    loads of the next tile overlap the last tile's epilogue, and a bf16
+//    tile leaves by TMA store from shared memory while the consumers go
+//    on. Rows past the group's end in its last slice are zeroed in
+//    shared memory. No atomics and no split over rows, so a repeated
+//    call gives the same bits.
 //
 // Bits: every kernel sums each output element in a fixed order, without
 // atomics, so a call repeated on the same inputs gives the same bits. The
@@ -186,10 +190,16 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
-// Spin until the phase of parity `parity` has completed.
+// Spin until the phase of parity `parity` has completed. A copy lands,
+// and a stage is freed, in microseconds; a wait of seconds means an
+// arrival that never comes, and traps, so that a fault ends the launch
+// with an error instead of a hang.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
-  while (!done) {
+  for (uint32_t spins = 0; !done; ++spins) {
+    if (spins == (1u << 26)) {
+      __trap();
+    }
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -243,8 +253,9 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
   return sw128_desc(addr, 16, 1024);
 }
 
-// w[e], MN-major (K rows x N columns, N contiguous): 8-K-row groups 1024
-// bytes apart (SBO), 64-column panels kPanelBytes apart (LBO).
+// An MN-major operand (K rows x M or N columns, M or N contiguous: w[e]
+// here, x^T and dy in tgmm): 8-K-row groups 1024 bytes apart (SBO),
+// 64-column panels kPanelBytes apart (LBO; a 64-wide A is one panel).
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
   return sw128_desc(addr, kPanelBytes, 1024);
 }
@@ -276,10 +287,10 @@ __device__ __forceinline__ void hold(float (&r)[N]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (64 x 256, float32) (+)= A (64 x 16, smem, K-major) * B (16 x 256,
-// smem): MN-major with the transpose bit of B set (kTnspB 1), K-major
+// d (64 x 256, float32) (+)= A (64 x 16, smem) * B (16 x 256, smem), each
+// operand MN-major with its transpose bit set (kTnspA, kTnspB 1), K-major
 // without it (0); `accumulate` 0 overwrites d.
-template <int kTnspB>
+template <int kTnspA, int kTnspB>
 __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t desc_a,
                                           uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -303,13 +314,14 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t desc_a,
       " %104, %105, %106, %107, %108, %109, %110, %111,"
       " %112, %113, %114, %115, %116, %117, %118, %119,"
       " %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, %131;\n"
+      " %128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
         ACC8(d, 40), ACC8(d, 48), ACC8(d, 56), ACC8(d, 64), ACC8(d, 72),
         ACC8(d, 80), ACC8(d, 88), ACC8(d, 96), ACC8(d, 104), ACC8(d, 112),
         ACC8(d, 120)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTnspB));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTnspA),
+        "n"(kTnspB));
 }
 
 #undef ACC8
@@ -404,11 +416,11 @@ gmm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_x,
         // k-step kk: bytes 32kk of each x row, K-rows 16kk .. of each
         // panel (or, kWt, bytes 32kk of each w^T row)
         if constexpr (kWt) {
-          wgmma_256<0>(acc, kmajor_desc(a + 32 * kk),
-                       kmajor_desc(b + 32 * kk), 1);
+          wgmma_256<0, 0>(acc, kmajor_desc(a + 32 * kk),
+                          kmajor_desc(b + 32 * kk), 1);
         } else {
-          wgmma_256<1>(acc, kmajor_desc(a + 32 * kk),
-                       mnmajor_desc(b + kk * 16 * 128), 1);
+          wgmma_256<0, 1>(acc, kmajor_desc(a + 32 * kk),
+                          mnmajor_desc(b + kk * 16 * 128), 1);
         }
       }
       wgmma_commit();
@@ -763,202 +775,319 @@ gmm_f32_simt(const float* __restrict__ x, const float* __restrict__ w,
 
 // ------------------------------------- bf16 weight gradient (tgmm)
 // dW[e] = x[offs[e]:offs[e+1]]^T @ dy[offs[e]:offs[e+1]]: (E, K, N) from
-// (M, K) x and (M, N) dy. One block of 8 warps owns a 128 x 128 tile of
-// one group's dW and walks the group's rows in ascending order, 32 rows a
-// step, through a 3-stage cp.async ring; warp (wk, wn) keeps a 64 x 32
-// float32 accumulator (4 x 4 mma.sync m16n8k16 tiles). Both operands are
-// staged as they lie in memory, a row of x (K contiguous) or of dy (N
-// contiguous) per staged row, and read with ldmatrix.trans: for the A
-// operand (x^T: the mma's M is K, its reduction dimension the rows) and
-// for the B operand (dy: reduction dimension the rows, N contiguous) the
-// transposed 8 x 8 loads give the fragments directly. Staged rows are
-// kTgPitch bf16 long (272 bytes), so the 8 rows an ldmatrix reads fall in
-// 8 different 16-byte bank groups. Longer steps and deeper rings did not
-// make it faster on the card: the mma.sync and ldmatrix issue bounds it,
-// not its loads.
-constexpr int kTgTile = 128;                  // dW rows (K) and columns (N)
-constexpr int kTgStep = 32;                   // rows of x and dy a stage
-constexpr int kTgStages = 3;
-constexpr int kTgThreads = 256;               // 2 (K) x 4 (N) warps
-constexpr int kTgPitch = kTgTile + 8;         // bf16 a staged row
-constexpr int kTgStageElems = kTgStep * kTgPitch;
-constexpr int kTgSmemBytes = kTgStages * 2 * kTgStageElems * 2;
-static_assert(kTgSmemBytes <= 232448, "more than a block's shared memory");
-// 16-byte copies of one operand a thread a stage
-constexpr int kTgCopies = kTgStep * kTgTile / 8 / kTgThreads;
-static_assert(kTgCopies * kTgThreads * 8 == kTgStep * kTgTile,
-              "a stage's operand is whole 16-byte copies a thread");
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  // src-size 0 copies nothing and fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four transposed 8 x 8 bf16 matrices; lanes 8i .. 8i + 7 give the row
-// addresses of matrix i, and register i of lane l holds elements
-// (2(l % 4), l / 4) and (2(l % 4) + 1, l / 4) of matrix i as stored.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// blockIdx = (N tile, K tile, group). Rows past the group (or past M),
-// and columns past K or N, are staged as zeros; a group with no rows
-// writes its tiles as zeros. Each dW element is one float32 sum over the
-// group's rows in ascending order (16 rows an mma), rounded once.
+// (M, K) x and (M, N) dy. A tile is 128 rows (K) x 256 columns (N) of one
+// group's dW; the reduction runs over the group's rows in 64-row slices.
+// The forward's building blocks: one producer warp issues TMA copies into
+// the kTgStages ring (full/empty mbarriers), two consumer warpgroups of 64
+// dW rows each issue wgmma m64n256k16 into 128 float32 accumulators a
+// thread. A stage holds one slice: x's rows as two 64-column panels (A,
+// kATileBytes) and dy's as four (B, kBTileBytes), each panel 64 rows x 128
+// bytes, 128-byte swizzled, one TMA box. A panel row is one reduction
+// index and its 64 values run along the product's M (for x) or N (for dy):
+// both operands are MN-major, A = x^T with wgmma's transpose-A bit set, B
+// = dy laid out as the forward's w slice.
 //
-// Accumulator layout of m16n8k16 (lane = 4g + t): d[0, 1] = row g,
-// columns 2t, 2t + 1; d[2, 3] = row g + 8, the same columns.
+// Persistent: gridDim.x blocks (one an SM) walk the E * k_tiles * n_tiles
+// tiles in rounds of gridDim.x, the groups heaviest first (every block
+// orders them alike from the device offsets: by rows, ties by index; more
+// than kTgMaxSorted groups keep their own order), N tile fastest inside a
+// group; the blocks take a round's tiles in order, and the next round's
+// in reverse (tg_round_tile; a plain stride gives the low blocks the
+// heavier tile of every round, which told on skewed groups). The producer
+// runs on into the next tile's slices while the consumers write the last
+// tile out, so the ring's fill and the epilogue overlap the loads. A bf16
+// tile is written into shared memory (a conflict-free swizzled layout)
+// and leaves by TMA store, so the consumers start the next tile at once:
+// stored from registers, a half-sector store an instruction, it held
+// them far longer, which a fourth ring stage (the staging buffer's
+// shared memory) did not make up. A float32 dW (the checks' format) is
+// stored from registers. A group with no rows takes no slice and its
+// tiles are written as zeros.
+//
+// A slice's boxes start at row lo + 64s, so the group's last slice reads
+// the next group's rows (or rows past offs[E]); TMA fills only rows past M
+// with zeros. The consumers zero the rows at or past the group's end in
+// both operands before that slice's products, so a non-finite value there
+// reaches no other group's dW. Columns past K or N come from TMA's zero
+// fill, and the epilogue writes only rows below K and columns below N
+// (the TMA store clips at the tensor's edge).
+//
+// Each dW element is one float32 sum over its group's rows in slice order
+// (16 rows a wgmma), rounded once: no atomics, no split over rows.
+constexpr int kTgStages = 3;
+// a bf16 tile staged for its TMA store: per consumer warpgroup, 4 panels
+// of 64 dW rows x 64 columns (128-byte rows, swizzled as the ring's)
+constexpr int kTgOutBytes = 2 * (kWgCols / 64) * kPanelBytes;
+constexpr int kTgSmemBytes =
+    kTgStages * kStageBytes + kTgOutBytes + 128 + 1024;
+constexpr int kTgMaxSorted = 1024;
+static_assert(kATileBytes == 2 * kPanelBytes, "x's slice is two panels");
+static_assert(8 * 2 * kTgStages <= 128, "barriers overflow their slot");
+static_assert(kTgSmemBytes + 2 * kTgMaxSorted * 4 <= 232448,
+              "more than a block's shared memory");
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma's operand reads, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A box of shared memory to a 3-D tensor map at (c0, c1, c2); TMA writes
+// nothing outside the tensor.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This thread's committed TMA stores have read their shared memory
+// (kRead) or are done.
+template <bool kRead>
+__device__ __forceinline__ void bulk_wait_all() {
+  if constexpr (kRead) {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// Tile t of the walk: group g, dW rows k0 .. k0 + 127, columns n0 ..
+// n0 + 255, and the group's clipped rows [lo, hi).
+struct TgTile {
+  int g, k0, n0, lo, hi;
+};
+
+__device__ __forceinline__ TgTile tg_tile(const int* order, bool sorted,
+                                          const int* __restrict__ offs,
+                                          int m, int n_tiles,
+                                          int group_tiles, int t) {
+  TgTile c;
+  const int w = t % group_tiles;
+  c.g = sorted ? order[t / group_tiles] : t / group_tiles;
+  c.k0 = (w / n_tiles) * kWgRows;
+  c.n0 = (w % n_tiles) * kWgCols;
+  c.lo = min(max(__ldg(offs + c.g), 0), m);
+  c.hi = max(min(__ldg(offs + c.g + 1), m), c.lo);
+  return c;
+}
+
+// The tile a block takes in round q of the walk: the blocks in order in
+// even rounds and in reverse in odd ones, so that over tiles sorted
+// heaviest first no block keeps taking the heavier tile of every round.
+__device__ __forceinline__ int tg_round_tile(int q) {
+  const int b = static_cast<int>(blockIdx.x);
+  const int blocks = static_cast<int>(gridDim.x);
+  return q * blocks + ((q & 1) ? blocks - 1 - b : b);
+}
+
+// Shared memory: kTgStages stages of (x slice, dy slice), the staged
+// output tile (bf16), then the mbarriers: full[i] at bars + 8i, empty[i]
+// at bars + 8(S + i); the group order in static memory. Accumulator
+// layout as gmm_bf16_wgmma's: warp w of consumer warpgroup cw owns dW rows
+// 64cw + 16w .. of the tile; lane = 4g + t holds rows g and g + 8,
+// columns 8j + 2t, + 1. tm_out is (E, K, N) bf16 dW in boxes of 64 x 64
+// (unused for a float32 dW, which is stored from registers).
 template <typename Out>
-__global__ void __launch_bounds__(kTgThreads)
-gmm_bf16_tgmm(const __nv_bfloat16* __restrict__ x,
-              const __nv_bfloat16* __restrict__ dy,
+__global__ void __launch_bounds__(kWgThreads, 1)
+gmm_bf16_tgmm(const __grid_constant__ CUtensorMap tm_x,
+              const __grid_constant__ CUtensorMap tm_dy,
+              const __grid_constant__ CUtensorMap tm_out,
               const int* __restrict__ offs, Out* __restrict__ out, int m,
-              int k, int n) {
-  extern __shared__ __align__(128) uint8_t tg_smem[];
-  const int e = blockIdx.z;
-  const int k0 = blockIdx.y * kTgTile;
-  const int n0 = blockIdx.x * kTgTile;
-  const int lo = min(max(__ldg(offs + e), 0), m);
-  const int hi = max(min(__ldg(offs + e + 1), m), lo);
-  const int steps = (hi - lo + kTgStep - 1) / kTgStep;
-  const uint32_t xs = smem_addr(tg_smem);                   // [stage][row][k]
-  const uint32_t ds = xs + kTgStages * kTgStageElems * 2;   // [stage][row][n]
+              int k, int n, int num_groups) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int order[kTgMaxSorted];   // the group of rank r
+  __shared__ int rows[kTgMaxSorted];    // group g's clipped rows
+  const int n_tiles = (n + kWgCols - 1) / kWgCols;
+  const int group_tiles = ((k + kWgRows - 1) / kWgRows) * n_tiles;
+  const int tiles = num_groups * group_tiles;
+  const bool sorted = num_groups <= kTgMaxSorted;
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t staged = base + kTgStages * kStageBytes;
+  const uint32_t bars = staged + kTgOutBytes;
+  uint8_t* const ring = smem_raw + (base - smem_addr(smem_raw));
 
-  // step s's rows into stage `stage`: copies c = tid + 256 i of each
-  // operand, row c / 16, 8 columns (16 bytes) at 8 (c % 16)
-  auto load = [&](int stage, int s) {
-#pragma unroll
-    for (int i = 0; i < kTgCopies; ++i) {
-      const int c = threadIdx.x + i * kTgThreads;
-      const int row = c / 16;
-      const int col = (c % 16) * 8;
-      const int r = lo + s * kTgStep + row;
-      const uint32_t off = (stage * kTgStageElems + row * kTgPitch + col) * 2;
-      const bool xv = r < hi && k0 + col < k;
-      cp_async16(xs + off,
-                 xv ? x + static_cast<long long>(r) * k + k0 + col : x, xv);
-      const bool dv = r < hi && n0 + col < n;
-      cp_async16(ds + off,
-                 dv ? dy + static_cast<long long>(r) * n + n0 + col : dy, dv);
-    }
-  };
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wk = warp / 4;   // dW rows 64wk .. 64wk + 63 of the tile
-  const int wn = warp % 4;   // dW columns 32wn .. 32wn + 31 of the tile
-  const int mat = lane / 8;  // the 8 x 8 matrix this lane addresses
-  // x^T fragments: matrix i holds staged rows 8(i / 2) .., K columns
-  // 8(i % 2) .. of a 16 x 16 A tile; dy fragments: matrix i holds staged
-  // rows 8(i % 2) .., N columns 8(i / 2) .. of two 16 x 8 B tiles
-  const int a_row = (mat / 2) * 8 + lane % 8;
-  const int a_col = wk * 64 + (mat % 2) * 8;
-  const int b_row = (mat % 2) * 8 + lane % 8;
-  const int b_col = wn * 32 + (mat / 2) * 8;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        acc[i][j][c] = 0.0f;
-      }
+  if (sorted) {
+    for (int g = threadIdx.x; g < num_groups; g += kWgThreads) {
+      const int lo = min(max(__ldg(offs + g), 0), m);
+      rows[g] = max(min(__ldg(offs + g + 1), m), lo) - lo;
     }
   }
-
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int s = 0; s < kTgStages - 1; ++s) {
-    if (s < steps) {
-      load(s, s);
+    for (int i = 0; i < kTgStages; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + 8 * (kTgStages + i), kConsumers);
     }
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<kTgStages - 2>();   // step s has landed
-    __syncthreads();                  // and step s - 1's stage is free
-    const int next = s + kTgStages - 1;
-    if (next < steps) {
-      load(next % kTgStages, next);
+  __syncthreads();
+  if (sorted) {   // rank = groups with more rows, or as many and before
+    for (int g = threadIdx.x; g < num_groups; g += kWgThreads) {
+      const int r = rows[g];
+      int rank = 0;
+      for (int h = 0; h < num_groups; ++h) {
+        rank += rows[h] > r || (rows[h] == r && h < g);
+      }
+      order[rank] = g;
     }
-    cp_async_commit();
-    const int stage = s % kTgStages;
-    const uint32_t xa = xs + stage * kTgStageElems * 2;
-    const uint32_t da = ds + stage * kTgStageElems * 2;
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWarpgroup) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int it = 0;   // slices issued by this block, across its tiles
+      for (int q = 0, t = tg_round_tile(0); t < tiles;
+           t = tg_round_tile(++q)) {
+        const TgTile c = tg_tile(order, sorted, offs, m, n_tiles,
+                                 group_tiles, t);
+        for (int r0 = c.lo; r0 < c.hi; r0 += kWgDepth, ++it) {
+          const int stage = it % kTgStages;
+          if (it >= kTgStages) {   // wait for the consumers to free it
+            mbar_wait(bars + 8 * (kTgStages + stage),
+                      (it / kTgStages - 1) & 1);
+          }
+          const uint32_t full = bars + 8 * stage;
+          const uint32_t a = base + stage * kStageBytes;
+          mbar_expect_tx(full, kStageBytes);
 #pragma unroll
-    for (int kk = 0; kk < kTgStep; kk += 16) {
-      uint32_t a[4][4];
+          for (int p = 0; p < kATileBytes / kPanelBytes; ++p) {
+            tma_load_2d(a + p * kPanelBytes, &tm_x, full, c.k0 + 64 * p, r0);
+          }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ldmatrix_x4_trans(
-            a[i], xa + ((kk + a_row) * kTgPitch + a_col + 16 * i) * 2);
-      }
-      uint32_t b[2][4];
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        ldmatrix_x4_trans(
-            b[p], da + ((kk + b_row) * kTgPitch + b_col + 16 * p) * 2);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // B tile j: columns 8j of the warp's 32; b[p][0, 1] are rows
-          // 0-7 and 8-15 of columns 16p .., b[p][2, 3] of 16p + 8 ..
-          mma_16816(acc[i][j], a[i], b[j / 2][2 * (j % 2)],
-                    b[j / 2][2 * (j % 2) + 1]);
+          for (int p = 0; p < kWgCols / 64; ++p) {
+            tma_load_2d(a + kATileBytes + p * kPanelBytes, &tm_dy, full,
+                        c.n0 + 64 * p, r0);
+          }
         }
       }
     }
-  }
-  cp_async_wait<0>();
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = threadIdx.x / kWarpgroup - 1;   // dW rows 64cw ..
+    const int wt = threadIdx.x % kWarpgroup;
+    const int warp = wt / 32;
+    const int lane = threadIdx.x % 32;
+    float acc[128];
+    int it = 0;   // slices consumed, as the producer counts them
+    for (int q = 0, t = tg_round_tile(0); t < tiles;
+         t = tg_round_tile(++q)) {
+      const TgTile c = tg_tile(order, sorted, offs, m, n_tiles, group_tiles,
+                               t);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) {
+        acc[i] = 0.0f;
+      }
+      for (int r0 = c.lo; r0 < c.hi; r0 += kWgDepth, ++it) {
+        const int stage = it % kTgStages;
+        mbar_wait(bars + 8 * stage, (it / kTgStages) & 1);
+        const uint32_t a = base + stage * kStageBytes;
+        const int valid = c.hi - r0;
+        if (valid < kWgDepth) {
+          // rows valid .. 63 of the six panels: this warpgroup zeroes its
+          // x panel and dy panels 2cw, 2cw + 1, whole 128-byte rows
+          const int chunks = (kWgDepth - valid) * 8;
+          for (int i = wt; i < 3 * chunks; i += kWarpgroup) {
+            const int p = i / chunks;
+            const int panel =
+                p == 0 ? cw * kPanelBytes
+                       : kATileBytes + (2 * cw + p - 1) * kPanelBytes;
+            *reinterpret_cast<uint4*>(ring + stage * kStageBytes + panel +
+                                      valid * 128 + (i % chunks) * 16) =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
+          fence_proxy_async();   // before either warpgroup's wgmma reads
+          named_sync(1, kConsumers);
+        }
+        hold(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgDepth / 16; ++kk) {
+          // k-step kk: panel rows 16kk .. 16kk + 15 of both operands
+          wgmma_256<1, 1>(acc,
+                          mnmajor_desc(a + cw * kPanelBytes + kk * 2048),
+                          mnmajor_desc(a + kATileBytes + kk * 2048), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();   // the previous slice's products are done
+        hold(acc);
+        if (r0 > c.lo) {
+          mbar_arrive(bars + 8 * (kTgStages + (it - 1) % kTgStages));
+        }
+      }
+      wgmma_wait<0>();
+      hold(acc);
+      if (c.hi > c.lo) {   // free the tile's last stage
+        mbar_arrive(bars + 8 * (kTgStages + (it - 1) % kTgStages));
+      }
 
-  Out* dst = out + static_cast<long long>(e) * k * n;
+      if constexpr (sizeof(Out) == 2) {
+        // into this warpgroup's staged panels (conflict-free: the 8 rows
+        // of a store instruction sit in 8 different 16-byte chunks), then
+        // one thread stores them by TMA while the warpgroup goes on
+        const uint32_t mine = staged + cw * (kTgOutBytes / 2);
+        uint8_t* const dst = ring + (mine - base);
+        const int row = warp * 16 + lane / 4;   // and row + 8
+        if (wt == 0) {
+          bulk_wait_all<true>();   // the last tile's store has read them
+        }
+        named_sync(2 + cw, kWarpgroup);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + wk * 64 + 16 * i + lane / 4;
+        for (int j = 0; j < kWgCols / 8; ++j) {
+          const int at = (j / 8) * kPanelBytes + row * 128 +
+                         ((j % 8) ^ (row % 8)) * 16 + 4 * (lane % 4);
+          *reinterpret_cast<__nv_bfloat162*>(dst + at) =
+              __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dst + at + 8 * 128) =
+              __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+        fence_proxy_async();
+        named_sync(2 + cw, kWarpgroup);
+        if (wt == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn * 32 + 8 * j + 2 * (lane % 4);
-      if (col >= n) {
-        continue;
+          for (int p = 0; p < kWgCols / 64; ++p) {
+            tma_store_3d(&tm_out, mine + p * kPanelBytes, c.n0 + 64 * p,
+                         c.k0 + 64 * cw, c.g);
+          }
+          bulk_commit();
+        }
+      } else {
+        Out* dst = out + static_cast<long long>(c.g) * k * n;
+        const int row_a = c.k0 + cw * 64 + warp * 16 + lane / 4;
+        const int row_b = row_a + 8;
+#pragma unroll
+        for (int j = 0; j < kWgCols / 8; ++j) {
+          const int col = c.n0 + 8 * j + 2 * (lane % 4);
+          if (col >= n) {
+            continue;
+          }
+          if (row_a < k) {
+            store2(dst + static_cast<long long>(row_a) * n + col, acc[4 * j],
+                   acc[4 * j + 1]);
+          }
+          if (row_b < k) {
+            store2(dst + static_cast<long long>(row_b) * n + col,
+                   acc[4 * j + 2], acc[4 * j + 3]);
+          }
+        }
       }
-      if (row < k) {
-        store2(dst + static_cast<long long>(row) * n + col, acc[i][j][0],
-               acc[i][j][1]);
-      }
-      if (row + 8 < k) {
-        store2(dst + static_cast<long long>(row + 8) * n + col, acc[i][j][2],
-               acc[i][j][3]);
-      }
+    }
+    if (wt == 0) {
+      bulk_wait_all<false>();   // every store of this warpgroup is done
     }
   }
 }
@@ -1085,21 +1214,64 @@ int launch_splitk(const void* x, const void* w, const int* offs, void* out,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// 0, a cudaError_t, or minus a CUresult if a tensor map is refused.
 template <typename Out>
 int launch_tgmm(const void* x, const void* dy, const int* offs, void* out,
                 int m, int k, int n, int num_groups, cudaStream_t st) {
-  const cudaError_t err = cudaFuncSetAttribute(
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) {
+    return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  }
+  // x (M, K) and dy (M, N), each in boxes of 64 columns x 64 rows
+  CUtensorMap tm_x, tm_dy;
+  const cuuint32_t box[2] = {64, kWgDepth};
+  const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(m)};
+  const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(k) * 2};
+  CUresult r = encode_bf16(encode, &tm_x, 2, x, x_dims, x_strides, box);
+  if (r != CUDA_SUCCESS) {
+    return -static_cast<int>(r);
+  }
+  const cuuint64_t dy_dims[2] = {static_cast<cuuint64_t>(n),
+                                 static_cast<cuuint64_t>(m)};
+  const cuuint64_t dy_strides[1] = {static_cast<cuuint64_t>(n) * 2};
+  r = encode_bf16(encode, &tm_dy, 2, dy, dy_dims, dy_strides, box);
+  if (r != CUDA_SUCCESS) {
+    return -static_cast<int>(r);
+  }
+  // dW (E, K, N) bf16 in boxes of 64 x 64 dW rows, for the TMA stores
+  CUtensorMap tm_out = {};
+  if constexpr (sizeof(Out) == 2) {
+    const cuuint64_t out_dims[3] = {static_cast<cuuint64_t>(n),
+                                    static_cast<cuuint64_t>(k),
+                                    static_cast<cuuint64_t>(num_groups)};
+    const cuuint64_t out_strides[2] = {
+        static_cast<cuuint64_t>(n) * 2,
+        static_cast<cuuint64_t>(k) * static_cast<cuuint64_t>(n) * 2};
+    const cuuint32_t out_box[3] = {64, 64, 1};
+    r = encode_bf16(encode, &tm_out, 3, out, out_dims, out_strides, out_box);
+    if (r != CUDA_SUCCESS) {
+      return -static_cast<int>(r);
+    }
+  }
+  cudaError_t err = cudaFuncSetAttribute(
       gmm_bf16_tgmm<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kTgSmemBytes);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) {
+    err = cudaGetDevice(&dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const dim3 grid((n + kTgTile - 1) / kTgTile, (k + kTgTile - 1) / kTgTile,
-                  num_groups);
-  gmm_bf16_tgmm<Out><<<grid, kTgThreads, kTgSmemBytes, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dy), offs, static_cast<Out*>(out), m,
-      k, n);
+  const int tiles = num_groups * ((k + kWgRows - 1) / kWgRows) *
+                    ((n + kWgCols - 1) / kWgCols);
+  gmm_bf16_tgmm<Out><<<min(tiles, sms), kWgThreads, kTgSmemBytes, st>>>(
+      tm_x, tm_dy, tm_out, offs, static_cast<Out*>(out), m, k, n,
+      num_groups);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1107,9 +1279,9 @@ int launch_tgmm(const void* x, const void* dy, const int* offs, void* out,
 
 // The weight gradient: x (M, K) and dy (M, N) bf16, out (E, K, N) float32
 // when out_f32, else bf16; every element of out is written (zeros for a
-// group with no rows). The wrapper checks the shapes (K, N and E
+// group with no rows). The wrapper checks the shapes (M, K, N and E
 // positive, K and N multiples of 8, E below 65,535), and M * K, M * N and
-// E * K * N stay below 2^31.
+// E * K * N stay below 2^31. Returns as launch_tgmm.
 extern "C" int moe_gmm_bf16_tgmm(const void* x, const void* dy,
                                  const int* offs, void* out, int out_f32,
                                  int m, int k, int n, int num_groups,

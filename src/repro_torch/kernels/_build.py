@@ -94,7 +94,9 @@ def build_all(names=None) -> dict[str, float]:
 def ptxas_report(name: str, kernel: str) -> list[str]:
     """ptxas's lines for the kernels of library ``name`` whose (mangled)
     names contain ``kernel``: the entry, its stack and spills, its
-    registers. Empty if the library was built without its log."""
+    registers, and any other line that names it (the C75xx advisories
+    that ``wgmma`` was serialised). Empty if the library was built
+    without its log."""
     log = library_path(name).with_suffix(".log")
     if not log.exists():
         return []
@@ -102,9 +104,9 @@ def ptxas_report(name: str, kernel: str) -> list[str]:
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             keep = kernel in line
-        if keep:
+        if keep or kernel in line:
             lines.append(line.strip())
-            if "Used" in line and "registers" in line:
+            if keep and "Used" in line and "registers" in line:
                 keep = False
     return lines
 

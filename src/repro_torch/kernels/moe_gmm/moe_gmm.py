@@ -35,11 +35,15 @@ the offsets, and nothing falls back from one to another:
 `tgmm` is the weight gradient of the bf16 product, ``dW[e] = x_eᵀ dy_e``
 over each group's rows, through a fourth kernel, ``"tgmm"``
 (``gmm_bf16_tgmm``). No TPU kernel has it: the reference differentiates
-``lax.ragged_dot`` in XLA (``src/repro/models/moe.py:51-54``). One block
-owns a (group, 128 x 128 tile of dW) and walks the group's rows in
-ascending order into ``mma.sync`` tensor-core products with float32
-sums, rounded once: no atomics, no split over rows. `ops.ragged_dot`'s
-backward calls it for dW and `gmm` for dX.
+``lax.ragged_dot`` in XLA (``src/repro/models/moe.py:51-54``). It is
+the ``"wgmma"`` kernel's design turned on its side: TMA copies of 64-row
+slices of x and dy (the reduction runs over the group's rows, in
+ascending order) feed ``wgmma`` with xᵀ read MN-major from shared
+memory, into a 128 x 256 tile of one group's dW with float32 sums,
+rounded once: no atomics, no split over rows. Persistent blocks, one an
+SM, walk the tiles heaviest group first, so one tile's epilogue overlaps
+the next one's loads. `ops.ragged_dot`'s backward calls it for dW and
+`gmm` for dX.
 
 Each output element is summed in a fixed order without atomics, so a
 repeated call gives the same bits. The two bf16 variants do not give the
@@ -53,7 +57,7 @@ GB moved), bytes at decode (24 rows read up to 24 experts' weights, 138
 MB).
 `tgmm` is bound by operations at a training microbatch (8,192 tokens x
 top-6 = 49,152 rows: 2 x 49,152 x 2048 x 1408 = 2.8e11 FLOPs against
-0.71 GB).
+0.71 GB, over half of it the bf16 dW written once).
 
 On a CPU tensor the wrapper runs the plain version
 (`ref.gmm_grouped_ref`); on a CUDA tensor it launches a kernel or
@@ -309,8 +313,10 @@ def tgmm(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tensor, *,
 
     On the card x and dy are bfloat16 (float32 or bfloat16 out) and K and
     N multiples of 8; float32 operands raise before any launch. Launches
-    on the current CUDA stream and does not synchronise. On CPU tensors
-    it runs the plain version (`ref.tgmm_grouped_ref`), any float dtype.
+    on the current CUDA stream and does not synchronise; with no rows (M
+    0) there is nothing to multiply and the zeros need no launch. On CPU
+    tensors it runs the plain version (`ref.tgmm_grouped_ref`), any float
+    dtype.
     """
     if x.device.type == "cpu":
         return tgmm_grouped_ref(x, dy, group_offsets, out_dtype)
@@ -323,12 +329,17 @@ def tgmm(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tensor, *,
     out = torch.empty((e, k, n), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
+    if m == 0:   # no rows: a TMA map cannot span them
+        return out.zero_()
     fn = _kernel("tgmm")
     with torch.cuda.device(x.device):
         stream = torch._C._cuda_getCurrentRawStream(x.device.index)
         rc = fn(x.data_ptr(), dy.data_ptr(), group_offsets.data_ptr(),
                 out.data_ptr(), int(out_dtype == torch.float32), m, k, n, e,
                 stream)
+    if rc < 0:
+        raise RuntimeError(f"grouped matmul (tgmm): cuTensorMapEncodeTiled "
+                           f"refused a TMA tensor map (CUresult {-rc})")
     if rc != 0:
         raise RuntimeError(f"grouped matmul launch failed (tgmm): CUDA error "
                            f"{rc}")

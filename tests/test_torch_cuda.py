@@ -1485,6 +1485,94 @@ def test_tgmm_matches_plain_version(m, k, n, e, case):
             rtol=0, atol=0)
 
 
+def _tgmm_operands(dev, rng, sizes, k, n, tail=0, dy_scale=1.0):
+    """bf16 x (M, K) from N(0, 1) and dy (M, N) from N(0, dy_scale²), M
+    the sizes' total plus ``tail`` rows past it, and the (E + 1,) int32
+    offsets on the card."""
+    m = int(np.sum(sizes)) + tail
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    dy = torch.from_numpy((dy_scale * rng.standard_normal((m, n))).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(
+        np.int32)).to(dev)
+    return x, dy, offs
+
+
+# group sizes whose ends fall off multiples of 64 and of 16, groups of
+# fewer than 16 rows (1, 3, 5), empty groups, and a group of 2,049 rows
+# (33 slices) whose tiles spread over many persistent blocks; K and N
+# at the served widths, off multiples of 128 and 256, and at the smoke's
+# widths over more groups than the kernel orders (1,100: they keep their
+# own order) and more tiles than the card has blocks
+_TGMM_EDGE_CASES = {
+    "served": ([5, 77, 3, 2049, 0, 131, 1, 600, 0, 270], 2048, 1408, 13),
+    "down": ([5, 77, 3, 2049, 0, 131, 1, 600, 0, 270], 1408, 2048, 0),
+    "ragged": ([17, 0, 1, 95, 200, 15], 136, 200, 29),
+    "many_groups": (None, 64, 128, 7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_TGMM_EDGE_CASES))
+def test_tgmm_holds_at_group_edges(case):
+    """The weight-gradient kernel where a group's last slice is short:
+    held to `tgmm_grouped_ref` at GMM_TOL, its bf16 result the float32
+    one rounded once, a repeat's bits equal, empty groups zero, the rows
+    past offs[E] adding nothing (the same bits without them), one launch
+    a call. dy is at a gradient's scale, 1 / sqrt(the longest group's
+    rows), so that |dW| stays near 1 as in the shorter groups of
+    `test_tgmm_matches_plain_version`: two float32 sums of 2,049 unit
+    products in other orders part by more than GMM_TOL's 1e-4 where the
+    sum is near 0. A row of a neighbour left in a group's last slice
+    would still move its dW by about 1e-2, and the bits of the call
+    without the rows past offs[E] would differ."""
+    dev = _card()
+    rng = np.random.default_rng(27)
+    sizes, k, n, tail = _TGMM_EDGE_CASES[case]
+    if sizes is None:
+        sizes = rng.integers(0, 40, 1100)
+        sizes[::7] = 0
+    sizes = np.asarray(sizes)
+    x, dy, offs = _tgmm_operands(dev, rng, sizes, k, n, tail,
+                                 float(sizes.max()) ** -0.5)
+    before = gmm_mod.launches_by_variant["tgmm"]
+    got = gmm_mod.tgmm(x, dy, offs)
+    again = gmm_mod.tgmm(x, dy, offs)
+    half = gmm_mod.tgmm(x, dy, offs, out_dtype=torch.bfloat16)
+    total = int(sizes.sum())
+    cut = gmm_mod.tgmm(x[:total].contiguous(), dy[:total].contiguous(), offs)
+    torch.cuda.synchronize()
+    assert gmm_mod.launches_by_variant["tgmm"] == before + 4
+    assert got.shape == (len(sizes), k, n) and torch.equal(got, again)
+    torch.testing.assert_close(got, tgmm_grouped_ref(x, dy, offs), **GMM_TOL)
+    assert torch.equal(half, got.to(torch.bfloat16))
+    assert torch.equal(cut, got)
+    assert not got[torch.from_numpy(sizes == 0).to(dev)].any()
+
+
+def test_tgmm_keeps_non_finite_rows_in_their_group():
+    """An inf in one row of group g makes only dW[g] non-finite (the
+    group before it reads that row in its last slice, and zeroes it); a
+    NaN in a row past offs[E] leaves every dW finite. The finite groups
+    are held to the plain version at GMM_TOL."""
+    dev = _card()
+    rng = np.random.default_rng(2727)
+    sizes = np.array([70, 9, 130, 0, 45])
+    k, n = 200, 264
+    x, dy, offs = _tgmm_operands(dev, rng, sizes, k, n, tail=20)
+    x[70 + 2, 150] = float("inf")     # group 1's third row
+    dy[260, 3] = float("nan")         # past offs[E] = 254
+    dw = gmm_mod.tgmm(x, dy, offs)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(dw).flatten(1).all(1).tolist()
+    assert finite == [True, False, True, True, True]
+    assert torch.isfinite(dw[1, :150]).all()
+    assert torch.isfinite(dw[1, 151:]).all()
+    keep = [0, 2, 3, 4]
+    torch.testing.assert_close(dw[keep], tgmm_grouped_ref(x, dy, offs)[keep],
+                               **GMM_TOL)
+
+
 @pytest.mark.parametrize("case,m,k,n,e", [
     ("m1", 1, 1408, 2048, 64),
     ("boundary", 228, 200, 136, 3),     # K % 64 != 0, N % 256 != 0
@@ -1541,6 +1629,14 @@ _FRESH_BACKWARD = {
         y.backward(torch.ones_like(y))
         grad = x.grad
     """,
+    "ragged_dot_w": """
+        from repro_torch.kernels.moe_gmm.ops import ragged_dot
+        x = torch.randn(256, 64, device="cuda").bfloat16()
+        w = torch.randn(4, 64, 128, device="cuda").bfloat16().requires_grad_()
+        y = ragged_dot(x, w, torch.full((4,), 64, device="cuda"))
+        y.backward(torch.ones_like(y))
+        grad = w.grad
+    """,
     "flash_attention": """
         from repro_torch.kernels.flash_attn.flash_attn import (
             flash_attention_grad)
@@ -1557,10 +1653,11 @@ _FRESH_BACKWARD = {
 @pytest.mark.parametrize("op", sorted(_FRESH_BACKWARD))
 def test_backward_kernels_bind_a_fresh_thread(op):
     """A backward whose first CUDA work on autograd's worker thread is a
-    TMA-fed kernel (the grouped matmul's dX reading the stack transposed,
-    the flash backward): that thread has no current context yet, and the
-    kernel binds the device's before it encodes its tensor maps. In a
-    process of its own, so that no earlier test has warmed the thread."""
+    TMA-fed kernel (the grouped matmul's dX reading the stack transposed;
+    with only w requiring a gradient, `tgmm`; the flash backward): that
+    thread has no current context yet, and the kernel binds the device's
+    before it encodes its tensor maps. In a process of its own, so that
+    no earlier test has warmed the thread."""
     _card()
     src = pathlib.Path(__file__).resolve().parents[1] / "src"
     code = "import torch\n" + textwrap.dedent(_FRESH_BACKWARD[op]) + (
@@ -1604,6 +1701,21 @@ def test_tgmm_refuses_what_its_kernel_does_not_take():
         y.backward(torch.ones_like(y))
     torch.cuda.synchronize()
     assert gmm_mod.launches_by_variant["tgmm"] == before["tgmm"]
+
+
+def test_tgmm_of_no_rows_is_zero_without_a_launch():
+    """M 0: every group is empty, so dW is zeros, in either dtype, and
+    no kernel runs (a TMA map cannot span no rows)."""
+    dev = _card()
+    x = torch.zeros(0, 136, device=dev, dtype=torch.bfloat16)
+    dy = torch.zeros(0, 200, device=dev, dtype=torch.bfloat16)
+    offs = torch.zeros(4, dtype=torch.int32, device=dev)
+    before = gmm_mod.launches_by_variant["tgmm"]
+    for dtype in (torch.float32, torch.bfloat16):
+        dw = gmm_mod.tgmm(x, dy, offs, out_dtype=dtype)
+        assert dw.shape == (3, 136, 200) and dw.dtype == dtype
+        assert not dw.any()
+    assert gmm_mod.launches_by_variant["tgmm"] == before
 
 
 def test_moe_training_on_the_card_matches_the_cpu():

@@ -1,0 +1,123 @@
+"""What `chip_smoke.py` reads its reports from, fed here by hand: no
+compiler, no card.
+
+`_build.ptxas_report` keeps a kernel's entry lines (stack, spills,
+registers) and any other line naming it, the C75xx advisories that
+ptxas serialised its ``wgmma``s among them; `chip_smoke.ptxas_numbers`
+turns them into numbers by template argument. `chip_smoke.
+profile_train_step` sums the profiler's device operations: busy time,
+the costliest names, and the port's kernels by name wherever they rank.
+"""
+from __future__ import annotations
+
+import pathlib
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.kernels import _build  # noqa: E402
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
+TGMM_F = "_ZN12_GLOBAL__N_113gmm_bf16_tgmmIfEEv14CUtensorMap_stS1_PKiPT_iiii"
+TGMM_H = ("_ZN12_GLOBAL__N_113gmm_bf16_tgmmI13__nv_bfloat16EEv14CUtensorMap"
+          "_stS2_PKiPT_iiii")
+WGMMA = ("_ZN12_GLOBAL__N_114gmm_bf16_wgmmaIfLb0EEEv14CUtensorMap_stS1_"
+         "PKiPT_iiiii")
+
+
+def _entry(name, regs, spills):
+    return [f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            f"    0 bytes stack frame, {spills} bytes spill stores, "
+            f"{spills} bytes spill loads",
+            f"ptxas info    : Used {regs} registers, used 1 barriers"]
+
+
+LOG = "\n".join([
+    *_entry(WGMMA, 168, 0),
+    f"ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async "
+    f"instructions are serialized in the function '{TGMM_H}'",
+    *_entry(TGMM_F, 168, 0),
+    *_entry(TGMM_H, 170, 8),
+    f"ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async "
+    f"instructions are serialized in the function '{WGMMA}'",
+])
+
+
+@pytest.fixture
+def log(tmp_path, monkeypatch):
+    lib = tmp_path / "moe_gmm-0.so"
+    lib.with_suffix(".log").write_text(LOG)
+    monkeypatch.setattr(_build, "library_path", lambda name: lib)
+
+
+def test_ptxas_report_keeps_a_kernels_lines_and_advisories(log):
+    lines = _build.ptxas_report("moe_gmm", "gmm_bf16_tgmm")
+    assert len(lines) == 9
+    assert all("wgmma" not in ln or "tgmm" in ln for ln in lines)
+    assert sum("(C7512)" in ln for ln in lines) == 1
+    assert _build.ptxas_report("moe_gmm", "no_such_kernel") == []
+
+
+def test_ptxas_numbers_by_instantiation(log):
+    got = chip_smoke.ptxas_numbers("moe_gmm", "gmm_bf16_tgmm",
+                                   chip_smoke.TGMM_PTXAS_KEY)
+    assert set(got) == {"f", "13__nv_bfloat16"}
+    assert got["f"] == {"serialized": [], "stack": 0, "spill_stores": 0,
+                        "spill_loads": 0, "registers": 168}
+    half = got["13__nv_bfloat16"]
+    assert (half["registers"], half["spill_stores"]) == (170, 8)
+    assert len(half["serialized"]) == 1 and TGMM_H in half["serialized"][0]
+
+
+class _Span:
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+    def elapsed_us(self):
+        return self.end - self.start
+
+
+class _Op:
+    def __init__(self, name, start, end):
+        from torch.autograd import DeviceType
+        self.name, self.time_range = name, _Span(start, end)
+        self.device_type = DeviceType.CUDA
+
+
+def test_profile_names_the_ports_kernels(monkeypatch):
+    import torch
+    ops = [_Op("void (anonymous namespace)::gmm_bf16_tgmm<__nv_bfloat16>"
+               "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, int)", 0,
+               500),
+           _Op("nvjet_hsh_256x128_64x4_2x1_v_bz_coopA_NTN", 400, 2400),
+           _Op("void (anonymous namespace)::gmm_bf16_tgmm<float>(...)",
+               3000, 3400),
+           _Op("void (anonymous namespace)::flash_bwd_dq_wgmma<64>(...)",
+               3500, 3600)]
+
+    class Profile:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return ops
+
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Profile())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    out = chip_smoke.profile_train_step(
+        lambda m, o, b: (m, o, {"loss": torch.tensor(1.0)}), None, None,
+        None, 1.0)
+    assert out["busy_s"] == pytest.approx(2900e-6)
+    assert out["device_ops"] == 4
+    assert out["top"][0]["ms"] == pytest.approx(2.0)
+    assert out["port_kernels"] == {
+        "gmm_bf16_tgmm": {"ms": pytest.approx(0.9), "launches": 2},
+        "flash_bwd_dq_wgmma": {"ms": pytest.approx(0.1), "launches": 1}}
