@@ -15,8 +15,9 @@ any CUDA work, joined before it exits), beside phases 1-5.
    at once) and print the build seconds, then ptxas's registers, shared
    memory and spills of both SpMV kernels (``csr_spmv_merge``,
    ``csr_spmv_carries``), of the Hopper flash kernel
-   (``flash_fwd_bf16_wgmma``, with and without the row log-sum-exp) and
-   of its ``mma.sync`` kernels (``flash_fwd_bf16_mma``, d 16, 32 and 256),
+   (``flash_fwd_bf16_wgmma``, d 64, 80, 128 and 256, with and without the
+   row log-sum-exp) and of its ``mma.sync`` kernels
+   (``flash_fwd_bf16_mma``, d 16 and 32),
    of the flash backward's kernels (``flash_bwd_dq_bf16``,
    ``flash_bwd_dkdv_bf16`` at d 16 and 32; ``flash_bwd_dq_wgmma``,
    ``flash_bwd_dkdv_wgmma`` at d 64, 80 and 128), of both bf16
@@ -24,7 +25,8 @@ any CUDA work, joined before it exits), beside phases 1-5.
    (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``) and of its weight-gradient
    kernel (``gmm_bf16_tgmm``), with any line naming a kernel (ptxas's
    C75xx advisories that it serialised ``wgmma``). ``gmm_bf16_tgmm``'s
-   two instantiations must show no spill and no such advisory.
+   two instantiations and ``flash_fwd_bf16_wgmma``'s eight (keyed by
+   head dim and ``kLse``) must show no spill and no such advisory.
 3. Kernel check: ``csr_spmv`` against its plain PyTorch version on the
    card (ragged rows, empty rows, a graph with no edges, a bucketed
    upload with sentinel edges of value 0; a 100k-edge hub across many
@@ -84,6 +86,10 @@ weights from ``init_params`` on the card, seed 7):
    prefix-LM (prefix 256 and 700) and bidirectional masks in every
    variant, with head dims 80 and 256 in bf16, at S 300 and 1,000, and 8
    query rows on 1 kv row with a 256-token prefix at S 300 and 4,096;
+   the Hopper kernel's row log-sum-exp at d 64, 80, 128 and 256 (8 query
+   rows on 1 kv row, S 300, causal, prefix 40 and bidirectional): the
+   output bits of the call without it, the plain version's log-sum-exp at
+   rtol/atol 1e-4;
    ``hot_gather`` at the reference cases plus all-cold ids and H = vocab,
    exact. Each result must also repeat bit for bit.
 7. Prefill: ``forward`` on the batch ``configs/shapes.input_specs``
@@ -134,20 +140,23 @@ Then phases 7-11 on paligemma-3b at full width and depth (18 layers, d
 2048, 8 heads of 256 over 1 kv head, d_ff 16384, vocab 257,216, tied
 embeddings: 2,508,660,736 parameters): a prefix of 256 embedding rows
 (N(0, 1) from the seed) plus 32,512 tokens; 18 flash launches a prefill,
-all ``mma_sync`` (d 256), grouped (group 8) and prefix-masked; decode
-against forward as a pure token stream (``prefix_tokens`` 0, as
-tests/test_models.py runs it: a decode step takes tokens only); card
-against CPU on 256 prefix rows plus 256 tokens; flash timed beside
-``F.scaled_dot_product_attention`` with an explicit boolean (S, S) mask
-on the memory-efficient backend (k and v repeated per head, which that
-backend needs). Then hubert-xlarge at full width and depth (48 layers, d
-1280, 16 heads of 80, bidirectional, d_ff 5120, layernorm, a 504-way
-head: 945,131,520 parameters): the encoder forward on 32,768 frames
-(N(0, 1) from the seed), 48 bidirectional flash launches, all ``wgmma``
-(d 80 in 128-column tiles); card against CPU on 256 frames; the flash
-timing beside ``is_causal=False`` SDPA. An encoder has no decode step
-(``configs/shapes.cell_supported``), so phases 8 and 10 are skipped and
-say so. Both library calls round p to bf16.
+all ``wgmma`` (d 256, 64-key tiles), grouped (group 8) and
+prefix-masked; decode against forward as a pure token stream
+(``prefix_tokens`` 0, as tests/test_models.py runs it: a decode step
+takes tokens only); card against CPU on 256 prefix rows plus 256 tokens;
+flash timed beside ``F.scaled_dot_product_attention`` with an explicit
+boolean (S, S) mask on the memory-efficient backend (k and v repeated per
+head, which that backend needs), and beside
+``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
+the backend it takes (``library_causal_ms``: causal only, without the
+prefix's extra pairs, timed only). Then hubert-xlarge at full width
+and depth (48 layers, d 1280, 16 heads of 80, bidirectional, d_ff 5120,
+layernorm, a 504-way head: 945,131,520 parameters): the encoder forward
+on 32,768 frames (N(0, 1) from the seed), 48 bidirectional flash
+launches, all ``wgmma`` (d 80 in 128-column tiles); card against CPU on
+256 frames; the flash timing beside ``is_causal=False`` SDPA. An encoder
+has no decode step (``configs/shapes.cell_supported``), so phases 8 and
+10 are skipped and say so. All library calls round p to bf16.
 
 Then phases 7-11 on the two recurrent trunks at full width and depth,
 weights from ``init_params`` on the card (seed 7):
@@ -846,6 +855,28 @@ def flash_boundary_check(q, k, v, prefix: int = 300) -> None:
           f"{prefix - 1}; non-causal row 0 sees key {s - 1}")
 
 
+def flash_lse_check(q, k, v) -> None:
+    """`flash_attention_lse` on bf16 q, k, v under the causal, prefix-LM
+    (prefix 40) and bidirectional masks: its output equal, bit for bit, to
+    `flash_attention`'s, its row log-sum-exp to `attention_lse_ref`'s at
+    rtol/atol 1e-4."""
+    import torch
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    from repro_torch.kernels.flash_attn.ref import attention_lse_ref
+    err = 0.0
+    for mask in (dict(), dict(prefix=40), dict(causal=False)):
+        o, lse = fa.flash_attention_lse(q, k, v, **mask)
+        if not torch.equal(o, fa.flash_attention(q, k, v, **mask)):
+            raise AssertionError(f"flash_attention_lse[d {q.shape[2]}, "
+                                 f"{mask}]: output bits differ")
+        want = attention_lse_ref(q, k, **mask)
+        torch.testing.assert_close(lse, want, rtol=1e-4, atol=1e-4)
+        err = max(err, float((lse - want).abs().max()))
+    print(f"flash_attention_lse[{tuple(q.shape)} over {k.shape[0]} kv rows]: "
+          f"output bits equal, lse max_abs_err={err:.3e} (causal, prefix "
+          f"40, bidirectional)")
+
+
 def hot_check(name, ids, table, hot: int, verbose: bool = True) -> float:
     """Kernel vs plain version, exact; the hot/cold lookup equals
     ``table[ids]``. Returns max |err| (0 when exact)."""
@@ -949,6 +980,12 @@ def lm_kernel_cases(dev) -> tuple[float, float]:
             flash_err = max(flash_err, flash_check(
                 f"gqa group 8, prefix 256, 8x{s}x{d}", q, k, v, tol=tol,
                 prefix=256))
+    # the Hopper kernel's kLse instantiations: the bits of the forward
+    # without it, and the plain version's log-sum-exp to 1e-4
+    for d in (64, 80, 128, 256):
+        q = normal((8, 300, d), bf16)
+        k, v = (normal((1, 300, d), bf16) for _ in range(2))
+        flash_lse_check(q, k, v)
 
     hot_err = 0.0
     for vocab, hot, n, d in ((1000, 128, 400, 32), (4096, 512, 512, 32),
@@ -1764,6 +1801,32 @@ def time_flash(cfg, q, k, v) -> dict:
         library = ("F.scaled_dot_product_attention(attn_mask=bool (S, S) "
                    "prefix mask, k/v repeated per head), efficient backend")
         del keep, kr, vr
+        # a second yardstick, timed only: causal SDPA on the same q/k/v on
+        # the first backend that takes it, which leaves out the prefix's
+        # p(p - 1)/2 pairs above the diagonal
+        def causal_sdpa():
+            return F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True,
+                enable_gqa=group > 1)
+        for backend in (SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION):
+            try:
+                with sdpa_kernel(backend):
+                    causal_sdpa()
+                    torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            with sdpa_kernel(backend):
+                flash["library_causal_ms"] = cuda_ms(causal_sdpa, reps=5,
+                                                     warmup=1)
+            flash["library_causal"] = (
+                f"F.scaled_dot_product_attention(is_causal=True, enable_gqa="
+                f"{group > 1}) on {backend.name}: causal only (no prefix), "
+                f"timed only")
+            break
+        else:
+            raise AssertionError("no SDPA backend takes the causal call")
     else:
         flash["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(
@@ -1794,7 +1857,11 @@ def time_flash(cfg, q, k, v) -> dict:
           f"mask={flash['mask']} prefix={cfg.prefix_tokens} "
           f"ms={flash['ms']:.4f} plain_ms={flash['plain_ms']:.4f} "
           f"library_ms={flash['library_ms']:.4f} ({library}, p rounded to "
-          f"bf16) bound_ms={flash['bound_ms']:.4f} ({flops:.4e} FLOPs, "
+          f"bf16) "
+          + (f"library_causal_ms={flash['library_causal_ms']:.4f} "
+             f"({flash['library_causal']}) " if "library_causal" in flash
+             else "")
+          + f"bound_ms={flash['bound_ms']:.4f} ({flops:.4e} FLOPs, "
           f"{flops / flash['ms'] / 1e9:.1f} TFLOP/s) "
           f"faithful_bound_ms={flash['faithful_bound_ms']:.4f} "
           f"({faithful:.4e} FLOPs, {faithful / flash['ms'] / 1e9:.1f} "
@@ -2295,15 +2362,20 @@ def time_flash_bwd(bh, kv, s, d, dev) -> dict:
 
 # the template argument (float or bf16 dW) in gmm_bf16_tgmm's mangled names
 TGMM_PTXAS_KEY = r"tgmmI(f|13__nv_bfloat16)E"
+# both of flash_fwd_bf16_wgmma's (head dim, kLse): "256,1" is <256, true>
+FLASH_FWD_PTXAS_KEY = r"wgmmaILi(\d+)ELb([01])E"
+FLASH_FWD_INSTANCES = {f"{d},{lse}" for d in (64, 80, 128, 256)
+                       for lse in (0, 1)}
 
 
 def ptxas_numbers(name: str, kernel: str,
                   key: str = r"ILi(\d+)E") -> dict:
     """ptxas's registers, spill stores and loads (bytes) and stack frame
     of each instantiation of ``kernel`` in library ``name``, keyed by the
-    template argument that ``key`` captures in its mangled name (by
-    default a head dim), from the build log; ``serialized`` lists the
-    C75xx advisories that its ``wgmma``s were serialised."""
+    template arguments that ``key`` captures in its mangled name (by
+    default a head dim; several, joined by commas), from the build log;
+    ``serialized`` lists the C75xx advisories that its ``wgmma``s were
+    serialised."""
     import re
     from repro_torch.kernels import _build
     out: dict = {}
@@ -2311,12 +2383,14 @@ def ptxas_numbers(name: str, kernel: str,
     for line in _build.ptxas_report(name, kernel):
         m = re.search(key, line)
         if re.search(r"\(C75\d\d\)", line) and m:
-            out.setdefault(m.group(1), {}).setdefault(
+            out.setdefault(",".join(m.groups()), {}).setdefault(
                 "serialized", []).append(line)
             continue
-        if "Compiling entry function" in line and m:
-            dim = m.group(1)
-            out.setdefault(dim, {}).setdefault("serialized", [])
+        if "Compiling entry function" in line:
+            # an entry that the key does not match counts under no key
+            dim = ",".join(m.groups()) if m else None
+            if dim:
+                out.setdefault(dim, {}).setdefault("serialized", [])
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m and dim:
@@ -2327,6 +2401,21 @@ def ptxas_numbers(name: str, kernel: str,
         if m and dim:
             out[dim]["registers"] = int(m.group(1))
     return out
+
+
+def ptxas_gate(name: str, kernel: str, key: str, instances: set) -> dict:
+    """`ptxas_numbers` of ``kernel``, printed; raises unless it lists
+    exactly ``instances``, each with no spill and no C75xx advisory that
+    its ``wgmma``s were serialised."""
+    got = ptxas_numbers(name, kernel, key)
+    print(f"{kernel} ptxas: {json.dumps(got)}")
+    if set(got) != instances or any(
+            v.get("spill_stores", 1) or v.get("spill_loads", 1)
+            or v["serialized"] for v in got.values()):
+        raise AssertionError(f"{kernel}: ptxas spilled, serialised its "
+                             f"wgmma or left no report (instances "
+                             f"{sorted(instances)})")
+    return got
 
 
 def train_full_width(dev, cfg) -> dict:
@@ -3066,13 +3155,10 @@ def run(torch, corpora: dict) -> int:
     smem = _build.load("csr_spmv").csr_spmv_smem_bytes()
     print(f"csr_spmv_merge: {smem} bytes of dynamic shared memory "
           f"a block")
-    tgmm_ptxas = ptxas_numbers("moe_gmm", "gmm_bf16_tgmm", TGMM_PTXAS_KEY)
-    print(f"gmm_bf16_tgmm ptxas: {json.dumps(tgmm_ptxas)}")
-    if len(tgmm_ptxas) != 2 or any(
-            v.get("spill_stores", 1) or v.get("spill_loads", 1)
-            or v["serialized"] for v in tgmm_ptxas.values()):
-        raise AssertionError("gmm_bf16_tgmm: ptxas spilled, serialised its "
-                             "wgmma or left no report")
+    tgmm_ptxas = ptxas_gate("moe_gmm", "gmm_bf16_tgmm", TGMM_PTXAS_KEY,
+                            {"f", "13__nv_bfloat16"})
+    flash_ptxas = ptxas_gate("flash_attn", "flash_fwd_bf16_wgmma",
+                             FLASH_FWD_PTXAS_KEY, FLASH_FWD_INSTANCES)
 
     err = timed("3 spmv checks", kernel_cases, dev)
     served = timed("4 graph serve", serve, dev, NUM_VERTICES)
@@ -3133,6 +3219,7 @@ def run(torch, corpora: dict) -> int:
             "non_causal": launches("flash_attn_non_causal")},
         "launches_grouped_query": launches("flash_attn_gqa"),
         "max_abs_err": max([flash_err] + [r["flash_err"] for r in runs]),
+        "ptxas": flash_ptxas,
         **mini["timing"]["flash_attn"],
         GQA_ARCH: qwen["timing"]["flash_attn"],
         PREFIX_ARCH: pali["timing"]["flash_attn"],

@@ -31,12 +31,12 @@
 //
 // Three kernels, chosen by dtype and head dim (flash_attn.py's `variant`
 // names them; nothing falls back from one to another):
-//  * "wgmma", bf16 at d 64, 80 and 128 (the served models): the Hopper
-//    design below (flash_fwd_bf16_wgmma). d 80 runs in 128-column tiles
-//    whose last 48 columns TMA fills with zeros.
-//  * "mma_sync", bf16 at d 16, 32 and 256: warp-level mma.sync m16n8k16, 64
-//    queries by 64 keys per tile, four warps of 16 query rows; at d 256 Q
-//    is read from shared memory, not held in registers.
+//  * "wgmma", bf16 at d 64, 80, 128 and 256 (the served models): the
+//    Hopper design below (flash_fwd_bf16_wgmma). d 80 runs in 128-column
+//    tiles whose last 48 columns TMA fills with zeros; d 256 in 64-key
+//    tiles, with K and V in rings of their own.
+//  * "mma_sync", bf16 at d 16 and 32: warp-level mma.sync m16n8k16, 64
+//    queries by 64 keys per tile, four warps of 16 query rows.
 //  * "simt", float32 at d 16, 32, 64 and 128: float32 FMAs, 32 queries by
 //    32 keys per tile, four threads per query row.
 //
@@ -124,7 +124,7 @@ struct Mask {
   }
 };
 
-// --------------------------- bf16 at d 16, 32 and 256: mma.sync
+// ------------------------------------------ bf16 at d 16 and 32: mma.sync
 constexpr int kTile = 64;          // query rows and keys per tile
 constexpr int kMmaThreads = 128;   // four warps, 16 query rows each
 
@@ -186,15 +186,12 @@ __device__ __forceinline__ void a_fragment(uint32_t a[4],
 }
 
 // Shared memory of the mma.sync kernel: the K and V tiles, padded to rows of
-// D + 8; at d 256 also Q's tile, since its fragments (64 registers) beside
-// O's (128) would not fit a thread's registers. Dynamic, since d 256 takes
-// 101,376 bytes, past the 48 KB a block may hold statically.
+// D + 8.
 template <int D>
 struct MmaTile {
   static constexpr int kLd = D + 8;   // padded row stride: conflict-free
-  static constexpr bool kQShared = D > 128;
-  static constexpr int kSmemBytes = (kQShared ? 3 : 2) * kTile * kLd * 2;
-  static_assert(kSmemBytes <= 232448, "more than a block's shared memory");
+  static constexpr int kSmemBytes = 2 * kTile * kLd * 2;
+  static_assert(kSmemBytes <= 48 * 1024, "more than static shared memory");
 };
 
 // kLse: also write each row's log-sum-exp of its scaled logits (natural
@@ -215,7 +212,6 @@ flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
   extern __shared__ __align__(16) uint8_t mma_smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(mma_smem);
   __nv_bfloat16* vs = ks + kTile * kLd;
-  __nv_bfloat16* qs = vs + kTile * kLd;   // d 256 only
 
   const int s = mask.s;
   const int qt = num_q_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
@@ -230,19 +226,13 @@ flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
   const int row0 = q0 + warp * 16 + g;
   const int row1 = row0 + 8;
 
-  // q fragments, held in registers (staged through the K buffer), or at
-  // d 256 kept in their own shared tile and read at every k-step
-  constexpr int kQRegs = T::kQShared ? 1 : kK;
-  uint32_t qa[kQRegs][4];
-  if constexpr (T::kQShared) {
-    load_tile_bf16<D>(qs, q + base, q0, s);
-  } else {
-    load_tile_bf16<D>(ks, q + base, q0, s);
-    __syncthreads();
+  // q fragments, held in registers (staged through the K buffer)
+  uint32_t qa[kK][4];
+  load_tile_bf16<D>(ks, q + base, q0, s);
+  __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < kK; ++kk) {
-      a_fragment<kLd>(qa[kk], ks, warp * 16 + g, kk * 16 + t * 2);
-    }
+  for (int kk = 0; kk < kK; ++kk) {
+    a_fragment<kLd>(qa[kk], ks, warp * 16 + g, kk * 16 + t * 2);
   }
 
   float acc[kN][4];
@@ -265,29 +255,13 @@ flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
     for (int nb = 0; nb < kTile / 8; ++nb) {
       sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.0f;
     }
-    if constexpr (T::kQShared) {
-      // each sc[nb] still sums its k-steps in ascending order
+#pragma unroll
+    for (int nb = 0; nb < kTile / 8; ++nb) {
 #pragma unroll
       for (int kk = 0; kk < kK; ++kk) {
-        a_fragment<kLd>(qa[0], qs, warp * 16 + g, kk * 16 + t * 2);
-#pragma unroll
-        for (int nb = 0; nb < kTile / 8; ++nb) {
-          const __nv_bfloat16* kr =
-              ks + (nb * 8 + g) * kLd + kk * 16 + t * 2;
-          mma_bf16(sc[nb], qa[0], *reinterpret_cast<const uint32_t*>(kr),
-                   *reinterpret_cast<const uint32_t*>(kr + 8));
-        }
-      }
-    } else {
-#pragma unroll
-      for (int nb = 0; nb < kTile / 8; ++nb) {
-#pragma unroll
-        for (int kk = 0; kk < kK; ++kk) {
-          const __nv_bfloat16* kr =
-              ks + (nb * 8 + g) * kLd + kk * 16 + t * 2;
-          mma_bf16(sc[nb], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                   *reinterpret_cast<const uint32_t*>(kr + 8));
-        }
+        const __nv_bfloat16* kr = ks + (nb * 8 + g) * kLd + kk * 16 + t * 2;
+        mma_bf16(sc[nb], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
+                 *reinterpret_cast<const uint32_t*>(kr + 8));
       }
     }
 
@@ -508,12 +482,6 @@ int launch_bf16_as(const void* q, const void* k, const void* v, void* o,
                    float* lse, int bh, int group, Mask mask, float scale,
                    cudaStream_t st) {
   using T = MmaTile<D>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_mma<D, kLse>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
-  if (err != cudaSuccess) {
-    return static_cast<int>(err);
-  }
   const int tiles = (mask.s + kTile - 1) / kTile;
   flash_fwd_bf16_mma<D, kLse><<<tiles * bh, kMmaThreads, T::kSmemBytes,
                                 st>>>(
@@ -546,18 +514,20 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
   return static_cast<int>(cudaGetLastError());
 }
 
-// --------------------------------- bf16 at d 64, 80 and 128: Hopper design
+// ---------------------------- bf16 at d 64, 80, 128 and 256: Hopper design
 //
 // One block = one producer warpgroup and two consumer warpgroups (384
 // threads, one block an SM); 128 query rows a block, 64 per consumer, and
-// key tiles of 128. What bounds it is the tensor cores' operations (1.5
-// times a bf16 PV's, for the split), then the softmax's instructions: a
-// tile costs each consumer warp hundreds of them, 66 of which are MUFU.EX2
-// at a quarter of a warp a clock, beside 1,536 clocks of products a tile
-// pair at d 64.
+// key tiles of kKeys (Hopper<D>): 128 at d <= 128, 64 at d 256. What bounds
+// it is the tensor cores' operations (1.5 times a bf16 PV's, for the
+// split), then the softmax's instructions: a tile costs each consumer warp
+// hundreds of them, 66 of which are MUFU.EX2 at a quarter of a warp a
+// clock, beside 1,536 clocks of products a tile pair at d 64 (at d 256 the
+// products are 6,144 clocks a 64-key tile pair, the softmax a quarter of
+// d 64's).
 //  * Loads: one thread of the producer issues TMA copies
 //    (cp.async.bulk.tensor) on 3-D tensor maps over (BH, S, d) for Q and
-//    (BH / g, S, d) for K and V, 128-byte swizzled, into a ring of three K/V
+//    (BH / g, S, d) for K and V, 128-byte swizzled, into a ring of K/V
 //    stages; a block's K and V tiles come from kv row bh / g. Tiles past S
 //    arrive zero-filled, and so do columns past d: d 80 takes two 64-column
 //    panels, the second one 16 columns wide in memory. QK^T stops at column
@@ -566,6 +536,17 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
 //    mbarrier (the copies' bytes land) and an `empty` one (all 256 consumer
 //    threads have finished reading it), so the loads of later tiles run
 //    while the tensor cores work on this one.
+//  * d 256: a 128-key stage would be 128 KB beside Q's 64 KB, so the key
+//    tile is 64 (QK^T m64n64k16, 16 k-steps; PV one m64n256k16 a half and
+//    a 16-key step, 256 being wgmma's widest N). Two 64-key stages fit
+//    (192 KB), three do not. K and V have rings of their own
+//    (Hopper::kSplit): K's stage is freed when QK^T is done, V's after PV,
+//    a tile later, and the producer loads K(i + 1) then V(i), so each copy
+//    has about a tile pair's products to land in, where one ring of two
+//    stages would show the loads' latency on every tile. A 128-row query
+//    tile's own keys span two key tiles: the walk runs to the tile of its
+//    last row's key (or the prefix's last tile), and the first warpgroup
+//    multiplies the second of those with every logit masked (p = 0).
 //  * Products: wgmma.mma_async. S = Q K^T reads Q and K from shared memory
 //    through descriptors (both K-major). O += P_hi V and O += P_lo V take P
 //    from registers as the A operand and V from shared memory as an
@@ -575,15 +556,18 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
 //    the two consumers take turns to issue (named barriers), so one's
 //    softmax runs while the other's products do.
 //  * setmaxnreg moves registers from the producer (24) to the consumers
-//    (240): S, O and both halves of P live in registers.
+//    (240): S, O and both halves of P live in registers (at d 256: O 128
+//    floats, S 32, P 32, all live while PV(i - 1) and the softmax of tile
+//    i overlap).
 //  * exp2, with the scale folded into the exponent's FMA off the masked
 //    tiles; m and l stay float32.
 //
 // Shared memory: Q, then kStages K tiles, then kStages V tiles, then the
-// mbarriers. A tile is ceil(d/64) panels of 128 rows x 64 bf16, each row 128
-// bytes, 16-byte chunk c of row r stored at chunk c ^ (r % 8) (TMA's
-// 128-byte swizzle, which the wgmma descriptors name as layout B128).
-// Panel p holds columns 64p .. 64p + 63. Every panel starts 1024-aligned.
+// mbarriers. A tile is ceil(d/64) panels of its rows (Q: 128; K and V:
+// kKeys) x 64 bf16, each row 128 bytes, 16-byte chunk c of row r stored at
+// chunk c ^ (r % 8) (TMA's 128-byte swizzle, which the wgmma descriptors
+// name as layout B128). Panel p holds columns 64p .. 64p + 63. Every panel
+// starts 1024-aligned.
 //
 // Fragment layouts (warp w of a warpgroup owns rows 16w .. 16w + 15 of the
 // warpgroup's 64; lane = 4 g + t):
@@ -598,7 +582,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
 //    16kk .. 16kk + 15 these are S's accumulator entries 8kk + {0,1},
 //    8kk + {2,3}, 8kk + {4,5} and 8kk + {6,7}: P is converted in place.
 constexpr int kRows = 128;       // query rows a block: two warpgroups of 64
-constexpr int kKeys = 128;       // keys a tile
 constexpr int kWgThreads = 128;
 constexpr int kHopperThreads = 3 * kWgThreads;
 constexpr int kConsumers = 2 * kWgThreads;
@@ -609,15 +592,21 @@ template <int D>
 struct Hopper {
   static constexpr int kPanels = (D + 63) / 64;
   static constexpr int kWidth = 64 * kPanels;   // columns of a tile: D or 128
-  static constexpr int kTileBytes = kPanels * kPanelBytes;  // Q, K or V tile
-  // A stage is refilled only after the PV that read it, so with two stages
-  // the loads' latency shows on every tile (d 128: 10.4 ms with two, 9.2
-  // with three); three still fit beside Q at d 128 (225 KB).
-  static constexpr int kStages = 3;
-  static constexpr int kBarrierBytes = 8 * (2 * kStages + 1);
+  static constexpr int kKeys = D > 128 ? 64 : 128;   // keys a K or V tile
+  static constexpr int kKvPanelBytes = kKeys * 128;  // kKeys rows x 64 bf16
+  static constexpr int kQBytes = kPanels * kPanelBytes;       // Q: 128 rows
+  static constexpr int kTileBytes = kPanels * kKvPanelBytes;  // K or V tile
+  // d <= 128: one ring, a stage (K and V) refilled only after the PV that
+  // read it, so with two stages the loads' latency shows on every tile (d
+  // 128: 10.4 ms with two, 9.2 with three); three still fit beside Q at d
+  // 128 (225 KB). d 256: two rings of two (see above).
+  static constexpr bool kSplit = D > 128;
+  static constexpr int kStages = kSplit ? 2 : 3;
+  // full and empty barriers of each ring, then Q's
+  static constexpr int kBarrierBytes = 8 * ((kSplit ? 4 : 2) * kStages + 1);
   // + 1024: the dynamic segment is aligned up to 1024 bytes in the kernel
   static constexpr int kSmemBytes =
-      kTileBytes * (1 + 2 * kStages) + 128 + 1024;
+      kQBytes + 2 * kStages * kTileBytes + 128 + 1024;
   static_assert(kBarrierBytes <= 128, "barriers overflow their slot");
   static_assert(kSmemBytes <= 232448, "more than a block's shared memory");
 };
@@ -645,7 +634,9 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
-// Spin until the phase of parity `parity` has completed.
+// Spin until the phase of parity `parity` has completed. (A poll count
+// that traps, as moe_gmm.cu's has, makes ptxas spill these kernels'
+// consumers and serialise their wgmma at every head dim.)
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   while (!done) {
@@ -692,9 +683,10 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
 }
 
 // MN-major (V as K x N = keys x d): 8-key groups 1024 bytes apart (SBO),
-// 64-column panels kPanelBytes apart (LBO).
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, kPanelBytes, 1024);
+// 64-column panels `panel` bytes apart (LBO).
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr,
+                                                 uint32_t panel) {
+  return sw128_desc(addr, panel, 1024);
 }
 
 // Named barriers over the 256 consumer threads: one warpgroup waits at
@@ -810,9 +802,42 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_pv(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
+        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56), ACC8(d, 64), ACC8(d, 72),
+        ACC8(d, 80), ACC8(d, 88), ACC8(d, 96), ACC8(d, 104), ACC8(d, 112),
+        ACC8(d, 120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d (64 x 64, float32) (+)= A (64 x 16, smem) * B (16 x 64, smem), both
 // K-major; `accumulate` 0 overwrites d. The backward's S, dP and their
-// transposes.
+// transposes; the forward's S at d 256.
 __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t desc_a,
                                            uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -854,11 +879,11 @@ __device__ __forceinline__ void split_hi_lo(float x, float y, uint32_t* hi,
   *lo = bf16x2_bits(__floats2bfloat162_rn(x - hx, y - hy));
 }
 
-// Max (or, for `lowest`, min) of one row's 32 values of sc: entries
-// 4j + r and 4j + r + 1 for j = 0 .. 15 (r = 0: row g, r = 2: row g + 8),
-// over four independent chains so the latencies overlap.
-template <bool lowest>
-__device__ __forceinline__ float row_extreme(const float (&sc)[64], int r) {
+// Max (or, for `lowest`, min) of one row's N / 2 values of sc: entries
+// 4j + r and 4j + r + 1 for j = 0 .. N / 4 - 1 (r = 0: row g, r = 2: row
+// g + 8), over four independent chains so the latencies overlap.
+template <bool lowest, int N>
+__device__ __forceinline__ float row_extreme(const float (&sc)[N], int r) {
   float e[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -866,7 +891,7 @@ __device__ __forceinline__ float row_extreme(const float (&sc)[64], int r) {
                   : fmaxf(sc[4 * c + r], sc[4 * c + r + 1]);
   }
 #pragma unroll
-  for (int j = 4; j < kKeys / 8; ++j) {
+  for (int j = 4; j < N / 4; ++j) {
     const float a = sc[4 * j + r], b = sc[4 * j + r + 1];
     e[j % 4] = lowest ? fminf(e[j % 4], fminf(a, b))
                       : fmaxf(e[j % 4], fmaxf(a, b));
@@ -875,53 +900,57 @@ __device__ __forceinline__ float row_extreme(const float (&sc)[64], int r) {
                 : fmaxf(fmaxf(e[0], e[1]), fmaxf(e[2], e[3]));
 }
 
-// Sum of one row's 32 values of sc (as in row_extreme), four chains.
-__device__ __forceinline__ float row_sum(const float (&sc)[64], int r) {
+// Sum of one row's N / 2 values of sc (as in row_extreme), four chains.
+template <int N>
+__device__ __forceinline__ float row_sum(const float (&sc)[N], int r) {
   float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int j = 0; j < kKeys / 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     a[j % 4] += sc[4 * j + r] + sc[4 * j + r + 1];
   }
   return (a[0] + a[1]) + (a[2] + a[3]);
 }
 
-// The max over the four lanes of a quad (one row's 128 logits).
+// The max over the four lanes of a quad (one row's logits of a tile).
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// Whether key tile kt needs masking for query tile qt (rows q0 ..): a
-// causal call's diagonal tile, the prefix's tiles past it, a tile that the
-// window cuts for some row; and the tile that holds key S - 1 when S is
-// not a whole number of tiles. A causal call without a prefix reaches that
-// last tile only as its diagonal.
-__device__ __forceinline__ bool edge_tile(int kt, int qt, int q0,
-                                          const Mask& mask) {
+// Whether the key tile of kKeys keys from k0 needs masking for the query
+// tile of rows q0 .. q0 + kRows - 1: a tile with a key past row q0 under a
+// causal mask (the diagonal's tiles, the prefix's tiles past them), a tile
+// that the window cuts for some row; and the tile that holds key S - 1
+// when S is not a whole number of tiles. A causal call without a prefix
+// reaches that last tile only as a diagonal one.
+template <int kKeys>
+__device__ __forceinline__ bool edge_tile(int k0, int q0, const Mask& mask) {
   return (mask.causal &&
-          (kt >= qt ||
-           (mask.window > 0 && q0 + kRows - 1 - kt * kKeys >= mask.window))) ||
-         (kt + 1) * kKeys > mask.s;
+          (k0 + kKeys - 1 > q0 ||
+           (mask.window > 0 && q0 + kRows - 1 - k0 >= mask.window))) ||
+         k0 + kKeys > mask.s;
 }
 
-// The softmax step of one key tile on S's accumulators (see the layouts
-// above): move the running max (log2 units) of rows row0 and row1 and turn
-// sc into p = exp2(scale_log2 * s - m). On the diagonal tile, and where
-// the mask cuts the tile, logits are scaled and masked first; elsewhere
-// the max is taken on the raw logits (the min, for a negative scale) and
-// the scale is folded into the exponent's FMA. Returns in alpha0, alpha1
-// the factors that rescale what was summed before; l0, l1 take p's sums.
+// The softmax step of one key tile (keys k0 .. k0 + N / 2 - 1) on S's
+// accumulators (see the layouts above): move the running max (log2 units)
+// of rows row0 and row1 and turn sc into p = exp2(scale_log2 * s - m). On
+// the diagonal's tiles, and where the mask cuts the tile, logits are scaled
+// and masked first; elsewhere the max is taken on the raw logits (the min,
+// for a negative scale) and the scale is folded into the exponent's FMA.
+// Returns in alpha0, alpha1 the factors that rescale what was summed
+// before; l0, l1 take p's sums.
+template <int N>
 __device__ __forceinline__ void softmax_tile(
-    float (&sc)[64], int kt, bool edge, int row0, int row1, int t,
+    float (&sc)[N], int k0, bool edge, int row0, int row1, int t,
     const Mask& mask, float scale_log2, float& m0, float& m1, float& l0,
     float& l1, float& alpha0, float& alpha1) {
   float mx0, mx1;
   if (edge) {
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = kt * kKeys + 8 * j + 2 * t + (e & 1);
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
         const int row = e < 2 ? row0 : row1;
         sc[4 * j + e] =
             mask.visible(key, row) ? sc[4 * j + e] * scale_log2 : kNegInf;
@@ -944,7 +973,7 @@ __device__ __forceinline__ void softmax_tile(
   m1 = mn1;
   const float c = edge ? 1.0f : scale_log2;   // edge logits are scaled
 #pragma unroll
-  for (int j = 0; j < kKeys / 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     sc[4 * j] = exp2_approx(fmaf(sc[4 * j], c, -mn0));
     sc[4 * j + 1] = exp2_approx(fmaf(sc[4 * j + 1], c, -mn0));
     sc[4 * j + 2] = exp2_approx(fmaf(sc[4 * j + 2], c, -mn1));
@@ -955,11 +984,12 @@ __device__ __forceinline__ void softmax_tile(
 }
 
 // P in the A-operand layout, 16 keys a k-step, high and low halves.
-__device__ __forceinline__ void split_tile(const float (&sc)[64],
-                                           uint32_t (&ph)[kKeys / 16][4],
-                                           uint32_t (&pl)[kKeys / 16][4]) {
+template <int N>
+__device__ __forceinline__ void split_tile(const float (&sc)[N],
+                                           uint32_t (&ph)[N / 8][4],
+                                           uint32_t (&pl)[N / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
+  for (int kk = 0; kk < N / 8; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       split_hi_lo(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], &ph[kk][r],
@@ -971,27 +1001,34 @@ __device__ __forceinline__ void split_tile(const float (&sc)[64],
 // S = Q K^T on one K tile: k-step kk reads columns 16kk .. 16kk + 15, in
 // panel kk / 4 at byte 32 (kk % 4) of each swizzled row; d / 16 k-steps
 // (the zero columns of a padded tile are skipped). Issued, not waited.
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_rows,
+template <int D, int N>
+__device__ __forceinline__ void issue_qk(float (&sc)[N], uint32_t q_rows,
                                          uint32_t k_tile) {
+  constexpr int kKvPanel = Hopper<D>::kKvPanelBytes;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-    wgmma_qk(sc, kmajor_desc(q_rows + off), kmajor_desc(k_tile + off),
-             kk > 0);
+    const uint64_t qd = kmajor_desc(q_rows + (kk / 4) * kPanelBytes +
+                                    (kk % 4) * 32);
+    const uint64_t kd = kmajor_desc(k_tile + (kk / 4) * kKvPanel +
+                                    (kk % 4) * 32);
+    if constexpr (N == 64) {
+      wgmma_qk(sc, qd, kd, kk > 0);
+    } else {
+      wgmma_ss64(sc, qd, kd, kk > 0);
+    }
   }
 }
 
-// O += P_hi V + P_lo V on one V tile: k-step kk reads keys 16kk .. 16kk +
-// 15, rows 16kk .. of every panel. Issued, not waited.
-template <int N>
+// O += P_hi V + P_lo V on one V tile of K keys: k-step kk reads keys 16kk
+// .. 16kk + 15, rows 16kk .. of every panel. Issued, not waited.
+template <int K, int N>
 __device__ __forceinline__ void issue_pv(float (&acc)[N],
-                                         const uint32_t (&ph)[kKeys / 16][4],
-                                         const uint32_t (&pl)[kKeys / 16][4],
+                                         const uint32_t (&ph)[K / 16][4],
+                                         const uint32_t (&pl)[K / 16][4],
                                          uint32_t v_tile) {
 #pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
-    const uint64_t dv = mnmajor_desc(v_tile + kk * 16 * 128);
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t dv = mnmajor_desc(v_tile + kk * 16 * 128, K * 128);
     wgmma_pv(acc, ph[kk], dv);
     wgmma_pv(acc, pl[kk], dv);
   }
@@ -1006,7 +1043,8 @@ __device__ __forceinline__ void issue_pv(float (&acc)[N],
 // new P written over the old. The compiler may move that wait up into the
 // softmax (it does: the new P reuses the old P's registers), so the
 // overlap that counts is the one between the two warpgroups, which take
-// turns to issue their products (named barriers 1 and 2).
+// turns to issue their products (named barriers 1 and 2). With split
+// rings (d 256) K's stage i is released as soon as S is in.
 //
 // kLse: also write each row's log-sum-exp (natural log, float32, (BH, S))
 // for the backward, after the stores of O; the inference instantiation
@@ -1020,14 +1058,23 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      int bh_count, int group, Mask mask, float scale_log2,
                      int num_q_tiles) {
   using H = Hopper<D>;
+  constexpr int kKeys = H::kKeys;
   constexpr int kAcc = H::kWidth / 2;   // O accumulator floats a thread
+  constexpr int kS = kKeys / 2;         // S accumulator floats a thread
+  constexpr int kStages = H::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sk = sq + H::kTileBytes;
-  const uint32_t sv = sk + H::kStages * H::kTileBytes;
-  const uint32_t bars = sv + H::kStages * H::kTileBytes;
-  const uint32_t q_bar = bars + 16 * H::kStages;
-  // full[i] at bars + 8i, empty[i] at bars + 8(kStages + i)
+  const uint32_t sk = sq + H::kQBytes;
+  const uint32_t sv = sk + kStages * H::kTileBytes;
+  const uint32_t bars = sv + kStages * H::kTileBytes;
+  // K's ring: full[i] at bars + 8i, empty[i] at bars + 8(kStages + i); V's
+  // ring the same kStages later when split, else V shares K's barriers
+  const uint32_t v_bars = bars + (H::kSplit ? 16 * kStages : 0);
+  const uint32_t q_bar = bars + (H::kSplit ? 32 : 16) * kStages;
+  auto full = [&](uint32_t ring, int stage) { return ring + 8 * stage; };
+  auto empty = [&](uint32_t ring, int stage) {
+    return ring + 8 * (kStages + stage);
+  };
 
   const int qt = num_q_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
   const int bh = static_cast<int>(blockIdx.x % bh_count);
@@ -1035,14 +1082,19 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = qt * kRows;
   const int s = mask.s;
   const int kt0 = mask.first_tile(q0, kKeys);
-  // key tiles align with query tiles: tile qt holds the rows' own keys
-  const int n_tiles = mask.last_tile(qt, kKeys) - kt0 + 1;
+  // up to the key tile of the last row's own key (the prefix's last, or
+  // the last of all, if later)
+  const int last_row = (q0 + kRows < s ? q0 + kRows : s) - 1;
+  const int n_tiles = mask.last_tile(last_row / kKeys, kKeys) - kt0 + 1;
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < H::kStages; ++i) {
-      mbar_init(bars + 8 * i, 1);
-      mbar_init(bars + 8 * (H::kStages + i), kConsumers);
+    for (int r = 0; r < (H::kSplit ? 2 : 1); ++r) {
+#pragma unroll
+      for (int i = 0; i < kStages; ++i) {
+        mbar_init(full(bars + 16 * kStages * r, i), 1);
+        mbar_init(empty(bars + 16 * kStages * r, i), kConsumers);
+      }
     }
     mbar_init(q_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1053,25 +1105,47 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_bar, H::kTileBytes);
+      mbar_expect_tx(q_bar, H::kQBytes);
 #pragma unroll
       for (int p = 0; p < H::kPanels; ++p) {
         tma_load(sq + p * kPanelBytes, &tm_q, q_bar, 64 * p, q0, bh);
       }
-      for (int i = 0; i < n_tiles; ++i) {
-        const int stage = i % H::kStages;
-        const uint32_t full = bars + 8 * stage;
-        if (i >= H::kStages) {   // wait for the consumers to free the stage
-          mbar_wait(bars + 8 * (H::kStages + stage),
-                    (i / H::kStages - 1) & 1);
-        }
-        mbar_expect_tx(full, 2 * H::kTileBytes);
-        const int key0 = (kt0 + i) * kKeys;
+      // one ring: K(i) and V(i) into stage i; split rings: K(i) then V(i -
+      // 1), each into its own ring's stage once the consumers free it
+      for (int i = 0; i < n_tiles + H::kSplit; ++i) {
+        if (i < n_tiles) {
+          const int stage = i % kStages;
+          if (i >= kStages) {   // wait for the consumers to free the stage
+            mbar_wait(empty(bars, stage), (i / kStages - 1) & 1);
+          }
+          mbar_expect_tx(full(bars, stage),
+                         (H::kSplit ? 1 : 2) * H::kTileBytes);
+          const int key0 = (kt0 + i) * kKeys;
 #pragma unroll
-        for (int p = 0; p < H::kPanels; ++p) {
-          const uint32_t off = stage * H::kTileBytes + p * kPanelBytes;
-          tma_load(sk + off, &tm_k, full, 64 * p, key0, bh_kv);
-          tma_load(sv + off, &tm_v, full, 64 * p, key0, bh_kv);
+          for (int p = 0; p < H::kPanels; ++p) {
+            const uint32_t off = stage * H::kTileBytes + p * H::kKvPanelBytes;
+            tma_load(sk + off, &tm_k, full(bars, stage), 64 * p, key0, bh_kv);
+            if constexpr (!H::kSplit) {
+              tma_load(sv + off, &tm_v, full(bars, stage), 64 * p, key0,
+                       bh_kv);
+            }
+          }
+        }
+        if constexpr (H::kSplit) {
+          const int j = i - 1;   // V's tile
+          if (j >= 0) {
+            const int stage = j % kStages;
+            if (j >= kStages) {
+              mbar_wait(empty(v_bars, stage), (j / kStages - 1) & 1);
+            }
+            mbar_expect_tx(full(v_bars, stage), H::kTileBytes);
+            const int key0 = (kt0 + j) * kKeys;
+#pragma unroll
+            for (int p = 0; p < H::kPanels; ++p) {
+              tma_load(sv + stage * H::kTileBytes + p * H::kKvPanelBytes,
+                       &tm_v, full(v_bars, stage), 64 * p, key0, bh_kv);
+            }
+          }
         }
       }
     }
@@ -1112,11 +1186,17 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if (cw == 1) {
       named_arrive(1, kConsumers);
     }
+    // split rings: V's tile j has landed
+    auto wait_v = [&](int j) {
+      if constexpr (H::kSplit) {
+        mbar_wait(full(v_bars, j % kStages), (j / kStages) & 1);
+      }
+    };
 
     mbar_wait(q_bar, 0);
     mbar_wait(bars, 0);
     {   // tile 0: nothing in flight yet
-      float sc[64];
+      float sc[kS];
       float alpha0, alpha1;
       hold(sc);
       take_turn();
@@ -1126,16 +1206,21 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
       give_turn();
       wgmma_wait<0>();
       hold(sc);
-      softmax_tile(sc, kt0, edge_tile(kt0, qt, q0, mask), row0, row1, t, mask,
-                   scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+      if constexpr (H::kSplit) {
+        mbar_arrive(empty(bars, 0));
+      }
+      const int k0 = kt0 * kKeys;
+      softmax_tile(sc, k0, edge_tile<kKeys>(k0, q0, mask), row0, row1, t,
+                   mask, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
       split_tile(sc, ph, pl);
     }
     for (int i = 1; i < n_tiles; ++i) {
-      const int kt = kt0 + i;
-      const int stage = i % H::kStages;
-      const int prev = (i - 1) % H::kStages;
-      mbar_wait(bars + 8 * stage, (i / H::kStages) & 1);
-      float sc[64];
+      const int k0 = (kt0 + i) * kKeys;
+      const int stage = i % kStages;
+      const int prev = (i - 1) % kStages;
+      mbar_wait(full(bars, stage), (i / kStages) & 1);
+      wait_v(i - 1);
+      float sc[kS];
       hold(sc);
       hold(acc);
       hold(ph);
@@ -1144,19 +1229,22 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
       issue_qk<D>(sc, q_rows, sk + stage * H::kTileBytes);
       wgmma_commit();
-      issue_pv(acc, ph, pl, sv + prev * H::kTileBytes);
+      issue_pv<kKeys>(acc, ph, pl, sv + prev * H::kTileBytes);
       wgmma_commit();
       give_turn();
       wgmma_wait<1>();   // S is in; PV of tile i - 1 may still run
       hold(sc);
+      if constexpr (H::kSplit) {
+        mbar_arrive(empty(bars, stage));
+      }
       float alpha0, alpha1;
-      softmax_tile(sc, kt, edge_tile(kt, qt, q0, mask), row0, row1, t, mask,
-                   scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+      softmax_tile(sc, k0, edge_tile<kKeys>(k0, q0, mask), row0, row1, t,
+                   mask, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
       wgmma_wait<0>();
       hold(acc);
       hold(ph);
       hold(pl);
-      mbar_arrive(bars + 8 * (H::kStages + prev));
+      mbar_arrive(empty(v_bars, prev));
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         acc[4 * j] *= alpha0;
@@ -1167,12 +1255,14 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
       split_tile(sc, ph, pl);
     }
     // the last tile's PV
+    wait_v(n_tiles - 1);
     hold(acc);
     hold(ph);
     hold(pl);
     take_turn();
     wgmma_fence();
-    issue_pv(acc, ph, pl, sv + ((n_tiles - 1) % H::kStages) * H::kTileBytes);
+    issue_pv<kKeys>(acc, ph, pl,
+                    sv + ((n_tiles - 1) % kStages) * H::kTileBytes);
     wgmma_commit();
     give_turn();
     wgmma_wait<0>();
@@ -1269,11 +1359,13 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o,
   const cuuint64_t strides[2] = {
       static_cast<cuuint64_t>(D) * 2,
       static_cast<cuuint64_t>(s) * static_cast<cuuint64_t>(D) * 2};
-  const cuuint32_t box[3] = {64, kKeys, 1};   // kKeys == kRows
   const cuuint32_t unit[3] = {1, 1, 1};
   const void* ptrs[3] = {q, k, v};
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
+    // Q's box is a query tile's 128 rows, K's and V's a key tile's
+    const cuuint32_t box[3] = {
+        64, static_cast<cuuint32_t>(i == 0 ? kRows : H::kKeys), 1};
     const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
                                 static_cast<cuuint64_t>(s), rows[i]};
     const CUresult r = encode(
@@ -1798,7 +1890,7 @@ struct HopperBwd {
   static constexpr int kPanels = Hopper<D>::kPanels;
   static constexpr int kWidth = Hopper<D>::kWidth;   // columns of a tile
   static constexpr int kAcc = kWidth / 2;       // floats of a 64-row sum
-  static constexpr int kBig = Hopper<D>::kTileBytes;   // a 128-row tile
+  static constexpr int kBig = Hopper<D>::kQBytes;     // a 128-row tile
   static constexpr int kSmall = kPanels * kHalfPanel;  // a 64-row tile
   static constexpr int kStages = 2;
   static constexpr int kRowBytes = 2 * kBwRows * 4;    // lse and delta
@@ -2525,8 +2617,8 @@ Mask make_mask(int s, int window, int causal, int prefix) {
 
 // q, o: (bh, s, d) and k, v: (bh / group, s, d), contiguous, 16-byte
 // aligned; group >= 1 divides bh; d in {16, 32, 64, 80, 128, 256};
-// bh * ceil(s / 32) < 2^31. The wrapper checks all of it. d 64, 80 and 128
-// take the wgmma kernel, d 16, 32 and 256 the mma.sync one. causal 0 sees
+// bh * ceil(s / 32) < 2^31. The wrapper checks all of it. d 64, 80, 128 and
+// 256 take the wgmma kernel, d 16 and 32 the mma.sync one. causal 0 sees
 // every key (window and prefix are then ignored); causal 1 with prefix P
 // lets the rows below P see every key below P.
 // lse: null, or a float32 (bh, s) buffer that takes each row's log-sum-exp
@@ -2545,14 +2637,15 @@ extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
       return launch_bf16<16>(q, k, v, o, lse, bh, group, m, scale, st);
     case 32:
       return launch_bf16<32>(q, k, v, o, lse, bh, group, m, scale, st);
-    case 256:
-      return launch_bf16<256>(q, k, v, o, lse, bh, group, m, scale, st);
     case 64:
       return launch_bf16_wgmma<64>(q, k, v, o, lse, bh, group, m, scale, st);
     case 80:
       return launch_bf16_wgmma<80>(q, k, v, o, lse, bh, group, m, scale, st);
     case 128:
       return launch_bf16_wgmma<128>(q, k, v, o, lse, bh, group, m, scale,
+                                    st);
+    case 256:
+      return launch_bf16_wgmma<256>(q, k, v, o, lse, bh, group, m, scale,
                                     st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

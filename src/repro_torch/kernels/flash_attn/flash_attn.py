@@ -19,17 +19,18 @@ max and normaliser in float32). Three kernels sit behind the one entry
 point, chosen by `variant` from the dtype and the head dim; none falls
 back to another:
 
-* ``"wgmma"``, bfloat16 at head dims 64, 80 and 128 (the served models
-  but paligemma-3b): a Hopper design. A producer warpgroup keeps TMA
-  loads of K and V in a ring of shared-memory stages; two consumer
-  warpgroups of 64 query rows each run ``wgmma`` for QK^T (operands from
-  shared memory) and for PV (P from registers, V from shared memory),
-  128-query by 128-key tiles. Head dim 80 (hubert-xlarge) runs in
-  128-column tiles that TMA fills with zeros past column 80: QK^T stops
-  at column 80, PV does 1.6 times d 80's work.
-* ``"mma_sync"``, bfloat16 at head dims 16, 32 and 256 (paligemma-3b):
-  warp-level ``mma.sync`` m16n8k16 products, 64-query by 64-key tiles;
-  at 256, Q is read from shared memory rather than held in registers.
+* ``"wgmma"``, bfloat16 at head dims 64, 80, 128 and 256 (the served
+  models): a Hopper design. A producer warpgroup keeps TMA loads of K and
+  V in a ring of shared-memory stages; two consumer warpgroups of 64
+  query rows each run ``wgmma`` for QK^T (operands from shared memory)
+  and for PV (P from registers, V from shared memory), 128-query by
+  128-key tiles. Head dim 80 (hubert-xlarge) runs in 128-column tiles
+  that TMA fills with zeros past column 80: QK^T stops at column 80, PV
+  does 1.6 times d 80's work. Head dim 256 (paligemma-3b) runs in 64-key
+  tiles, K and V in rings of two stages each beside Q's 64 KB, since a
+  128-key stage would leave no room for a second one.
+* ``"mma_sync"``, bfloat16 at head dims 16 and 32: warp-level
+  ``mma.sync`` m16n8k16 products, 64-query by 64-key tiles.
 * ``"simt"``, float32 at head dims 16, 32, 64 and 128: float32 FMAs on
   the SIMT cores, 32-query by 32-key tiles, four threads per query row.
 
@@ -97,7 +98,8 @@ from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)      # bfloat16
 BWD_HEAD_DIMS = (16, 32, 64, 80, 128)       # bfloat16, the backward
-WGMMA_HEAD_DIMS = (64, 80, 128)
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)
+BWD_WGMMA_HEAD_DIMS = (64, 80, 128)
 F32_HEAD_DIMS = (16, 32, 64, 128)
 VARIANTS = ("wgmma", "mma_sync", "simt")
 MASKS = ("causal", "prefix", "non_causal")
@@ -118,8 +120,8 @@ launches_bwd_by_variant = {"wgmma": 0, "mma_sync": 0}
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel that takes ``dtype`` at ``head_dim``: ``"wgmma"``
-    for bfloat16 at 64, 80 and 128, ``"mma_sync"`` for bfloat16 at 16, 32
-    and 256, ``"simt"`` for float32 at any of `F32_HEAD_DIMS`."""
+    for bfloat16 at 64, 80, 128 and 256, ``"mma_sync"`` for bfloat16 at 16
+    and 32, ``"simt"`` for float32 at any of `F32_HEAD_DIMS`."""
     if dtype == torch.float32:
         if head_dim not in F32_HEAD_DIMS:
             raise ValueError(f"head dim {head_dim} is not one of "
@@ -300,7 +302,7 @@ def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
         raise NotImplementedError(
             f"the flash backward takes bfloat16 at head dims "
             f"{BWD_HEAD_DIMS}, not {dtype} at {head_dim}: ROADMAP A8.5c")
-    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+    return "wgmma" if head_dim in BWD_WGMMA_HEAD_DIMS else "mma_sync"
 
 
 # the wgmma backward's tiles: 128 keys a dk/dv block, 128 rows a dq block

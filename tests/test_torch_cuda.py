@@ -364,12 +364,13 @@ def test_flash_causality(dtype):
 @pytest.mark.parametrize("bh", [1, 3])
 @pytest.mark.parametrize("window", [0, 128, 1000])
 @pytest.mark.parametrize("s", [1, 77, 128, 129, 300, 1024, 4096])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_wgmma_flash_matches_plain_version(d, s, window, bh):
     """The Hopper kernel (bf16 at the served head dims): one tile and
-    less, a tile and one row, the ring wrapping many times, windows that
-    cut tiles; the reference test's bf16 tolerance, the same bits on a
-    repeat, every launch through the wgmma variant."""
+    less, a tile and one row, the ring wrapping many times (at d 256 two
+    64-key tiles to a query tile, K and V in rings of their own), windows
+    that cut tiles; the reference test's bf16 tolerance, the same bits on
+    a repeat, every launch through the wgmma variant."""
     dev = _card()
     rng = np.random.default_rng(7 * s + d + window + bh)
     q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
@@ -388,7 +389,7 @@ def test_wgmma_flash_matches_plain_version(d, s, window, bh):
 
 
 @pytest.mark.parametrize("sm_scale", [-0.3, 0.02])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_wgmma_flash_takes_any_scale(d, sm_scale):
     """Off the masked tiles the kernel takes the row max on the raw
     logits (the min, for a negative scale) and folds the scale into the
@@ -403,7 +404,7 @@ def test_wgmma_flash_takes_any_scale(d, sm_scale):
                                **FLASH_TOL[torch.bfloat16])
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_wgmma_flash_causality(d):
     """Future keys, in the same tile and in later ones, must not move the
     output of the Hopper kernel."""
@@ -422,7 +423,8 @@ def test_wgmma_flash_causality(d):
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 32, "mma_sync"),
-    (torch.float32, 32, "simt"), (torch.float32, 128, "simt")])
+    (torch.float32, 32, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 256, "wgmma")])
 def test_flash_launches_its_variant(dtype, d, want):
     """Each (dtype, head dim) reaches the kernel `variant` names, once."""
     dev = _card()
@@ -569,10 +571,10 @@ MASK_IDS = ["prefix100", "prefix300", "non_causal", "prefix64-window128"]
 def test_flash_masks_match_plain_version(dtype, d, s, mask):
     """The prefix-LM and bidirectional masks in every variant and at the
     new head dims (80 through the wgmma kernel's zero-filled columns, 256
-    through mma.sync), S not a multiple of any tile, a prefix shorter and
-    longer than S: the same bits on a repeat, the launch counted under its
-    variant and mask, and the plain version at the reference test's
-    tolerance."""
+    through its 64-key tiles), S not a multiple of any tile, a prefix
+    shorter and longer than S: the same bits on a repeat, the launch
+    counted under its variant and mask, and the plain version at the
+    reference test's tolerance."""
     dev = _card()
     rng = np.random.default_rng(s * d + len(mask))
     q, k, v = (torch.from_numpy(rng.standard_normal((2, s, d)).astype(
@@ -1189,16 +1191,18 @@ def test_flash_backward_holds_the_flashattention_standard(bh, kv, s, d, mask):
         "dq": 2, "dkdv": 2}
 
 
-@pytest.mark.parametrize("d", [64, 128, 16])
+@pytest.mark.parametrize("d", [64, 128, 16, 80, 256])
 def test_flash_lse_keeps_the_output_bits(d):
     """The forward with its log-sum-exp gives the bits of the forward
-    without it, and the log-sum-exp of the plain version to 1e-4."""
+    without it, and the log-sum-exp of the plain version to 1e-4; at d 256
+    with paligemma-3b's grouping, 8 query rows over 1 kv row."""
     from repro_torch.kernels.flash_attn.ref import attention_lse_ref
     dev = _card()
     rng = np.random.default_rng(d)
+    kv = 1 if d == 256 else 2
     q = torch.from_numpy(rng.standard_normal((8, 300, d)).astype(
         np.float32)).to(dev, torch.bfloat16)
-    k, v = (torch.from_numpy(rng.standard_normal((2, 300, d)).astype(
+    k, v = (torch.from_numpy(rng.standard_normal((kv, 300, d)).astype(
         np.float32)).to(dev, torch.bfloat16) for _ in range(2))
     for mask in (dict(causal=True), dict(causal=True, prefix=40),
                  dict(causal=False)):
@@ -1241,6 +1245,25 @@ def test_flash_backward_refuses_before_a_launch():
     assert fa.launches == fwd and fa.launches_bwd == bwd
 
 
+def test_flash_grad_at_head_dim_256_refuses_before_a_launch():
+    """paligemma-3b's attention (8 query rows over 1 kv row, d 256, a
+    256-token prefix) runs forward on the Hopper kernel, but has no
+    backward yet: `flash_attention_grad` raises, naming A8.5c, before the
+    forward or any backward kernel launches."""
+    dev = _card()
+    q = torch.zeros(8, 300, 256, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k, v = (torch.zeros(1, 300, 256, device=dev, dtype=torch.bfloat16,
+                        requires_grad=True) for _ in range(2))
+    fwd = (fa.launches, dict(fa.launches_by_variant))
+    bwd = (dict(fa.launches_bwd), dict(fa.launches_bwd_by_variant))
+    with pytest.raises(NotImplementedError, match="A8.5c"):
+        fa.flash_attention_grad(q, k, v, prefix=256)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_by_variant) == fwd
+    assert (fa.launches_bwd, fa.launches_bwd_by_variant) == bwd
+
+
 # (BH, KV, S, mask) across the wgmma backward's tiles (128 keys a dk/dv
 # block, 64 rows a step; 128 rows a dq block, 64 keys a step): S not a
 # multiple of 128 and S below 64; group 8 (qwen2.5-3b's), 16 and 1; a
@@ -1271,7 +1294,7 @@ def _bwd_inputs(bh, kv, s, d, seed, dev):
 
 
 @pytest.mark.parametrize("case", WGMMA_BWD_CASES, ids=WGMMA_BWD_IDS)
-@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("d", fa.BWD_WGMMA_HEAD_DIMS)
 def test_wgmma_backward_holds_the_flashattention_standard(d, case):
     """The Hopper backward kernels (``flash_bwd_dq_wgmma``,
     ``flash_bwd_dkdv_wgmma``) at FlashAttention's standard against a
@@ -1304,7 +1327,7 @@ def test_flash_backward_launches_its_variant(d):
                                                             prefix=300),
                                   dict(causal=False)],
                          ids=["causal", "prefix", "bidirectional"])
-@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("d", fa.BWD_WGMMA_HEAD_DIMS)
 def test_wgmma_backward_matches_its_tiled_model(d, mask):
     """The Hopper kernels against their plain model
     (`ref.attention_bwd_tiled_ref`: P and dS rounded to bf16 as operands,

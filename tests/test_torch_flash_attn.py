@@ -88,6 +88,35 @@ def test_grouped_query_matches_the_pallas_kernel(group, s, window):
     assert torch.equal(via_ops, got)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [256, 512])
+def test_head_dim_256_over_one_kv_row_matches_the_pallas_kernel(s, dtype):
+    """paligemma-3b's attention shape, which the card runs through the
+    Hopper kernel's 64-key tiles: 8 query rows over 1 kv row at head dim
+    256, causal. The Pallas kernel gets k and v repeated per query row;
+    the port's `flash_attention` (its plain version here) takes the one
+    kv row. The reference test's tolerances: float32 at rtol 1e-3 / atol
+    2e-3, bf16 at 5e-2."""
+    bh, d = 8, 256
+    rng = np.random.default_rng(s + 256)
+    q = rng.standard_normal((bh, s, d)).astype(np.float32)
+    k, v = (rng.standard_normal((1, s, d)).astype(np.float32)
+            for _ in range(2))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    want = np.asarray(flash_attention_pallas(
+        jq, jnp.repeat(jk, bh, axis=0), jnp.repeat(jv, bh, axis=0),
+        interpret=True), np.float32)
+    tq, tk, tv = (torch.from_numpy(np.array(a, np.float32)).to(
+        getattr(torch, dtype)) for a in (jq, jk, jv))
+    launches = tf.launches
+    got = tf.flash_attention(tq, tk, tv)
+    assert tf.launches == launches  # the CPU runs the plain version
+    assert got.dtype == tq.dtype and got.shape == (bh, s, d)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+
+
 def test_kernel_takes_grouped_kv_and_refuses_the_rest():
     """k and v of (BH / group, S, d) for a whole group are taken (the
     group is BH / k.shape[0]); a kv count that does not divide BH, more
@@ -161,12 +190,12 @@ def test_kernel_checks_its_operands():
     (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 32, "mma_sync"),
     (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
-    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 256, "mma_sync")])
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 256, "wgmma")])
 def test_variant_follows_dtype_and_head_dim(dtype, head_dim, want):
-    """The served bf16 head dims but paligemma-3b's 256 take the Hopper
-    kernel, the other bf16 ones the mma.sync kernel, float32 the SIMT one
-    (at 16, 32, 64 and 128 only); each is a named
-    variant with its own launch count, and the CPU counts none."""
+    """The served bf16 head dims (64, 80, 128 and paligemma-3b's 256) take
+    the Hopper kernel, the other bf16 ones the mma.sync kernel, float32
+    the SIMT one (at 16, 32, 64 and 128 only); each is a named variant
+    with its own launch count, and the CPU counts none."""
     assert tf.variant(dtype, head_dim) == want
     assert set(tf.launches_by_variant) == set(tf.VARIANTS)
     before = dict(tf.launches_by_variant)

@@ -4,7 +4,9 @@ compiler, no card.
 `_build.ptxas_report` keeps a kernel's entry lines (stack, spills,
 registers) and any other line naming it, the C75xx advisories that
 ptxas serialised its ``wgmma``s among them; `chip_smoke.ptxas_numbers`
-turns them into numbers by template argument. `chip_smoke.
+turns them into numbers by template argument (by head dim and ``kLse``
+for the Hopper flash forward), and `chip_smoke.ptxas_gate` fails on a
+spill or an advisory. `chip_smoke.
 profile_train_step` sums the profiler's device operations: busy time,
 the costliest names, and the port's kernels by name wherever they rank.
 """
@@ -72,6 +74,55 @@ def test_ptxas_numbers_by_instantiation(log):
     half = got["13__nv_bfloat16"]
     assert (half["registers"], half["spill_stores"]) == (170, 8)
     assert len(half["serialized"]) == 1 and TGMM_H in half["serialized"][0]
+
+
+def _flash_fwd(d, lse):
+    return (f"_ZN12_GLOBAL__N_120flash_fwd_bf16_wgmmaILi{d}ELb{lse}EEEv14"
+            f"CUtensorMap_stS1_S1_P13__nv_bfloat16PfiiNS_4MaskEfi")
+
+
+@pytest.fixture
+def flash_log(tmp_path, monkeypatch):
+    """A flash_attn build log: every (head dim, kLse) of the Hopper forward
+    with 168 registers and no spill, but <256, true> with 8 bytes of
+    spills and a C7512 line, and one backward kernel beside them."""
+    lines = [*_entry("_ZN12_GLOBAL__N_118flash_bwd_dq_wgmmaILi64EEEv14CUtensor"
+                     "Map_st", 168, 0)]
+    for d in (64, 80, 128, 256):
+        for lse in (0, 1):
+            lines += _entry(_flash_fwd(d, lse), 168, 8 * (d == 256 and lse))
+    lines.append(f"ptxas info    : (C7512) Potential Performance Loss: "
+                 f"wgmma.mma_async instructions are serialized in the "
+                 f"function '{_flash_fwd(256, 1)}'")
+    lib = tmp_path / "flash_attn-0.so"
+    lib.with_suffix(".log").write_text("\n".join(lines))
+    monkeypatch.setattr(_build, "library_path", lambda name: lib)
+
+
+def test_flash_forward_ptxas_by_head_dim_and_lse(flash_log):
+    """The Hopper forward's eight instantiations are told apart by head
+    dim and kLse (the default key, by head dim alone, would merge each
+    pair), and `ptxas_gate` fails on the one that spills and serialises,
+    or on a set of instances that is not the one asked for."""
+    got = chip_smoke.ptxas_numbers("flash_attn", "flash_fwd_bf16_wgmma",
+                                   chip_smoke.FLASH_FWD_PTXAS_KEY)
+    assert set(got) == chip_smoke.FLASH_FWD_INSTANCES
+    assert got["256,0"] == {"serialized": [], "stack": 0, "spill_stores": 0,
+                            "spill_loads": 0, "registers": 168}
+    assert got["256,1"]["spill_stores"] == 8
+    assert len(got["256,1"]["serialized"]) == 1
+    with pytest.raises(AssertionError, match="flash_fwd_bf16_wgmma"):
+        chip_smoke.ptxas_gate("flash_attn", "flash_fwd_bf16_wgmma",
+                              chip_smoke.FLASH_FWD_PTXAS_KEY,
+                              chip_smoke.FLASH_FWD_INSTANCES)
+    clean = chip_smoke.FLASH_FWD_INSTANCES - {"256,1"}
+    with pytest.raises(AssertionError, match="no report"):
+        chip_smoke.ptxas_gate("flash_attn", "flash_fwd_bf16_wgmma",
+                              chip_smoke.FLASH_FWD_PTXAS_KEY, clean)
+    assert chip_smoke.ptxas_gate("flash_attn", "flash_fwd_bf16_wgmma",
+                                 r"wgmmaILi(\d+)ELb0E",
+                                 {"64", "80", "128", "256"})["256"] == got[
+                                     "256,0"]
 
 
 class _Span:
