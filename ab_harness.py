@@ -64,7 +64,8 @@ def host_ms(fn, reps: int = 200, warmup: int = 10) -> float:
 def compare(script: str, label: str, roots: list[str]) -> int:
     """Runs ``script --child root`` for each root in turn and prints its
     numbers, one line per key (or one line where the child returns flat
-    numbers), then the card's line."""
+    numbers; a value that is not a number, such as a checkout's refusal,
+    as it is), then the card's line."""
     for root in roots:
         proc = subprocess.run([sys.executable, script, "--child", root],
                               capture_output=True, text=True, timeout=900)
@@ -78,7 +79,8 @@ def compare(script: str, label: str, roots: list[str]) -> int:
         for key, numbers in rows:
             head = f"{label} [{root}]" + (f" {key}" if key else "")
             print(f"{head}: " + ", ".join(
-                f"{k} {v:.4f}" for k, v in numbers.items()))
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k}: {v}"
+                for k, v in numbers.items()))
     print(card_line())
     return 0
 

@@ -20,13 +20,15 @@ any CUDA work, joined before it exits), beside phases 1-5.
    (``flash_fwd_bf16_mma``, d 16 and 32),
    of the flash backward's kernels (``flash_bwd_dq_bf16``,
    ``flash_bwd_dkdv_bf16`` at d 16 and 32; ``flash_bwd_dq_wgmma``,
-   ``flash_bwd_dkdv_wgmma`` at d 64, 80 and 128), of both bf16
+   ``flash_bwd_dkdv_wgmma`` at d 64, 80, 128 and 256), of both bf16
    grouped-matmul kernels
    (``gmm_bf16_wgmma``, ``gmm_bf16_splitk``) and of its weight-gradient
    kernel (``gmm_bf16_tgmm``), with any line naming a kernel (ptxas's
    C75xx advisories that it serialised ``wgmma``). ``gmm_bf16_tgmm``'s
-   two instantiations and ``flash_fwd_bf16_wgmma``'s eight (keyed by
-   head dim and ``kLse``) must show no spill and no such advisory.
+   two instantiations, ``flash_fwd_bf16_wgmma``'s eight (keyed by head
+   dim and ``kLse``) and the four of each Hopper backward kernel,
+   ``flash_bwd_dq_wgmma`` and ``flash_bwd_dkdv_wgmma`` (d 64, 80, 128 and
+   256), must show no spill and no such advisory.
 3. Kernel check: ``csr_spmv`` against its plain PyTorch version on the
    card (ragged rows, empty rows, a graph with no edges, a bucketed
    upload with sentinel edges of value 0; a 100k-edge hub across many
@@ -220,19 +222,26 @@ Then training, after the MoE model is freed:
 14. Training. The flash backward's Hopper kernels
     (``flash_bwd_dq_wgmma``, ``flash_bwd_dkdv_wgmma``) at a qwen2.5-3b
     microbatch's attention (32 query rows of 4,096 over 4 kv rows, d 128,
-    causal) and a minicpm-2b one's (72 rows, d 64): FlashAttention's
+    causal), a minicpm-2b one's (72 rows, d 64) and a paligemma-3b one's
+    (16 rows over 2 kv rows, d 256, causal with its 256-row prefix):
+    FlashAttention's
     standard, each of dq, dk and dv at most 2x (plus 1e-3) the max error
     of the plain bf16 path against a float64 autograd oracle, a repeat's
     bits equal, and the plain version (``attention_bwd_ref``) at rtol 2e-2
     of the largest gradient; the same checks of the ``mma.sync`` pair
     (``flash_bwd_dq_bf16``, ``flash_bwd_dkdv_bf16``) at qwen2.5-3b's
     microbatch with d 32; each check's two calls launch both kernels of
-    its variant and no other; the Hopper kernels timed at both shapes, each kernel alone and
+    its variant and no other; the Hopper kernels timed at the three
+    shapes, each kernel alone and
     the pair, with each kernel's TFLOP/s of its own products, beside the
-    plain version, the bound (five products at the bf16 rate; also seven,
-    what the two kernels issue) and the backward alone of
+    plain version, the bound (five products at the bf16 rate, a prefix's
+    extra pairs counted; also seven, what the two kernels issue, and the
+    FLOPs of the 64 x 64 blocks they multiply whole) and the backward
+    alone of
     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-    (timed only, on the backend it takes). Then qwen2.5-3b at full width
+    (timed only, on the backend it takes; causal only, so without a
+    prefix's pairs; ``library_ms`` null with the refusals where no
+    backend takes it). Then qwen2.5-3b at full width
     and depth (36 layers, 3,085,938,688 parameters, remat on) trained
     for 6 steps through ``train.steps.make_train_step`` with
     ``TrainConfig(microbatch=2)`` (the reference's defaults otherwise): 8
@@ -249,9 +258,24 @@ Then training, after the MoE model is freed:
     device operations. Then one microbatch's loss and
     gradients on the card against the CPU, the width cut to 2 layers, 1 x
     512 tokens (the loss within 1e-2, each leaf within 5e-2 relative L2);
+    then, on the card, the same gradients with remat off, bit for bit;
     then tests/test_system.py's resume test through ``launch/train.main``
     at that cut (``--depth 2``), checkpoints in a temporary directory. The
     full-depth run saves no checkpoint.
+
+    Then, after qwen's model is freed, paligemma-3b
+    (`prefix_train_phase`) at full width and depth (18 layers,
+    2,508,660,736 parameters, remat on), trained as qwen is for 6
+    steps: 8 x 4,096 positions a step, each sequence
+    a 256-row prefix of zero embeddings (as the reference's trainer builds
+    it) and 3,840 corpus tokens; 18 x 4 x 2 grouped, prefix-masked flash
+    forward launches a step and 72 of each backward kernel, all
+    ``wgmma`` at d 256; the same checks and profile. Then its card
+    against the CPU at 2 layers on 256 prefix rows from N(0, 1) plus 256
+    tokens, with remat's bits; then ``launch/train.main --arch
+    paligemma-3b --depth 2 --seq-len 320`` for 3 steps (the trainer's
+    own prefix batch; finite losses; 12 ``wgmma`` backward launches; one
+    checkpoint of about 9 GB into a temporary directory).
 
     Then, after qwen's model is freed, MoE training (`moe_train_phase`).
     ``tgmm``, the grouped matmul's weight-gradient kernel
@@ -331,11 +355,14 @@ TRAIN_MICROBATCH = 2
 TRAIN_STEPS = 6
 MOE_TRAIN_LAYERS = 4            # phase 14: moonshot trained, 4 of 48 layers
 MOE_GRAD_LAYERS = 2             # its card-vs-CPU and remat-bits checks
-# the backward checks: (BH, KV, S, d) of a qwen2.5-3b microbatch (2 x 16
-# heads over 2 x 2 kv heads, d 128) and of a minicpm-2b one (2 x 36, d 64)
-BWD_SHAPES = ((32, 4, 4096, 128), (72, 72, 4096, 64))
+# the backward checks and timings: (BH, KV, S, d, prefix) of a qwen2.5-3b
+# microbatch (2 x 16 heads over 2 x 2 kv heads, d 128, causal), a
+# minicpm-2b one (2 x 36, d 64) and a paligemma-3b one (2 x 8 heads over 2
+# x 1 kv head, d 256, causal with its 256-row prefix)
+BWD_SHAPES = ((32, 4, 4096, 128, 0), (72, 72, 4096, 64, 0),
+              (16, 2, 4096, 256, 256))
 # the mma.sync pair's check, at qwen2.5-3b's microbatch with d 32
-BWD_MMA_SYNC_SHAPE = (32, 4, 4096, 32)
+BWD_MMA_SYNC_SHAPE = (32, 4, 4096, 32, 0)
 # k-NN: SIFT1M's width (d 128) with 16,384 of its 1,000,000 base vectors:
 # the host NSW builder takes about 9 ms an insert
 KNN_VECTORS, KNN_DIM, KNN_K = 16_384, 128, 16
@@ -2193,37 +2220,38 @@ def run_lm(dev, cfg, full_cfg=None) -> dict:
 
 
 # ------------------------------------------------------------- training
-def _plain_attention(q, k, v, causal: bool = True):
-    """Attention in the inputs' dtype throughout, k and v repeated per
-    query row: in bf16 FlashAttention's plain bf16 path, in float64 its
-    oracle."""
+def _plain_attention(q, k, v, prefix: int = 0):
+    """Causal attention (rows below ``prefix`` see every key below it) in
+    the inputs' dtype throughout, k and v repeated per query row: in bf16
+    FlashAttention's plain bf16 path, in float64 its oracle."""
     import torch
+    from repro_torch.kernels.flash_attn.ref import visible
     bh, s, d = q.shape
     group = bh // k.shape[0]
     k, v = k.repeat_interleave(group, 0), v.repeat_interleave(group, 0)
     logits = torch.einsum("bqd,bkd->bqk", q, k) * d ** -0.5
-    if causal:
-        pos = torch.arange(s, device=q.device)
-        logits = torch.where((pos[:, None] >= pos[None])[None], logits,
-                             -1e30)
+    pos = torch.arange(s, device=q.device)
+    logits = torch.where(visible(pos, pos, prefix=prefix)[None], logits,
+                         -1e30)
     return torch.einsum("bqk,bkd->bqd", torch.softmax(logits, dim=-1), v)
 
 
-def _grads_of(fn, q, k, v, do, dtype):
+def _grads_of(fn, q, k, v, do, dtype, prefix):
     import torch
     leaves = [t.detach().to(dtype).requires_grad_(True) for t in (q, k, v)]
-    return torch.autograd.grad(fn(*leaves), leaves, do.to(dtype))
+    return torch.autograd.grad(fn(*leaves, prefix=prefix), leaves,
+                               do.to(dtype))
 
 
-def flash_bwd_check(name, variant, bh, kv, s, d, dev) -> float:
-    """The backward kernels at FlashAttention's standard: dq, dk and dv
-    each at most 2x (plus 1e-3) the max error of the plain bf16 path
-    against a float64 autograd oracle, both taken a kv head's query group
-    at a time; a repeat gives the same bits; both calls launch the two
-    kernels of ``variant`` and nothing else; held to the plain version
-    (`attention_bwd_ref`, the same recompute in float32) at rtol 2e-2 and
-    2e-2 of the largest gradient. Returns the max |err| against the plain
-    version."""
+def flash_bwd_check(name, variant, bh, kv, s, d, prefix, dev) -> float:
+    """The backward kernels, causal with a ``prefix`` (0: none), at
+    FlashAttention's standard: dq, dk and dv each at most 2x (plus 1e-3)
+    the max error of the plain bf16 path against a float64 autograd
+    oracle, both taken a kv head's query group at a time; a repeat gives
+    the same bits; both calls launch the two kernels of ``variant`` and
+    nothing else; held to the plain version (`attention_bwd_ref`, the same
+    recompute in float32) at rtol 2e-2 and 2e-2 of the largest gradient.
+    Returns the max |err| against the plain version."""
     import torch
     from repro_torch.kernels.flash_attn import flash_attn as fa
     from repro_torch.kernels.flash_attn.ref import attention_bwd_ref
@@ -2233,10 +2261,10 @@ def flash_bwd_check(name, variant, bh, kv, s, d, dev) -> float:
         return torch.randn((rows, s, d), generator=gen, device=dev).to(
             torch.bfloat16)
     q, do, k, v = draw(bh), draw(bh), draw(kv), draw(kv)
-    o, lse = fa.flash_attention_lse(q, k, v)
+    o, lse = fa.flash_attention_lse(q, k, v, prefix=prefix)
     by0 = dict(fa.launches_bwd_by_variant)
-    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
-    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, prefix=prefix)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, prefix=prefix)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"flash backward[{name}]: two runs differ")
@@ -2252,8 +2280,8 @@ def flash_bwd_check(name, variant, bh, kv, s, d, dev) -> float:
         rows = slice(j * group, (j + heads) * group)
         kvr = slice(j, j + heads)
         args = (q[rows], k[kvr], v[kvr], do[rows])
-        oracle = _grads_of(_plain_attention, *args, torch.float64)
-        plain = _grads_of(_plain_attention, *args, torch.bfloat16)
+        oracle = _grads_of(_plain_attention, *args, torch.float64, prefix)
+        plain = _grads_of(_plain_attention, *args, torch.bfloat16, prefix)
         mine = (got[0][rows], got[1][kvr], got[2][kvr])
         for c, g, o_, p_ in zip("qkv", mine, oracle, plain):
             err[c] = max(err[c], float((g.double() - o_).abs().max()))
@@ -2264,7 +2292,7 @@ def flash_bwd_check(name, variant, bh, kv, s, d, dev) -> float:
             raise AssertionError(
                 f"flash backward[{name}] d{c}: {err[c]:.3e} against the "
                 f"float64 oracle, the plain bf16 path's {base[c]:.3e}")
-    want = attention_bwd_ref(q, k, v, o, lse, do)
+    want = attention_bwd_ref(q, k, v, o, lse, do, prefix=prefix)
     plain_err = 0.0
     for g, w in zip(got, want):
         scale = float(w.float().abs().max())
@@ -2272,24 +2300,43 @@ def flash_bwd_check(name, variant, bh, kv, s, d, dev) -> float:
                                    atol=2e-2 * scale)
         plain_err = max(plain_err, float((g.float() - w.float()).abs().max()))
     print(f"flash backward[{name}]: (BH, S, d)=({bh}, {s}, {d}) over {kv} "
-          f"kv rows, causal, {variant}; max |err| against the float64 oracle "
+          f"kv rows, causal{f' with a {prefix}-row prefix' if prefix else ''}"
+          f", {variant}; max |err| against the float64 oracle "
           + ", ".join(f"d{c} {err[c]:.3e} (plain bf16 path {base[c]:.3e})"
                       for c in "qkv")
           + f"; against attention_bwd_ref {plain_err:.3e}; bits repeat")
     return plain_err
 
 
-def time_flash_bwd(bh, kv, s, d, dev) -> dict:
-    """The backward kernels timed at one of `BWD_SHAPES` (causal): each
-    kernel alone (`flash_attn.backward_launches`; the dk/dv kernel reads
-    the dq kernel's rows, written once before), the pair as
-    `flash_attention_bwd` runs it, their plain version, and the backward
-    alone of ``F.scaled_dot_product_attention(is_causal=True,
-    enable_gqa=True)`` on the backend it takes. The bound: the five
-    products of the math, 2·d FLOPs a visible (row, key) pair each, at the
-    card's bf16 rate (and the seven the two kernels issue: dq recomputes S
-    and dP); each kernel's TFLOP/s counts its own products (dq: S, dP, dQ;
-    dk/dv: S, dP, dV, dK)."""
+def bwd_pairs(s: int, prefix: int = 0, step: int = 64) -> tuple[int, int]:
+    """(pairs, blocks) of a causal mask with ``prefix`` over S ``s``, a
+    head: the (row, key) pairs it lets through, and the 64-row by 64-key
+    blocks (``step``) with at least one of them, which the ``wgmma``
+    backward kernels multiply whole (a block with none they skip)."""
+    p = min(prefix, s)
+    pairs = s * (s + 1) // 2 + p * (p - 1) // 2
+    n = -(-s // step)
+    blocks = n * (n + 1) // 2
+    pn = -(-p // step)
+    blocks += pn * (pn - 1) // 2       # the prefix's blocks above the diagonal
+    return pairs, blocks
+
+
+def time_flash_bwd(bh, kv, s, d, prefix, dev) -> dict:
+    """The backward kernels timed at one of `BWD_SHAPES` (causal, with a
+    ``prefix`` where it has one): each kernel alone
+    (`flash_attn.backward_launches`; the dk/dv kernel reads the dq
+    kernel's rows, written once before), the pair as `flash_attention_bwd`
+    runs it, their plain version, and the backward alone of
+    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    on the backend it takes (causal only: without a prefix's extra pairs;
+    ``library_ms`` None, with the refusals, where no backend takes it).
+    The bound: the five products of the math, 2·d FLOPs a visible (row,
+    key) pair each, at the card's bf16 rate (and the seven the two kernels
+    issue: dq recomputes S and dP); ``issued_flops`` counts what the
+    kernels multiply: seven products over every 64 x 64 block that holds
+    a visible pair. Each kernel's TFLOP/s counts its own products over the
+    visible pairs (dq: S, dP, dQ; dk/dv: S, dP, dV, dK)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -2301,21 +2348,22 @@ def time_flash_bwd(bh, kv, s, d, dev) -> dict:
         return torch.randn((rows, s, d), generator=gen, device=dev).to(
             torch.bfloat16)
     q, do, k, v = draw(bh), draw(bh), draw(kv), draw(kv)
-    o, lse = fa.flash_attention_lse(q, k, v)
-    _, launch_dq, launch_dkdv = fa.backward_launches(q, k, v, o, lse, do)
+    o, lse = fa.flash_attention_lse(q, k, v, prefix=prefix)
+    _, launch_dq, launch_dkdv = fa.backward_launches(q, k, v, o, lse, do,
+                                                     prefix=prefix)
     launch_dq()
-    out = {"shape": [bh, kv, s, d],
+    out = {"shape": [bh, kv, s, d], "prefix": prefix,
            "variant": fa.bwd_variant(q.dtype, d),
-           "ms": cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
-                         reps=20, warmup=2),
+           "ms": cuda_ms(lambda: fa.flash_attention_bwd(
+               q, k, v, o, lse, do, prefix=prefix), reps=20, warmup=2),
            "dq_ms": cuda_ms(launch_dq, reps=20, warmup=2),
            "dkdv_ms": cuda_ms(launch_dkdv, reps=20, warmup=2),
            # the training forward's call, for the step's breakdown
-           "forward_lse_ms": cuda_ms(lambda: fa.flash_attention_lse(q, k, v),
-                                     reps=10, warmup=2),
-           "plain_ms": cuda_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do),
-                               reps=1, warmup=1)}
-    backend = None
+           "forward_lse_ms": cuda_ms(lambda: fa.flash_attention_lse(
+               q, k, v, prefix=prefix), reps=10, warmup=2),
+           "plain_ms": cuda_ms(lambda: attention_bwd_ref(
+               q, k, v, o, lse, do, prefix=prefix), reps=1, warmup=1)}
+    backend, refused = None, []
     for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
               SDPBackend.EFFICIENT_ATTENTION):
         leaves = [t[None].detach().requires_grad_(True) for t in (q, k, v)]
@@ -2324,39 +2372,48 @@ def time_flash_bwd(bh, kv, s, d, dev) -> dict:
                 y = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                                    enable_gqa=True)
                 torch.autograd.grad(y, leaves, do[None], retain_graph=True)
-        except RuntimeError:
+        except RuntimeError as e:
+            refused.append(f"{b.name}: {str(e).splitlines()[0][:160]}")
             continue
         backend = b
         break
     if backend is None:
-        raise AssertionError("no SDPA backend takes a grouped causal "
-                             "backward")
-    with sdpa_kernel(backend):
-        out["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-            y, leaves, do[None], retain_graph=True), reps=10, warmup=2)
-    product = 2 * d * (s * (s + 1) // 2) * bh    # FLOPs of one product
+        out.update(library_ms=None, library="no SDPA backend takes a "
+                   "grouped causal backward here: " + "; ".join(refused))
+    else:
+        with sdpa_kernel(backend):
+            out["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                y, leaves, do[None], retain_graph=True), reps=10, warmup=2)
+        out["library"] = (f"F.scaled_dot_product_attention(is_causal=True, "
+                          f"enable_gqa=True) backward on {backend.name}"
+                          + (", causal only" if prefix else ""))
+    pairs, blocks = bwd_pairs(s, prefix)
+    product = 2 * d * pairs * bh    # FLOPs of one product
     nbytes = (4 * bh + 4 * kv) * s * d * 2 + bh * s * 4
     ops_ms = 5 * product / BF16_FLOPS * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out.update(bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               bound_flops=5 * product,
                bound7_ms=7 * product / BF16_FLOPS * 1e3,
+               issued_flops=7 * 2 * d * 64 * 64 * blocks * bh,
                dq_tflops=3 * product / out["dq_ms"] / 1e9,
-               dkdv_tflops=4 * product / out["dkdv_ms"] / 1e9,
-               library=f"F.scaled_dot_product_attention(is_causal=True, "
-                       f"enable_gqa=True) backward on {backend.name}")
+               dkdv_tflops=4 * product / out["dkdv_ms"] / 1e9)
+    lib = ("refused" if out["library_ms"] is None
+           else f"{out['library_ms']:.4f}")
     print(f"flash backward timing: (BH, S, d)=({bh}, {s}, {d}) over {kv} kv "
-          f"rows, causal, {out['variant']}: ms={out['ms']:.4f} (dq "
+          f"rows, causal{f' with a {prefix}-row prefix' if prefix else ''}, "
+          f"{out['variant']}: ms={out['ms']:.4f} (dq "
           f"{out['dq_ms']:.4f} ms, {out['dq_tflops']:.1f} TFLOP/s of its "
           f"three products; dkdv {out['dkdv_ms']:.4f} ms, "
           f"{out['dkdv_tflops']:.1f} TFLOP/s of its four; "
           f"{5 * product / out['ms'] / 1e9:.1f} TFLOP/s of the five, "
-          f"{7 * product / out['ms'] / 1e9:.1f} of the seven issued) forward "
-          f"with lse {out['forward_lse_ms']:.4f} ms; plain_ms="
-          f"{out['plain_ms']:.4f} library_ms={out['library_ms']:.4f} "
-          f"({out['library']}, p rounded to bf16) bound_ms="
-          f"{out['bound_ms']:.4f} at five products ({5 * product:.4e} "
-          f"FLOPs), {out['bound7_ms']:.4f} at seven")
+          f"{out['issued_flops'] / out['ms'] / 1e9:.1f} of the "
+          f"{out['issued_flops']:.4e} FLOPs issued) forward with lse "
+          f"{out['forward_lse_ms']:.4f} ms; plain_ms={out['plain_ms']:.4f} "
+          f"library_ms={lib} ({out['library']}, p rounded to bf16) "
+          f"bound_ms={out['bound_ms']:.4f} at five products "
+          f"({5 * product:.4e} FLOPs), {out['bound7_ms']:.4f} at seven")
     return out
 
 
@@ -2366,6 +2423,9 @@ TGMM_PTXAS_KEY = r"tgmmI(f|13__nv_bfloat16)E"
 FLASH_FWD_PTXAS_KEY = r"wgmmaILi(\d+)ELb([01])E"
 FLASH_FWD_INSTANCES = {f"{d},{lse}" for d in (64, 80, 128, 256)
                        for lse in (0, 1)}
+# the head dims of the backward's two Hopper kernels, each gated
+FLASH_BWD_KERNELS = ("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
+FLASH_BWD_INSTANCES = {"64", "80", "128", "256"}
 
 
 def ptxas_numbers(name: str, kernel: str,
@@ -2418,13 +2478,27 @@ def ptxas_gate(name: str, kernel: str, key: str, instances: set) -> dict:
     return got
 
 
+def with_prefix(cfg, tokens, dev) -> dict:
+    """The train batch of ``tokens`` on ``dev``: for a prefix-LM, beside
+    them a prefix of zero embeddings, as the reference's trainer builds it
+    (src/repro/launch/train.py:138-140)."""
+    import torch
+    batch = {"tokens": tokens.to(dev)}
+    if cfg.prefix_tokens:
+        batch["prefix"] = torch.zeros(
+            (tokens.shape[0], cfg.prefix_tokens, cfg.d_model),
+            dtype=torch.bfloat16, device=dev)
+    return batch
+
+
 def train_full_width(dev, cfg) -> dict:
-    """``cfg`` at full width (qwen2.5-3b at its full depth, moonshot cut
-    in depth), remat on, trained for `TRAIN_STEPS` steps through
+    """``cfg`` at full width (qwen2.5-3b and paligemma-3b at full depth,
+    moonshot cut in depth), remat on, trained for `TRAIN_STEPS` steps through
     `train.steps.make_train_step`: a global batch of `TRAIN_BATCH` x
-    `TRAIN_SEQ` tokens (``train_4k``'s sequence; its batch of 256 cut to
-    8) from the Zipf corpus through the vocab LOrder
-    (``data.pipeline.DataLoader``), microbatches of 2 sequences. The
+    `TRAIN_SEQ` positions (``train_4k``'s sequence; its batch of 256 cut
+    to 8), tokens from the Zipf corpus through the vocab LOrder
+    (``data.pipeline.DataLoader``) after a prefix-LM's prefix of zero
+    embeddings (`with_prefix`), microbatches of 2 sequences. The
     launch counts are zeroed just before the steps and read just after;
     one microbatch first checks that no gradient leaf is all zero (a
     kernel output without an autograd graph would leave one so) and, for
@@ -2448,7 +2522,8 @@ def train_full_width(dev, cfg) -> dict:
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                         dev)
     n_params = sum(p.numel() for p in model.parameters())
-    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+    dc = DataConfig(vocab_size=cfg.vocab_size,
+                    seq_len=TRAIN_SEQ - cfg.prefix_tokens,
                     global_batch=TRAIN_BATCH)
     vr = build_vocab_reorder(cfg, dc)
     vr.apply_to_params(model)
@@ -2466,7 +2541,7 @@ def train_full_width(dev, cfg) -> dict:
         loader.close()
 
     # one microbatch's gradients: every leaf reached
-    mb = {"tokens": batches[0][:TRAIN_MICROBATCH].to(dev)}
+    mb = with_prefix(cfg, batches[0][:TRAIN_MICROBATCH], dev)
     for p in model.parameters():
         p.requires_grad_(True)
     reset_lm_launches()
@@ -2530,15 +2605,17 @@ def train_full_width(dev, cfg) -> dict:
     for i, tokens in enumerate(batches):
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        model, opt, m = step(model, opt, {"tokens": tokens.to(dev)})
+        model, opt, m = step(model, opt, with_prefix(cfg, tokens, dev))
         loss = float(m["loss"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t1
         peak = torch.cuda.max_memory_allocated() / 2**30
         losses.append(loss)
+        # positions a second: the prefix's rows run through the trunk too
         rows.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
                      "lr": float(m["lr"]), "seconds": dt,
-                     "tokens_per_s": tokens.numel() / dt, "peak_gib": peak})
+                     "tokens_per_s": tokens.shape[0] * TRAIN_SEQ / dt,
+                     "peak_gib": peak})
         print(f"train step {i} [{cfg.name}]: loss {loss:.4f} grad_norm "
               f"{rows[-1]['grad_norm']:.3f} lr {rows[-1]['lr']:.2e} "
               f"{dt:.3f} s ({rows[-1]['tokens_per_s']:.1f} tokens/s) peak "
@@ -2568,11 +2645,12 @@ def train_full_width(dev, cfg) -> dict:
         raise AssertionError(f"training loss does not fall: {losses}")
     per_step = {k: v // TRAIN_STEPS for k, v in launches.items()}
     print(f"train [{cfg.name}]: {TRAIN_STEPS} steps of {TRAIN_BATCH}x"
-          f"{TRAIN_SEQ} tokens, losses {[round(x, 4) for x in losses]}, the "
+          f"{TRAIN_SEQ} positions ({cfg.prefix_tokens} of them a prefix), "
+          f"losses {[round(x, 4) for x in losses]}, the "
           f"last 3's mean {np.mean(losses[-3:]):.4f} below the first 3's "
           f"{np.mean(losses[:3]):.4f}; launches a step {per_step}")
     profile = profile_train_step(
-        step, model, opt, {"tokens": batches[-1].to(dev)},
+        step, model, opt, with_prefix(cfg, batches[-1], dev),
         float(np.mean([r["seconds"] for r in rows])))
     del model, opt
     torch.cuda.empty_cache()
@@ -2688,32 +2766,83 @@ def hold_grads(label: str, got, want, got_loss, want_loss) -> tuple:
     return worst, rel[worst], len(rel)
 
 
-def train_card_vs_cpu(dev) -> None:
-    """One microbatch's loss and gradients, qwen2.5-3b's width cut to 2
-    layers, 1 x 512 tokens, the same weights on the CPU (plain versions,
-    p rounded to bf16 before PV as the reference does) and the card
-    (kernels, PV in float32): the loss within 1e-2 relative, each leaf's
-    relative L2 error within 5e-2."""
+def train_card_vs_cpu(dev, arch: str) -> None:
+    """One microbatch's loss and gradients, ``arch``'s width cut to 2
+    layers, 1 x 512 positions (`lm_batch`: paligemma-3b's 256 prefix rows
+    from N(0, 1) and 256 tokens), the same weights on the CPU (plain
+    versions, p rounded to bf16 before PV as the reference does) and the
+    card (kernels, PV in float32): the loss within 1e-2 relative, each
+    leaf's relative L2 error within 5e-2. Then on the card remat on (the
+    config's) against off over the same parameters: every gradient equal
+    bit for bit."""
     import copy
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.train import cut_depth
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import (Transformer, init_params,
+                                                param_tree)
 
-    cfg = cut_depth(get_config(TRAIN_ARCH), 2)
+    cfg = cut_depth(get_config(arch), 2)
+    if not cfg.remat:
+        raise AssertionError(f"{cfg.name} trains with remat")
     host = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     card = copy.deepcopy(host).to(dev)
-    tokens = token_source(cfg, 512)(1, 512)
+    batch = lm_batch(cfg, token_source(cfg, 512), 1, 512)
     t0 = time.perf_counter()
-    want_loss, want = loss_and_grads(host, {"tokens": tokens})
+    want_loss, want = loss_and_grads(host, batch)
     cpu_s = time.perf_counter() - t0
-    got_loss, got = loss_and_grads(card, {"tokens": tokens.to(dev)})
+    del host
+    got_loss, got = loss_and_grads(card, on(dev, batch))
     worst, err, leaves = hold_grads("train card vs CPU", got, want, got_loss,
                                     want_loss)
-    print(f"train card vs CPU, 2 layers, 1x512 tokens (CPU forward and "
-          f"backward {cpu_s:.1f} s): loss {got_loss:.6f} against "
-          f"{want_loss:.6f}; the worst leaf {worst} at {err:.3e} relative "
-          f"L2, {leaves} leaves")
+    print(f"train card vs CPU [{cfg.name}], 2 layers, 1x512 positions (CPU "
+          f"forward and backward {cpu_s:.1f} s): loss {got_loss:.6f} "
+          f"against {want_loss:.6f}; the worst leaf {worst} at {err:.3e} "
+          f"relative L2, {leaves} leaves")
+    del want
+    plain = Transformer(dataclasses.replace(cfg, remat=False),
+                        param_tree(card))
+    _, off = loss_and_grads(plain, on(dev, batch))
+    differ = [n for n in got if not torch.equal(got[n], off[n])]
+    if differ:
+        raise AssertionError(f"{cfg.name}: remat on and off give other "
+                             f"gradient bits: {differ[:8]}")
+    print(f"train remat bits [{cfg.name}]: all {len(got)} gradient leaves "
+          f"equal bit for bit on the card with remat on and off")
+    del card, plain, got, off
+    torch.cuda.empty_cache()
+
+
+def train_prefix_run(dev) -> None:
+    """paligemma-3b through ``launch.train.main`` on the card, full width
+    cut to 2 layers (``--depth 2``), 3 steps of 2 x 320 positions: the
+    trainer's own prefix batch (256 rows of zero embeddings before 64
+    tokens), finite losses, each step's attention backward on the
+    ``wgmma`` pair (one of each kernel a layer a step). It saves one
+    checkpoint at its end, into a temporary directory deleted after."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    from repro_torch.launch.train import main as train_main
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    by0 = dict(fa.launches_bwd_by_variant)
+    try:
+        losses = train_main(["--arch", PREFIX_ARCH, "--depth", "2",
+                             "--seq-len", "320", "--global-batch", "2",
+                             "--steps", "3", "--ckpt-dir", tmp,
+                             "--ckpt-every", "0", "--no-vocab-reorder",
+                             "--log-every", "1", "--device", str(dev)])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = {k: fa.launches_bwd_by_variant[k] - by0[k] for k in by0}
+    if not np.all(np.isfinite(losses)) or launched != {
+            "wgmma": 2 * 2 * 3, "mma_sync": 0}:
+        raise AssertionError(f"train main [{PREFIX_ARCH} --depth 2]: losses "
+                             f"{losses}, backward launches {launched}")
+    print(f"train main [{PREFIX_ARCH} --depth 2 --seq-len 320]: losses "
+          f"{[round(x, 5) for x in losses]}, backward launches {launched}")
 
 
 def train_resume(dev, arch: str, cut: list) -> None:
@@ -3070,28 +3199,49 @@ def moe_train_phase(dev) -> dict:
     return run
 
 
+def prefix_train_phase(dev) -> dict:
+    """Phase 14's prefix-LM part, after qwen2.5-3b's model is freed:
+    paligemma-3b (d 256, 8 heads over 1 kv head, a 256-row prefix) trained
+    at full width and depth for `TRAIN_STEPS` steps, its card's
+    gradients held to the CPU's at 2 layers with remat's bits, and
+    ``launch.train.main``'s own prefix batch."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    run = train_full_width(dev, get_config(PREFIX_ARCH))
+    run.pop("layer0")
+    train_card_vs_cpu(dev, PREFIX_ARCH)
+    train_prefix_run(dev)
+    print(f"phase 14 [{PREFIX_ARCH}]: {time.perf_counter() - t0:.1f} s wall")
+    return run
+
+
 def train_phase(dev) -> dict:
     """Phase 14: training. The backward kernels checked and timed, then
     qwen2.5-3b trained at full width and depth, the card's gradients held
-    to the CPU's, and a resume through ``launch/train.main``; then the
-    same for moonshot-v1-16b-a3b's MoE (`moe_train_phase`)."""
+    to the CPU's, and a resume through ``launch/train.main``; then
+    paligemma-3b the same way (`prefix_train_phase`); then
+    moonshot-v1-16b-a3b's MoE (`moe_train_phase`)."""
     from repro_torch.configs import get_config
     err = max(flash_bwd_check("qwen2.5-3b microbatch, GQA", "wgmma",
                               *BWD_SHAPES[0], dev),
               flash_bwd_check("minicpm-2b microbatch, MHA", "wgmma",
                               *BWD_SHAPES[1], dev),
+              flash_bwd_check("paligemma-3b microbatch, d 256, prefix",
+                              "wgmma", *BWD_SHAPES[2], dev),
               flash_bwd_check("qwen2.5-3b microbatch at d 32, GQA",
                               "mma_sync", *BWD_MMA_SYNC_SHAPE, dev))
     timing = [time_flash_bwd(*shape, dev) for shape in BWD_SHAPES]
     run = train_full_width(dev, get_config(TRAIN_ARCH))
     run.pop("layer0")
-    train_card_vs_cpu(dev)
+    train_card_vs_cpu(dev, TRAIN_ARCH)
     train_resume(dev, TRAIN_ARCH, ["--depth", "2"])
+    pali = prefix_train_phase(dev)
     moe = moe_train_phase(dev)
-    launches = {k: run["launches"].get(k, 0) + moe["launches"].get(k, 0)
-                for k in {**run["launches"], **moe["launches"]}}
+    parts = (run["launches"], pali["launches"], moe["launches"])
+    launches = {k: sum(x.get(k, 0) for x in parts)
+                for k in set().union(*parts)}
     return {"err": err, "timing": timing, **run, "launches": launches,
-            "moe": moe}
+            "prefix": pali, "moe": moe}
 
 
 def timed(label: str, fn, *args):
@@ -3159,6 +3309,9 @@ def run(torch, corpora: dict) -> int:
                             {"f", "13__nv_bfloat16"})
     flash_ptxas = ptxas_gate("flash_attn", "flash_fwd_bf16_wgmma",
                              FLASH_FWD_PTXAS_KEY, FLASH_FWD_INSTANCES)
+    bwd_ptxas = {k: ptxas_gate("flash_attn", k, r"ILi(\d+)E",
+                               FLASH_BWD_INSTANCES)
+                 for k in FLASH_BWD_KERNELS}
 
     err = timed("3 spmv checks", kernel_cases, dev)
     served = timed("4 graph serve", serve, dev, NUM_VERTICES)
@@ -3244,8 +3397,13 @@ def run(torch, corpora: dict) -> int:
         "library": train["timing"][0]["library"],
         "shape": train["timing"][0]["shape"],
         ARCH: train["timing"][1],
-        "ptxas": {k: ptxas_numbers("flash_attn", k) for k in (
-            "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")},
+        PREFIX_ARCH: {**train["timing"][2],
+                      "launches_by_variant": {
+                          k[len("flash_bwd_"):]: train["prefix"][
+                              "launches"][k]
+                          for k in ("flash_bwd_wgmma", "flash_bwd_mma_sync")},
+                      "ptxas": {k: v["256"] for k, v in bwd_ptxas.items()}},
+        "ptxas": bwd_ptxas,
     }, {
         "name": "hot_embed",
         "route": "cuda",
@@ -3289,6 +3447,9 @@ def run(torch, corpora: dict) -> int:
         print(f"scan: {json.dumps(r['scan'])}")
     print(f"train: {json.dumps(train['steps'])}")
     print(f"train profile: {json.dumps(train['profile'])}")
+    print(f"train [{PREFIX_ARCH}]: {json.dumps(train['prefix']['steps'])}")
+    print(f"train profile [{PREFIX_ARCH}]: "
+          f"{json.dumps(train['prefix']['profile'])}")
     print(f"train [{MOE_ARCH}]: {json.dumps(train['moe']['steps'])}")
     print(f"train profile [{MOE_ARCH}]: "
           f"{json.dumps(train['moe']['profile'])}")

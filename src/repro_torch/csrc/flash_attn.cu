@@ -1408,7 +1408,7 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o,
 // the flash kernel, whose outputs carry no autograd graph.
 //
 // Two kernels, so that nothing is summed with atomics and a result repeats
-// bit for bit (d 64, 80 and 128 take the Hopper kernels further below):
+// bit for bit (d 64, 80, 128 and 256 take the Hopper kernels further below):
 //  * flash_bwd_dq_bf16: one block per (query head, 64-row query tile), four
 //    warps of 16 rows. Its prologue computes delta for its rows (float32,
 //    from the bf16 O and dO) and writes it out for the second kernel; then
@@ -1803,7 +1803,7 @@ int launch_bwd_dkdv(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ----------------------------- backward, bf16 at d 64, 80 and 128: Hopper
+// ------------------------ backward, bf16 at d 64, 80, 128 and 256: Hopper
 //
 // The same gradient as the mma.sync kernels above, in two kernels built
 // like the forward's Hopper design (flash_fwd_bf16_wgmma). Like those, they
@@ -1822,6 +1822,10 @@ int launch_bwd_dkdv(const void* q, const void* k, const void* v,
 //    K-major from shared memory), P = exp2(S scale log2 e - lse log2 e),
 //    dS = P (dP - delta), dQ += dS K (dS rounded to bf16 from registers
 //    as the A operand, K as an MN-major B operand: the transpose bit).
+//  * d 256 (paligemma-3b) has its own specialisations of both kernels,
+//    flash_bwd_dq_wgmma<256> and flash_bwd_dkdv_wgmma<256> (after the
+//    primary templates): 64-row and 64-key blocks whose two consumer
+//    warpgroups split the head dim, trading S and dP through shared memory.
 //  * flash_bwd_dkdv_wgmma: one block per (query head, 128-key tile), key
 //    tile 0 first (under a causal mask it has the most rows to walk). K
 //    and V arrive once; Q, dO and their rows of `rows` stream through the
@@ -1867,7 +1871,10 @@ int launch_bwd_dkdv(const void* q, const void* k, const void* v,
 // Bound: operations. The five products of the math are 2 * d * pairs FLOPs
 // each: at qwen2.5-3b's training microbatch (BH 32 over 4 kv rows, S 4096,
 // d 128, causal) 3.4368e11 FLOPs, 0.3475 ms at 989 TFLOP/s; dq recomputes
-// S and dP, so seven are issued, 0.4865 ms.
+// S and dP, so seven are issued, 0.4865 ms. At paligemma-3b's (BH 16 over 2
+// kv rows, S 4096, d 256, causal with a 256-row prefix) 3.4502e11 FLOPs,
+// 0.3489 ms; the kernels multiply every 64 x 64 block that holds a visible
+// pair whole, 4.8996e11 FLOPs.
 //
 // Registers (ptxas, sm_90a, from the build log chip_smoke.py prints): both
 // kernels report 168 (the launch's count; the consumers run at 240 after
@@ -1878,7 +1885,10 @@ int launch_bwd_dkdv(const void* q, const void* k, const void* v,
 // used the accumulators made ptxas spill them in the loop and serialise
 // every wgmma), and K's and V's shared-memory addresses are made
 // opaque at each step, so that their descriptors are rebuilt there rather
-// than held in registers across the loop.
+// than held in registers across the loop. d 256 does not fit that budget
+// with 64 rows or keys a warpgroup over the whole head dim (a 128-row dq
+// block spilled 24 bytes; see flash_bwd_dq_wgmma<256>), hence its split of
+// the head dim; both of its kernels also report 168 with no spill.
 constexpr int kBwKeys = 128;                 // dkdv: keys a block
 constexpr int kBwRows = 64;                  // dkdv: query rows a step
 constexpr int kBqRows = 128;                 // dq: query rows a block
@@ -1889,16 +1899,29 @@ template <int D>
 struct HopperBwd {
   static constexpr int kPanels = Hopper<D>::kPanels;
   static constexpr int kWidth = Hopper<D>::kWidth;   // columns of a tile
-  static constexpr int kAcc = kWidth / 2;       // floats of a 64-row sum
   static constexpr int kBig = Hopper<D>::kQBytes;     // a 128-row tile
   static constexpr int kSmall = kPanels * kHalfPanel;  // a 64-row tile
   static constexpr int kStages = 2;
   static constexpr int kRowBytes = 2 * kBwRows * 4;    // lse and delta
+  // d 256 (the kernels' <256> specialisations): 64-row dq blocks and
+  // 64-key dk/dv blocks whose two consumer warpgroups each own half of the
+  // head dim, exchanging S (or S^T) and dP (dP^T) as float32 through
+  // shared memory
+  static constexpr bool kSplit = D > 128;
+  static constexpr int kDqRows = kSplit ? 64 : kBqRows;  // dq: rows a block
+  static constexpr int kKeys = kSplit ? 64 : kBwKeys;    // dkdv: keys a block
+  static constexpr int kBlockTile = kSplit ? kSmall : kBig;  // Q, dO; K, V
+  static constexpr int kCols = kSplit ? kWidth / 2 : kWidth;   // a consumer's
+  static constexpr int kAcc = kCols / 2;        // floats of a 64-row sum
+  static constexpr int kXchgBytes = kSplit ? 2 * 64 * 64 * 4 : 0;
   // dkdv: K, V, then kStages x Q, kStages x dO, kStages x (lse, delta);
-  // dq: Q, dO, then kStages x K, kStages x V. Then the mbarriers.
-  static constexpr int kDkdvSmem =
-      2 * kBig + kStages * (2 * kSmall + kRowBytes) + 128 + 1024;
-  static constexpr int kDqSmem = 2 * kBig + kStages * 2 * kSmall + 128 + 1024;
+  // dq: Q, dO, then kStages x K, kStages x V. Then the exchange, then the
+  // mbarriers.
+  static constexpr int kDkdvSmem = 2 * kBlockTile +
+                                   kStages * (2 * kSmall + kRowBytes) +
+                                   kXchgBytes + 128 + 1024;
+  static constexpr int kDqSmem =
+      2 * kBlockTile + kStages * 2 * kSmall + kXchgBytes + 128 + 1024;
   static_assert(8 * (2 * kStages + 1) <= 128, "barriers overflow their slot");
   static_assert(kDkdvSmem <= 232448 && kDqSmem <= 232448,
                 "more than a block's shared memory");
@@ -2049,15 +2072,15 @@ __device__ __forceinline__ void store_acc_f32(float* __restrict__ dst,
 }
 
 // dK and dV of one key tile from the group's float32 partials: `src`
-// holds head 0's (kBwKeys, W) dK then its dV, head h at + h * head floats;
+// holds head 0's (kKeys, W) dK then its dV, head h at + h * head floats;
 // each element is summed over the heads in order 0 .. group - 1, and dK
 // is scaled, as bf16 into rows k0 .. of (s, D) dk and dv.
-template <int D, int W>
+template <int D, int W, int kKeys>
 __device__ __forceinline__ void sum_heads_store(
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
     const float* src, long long head, int group, int k0, int s, float scale,
     int tid) {
-  constexpr int kQuads = kBwKeys * W / 4;   // float4 of one matrix
+  constexpr int kQuads = kKeys * W / 4;   // float4 of one matrix
   const float4* in = reinterpret_cast<const float4*>(src);
   const long long head4 = head / 4;
 #pragma unroll 4
@@ -2498,13 +2521,501 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if (last_block) {
       __threadfence();
       const long long kv_base = static_cast<long long>(kvh_e) * s * D;
-      sum_heads_store<D, H::kWidth>(
+      sum_heads_store<D, H::kWidth, kBwKeys>(
           dk + kv_base, dv + kv_base,
           partial + (static_cast<long long>(kvh_e) * group * num_k_tiles +
                      kt_e) * 2 * kPart,
           static_cast<long long>(num_k_tiles) * 2 * kPart, group, k0_e, s,
           scale, ctid);
     }
+  }
+}
+
+// P^T (or any 64 x 64 step) packed as the A operands of 4 k-steps of 16,
+// as p_tile's kPack packs it.
+__device__ __forceinline__ void pack_tile(const float (&x)[32],
+                                          uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[kk][r] = bf16x2_bits(
+          __floats2bfloat162_rn(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]));
+    }
+  }
+}
+
+// The d 256 kernels' exchange: this thread's 64 x 64 float32 tile `x`
+// (its 32 accumulator entries, float4 j at mine[128 j]) into its
+// warpgroup's slot, then the other warpgroup's same thread's into `y`:
+// named barrier 2 once both warpgroups have written, 3 once both have
+// read (so that the next step's writes wait for this step's reads).
+__device__ __forceinline__ void swap_tiles(const float (&x)[32],
+                                           float (&y)[32], float4* mine,
+                                           const float4* other) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mine[128 * j] =
+        make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+  }
+  named_sync(2, kConsumers);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 v = other[128 * j];
+    y[4 * j] = v.x;
+    y[4 * j + 1] = v.y;
+    y[4 * j + 2] = v.z;
+    y[4 * j + 3] = v.w;
+  }
+  named_sync(3, kConsumers);
+}
+
+// d 256, dk/dv. K and V of 128 keys (64 KB each) beside two stages of 64
+// query rows (Q and dO, 32 KB each) are more than a block's shared memory,
+// and a warpgroup owning 64 keys would hold dK and dV as 64 x 256 floats
+// each, 256 a thread, over setmaxnreg's 240. So a block owns 64 keys (K
+// and V, 32 KB each), both consumer warpgroups see them, and each owns half
+// of the head dim: dK and dV for columns 128 cw .. 128 cw + 127, 64 + 64
+// floats a thread, the d 128 kernel's budget. Per step warpgroup 0
+// computes S^T = K Q^T and turns it into P^T, warpgroup 1 dP^T = V dO^T,
+// each over the whole head dim (16 k-steps of m64n64k16); they swap the
+// two float32 tiles (`swap_tiles`), each forms dS^T = P^T (dP^T - delta)
+// itself, the same arithmetic in both, and multiplies its half: dV +=
+// P^T dO[:, half] and dK += dS^T Q[:, half] (m64n128k16, dO and Q
+// MN-major from the half's panels). Each of the five products is issued
+// once. The epilogue is the primary template's: per-head float32 partials
+// (64 keys x 256 columns, each warpgroup its half) summed over the group
+// in head order by the last block of a key tile.
+template <>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_bwd_dkdv_wgmma<256>(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const float* __restrict__ rows,
+                          float* __restrict__ partial,
+                          int* __restrict__ counters,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int bh_count,
+                          int group, Mask mask, float scale,
+                          int num_k_tiles) {
+  constexpr int D = 256;
+  using H = HopperBwd<D>;
+  constexpr int kKeys = H::kKeys;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int last_block;
+  uint8_t* smem =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sk = smem_addr(smem);
+  const uint32_t sv = sk + H::kBlockTile;
+  const uint32_t sq = sv + H::kBlockTile;              // stage i at + i kSmall
+  const uint32_t sdo = sq + H::kStages * H::kSmall;
+  const uint32_t srow = sdo + H::kStages * H::kSmall;   // + i kRowBytes
+  const uint32_t sx = srow + H::kStages * H::kRowBytes;   // the exchange
+  const uint32_t bars = sx + H::kXchgBytes;
+  const uint32_t kv_bar = bars + 16 * H::kStages;
+
+  const int s = mask.s;
+  const int s_pad = ((s + kBqRows - 1) / kBqRows) * kBqRows;
+  const int kt = static_cast<int>(blockIdx.x / bh_count);
+  const int bh = static_cast<int>(blockIdx.x % bh_count);
+  const int kvh = bh / group;
+  const int k0 = kt * kKeys;
+  const int step0 = mask.first_row(k0) / kBwRows;
+  const int k_last = (k0 + kKeys < s ? k0 + kKeys : s) - 1;
+  const int n_steps = mask.last_row(k_last) / kBwRows - step0 + 1;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < H::kStages; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + 8 * (H::kStages + i), kConsumers);
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_bar, 2 * H::kBlockTile);
+#pragma unroll
+      for (int p = 0; p < H::kPanels; ++p) {
+        tma_load(sk + p * kHalfPanel, &tm_k, kv_bar, 64 * p, k0, kvh);
+        tma_load(sv + p * kHalfPanel, &tm_v, kv_bar, 64 * p, k0, kvh);
+      }
+      const float* lse_rows = rows + static_cast<long long>(bh) * s_pad;
+      const float* delta_rows =
+          rows + static_cast<long long>(bh_count + bh) * s_pad;
+      for (int i = 0; i < n_steps; ++i) {
+        const int stage = i % H::kStages;
+        const uint32_t full = bars + 8 * stage;
+        if (i >= H::kStages) {
+          mbar_wait(bars + 8 * (H::kStages + stage), (i / H::kStages - 1) & 1);
+        }
+        mbar_expect_tx(full, 2 * H::kSmall + H::kRowBytes);
+        const int q0 = (step0 + i) * kBwRows;
+#pragma unroll
+        for (int p = 0; p < H::kPanels; ++p) {
+          const uint32_t off = stage * H::kSmall + p * kHalfPanel;
+          tma_load(sq + off, &tm_q, full, 64 * p, q0, bh);
+          tma_load(sdo + off, &tm_do, full, 64 * p, q0, bh);
+        }
+        const uint32_t r = srow + stage * H::kRowBytes;
+        bulk_load(r, lse_rows + q0, kBwRows * 4, full);
+        bulk_load(r + kBwRows * 4, delta_rows + q0, kBwRows * 4, full);
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = threadIdx.x / kWgThreads - 1;   // columns 128cw ..
+    const int wt = threadIdx.x % kWgThreads;
+    const int warp = wt / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int key0 = k0 + warp * 16 + g;           // and key0 + 8
+    const float scale_log2 = scale * kLog2e;
+    // this thread's float4 j of the exchange at + 128 j: its own tile's,
+    // and the other warpgroup's same thread's
+    float4* mine_x = reinterpret_cast<float4*>(smem + (sx - sk)) +
+                     cw * 1024 + wt;
+    const float4* other_x = reinterpret_cast<const float4*>(
+                                smem + (sx - sk)) + (1 - cw) * 1024 + wt;
+    const uint32_t half = 2 * cw * kHalfPanel;     // this half's panels
+
+    float dka[H::kAcc], dva[H::kAcc];
+#pragma unroll
+    for (int i = 0; i < H::kAcc; ++i) {
+      dka[i] = 0.0f;
+      dva[i] = 0.0f;
+    }
+    mbar_wait(kv_bar, 0);
+    for (int i = 0; i < n_steps; ++i) {
+      const int stage = i % H::kStages;
+      const int q0 = (step0 + i) * kBwRows;
+      mbar_wait(bars + 8 * stage, (i / H::kStages) & 1);
+      if (!none_visible(mask, q0, q0 + kBwRows - 1, k0, k0 + kKeys - 1)) {
+        const uint32_t qs = sq + stage * H::kSmall;
+        const uint32_t dos = sdo + stage * H::kSmall;
+        const float* lse_s = reinterpret_cast<const float*>(
+            smem + (srow - sk) + stage * H::kRowBytes);
+        const float* delta_s = lse_s + kBwRows;
+        // element 4j + e: key key0 (+ 8 for e >= 2), row q0 + 8j + 2t + e % 2
+        float p[32], dp[32];
+        uint32_t pa[4][4], pd[4][4];
+        if (cw == 0) {   // S^T = K Q^T, then P^T
+          hold(p);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t at = (kk / 4) * kHalfPanel + (kk % 4) * 32;
+            wgmma_ss64(p, kmajor_desc(sk + at), kmajor_desc(qs + at), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          hold(p);
+          p_tile<false>(p, pa,   // pa is packed below
+                        !all_visible(mask, q0, q0 + kBwRows - 1, k0,
+                                     k0 + kKeys - 1),
+                        mask, scale_log2,
+                        [&](int x, int& row, int& key, float& l) {
+                          const int c = 8 * (x / 4) + 2 * t + (x % 2);
+                          row = q0 + c;
+                          key = key0 + 8 * ((x % 4) / 2);
+                          l = lse_s[c];
+                        });
+          swap_tiles(p, dp, mine_x, other_x);
+        } else {         // dP^T = V dO^T
+          hold(dp);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t at = (kk / 4) * kHalfPanel + (kk % 4) * 32;
+            wgmma_ss64(dp, kmajor_desc(sv + at), kmajor_desc(dos + at),
+                       kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          hold(dp);
+          swap_tiles(dp, p, mine_x, other_x);
+        }
+        pack_tile(p, pa);
+        hold(pa);
+        hold(dva);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBwRows / 16; ++kk) {   // dV += P^T dO
+          wgmma_pv(dva, pa[kk], sw128_desc(dos + half + kk * 16 * 128,
+                                           kHalfPanel, 1024));
+        }
+        wgmma_commit();
+        ds_tile(p, dp, pd, [&](int x) {
+          return delta_s[8 * (x / 4) + 2 * t + (x % 2)];
+        });
+        hold(pd);
+        hold(dka);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBwRows / 16; ++kk) {   // dK += dS^T Q
+          wgmma_pv(dka, pd[kk], sw128_desc(qs + half + kk * 16 * 128,
+                                           kHalfPanel, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(dka);
+        hold(dva);
+        hold(pa);
+        hold(pd);
+      }
+      mbar_arrive(bars + 8 * (H::kStages + stage));
+    }
+
+    // The block's indices again, from the special registers, so that none
+    // is held across the loop
+    const int item = static_cast<int>(ctaid_x());
+    const int kt_e = item / bh_count;
+    const int bh_e = item % bh_count;
+    const int kvh_e = bh_e / group;
+    const int k0_e = kt_e * kKeys;
+    const int ctid = static_cast<int>(tid_x()) - kWgThreads;
+    const int t_e = ctid % 4;
+    const int row_e = ctid / 4 % 8 + 16 * (ctid % kWgThreads / 32);
+    constexpr int kPart = kKeys * H::kWidth;
+    float* mine = partial + (static_cast<long long>(bh_e) * num_k_tiles +
+                             kt_e) * 2 * kPart + 128 * (ctid / kWgThreads);
+    store_acc_f32<H::kWidth>(mine, dka, row_e, t_e);
+    store_acc_f32<H::kWidth>(mine + kPart, dva, row_e, t_e);
+    __threadfence();
+    named_sync(1, kConsumers);
+    if (ctid == 0) {
+      last_block = 1;
+      if (group > 1) {
+        int* count =
+            counters + static_cast<long long>(kvh_e) * num_k_tiles + kt_e;
+        last_block = atomicAdd(count, 1) == group - 1;
+        if (last_block) {
+          *count = 0;   // ready for the next call
+        }
+      }
+    }
+    named_sync(1, kConsumers);
+    if (last_block) {
+      __threadfence();
+      const long long kv_base = static_cast<long long>(kvh_e) * s * D;
+      sum_heads_store<D, H::kWidth, kKeys>(
+          dk + kv_base, dv + kv_base,
+          partial + (static_cast<long long>(kvh_e) * group * num_k_tiles +
+                     kt_e) * 2 * kPart,
+          static_cast<long long>(num_k_tiles) * 2 * kPart, group, k0_e, s,
+          scale, ctid);
+    }
+  }
+}
+
+// d 256, dq. A 128-row block's dQ is 64 x 256 floats a consumer
+// warpgroup, 128 a thread, and beside it S, dP and dS as an operand came to
+// a few registers over setmaxnreg's 240 (ptxas spilled 12 to 44 bytes in
+// every arrangement tried). So a dq block owns 64 query rows (Q and dO, 32
+// KB each, beside two stages of a 64-key K and V tile), and both consumer
+// warpgroups see them, each owning half of dQ's columns: 64 floats a
+// thread. Per 64-key step warpgroup 0 computes S = Q K^T and turns it into
+// P, warpgroup 1 computes dP = dO V^T, they swap the two float32 tiles
+// (`swap_tiles`) as the dk/dv kernel above does, and each forms dS and
+// multiplies its half: dQ[:, half] += dS K[:, half]. The sum over the key
+// steps keeps the primary template's order.
+template <>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_bwd_dq_wgmma<256>(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __nv_bfloat16* __restrict__ o,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        float* __restrict__ rows,
+                        __nv_bfloat16* __restrict__ dq, int bh_count,
+                        int group, Mask mask, float scale, int num_q_tiles) {
+  constexpr int D = 256;
+  using H = HopperBwd<D>;
+  constexpr int kQRows = H::kDqRows;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sq = smem_addr(smem);
+  const uint32_t sdo = sq + H::kBlockTile;
+  const uint32_t sk = sdo + H::kBlockTile;           // stage i at + i kSmall
+  const uint32_t sv = sk + H::kStages * H::kSmall;
+  const uint32_t sx = sv + H::kStages * H::kSmall;   // the exchange
+  const uint32_t bars = sx + H::kXchgBytes;
+  const uint32_t qd_bar = bars + 16 * H::kStages;
+
+  const int s = mask.s;
+  const int s_pad = ((s + kBqRows - 1) / kBqRows) * kBqRows;   // as dkdv's
+  const int qt = num_q_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
+  const int bh = static_cast<int>(blockIdx.x % bh_count);
+  const int q0 = qt * kQRows;
+  const int kt0 = mask.first_tile(q0, kBqKeys);
+  const int last = (q0 + kQRows < s ? q0 + kQRows : s) - 1;
+  const int n_steps = mask.last_tile(last / kBqKeys, kBqKeys) - kt0 + 1;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < H::kStages; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + 8 * (H::kStages + i), kConsumers);
+    }
+    mbar_init(qd_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      const int kvh = bh / group;
+      mbar_expect_tx(qd_bar, 2 * H::kBlockTile);
+#pragma unroll
+      for (int p = 0; p < H::kPanels; ++p) {
+        tma_load(sq + p * kHalfPanel, &tm_q, qd_bar, 64 * p, q0, bh);
+        tma_load(sdo + p * kHalfPanel, &tm_do, qd_bar, 64 * p, q0, bh);
+      }
+      for (int i = 0; i < n_steps; ++i) {
+        const int stage = i % H::kStages;
+        const uint32_t full = bars + 8 * stage;
+        if (i >= H::kStages) {
+          mbar_wait(bars + 8 * (H::kStages + stage), (i / H::kStages - 1) & 1);
+        }
+        mbar_expect_tx(full, 2 * H::kSmall);
+        const int key0 = (kt0 + i) * kBqKeys;
+#pragma unroll
+        for (int p = 0; p < H::kPanels; ++p) {
+          const uint32_t off = stage * H::kSmall + p * kHalfPanel;
+          tma_load(sk + off, &tm_k, full, 64 * p, key0, kvh);
+          tma_load(sv + off, &tm_v, full, 64 * p, key0, kvh);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = threadIdx.x / kWgThreads - 1;   // columns 128cw ..
+    const int wt = threadIdx.x % kWgThreads;
+    const int warp = wt / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int row0 = q0 + warp * 16 + g;           // and row0 + 8
+    const float scale_log2 = scale * kLog2e;
+
+    // delta and lse * log2 e of rows row0 and row0 + 8, as the primary
+    // template computes them, in both warpgroups; warpgroup 0 writes them
+    // into `rows` for the dkdv kernel, zero past S.
+    float lse2[2], delta[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      float acc = 0.0f;
+      lse2[h] = 0.0f;
+      if (r < s) {
+        const long long at = static_cast<long long>(bh) * s + r;
+        const uint4* a = reinterpret_cast<const uint4*>(dout + at * D);
+        const uint4* b = reinterpret_cast<const uint4*>(o + at * D);
+        for (int c = t; c < D / 8; c += 4) {
+          acc = dot8(__ldg(a + c), __ldg(b + c), acc);
+        }
+        lse2[h] = lse[at] * kLog2e;
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      delta[h] = acc;
+      if (cw == 0 && t == 0) {
+        const long long at = static_cast<long long>(bh) * s_pad + r;
+        rows[at] = lse2[h];
+        rows[static_cast<long long>(bh_count) * s_pad + at] = acc;
+      }
+    }
+
+    float dqa[H::kAcc];
+#pragma unroll
+    for (int i = 0; i < H::kAcc; ++i) {
+      dqa[i] = 0.0f;
+    }
+    // this thread's float4 j of the exchange at + 128 j, as in dkdv
+    float4* mine_x = reinterpret_cast<float4*>(smem + (sx - sq)) +
+                     cw * 1024 + wt;
+    const float4* other_x = reinterpret_cast<const float4*>(
+                                smem + (sx - sq)) + (1 - cw) * 1024 + wt;
+    const uint32_t half = 2 * cw * kHalfPanel;     // this half's panels
+    mbar_wait(qd_bar, 0);
+    for (int i = 0; i < n_steps; ++i) {
+      const int stage = i % H::kStages;
+      const int k0 = (kt0 + i) * kBqKeys;
+      mbar_wait(bars + 8 * stage, (i / H::kStages) & 1);
+      if (!none_visible(mask, q0, q0 + kQRows - 1, k0, k0 + kBqKeys - 1)) {
+        const uint32_t ks = sk + stage * H::kSmall;
+        const uint32_t vs = sv + stage * H::kSmall;
+        // element 4j + e: row row0 (+ 8 for e >= 2), key k0 + 8j + 2t + e % 2
+        float p[32], dp[32];
+        uint32_t pd[4][4];
+        if (cw == 0) {   // S = Q K^T, then P
+          hold(p);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t at = (kk / 4) * kHalfPanel + (kk % 4) * 32;
+            wgmma_ss64(p, kmajor_desc(sq + at), kmajor_desc(ks + at), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          hold(p);
+          p_tile<false>(p, pd,   // P stays float32 here: pd is not written
+                        !all_visible(mask, q0, q0 + kQRows - 1, k0,
+                                     k0 + kBqKeys - 1),
+                        mask, scale_log2,
+                        [&](int x, int& row, int& key, float& l) {
+                          const int h = (x % 4) / 2;
+                          row = row0 + 8 * h;
+                          key = k0 + 8 * (x / 4) + 2 * t + (x % 2);
+                          l = lse2[h];
+                        });
+          swap_tiles(p, dp, mine_x, other_x);
+        } else {         // dP = dO V^T
+          hold(dp);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t at = (kk / 4) * kHalfPanel + (kk % 4) * 32;
+            wgmma_ss64(dp, kmajor_desc(sdo + at), kmajor_desc(vs + at),
+                       kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          hold(dp);
+          swap_tiles(dp, p, mine_x, other_x);
+        }
+        ds_tile(p, dp, pd, [&](int x) { return delta[(x % 4) / 2]; });
+        hold(pd);
+        hold(dqa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBqKeys / 16; ++kk) {   // dQ += dS K
+          wgmma_pv(dqa, pd[kk], sw128_desc(ks + half + kk * 16 * 128,
+                                           kHalfPanel, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(dqa);
+        hold(pd);
+      }
+      mbar_arrive(bars + 8 * (H::kStages + stage));
+    }
+    store_acc<D>(dq + static_cast<long long>(bh) * s * D + 128 * cw, dqa,
+                 row0, s, t, scale);
   }
 }
 
@@ -2558,7 +3069,7 @@ int launch_bwd_dq_wgmma(const void* q, const void* k, const void* v,
   using H = HopperBwd<D>;
   CUtensorMap maps[4];
   const int rc = encode_bwd_maps(maps, q, dout, k, v, bh, group, mask.s, D,
-                                 kBqRows, kBqKeys);
+                                 H::kDqRows, kBqKeys);
   if (rc != 0) {
     return rc;
   }
@@ -2568,7 +3079,7 @@ int launch_bwd_dq_wgmma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const int tiles = (mask.s + kBqRows - 1) / kBqRows;
+  const int tiles = (mask.s + H::kDqRows - 1) / H::kDqRows;
   flash_bwd_dq_wgmma<D><<<tiles * bh, kHopperThreads, H::kDqSmem, st>>>(
       maps[0], maps[1], maps[2], maps[3],
       static_cast<const __nv_bfloat16*>(o),
@@ -2590,7 +3101,7 @@ int launch_bwd_dkdv_wgmma(const void* q, const void* k, const void* v,
   }
   CUtensorMap maps[4];
   const int rc = encode_bwd_maps(maps, q, dout, k, v, bh, group, mask.s, D,
-                                 kBwRows, kBwKeys);
+                                 kBwRows, H::kKeys);
   if (rc != 0) {
     return rc;
   }
@@ -2600,7 +3111,7 @@ int launch_bwd_dkdv_wgmma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const int tiles = (mask.s + kBwKeys - 1) / kBwKeys;
+  const int tiles = (mask.s + H::kKeys - 1) / H::kKeys;
   flash_bwd_dkdv_wgmma<D><<<tiles * bh, kHopperThreads, H::kDkdvSmem, st>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(rows),
       static_cast<float*>(partial), static_cast<int*>(counters),
@@ -2671,8 +3182,8 @@ extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
   }
 }
 
-// The mma.sync backward, bf16 at d in {16, 32} (d 64, 80 and 128 take the
-// Hopper kernels below), in two launches on one
+// The mma.sync backward, bf16 at d in {16, 32} (d 64, 80, 128 and 256
+// take the Hopper kernels below), in two launches on one
 // stream: first flash_bwd_dq (dq, and delta (bh, s) float32 for the second),
 // then flash_bwd_dkdv (dk and dv). q, o, dout and dq: (bh, s, d); k, v, dk
 // and dv: (bh / group, s, d); lse: the forward's (bh, s). The mask and
@@ -2722,13 +3233,14 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
   }
 }
 
-// The Hopper backward, bf16 at d in {64, 80, 128}, in two launches on one
-// stream: first flash_bwd_dq_wgmma (dq, and `rows`: (2, bh, s_pad)
+// The Hopper backward, bf16 at d in {64, 80, 128, 256}, in two launches on
+// one stream: first flash_bwd_dq_wgmma (dq, and `rows`: (2, bh, s_pad)
 // float32, lse * log2 e then rowsum(dO * O), s_pad = s rounded up to 128,
 // zero past s), then flash_bwd_dkdv_wgmma (dk and dv). The second needs
-// `partial`, bh * ceil(s / 128) * 128 * 2 * w float32 (w = 64 at d 64,
-// else 128), and, with group > 1, `counters`, (bh / group) * ceil(s / 128)
-// int32 that are 0 on entry and are left at 0 (null at group 1).
+// `partial`, bh * ceil(s / n) * n * 2 * w float32 (key tiles of n = 128
+// keys, 64 at d 256; w = 64 at d 64, 256 at d 256, else 128), and, with
+// group > 1, `counters`, (bh / group) * ceil(s / n) int32 that are 0 on
+// entry and are left at 0 (null at group 1).
 // Other arguments as flash_bwd_dq and flash_bwd_dkdv.
 extern "C" int flash_bwd_dq_wgmma(const void* q, const void* k,
                                   const void* v, const void* o,
@@ -2749,6 +3261,7 @@ extern "C" int flash_bwd_dq_wgmma(const void* q, const void* k,
     FLASH_BWD_DQ_WGMMA(64)
     FLASH_BWD_DQ_WGMMA(80)
     FLASH_BWD_DQ_WGMMA(128)
+    FLASH_BWD_DQ_WGMMA(256)
 #undef FLASH_BWD_DQ_WGMMA
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -2775,6 +3288,7 @@ extern "C" int flash_bwd_dkdv_wgmma(const void* q, const void* k,
     FLASH_BWD_DKDV_WGMMA(64)
     FLASH_BWD_DKDV_WGMMA(80)
     FLASH_BWD_DKDV_WGMMA(128)
+    FLASH_BWD_DKDV_WGMMA(256)
 #undef FLASH_BWD_DKDV_WGMMA
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

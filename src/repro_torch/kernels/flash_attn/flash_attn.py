@@ -64,27 +64,39 @@ graph, so the gradient is two more CUDA kernels in the same source, a dq
 kernel (which also writes rowsum(dO·O) for the other) and a dk/dv kernel,
 chosen by `bwd_variant`; neither variant falls back to the other:
 
-* ``"wgmma"``, bfloat16 at head dims 64, 80 and 128
+* ``"wgmma"``, bfloat16 at head dims 64, 80, 128 and 256
   (``flash_bwd_dq_wgmma``, ``flash_bwd_dkdv_wgmma``): the forward's Hopper
   design (TMA ring, producer warpgroup, two consumer warpgroups, ``wgmma``
   with the transposed operands as MN-major descriptors). The dk/dv kernel's
   work item is a (query head, 128-key tile); under grouped-query attention
   each writes its float32 dK and dV and the last of a group's blocks to
   finish sums them in head order (a counter in device memory), so no float
-  is summed with atomics and a result repeats bit for bit.
+  is summed with atomics and a result repeats bit for bit. At d 256
+  (paligemma-3b) a warpgroup's 64 rows or keys would hold 64 x 256 float32
+  sums, 128 registers a thread per matrix, and beside them S and dP (or
+  their transposes) went past the 240 registers a consumer has; so a dq
+  block takes 64 query rows and a dk/dv block 64 keys, both warpgroups see
+  all of them and each owns half of the head dim (dQ, or dK and dV, for
+  128 columns). One warpgroup computes S (with P), the other dP, each over
+  the whole head dim; they swap the two float32 tiles through shared
+  memory, both form dS alike, and each multiplies its half. Each product
+  is issued once per 64 x 64 block; the sums keep the other head dims'
+  order, so `ref.attention_bwd_tiled_ref` models d 256 too.
 * ``"mma_sync"``, bfloat16 at head dims 16 and 32 (``flash_bwd_dq_bf16``,
   ``flash_bwd_dkdv_bf16``): warp-level ``mma.sync``; one dk/dv block owns a
   kv row's key tile and walks its group's heads in series.
 
 Both take the forward's row log-sum-exp, which the forward kernels write
 when asked (`flash_attention_lse`), and every mask of the forward, in
-bfloat16 at the head dims of `BWD_HEAD_DIMS`; anything else raises before
-any launch (ROADMAP A8.5c). P and dS are rounded to bf16 as operands. What
-bounds them is operations: the five products of the math are ``2·d·pairs``
-FLOPs each (pairs the (row, key) pairs the mask lets through), about 0.35
-ms at (BH 32, S 4096, d 128) causal on the card's 989 TFLOP/s; the
-two-kernel design recomputes S and dP once more (seven products) to need
-no atomics. The plain version is `ref.attention_bwd_ref`;
+bfloat16 at the head dims of `BWD_HEAD_DIMS`; anything else (float32
+above all) raises before any launch (ROADMAP A8.5c). P and dS are rounded
+to bf16 as operands. What bounds them is operations: the five products of
+the math are ``2·d·pairs`` FLOPs each (pairs the (row, key) pairs the mask
+lets through), about 0.35 ms at (BH 32, S 4096, d 128) causal on the
+card's 989 TFLOP/s, and the same at paligemma-3b's microbatch (BH 16, S
+4096, d 256, with the prefix's 32,640 extra pairs a head: 3.45e11 FLOPs);
+the two-kernel design recomputes S and dP once more (seven products) to
+need no atomics. The plain version is `ref.attention_bwd_ref`;
 `ref.attention_bwd_tiled_ref` models the ``wgmma`` kernels' tiles and sum
 order.
 """
@@ -97,9 +109,9 @@ import torch
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)      # bfloat16
-BWD_HEAD_DIMS = (16, 32, 64, 80, 128)       # bfloat16, the backward
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # bfloat16, the backward
 WGMMA_HEAD_DIMS = (64, 80, 128, 256)
-BWD_WGMMA_HEAD_DIMS = (64, 80, 128)
+BWD_WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 F32_HEAD_DIMS = (16, 32, 64, 128)
 VARIANTS = ("wgmma", "mma_sync", "simt")
 MASKS = ("causal", "prefix", "non_causal")
@@ -295,9 +307,9 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernels that take ``dtype`` at ``head_dim``:
-    ``"wgmma"`` for bfloat16 at 64, 80 and 128, ``"mma_sync"`` for
-    bfloat16 at 16 and 32; anything else raises `NotImplementedError`
-    (`check_backward`)."""
+    ``"wgmma"`` for bfloat16 at 64, 80, 128 and 256, ``"mma_sync"`` for
+    bfloat16 at 16 and 32; anything else (float32 above all) raises
+    `NotImplementedError` (`check_backward`)."""
     if dtype != torch.bfloat16 or head_dim not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"the flash backward takes bfloat16 at head dims "
@@ -305,8 +317,17 @@ def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
     return "wgmma" if head_dim in BWD_WGMMA_HEAD_DIMS else "mma_sync"
 
 
-# the wgmma backward's tiles: 128 keys a dk/dv block, 128 rows a dq block
+# the wgmma kernels' `rows` are padded to whole 128-row tiles (a dq block
+# at d 64-128; both kernels pad so at d 256 too)
 _BWD_TILE = 128
+
+
+def _dkdv_tile(d: int) -> tuple[int, int]:
+    """(keys, partial width) of a ``wgmma`` dk/dv block at head dim ``d``:
+    64 keys at d 256, whose two warpgroups each own 128 of the 256
+    columns, else 128; the float32 partials are as wide as the kernel's
+    tile (64 at d 64, 128 at d 80 and 128, 256 at d 256)."""
+    return (64, 256) if d == 256 else (128, 64 if d == 64 else 128)
 
 
 def backward_launches(q, k, v, o, lse, do, *, sm_scale: float | None = None,
@@ -340,13 +361,13 @@ def backward_launches(q, k, v, o, lse, do, *, sm_scale: float | None = None,
             int(prefix))
     f32 = dict(dtype=torch.float32, device=q.device)
     if kind == "wgmma":
-        tiles = -(-s // _BWD_TILE)
-        # lse·log2 e and rowsum(dO·O), rows padded to whole dq tiles
-        rows = torch.empty((2, bh, tiles * _BWD_TILE), **f32)
+        # lse·log2 e and rowsum(dO·O), padded to whole tiles
+        rows = torch.empty((2, bh, -(-s // _BWD_TILE) * _BWD_TILE), **f32)
         # each head's float32 dK and dV a key tile, summed over the group
         # in head order by the group's last block (its counter)
-        width = 64 if d == 64 else 128
-        partial = torch.empty(bh * tiles * _BWD_TILE * 2 * width, **f32)
+        keys, width = _dkdv_tile(d)
+        tiles = -(-s // keys)
+        partial = torch.empty(bh * tiles * keys * 2 * width, **f32)
         counters = (torch.zeros((bh // group) * tiles, dtype=torch.int32,
                                 device=q.device) if group > 1 else None)
         dq_args = ("flash_bwd_dq_wgmma", 8, q, k, v, o, do, lse, rows, dq)

@@ -150,7 +150,9 @@ def attention_bwd_tiled_ref(q, k, v, o, lse, do, *,
     order (a step the mask keeps out adds exact zeros, as the kernel's
     skipped step adds nothing); then the ``group`` heads that share a kv
     row are summed in head order, ((h0 + h1) + h2) + ..., as the last block
-    of a group does. Results in q's dtype."""
+    of a group does. At d 256 the kernels' blocks are 64 rows or keys with
+    the head dim split between two warpgroups, which leaves every column's
+    steps and sums as they are. Results in q's dtype."""
     bh, s, d = q.shape
     group = bh // k.shape[0]
     scale = (d ** -0.5) if sm_scale is None else sm_scale

@@ -1233,11 +1233,11 @@ def test_flash_backward_matches_its_plain_version():
 
 
 def test_flash_backward_refuses_before_a_launch():
-    """float32 and head dim 256 have no backward kernel: the call raises
-    before the forward launches (ROADMAP A8.5c)."""
+    """float32, and a head dim no kernel is built for, have no backward
+    kernel: the call raises before the forward launches (ROADMAP A8.5c)."""
     dev = _card()
     fwd, bwd = fa.launches, dict(fa.launches_bwd)
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 48)):
         z = torch.zeros(2, 64, d, device=dev, dtype=dtype,
                         requires_grad=True)
         with pytest.raises(NotImplementedError, match="A8.5c"):
@@ -1246,15 +1246,14 @@ def test_flash_backward_refuses_before_a_launch():
 
 
 def test_flash_grad_at_head_dim_256_refuses_before_a_launch():
-    """paligemma-3b's attention (8 query rows over 1 kv row, d 256, a
-    256-token prefix) runs forward on the Hopper kernel, but has no
-    backward yet: `flash_attention_grad` raises, naming A8.5c, before the
-    forward or any backward kernel launches."""
+    """At paligemma-3b's head dim 256 the backward is built for bf16 only:
+    a float32 `flash_attention_grad` (8 query rows over 1 kv row, a
+    256-token prefix) raises, naming A8.5c, before the forward or any
+    backward kernel launches."""
     dev = _card()
-    q = torch.zeros(8, 300, 256, device=dev, dtype=torch.bfloat16,
-                    requires_grad=True)
-    k, v = (torch.zeros(1, 300, 256, device=dev, dtype=torch.bfloat16,
-                        requires_grad=True) for _ in range(2))
+    q = torch.zeros(8, 300, 256, device=dev, requires_grad=True)
+    k, v = (torch.zeros(1, 300, 256, device=dev, requires_grad=True)
+            for _ in range(2))
     fwd = (fa.launches, dict(fa.launches_by_variant))
     bwd = (dict(fa.launches_bwd), dict(fa.launches_bwd_by_variant))
     with pytest.raises(NotImplementedError, match="A8.5c"):
@@ -1264,10 +1263,36 @@ def test_flash_grad_at_head_dim_256_refuses_before_a_launch():
     assert (fa.launches_bwd, fa.launches_bwd_by_variant) == bwd
 
 
+def test_flash_grad_at_head_dim_256_runs_on_the_wgmma_kernels():
+    """paligemma-3b's attention gradient (8 query rows over 1 kv row, d
+    256, a 256-token prefix, S 4,096) runs the forward with its
+    log-sum-exp and the ``wgmma`` backward pair, one launch of each, at
+    FlashAttention's standard with repeatable bits, and within 2e-2 of
+    the plain version on the kernels' own o and lse."""
+    dev = _card()
+    q, k, v, do = _bwd_inputs(8, 1, 4096, 256, 29, dev)
+    mask = dict(causal=True, prefix=256)
+    fwd = dict(fa.launches_by_mask)
+    bwd = dict(fa.launches_bwd_by_variant)
+    flash_backward_holds(q, k, v, do, mask, name="paligemma")
+    assert fa.launches_by_mask["prefix"] - fwd["prefix"] == 2
+    assert {n: fa.launches_bwd_by_variant[n] - bwd[n] for n in bwd} == {
+        "wgmma": 4, "mma_sync": 0}
+    o, lse = fa.flash_attention_lse(q, k, v, **mask)
+    want = attention_bwd_ref(q, k, v, o, lse, do, **mask)
+    for g, w in zip(fa.flash_attention_bwd(q, k, v, o, lse, do, **mask),
+                    want):
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2 * scale)
+
+
 # (BH, KV, S, mask) across the wgmma backward's tiles (128 keys a dk/dv
-# block, 64 rows a step; 128 rows a dq block, 64 keys a step): S not a
-# multiple of 128 and S below 64; group 8 (qwen2.5-3b's), 16 and 1; a
-# window that ends inside a 128-key tile; a prefix that crosses one
+# block, 64 at d 256, 64 rows a step; 128 rows a dq block, 64 keys a
+# step): S not a multiple of 64 or 128 and S below 64; group 8
+# (qwen2.5-3b's and, over one kv row, paligemma-3b's), 16 and 1; a window
+# that ends inside a 128-key tile; prefixes that cross one and that end
+# inside a 64-row step
 WGMMA_BWD_CASES = [
     (16, 2, 300, dict(causal=True)),
     (16, 1, 200, dict(causal=True)),
@@ -1278,10 +1303,11 @@ WGMMA_BWD_CASES = [
     (4, 4, 200, dict(causal=True, prefix=150, window=90)),
     (8, 1, 200, dict(causal=False)),
     (4, 4, 40, dict(causal=False)),
+    (8, 1, 333, dict(causal=True, prefix=100)),
 ]
 WGMMA_BWD_IDS = ["g8-s300", "g16-s200", "g1-s40", "g8-window", "g1-window",
                  "g8-prefix", "g1-prefix-window", "g8-bidirectional",
-                 "g1-s40-bidirectional"]
+                 "g1-s40-bidirectional", "g8-kv1-prefix100"]
 
 
 def _bwd_inputs(bh, kv, s, d, seed, dev):
@@ -1312,7 +1338,7 @@ def test_wgmma_backward_holds_the_flashattention_standard(d, case):
 @pytest.mark.parametrize("d", fa.BWD_HEAD_DIMS)
 def test_flash_backward_launches_its_variant(d):
     """One backward launches its variant's two kernels: ``wgmma`` at head
-    dims 64, 80 and 128, ``mma_sync`` at 16 and 32."""
+    dims 64, 80, 128 and 256, ``mma_sync`` at 16 and 32."""
     dev = _card()
     q, k, v, do = _bwd_inputs(8, 2, 130, d, d, dev)
     o, lse = fa.flash_attention_lse(q, k, v)

@@ -8,9 +8,12 @@ model, `ref.attention_bwd_tiled_ref` (P and dS rounded to bf16 as
 operands, float32 sums over 64-row and 64-key steps, per-head dK and dV
 partials summed over the group in head order), is held to the plain
 backward, to ``jax.vjp`` of the reference's ``_sdpa_chunked`` and to
-FlashAttention's own standard, at every mask and at group 1 and 4; and the
-variant dispatch by head dim is checked. The tolerances, each with its
-reason:
+FlashAttention's own standard, at every mask and at group 1 and 4, and at
+head dim 256 (paligemma-3b's, whose dk/dv kernel splits the head dim
+between its warpgroups: the same steps and sums per column) with
+paligemma's grouping, 8 query rows over 1 kv row, and a prefix that ends
+inside a 64-row step; and the variant dispatch by head dim is checked.
+The tolerances, each with its reason:
 
 * against `attention_bwd_ref` (the same recompute in float32, nothing
   rounded): 2e-2 relative and 2e-2 of the largest gradient, the card
@@ -61,12 +64,16 @@ def _forward(q, k, v, mask):
 
 
 @pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
-@pytest.mark.parametrize("bh,kv,s", [(4, 4, 150), (8, 2, 150), (4, 1, 40)],
-                         ids=["group1", "group4", "group4-s40"])
-def test_tiled_model_matches_the_plain_backward(bh, kv, s, mask):
+@pytest.mark.parametrize("bh,kv,s,d", [(4, 4, 150, 32), (8, 2, 150, 32),
+                                       (4, 1, 40, 32), (8, 1, 150, 256)],
+                         ids=["group1", "group4", "group4-s40",
+                              "d256-group8"])
+def test_tiled_model_matches_the_plain_backward(bh, kv, s, d, mask):
     """The model against `attention_bwd_ref` on the same o and lse: S
-    across the kernels' 64- and 128-row tiles and below one step."""
-    q, k, v, do = _inputs(bh, kv, s, 32, seed=s + bh)
+    across the kernels' 64- and 128-row tiles and below one step; at d
+    256 paligemma-3b's 8 query rows over 1 kv row, S across its 64-key
+    dk/dv and 64-row dq blocks, the prefix of 70 ending inside a step."""
+    q, k, v, do = _inputs(bh, kv, s, d, seed=s + bh)
     o, lse = _forward(q, k, v, mask)
     got = attention_bwd_tiled_ref(q, k, v, o, lse, do, **mask)
     want = attention_bwd_ref(q, k, v, o, lse, do, **mask)
@@ -77,21 +84,23 @@ def test_tiled_model_matches_the_plain_backward(bh, kv, s, mask):
                                    atol=2e-2 * top)
 
 
-def _jax_cfg(h, kv, mask):
+def _jax_cfg(h, kv, d, mask):
     cfg = jax_smoke("qwen2.5-3b", layers=1)
     return dataclasses.replace(
-        cfg, num_heads=h, num_kv_heads=kv, causal=mask.get("causal", True),
-        prefix_tokens=mask.get("prefix", 0), window=mask.get("window", 0))
+        cfg, num_heads=h, num_kv_heads=kv, head_dim=d,
+        causal=mask.get("causal", True), prefix_tokens=mask.get("prefix", 0),
+        window=mask.get("window", 0))
 
 
 @pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
-@pytest.mark.parametrize("h,kv", [(4, 4), (8, 2)], ids=["group1", "group4"])
-def test_tiled_model_matches_jax_vjp(h, kv, mask):
+@pytest.mark.parametrize("h,kv,d", [(4, 4, 32), (8, 2, 32), (8, 1, 256)],
+                         ids=["group1", "group4", "d256-group8"])
+def test_tiled_model_matches_jax_vjp(h, kv, d, mask):
     """The model against ``jax.vjp`` of the reference's model attention
     (src/repro/models/layers.py, ``_sdpa_chunked``) on the same bf16
     values, one batch row, heads laid out as the port lays them out (row
     ``h`` of (H, S, d))."""
-    s, d = 150, 32
+    s = 150
     q, k, v, do = _inputs(h, kv, s, d, seed=h + kv)
     o, lse = _forward(q, k, v, mask)
     got = attention_bwd_tiled_ref(q, k, v, o, lse, do, **mask)
@@ -99,7 +108,7 @@ def test_tiled_model_matches_jax_vjp(h, kv, mask):
     def bshd(t):   # (H, S, d) -> (1, S, H, d), float32 of the bf16 values
         return jnp.asarray(t.float().numpy().transpose(1, 0, 2)[None])
     pos = jnp.arange(s, dtype=jnp.int32)
-    cfg = _jax_cfg(h, kv, mask)
+    cfg = _jax_cfg(h, kv, d, mask)
     out, vjp = jax.vjp(lambda a, b, c: JL._sdpa_chunked(a, b, c, pos, pos,
                                                         cfg),
                        bshd(q), bshd(k), bshd(v))
@@ -125,12 +134,13 @@ def _plain_attention(q, k, v, mask):
 
 
 @pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
-@pytest.mark.parametrize("bh,kv", [(4, 4), (8, 2)], ids=["group1", "group4"])
-def test_tiled_model_holds_the_flashattention_standard(bh, kv, mask):
+@pytest.mark.parametrize("bh,kv,d", [(4, 4, 64), (8, 2, 64), (8, 1, 256)],
+                         ids=["group1", "group4", "d256-group8"])
+def test_tiled_model_holds_the_flashattention_standard(bh, kv, d, mask):
     """The model's dq, dk and dv (on the forward's bf16 o, as the kernels
     get it) each at most 2x, plus 1e-3, the max error of the plain bf16
     path against a float64 autograd oracle."""
-    q, k, v, do = _inputs(bh, kv, 150, 64, seed=7 * bh + kv)
+    q, k, v, do = _inputs(bh, kv, 150, d, seed=7 * bh + kv)
     o, lse = _forward(q, k, v, mask)
     got = attention_bwd_tiled_ref(q, k, v, o, lse, do, **mask)
     grads = {}
@@ -148,20 +158,20 @@ def test_tiled_model_holds_the_flashattention_standard(bh, kv, mask):
 
 @pytest.mark.parametrize("d,want", [(16, "mma_sync"), (32, "mma_sync"),
                                     (64, "wgmma"), (80, "wgmma"),
-                                    (128, "wgmma")])
+                                    (128, "wgmma"), (256, "wgmma")])
 def test_backward_variant_by_head_dim(d, want):
-    """bf16 at head dims 64, 80 and 128 takes the ``wgmma`` kernels, 16
-    and 32 the ``mma.sync`` ones; `check_backward` agrees."""
+    """bf16 at head dims 64, 80, 128 and 256 takes the ``wgmma`` kernels,
+    16 and 32 the ``mma.sync`` ones; `check_backward` agrees."""
     assert fa.bwd_variant(torch.bfloat16, d) == want
     fa.check_backward(torch.zeros(1, 1, d, dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
-                                     (torch.bfloat16, 256),
+                                     (torch.float32, 256),
                                      (torch.bfloat16, 48)])
 def test_backward_variant_refuses_what_no_kernel_takes(dtype, d):
-    """float32, head dim 256 (ROADMAP A8.5c) and a head dim no kernel is
-    built for raise before any work."""
+    """float32 (ROADMAP A8.5c), at paligemma-3b's head dim 256 too, and a
+    head dim no kernel is built for raise before any work."""
     with pytest.raises(NotImplementedError, match="A8.5c"):
         fa.bwd_variant(dtype, d)
 

@@ -6,9 +6,12 @@ registers) and any other line naming it, the C75xx advisories that
 ptxas serialised its ``wgmma``s among them; `chip_smoke.ptxas_numbers`
 turns them into numbers by template argument (by head dim and ``kLse``
 for the Hopper flash forward), and `chip_smoke.ptxas_gate` fails on a
-spill or an advisory. `chip_smoke.
+spill or an advisory, the flash backward's two Hopper kernels each at its
+four head dims. `chip_smoke.
 profile_train_step` sums the profiler's device operations: busy time,
-the costliest names, and the port's kernels by name wherever they rank.
+the costliest names, and the port's kernels by name wherever they rank;
+`chip_smoke.bwd_pairs` counts the (row, key) pairs of a causal mask with
+a prefix and the 64 x 64 blocks the backward kernels multiply.
 """
 from __future__ import annotations
 
@@ -123,6 +126,59 @@ def test_flash_forward_ptxas_by_head_dim_and_lse(flash_log):
                                  r"wgmmaILi(\d+)ELb0E",
                                  {"64", "80", "128", "256"})["256"] == got[
                                      "256,0"]
+
+
+def _flash_bwd(kernel, d):
+    return (f"_ZN46_GLOBAL__N__72ef4e4e_13_flash_attn_cu_148ca421"
+            f"{len(kernel)}{kernel}ILi{d}EEEv14CUtensorMap_stS1_S1_S1_PKfPfPi"
+            f"P13__nv_bfloat16S7_iiNS_4MaskEfi")
+
+
+@pytest.mark.parametrize("spill", [0, 24])
+def test_flash_backward_ptxas_gate_by_head_dim(tmp_path, monkeypatch, spill):
+    """Both Hopper backward kernels are gated at head dims 64, 80, 128 and
+    256, each apart from the other: a spill in the d 256 dq kernel (24
+    bytes, as a 128-row dq block at d 256 spilled) fails the dq gate and
+    leaves the dk/dv one passing."""
+    lines = []
+    for d in (64, 80, 128, 256):
+        for kernel in chip_smoke.FLASH_BWD_KERNELS:
+            lines += _entry(_flash_bwd(kernel, d), 168,
+                            spill * (d == 256 and "dq" in kernel))
+    lib = tmp_path / "flash_attn-0.so"
+    lib.with_suffix(".log").write_text("\n".join(lines))
+    monkeypatch.setattr(_build, "library_path", lambda name: lib)
+    dq, dkdv = chip_smoke.FLASH_BWD_KERNELS
+    got = chip_smoke.ptxas_gate("flash_attn", dkdv, r"ILi(\d+)E",
+                                chip_smoke.FLASH_BWD_INSTANCES)
+    assert set(got) == chip_smoke.FLASH_BWD_INSTANCES == {"64", "80", "128",
+                                                          "256"}
+    if spill:
+        with pytest.raises(AssertionError, match=dq):
+            chip_smoke.ptxas_gate("flash_attn", dq, r"ILi(\d+)E",
+                                  chip_smoke.FLASH_BWD_INSTANCES)
+    else:
+        assert chip_smoke.ptxas_gate("flash_attn", dq, r"ILi(\d+)E",
+                                     chip_smoke.FLASH_BWD_INSTANCES) == got
+
+
+@pytest.mark.parametrize("s,prefix", [(300, 100), (200, 0), (64, 0),
+                                      (130, 400), (4096, 256)])
+def test_bwd_pairs_counts_what_the_kernels_multiply(s, prefix):
+    """`chip_smoke.bwd_pairs` against a count over the mask itself: the
+    pairs a causal mask with a prefix lets through, and the 64 x 64
+    blocks holding one or more of them (those the backward kernels
+    multiply)."""
+    import torch
+    from repro_torch.kernels.flash_attn.ref import visible
+    pos = torch.arange(s)
+    seen = visible(pos, pos, prefix=prefix)
+    n = -(-s // 64)
+    blocks = torch.zeros(n * 64, n * 64, dtype=torch.bool)
+    blocks[:s, :s] = seen
+    held = blocks.reshape(n, 64, n, 64).any(3).any(1)
+    assert chip_smoke.bwd_pairs(s, prefix) == (int(seen.sum()),
+                                               int(held.sum()))
 
 
 class _Span:

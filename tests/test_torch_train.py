@@ -315,14 +315,20 @@ def test_loss_fn_with_an_moe_adds_the_router_loss():
     np.testing.assert_allclose(float(got), float(want), rtol=1e-3)
 
 
+# paligemma-3b at its own head dim, 256 (the smoke config's is 16), with
+# its 4-row prefix: the width the card's d 256 backward kernels take
+GRAD_REPLACE = {"paligemma-3b": dict(head_dim=256)}
+
+
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b",
-                                  "moonshot-v1-16b-a3b", "mixtral-8x7b"])
+                                  "moonshot-v1-16b-a3b", "mixtral-8x7b",
+                                  "paligemma-3b"])
 def test_gradients_match_jax_grad(arch):
     """Autograd of the port's loss against ``jax.grad`` of the
     reference's, leaf by leaf, relative L2 error within `GRAD_REL_L2`;
     with remat on (the blocks and the loss chunks replayed) the port's
     gradients equal its own without remat."""
-    cfg_j, cfg_t, params, model = _pair(arch)
+    cfg_j, cfg_t, params, model = _pair(arch, **GRAD_REPLACE.get(arch, {}))
     jb, tb = _batch(cfg_t, 2, 32, seed=3)
     _, want = jax.value_and_grad(
         lambda p: JT.loss_fn(p, jb, cfg_j)[0])(params)
@@ -399,7 +405,9 @@ def test_attention_bwd_ref_matches_autograd(mask):
 def test_flash_wrappers_take_the_plain_versions_on_the_cpu():
     """On CPU tensors `flash_attention_lse` and `flash_attention_bwd` are
     the plain versions and launch nothing; the grad entry refuses what the
-    kernels do not take before any work."""
+    kernels do not take (float32) before any work, and at paligemma-3b's
+    bf16 head dim 256 differentiates through the plain versions, launching
+    nothing."""
     rng = np.random.default_rng(1)
     q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 20, 16)).astype(
         np.float32)) for _ in range(4))
@@ -412,9 +420,17 @@ def test_flash_wrappers_take_the_plain_versions_on_the_cpu():
     assert (fa.launches, fa.launches_bwd) == before
     with pytest.raises(NotImplementedError, match="A8.5c"):
         fa.flash_attention_grad(q, k, v)
-    z = torch.zeros(2, 8, 256, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A8.5c"):
-        fa.flash_attention_grad(z, z, z)
+    q, do = (torch.from_numpy(rng.standard_normal((8, 20, 256)).astype(
+        np.float32)).bfloat16() for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 20, 256)).astype(
+        np.float32)).bfloat16() for _ in range(2))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention_grad(*leaves, prefix=6).backward(do)
+    o, lse = fa.flash_attention_lse(q, k, v, prefix=6)
+    for g, w in zip(leaves, attention_bwd_ref(q, k, v, o, lse, do,
+                                              prefix=6)):
+        torch.testing.assert_close(g.grad, w)
+    assert (fa.launches, fa.launches_bwd) == before
 
 
 # -------------------------------------------------------------- train step
