@@ -45,12 +45,28 @@ any CUDA work, joined before it exits), beside phases 1-5.
    and BC (4 sources each), PR, CC and CC-SV. The launch counters are
    set to 0 just before and read just after; every answer is checked
    against the numpy oracles of ``core/baselines.py`` (exact for BFS,
-   SSSP, CC and CC-SV; rtol 1e-4 for PR, 1e-3 for BC).
+   SSSP, CC and CC-SV; rtol 1e-4 for PR, 1e-3 for BC). Then a warm
+   launch of each through the backend, timed.
 5. Kernel timing at the served graph's shapes (the real rows of its
    in-CSR, as PR's relaxation passes them): the kernel, its plain
    version, one ``torch.sparse`` CSR product as a yardstick (timed only;
    the port never calls it), the bound (bytes over 3.35 TB/s, the
    H100 SXM's HBM rate) and the wrapper's host ms a call.
+4s. Sharded serve: the same graph through ``EngineSession(num_shards=4)``
+   with a device budget of half its single-device bytes, so the policy
+   places it sharded (4 shards on the card) and picks its hot prefix;
+   BFS, SSSP and BC (phase 4's sources), PR, CC and CC-SV held to phase
+   4's answers (bit for bit; PR rtol 1e-4, BC 1e-3), each request's
+   exchange ledger and launch wall (its first launch partitions and
+   uploads the kernel's edges), and a warm launch of each beside phase
+   4's warm single-device launch. Then BFS, SSSP and
+   CC through ``core/dist.py``'s runners with the hot prefix off and on,
+   in the policy's order and in the original one: equal answers, the
+   ledger, ``prefix_hit_rate`` and the wall of each, and 0 < savings < 1
+   with the prefix on. Last, one k-NN batch of the integer corpus through
+   a sharded session, ids equal to a single-device session's. No kernel
+   of the port is on this path: the sharded PR gathers and sums in torch,
+   as the reference's does in XLA.
 
 k-NN search through ``EngineSession(device="cuda")``, the default
 ``SearchParams`` (beam 32, k_return 10, 96 steps):
@@ -363,6 +379,7 @@ BWD_SHAPES = ((32, 4, 4096, 128, 0), (72, 72, 4096, 64, 0),
               (16, 2, 4096, 256, 256))
 # the mma.sync pair's check, at qwen2.5-3b's microbatch with d 32
 BWD_MMA_SYNC_SHAPE = (32, 4, 4096, 32, 0)
+SHARDS = 4                      # phase 4s: phase 4's graph in 4 shards
 # k-NN: SIFT1M's width (d 128) with 16,384 of its 1,000,000 base vectors:
 # the host NSW builder takes about 9 ms an insert
 KNN_VECTORS, KNN_DIM, KNN_K = 16_384, 128, 16
@@ -535,6 +552,7 @@ def serve(dev, num_vertices: int) -> dict:
     sources = {k: rng.choice(g.num_vertices, 4, replace=False)
                for k in ("bfs", "sssp", "bc")}
     kernels = ("bfs", "sssp", "bc", "pr", "cc", "ccsv")
+    perm = entry.perm
     spmv.launches = 0
     futures = {k: session.enqueue(gid, k, sources.get(k)) for k in kernels}
     t0 = time.perf_counter()
@@ -544,13 +562,26 @@ def serve(dev, num_vertices: int) -> dict:
     out = {k: np.asarray(f.result()) for k, f in futures.items()}
     print(f"served {len(kernels)} requests in {served_s:.3f} s")
     m = session.metrics()
+    walls = {}
     for k in kernels:
         h = m.histogram("engine_launch_wall_seconds", "device wall per launch",
                         kernel=k, backend="single")
+        walls[k] = h.sum
         print(f"launch wall {k}: {h.sum:.4f} s over {h.count} launch(es)")
     if launches["csr_spmv"] <= 0:
         raise AssertionError("the PR request did not launch csr_spmv")
     print(f"csr_spmv launches during the PR request: {launches['csr_spmv']}")
+    # a warm launch of each through the backend, past the result cache
+    # (phase 4s holds its warm sharded launches beside these)
+    warm = {}
+    for k in kernels:
+        srcs = sources.get(k)
+        t0 = time.perf_counter()
+        session.executor.single.run(entry.handle, k,
+                                    None if srcs is None else entry.perm[srcs])
+        warm[k] = time.perf_counter() - t0
+        print(f"warm launch {k}: {warm[k]:.4f} s")
+    spmv.launches = launches["csr_spmv"]  # the warm PR is not the main path's
 
     t0 = time.perf_counter()
     weights = edge_weights(g.edge_src, g.indices)
@@ -571,7 +602,9 @@ def serve(dev, num_vertices: int) -> dict:
         print(f"{k}: shape={out[k].shape} dtype={out[k].dtype} "
               f"matches the numpy oracle")
     print(f"oracles checked in {time.perf_counter() - t0:.1f} s")
-    return {"session": session, "entry": entry, "launches": launches}
+    return {"session": session, "entry": entry, "launches": launches,
+            "graph": g, "sources": sources, "answers": out, "walls": walls,
+            "warm": warm}
 
 
 def time_spmv(entry) -> tuple[dict, float]:
@@ -607,6 +640,171 @@ def time_spmv(entry) -> tuple[dict, float]:
              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
              "host_ms": host},
             err)
+
+
+# ------------------------------------------------- phase 4s: sharded serve
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sharded_serve(dev, single: dict, corpora: dict, card: str) -> dict:
+    """Phase 4s: phase 4's graph served in ``SHARDS`` shards on the card.
+
+    ``EngineSession(num_shards=SHARDS)`` with a device budget below the
+    graph's single-device bytes: the policy itself places it sharded and
+    picks its ``hot_prefix_fraction``. BFS, SSSP and BC (phase 4's
+    sources), PR, CC and CC-SV are held to phase 4's single-device
+    answers (bit for bit; PR rtol 1e-4, BC 1e-3). Then the min-relaxation
+    runners (BFS, SSSP, CC) with the hot prefix off and on, over the
+    graph in the policy's order and in its original order: the answers
+    equal, the exchange ledger, ``prefix_hit_rate`` and wall printed, and
+    with the prefix on 0 < savings < 1. Last, one k-NN batch on the
+    integer corpus through a sharded session, ids equal to a
+    single-device session's. ``single`` is what `serve` returned."""
+    import numpy as np
+    from repro_torch.core import dist
+    from repro_torch.engine import EngineSession, estimate_device_bytes
+    from repro_torch.engine.backends import bucket_dims
+    from repro_torch.engine.scheduler import canonical_component_labels
+    from repro_torch.kernels.csr_spmv import csr_spmv as spmv
+
+    g, sources, want = single["graph"], single["sources"], single["answers"]
+    v_b, e_b = bucket_dims(g.num_vertices, g.num_edges)
+    budget = estimate_device_bytes(v_b, e_b) // 2
+    session = EngineSession(device=dev, num_shards=SHARDS,
+                            device_budget_bytes=budget)
+    t0 = time.perf_counter()
+    gid = session.register(g, graph_id="lj-sim-sharded",
+                           expected_queries=4096)
+    entry = session.registry.get(gid)
+    sharded = session.executor.sharded
+    print(f"sharded: registered in {time.perf_counter() - t0:.1f} s, "
+          f"budget {budget} bytes, backend {entry.backend}, "
+          f"{sharded.num_shards} shards on "
+          f"{[str(d) for d in sharded.mesh.devices]}, "
+          f"per-device bytes {entry.handle.device_bytes} (single-device "
+          f"{estimate_device_bytes(v_b, e_b)})")
+    print(f"sharded decision: {entry.decision}")
+    if entry.backend != "sharded" or entry.hot_prefix_fraction is None:
+        raise AssertionError("the policy did not place the graph sharded "
+                             "with a hot prefix")
+
+    kernels = ("bfs", "sssp", "bc", "pr", "cc", "ccsv")
+    perm = entry.perm
+    spmv.launches = 0
+    futures = {k: session.enqueue(gid, k, sources.get(k)) for k in kernels}
+    t0 = time.perf_counter()
+    session.flush()
+    served_s = time.perf_counter() - t0
+    out = {k: np.asarray(f.result()) for k, f in futures.items()}
+    # the sharded PR gathers and sums in torch, as the reference's does
+    # in XLA: no kernel of the port is on this path
+    print(f"sharded: served {len(kernels)} requests in {served_s:.3f} s; "
+          f"csr_spmv launches {spmv.launches}")
+    m = session.metrics()
+    walls, exchange = {}, {}
+    for k in kernels:
+        h = m.histogram("engine_launch_wall_seconds", "device wall per launch",
+                        kernel=k, backend="sharded")
+        walls[k] = h.sum
+        exchange[k] = futures[k].telemetry["exchange"]
+        print(f"sharded launch wall {k}: {h.sum:.4f} s; exchange "
+              f"{json.dumps(exchange[k])} [{card}]")
+    for k in ("bfs", "sssp", "cc", "ccsv"):
+        np.testing.assert_array_equal(out[k], want[k], err_msg=k)
+    np.testing.assert_allclose(out["pr"], want["pr"], rtol=1e-4, atol=1e-9)
+    np.testing.assert_allclose(out["bc"], want["bc"], rtol=1e-3, atol=1e-3)
+    print("sharded: BFS, SSSP, CC and CC-SV equal phase 4's answers bit "
+          "for bit, PR within rtol 1e-4, BC within 1e-3")
+    print(f"sharded telemetry: {json.dumps(sharded.telemetry())}")
+    # a kernel's first sharded launch partitions and uploads its edges
+    # (the single-device upload is paid at registration): launch again
+    # through the backend, past the result cache, for the warm wall
+    warm = {}
+    for k in kernels:
+        srcs = sources.get(k)
+        t0 = time.perf_counter()
+        sharded.run(entry.handle, k, None if srcs is None else perm[srcs])
+        warm[k] = time.perf_counter() - t0
+        print(f"sharded warm launch {k}: {warm[k]:.4f} s (first "
+              f"{walls[k]:.4f} s); single-device warm "
+              f"{single['warm'][k]:.4f} s (first {single['walls'][k]:.4f} s)"
+              f" [{card}]")
+
+    # the paper's locality effect on the exchange: the min-relaxation
+    # runners, hot prefix off and on, in the policy's and the original
+    # order (policy-order answers mapped back to original ids)
+    f = entry.hot_prefix_fraction
+    orders = {"policy": (entry.served, entry.inv_perm, perm),
+              "original": (g, None, None)}
+    ledger = {}
+    for order, (graph, canon, to_served) in orders.items():
+        for frac in (None, f):
+            for k in ("bfs", "sssp", "cc"):
+                stats = dist.ExchangeStats()
+                kw = dict(hot_prefix_fraction=frac,
+                          cold_every=sharded.cold_every, stats=stats)
+                t0 = time.perf_counter()
+                if k == "sssp":
+                    run = dist.make_distributed_sssp(
+                        graph, sharded.mesh, canonical_ids=canon, **kw)
+                elif k == "bfs":
+                    run = dist.make_distributed_bfs(graph, sharded.mesh, **kw)
+                else:
+                    run = dist.make_distributed_cc(graph, sharded.mesh, **kw)
+                srcs = sources[k] if k != "cc" else None
+                if to_served is not None and srcs is not None:
+                    srcs = to_served[srcs]
+                _sync(dev)
+                built_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                got = run(srcs) if srcs is not None else run()
+                _sync(dev)
+                wall = time.perf_counter() - t0
+                got = got.cpu().numpy()
+                if to_served is not None:
+                    got = got[..., to_served]
+                if k == "cc":
+                    got = canonical_component_labels(got)
+                np.testing.assert_array_equal(got, want[k],
+                                              err_msg=f"{order} {k} {frac}")
+                d = stats.as_dict()
+                ledger[f"{order} {k} prefix={frac}"] = {
+                    **d, "prefix_hit_rate": run.prefix_hit_rate,
+                    "h_local": run.h_local, "per": run.per, "wall_s": wall,
+                    "build_s": built_s}
+                print(f"exchange [{order} order, {k}, hot prefix {frac}]: "
+                      f"{json.dumps(d)} prefix_hit_rate "
+                      f"{run.prefix_hit_rate:.4f} h_local {run.h_local} of "
+                      f"{run.per}, wall {wall:.4f} s (partitioned and "
+                      f"uploaded in {built_s:.1f} s) [{card}]")
+                if frac is not None and not 0 < d["savings_fraction"] < 1:
+                    raise AssertionError(f"{order} {k}: the hot prefix saved "
+                                         f"{d['savings_fraction']}")
+    session.close()
+
+    built = corpora["integer"].result()
+    ivecs, ig = built["vectors"], built["graph"]
+    iq = np.random.default_rng(SEED + 2).integers(0, 12, (64, 16)).astype(
+        np.float32)
+    ids = {}
+    for placement, kw in (("single", {}),
+                          ("sharded", dict(num_shards=SHARDS,
+                                           device_budget_bytes=1))):
+        with EngineSession(device=dev, **kw) as s:
+            kid = s.register(ig, "knn-int", vectors=ivecs)
+            if s.registry.get(kid).backend != placement:
+                raise AssertionError(f"knn: not placed {placement}")
+            ids[placement] = s.submit(kid, "knn", iq)
+    np.testing.assert_array_equal(ids["sharded"], ids["single"])
+    print(f"sharded knn: {len(iq)} queries on the integer corpus over "
+          f"{SHARDS} shards, ids equal the single-device session's")
+    return {"walls": walls, "warm": warm, "exchange": exchange,
+            "ledger": ledger,
+            "per_device_bytes": entry.handle.device_bytes,
+            "hot_prefix_fraction": f}
 
 
 # ------------------------------------------------------------------ k-NN
@@ -3318,7 +3516,12 @@ def run(torch, corpora: dict) -> int:
     timing, served_err = timed("5 spmv timing", time_spmv, served["entry"])
     served["session"].close()
     spmv_launches = served["launches"]["csr_spmv"]
+    single = {k: served[k]
+              for k in ("graph", "sources", "answers", "walls", "warm")}
     del served
+    torch.cuda.empty_cache()
+    timed("4s sharded serve", sharded_serve, dev, single, corpora, card)
+    del single
     torch.cuda.empty_cache()
     timed("k-NN", knn_phase, dev, corpora, card)
     torch.cuda.empty_cache()

@@ -16,12 +16,13 @@ re-reordering in place at flush boundaries — when realized traffic
 diverges from the registration hint or a reorder provably cannot
 amortize.
 
-This is the PyTorch port of `repro.engine`: one device (CUDA by default,
-``device="cpu"`` on request); the sharded backend is not ported yet.
+This is the PyTorch port of `repro.engine`: CUDA by default,
+``device="cpu"`` on request; a sharded placement partitions the graph
+over a mesh of shards on those devices (core/dist.py).
 """
-from .backends import (VECTOR_SOURCE, ExecutionBackend, GraphHandle,
-                       SingleDeviceBackend, bucket_dims,
-                       estimate_device_bytes)
+from .backends import (SHARDED_KERNELS, VECTOR_SOURCE, ExecutionBackend,
+                       GraphHandle, ShardedBackend, SingleDeviceBackend,
+                       bucket_dims, estimate_device_bytes)
 from .calibration import DEFAULT_PRIORS, SchemeStats, StrengthCalibrator
 from .executor import BatchedExecutor
 from .obs import (Clock, Counter, Gauge, Histogram, ManualClock,
@@ -46,7 +47,8 @@ __all__ = [
     "ManualClock", "MetricsRegistry", "MicroBatchScheduler",
     "PolicyDecision", "PolicyRecord", "ProfilerHook", "QueryFuture",
     "RateWindow", "ReorderPolicy", "Request", "ResultCache",
-    "SchemeStats", "SingleDeviceBackend", "StrengthCalibrator", "Tracer",
+    "SHARDED_KERNELS", "SchemeStats", "ShardedBackend",
+    "SingleDeviceBackend", "StrengthCalibrator", "Tracer",
     "VECTOR_SOURCE", "bucket_dims",
     "canonical_component_labels", "decision_changed", "degree_histogram",
     "estimate_device_bytes", "gini_from_histogram",

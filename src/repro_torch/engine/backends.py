@@ -20,8 +20,14 @@ k-NN search graphs carry their vectors and canonical ids on the device
 batched beam search over the padded query lanes (`algos.kernels.
 knn_search_multi`).
 
-The sharded backend (edge partitions across devices) is not ported yet
-(ROADMAP A7).
+`ShardedBackend` serves a graph whose working set exceeds the per-device
+budget through `core.dist`'s edge-partitioned kernels — all six
+(multi-source BFS/SSSP/BC, PageRank, CC, CC-SV) — over a 1-D mesh of
+devices (every visible card by default; several shards may share one),
+with an optional **hot-prefix exchange** (`hot_prefix_fraction`, a
+policy decision derived from the hub-mass probe) that all-gathers only
+the hot id prefix every step and the cold suffix every ``cold_every``
+steps on the monotone kernels, exactness-preserving (core/dist.py).
 """
 from __future__ import annotations
 
@@ -172,9 +178,10 @@ class GraphHandle:
     ``num_vertices``/``num_edges`` are the *real* sizes; ``bucket`` is the
     padded upload shape (equal to the real sizes when bucketing is off or
     the graph already sits on a bucket boundary). ``arrays`` is the
-    device upload; ``spmv_val`` the PR SpMV edge values (in-CSR order, 0
-    on sentinels), made once at upload; ``search`` the knn operands of a
-    search graph.
+    single-device upload; ``spmv_val`` the PR SpMV edge values (in-CSR
+    order, 0 on sentinels), made once at upload; ``search`` the knn
+    operands of a search graph. Sharded handles carry backend state in
+    ``shard_state`` instead.
     """
 
     backend: str
@@ -185,6 +192,8 @@ class GraphHandle:
     arrays: GraphArrays | None = None
     spmv_val: torch.Tensor | None = None
     search: DeviceSearch | None = None
+    shard_state: object | None = None  # sharded handles: backend state
+    hot_prefix_fraction: float | None = None  # sharded exchange policy
 
 
 @runtime_checkable
@@ -423,5 +432,315 @@ class SingleDeviceBackend:
                 "distinct_buckets": len(self._bucket_counts),
                 "bucket_counts": {str(k): v
                                   for k, v in sorted(self._bucket_counts.items())},
+            },
+        }
+
+
+# ----------------------------------------------------------------- sharded
+def _make_sharded_bfs(st):
+    from ..core import dist
+    return dist.make_distributed_bfs(
+        st.graph, st.mesh, st.axis,
+        hot_prefix_fraction=st.hot_prefix_fraction,
+        cold_every=st.cold_every, stats=st.stats, fused=st.fused)
+
+
+def _make_sharded_sssp(st):
+    from ..core import dist
+    return dist.make_distributed_sssp(
+        st.graph, st.mesh, st.axis, canonical_ids=st.canonical_ids,
+        hot_prefix_fraction=st.hot_prefix_fraction,
+        cold_every=st.cold_every, stats=st.stats, fused=st.fused)
+
+
+def _make_sharded_pr(st):
+    from ..core import dist
+    # synchronous power iteration: always a full exchange (core/dist.py)
+    run, _ = dist.make_distributed_pagerank(st.graph, st.mesh, st.axis,
+                                            stats=st.stats, fused=st.fused)
+    return run
+
+
+def _make_sharded_cc(st):
+    from ..core import dist
+    return dist.make_distributed_cc(
+        st.graph, st.mesh, st.axis,
+        hot_prefix_fraction=st.hot_prefix_fraction,
+        cold_every=st.cold_every, stats=st.stats, fused=st.fused)
+
+
+def _make_sharded_bc(st):
+    from ..core import dist
+    # level-synchronous float accumulation: always a full exchange
+    return dist.make_distributed_bc(st.graph, st.mesh, st.axis,
+                                    stats=st.stats, fused=st.fused)
+
+
+# Every served kernel has a sharded runner factory — full six-kernel
+# parity with the single-device backend. CC-SV shares the min-label
+# runner: both converge to the min-id-per-component labeling, and the
+# alias makes cc/ccsv share one cached runner (one edge partition, one
+# upload) instead of building two identical ones.
+_RUNNER_FACTORIES = {
+    "bfs": _make_sharded_bfs,
+    "sssp": _make_sharded_sssp,
+    "bc": _make_sharded_bc,
+    "pr": _make_sharded_pr,
+    "cc": _make_sharded_cc,
+    "ccsv": _make_sharded_cc,
+}
+_RUNNER_ALIASES = {"ccsv": "cc"}
+
+SHARDED_KERNELS = tuple(_RUNNER_FACTORIES)
+
+
+class _ShardedGraphState:
+    """Per-graph device state for `ShardedBackend` (lazy kernel factories)."""
+
+    def __init__(self, graph: Graph, mesh, axis: str,
+                 canonical_ids: np.ndarray | None,
+                 hot_prefix_fraction: float | None, cold_every: int,
+                 stats, fused: bool = True,
+                 search: SearchSpec | None = None):
+        self.graph = graph
+        self.mesh = mesh
+        self.axis = axis
+        self.canonical_ids = canonical_ids
+        self.hot_prefix_fraction = hot_prefix_fraction
+        self.cold_every = cold_every
+        self.stats = stats
+        self.fused = fused
+        self._runners: dict[str, object] = {}
+        # knn (query rows split over the shards) state: the host
+        # SearchSpec and, built on the first knn run, the CSR, corpus and
+        # canonical map once per distinct device of the mesh
+        self.search = search
+        self.knn_operands: dict | None = None
+
+    def runner(self, kernel: str):
+        kernel = _RUNNER_ALIASES.get(kernel, kernel)
+        fn = self._runners.get(kernel)
+        if fn is None:
+            # unknown kernel names are rejected by build_kernel before we
+            # get here, so a miss in the factory table is a parity bug
+            assert kernel in _RUNNER_FACTORIES, (
+                f"kernel {kernel!r} is served but has no sharded runner "
+                f"factory; SHARDED_KERNELS = {SHARDED_KERNELS}")
+            fn = _RUNNER_FACTORIES[kernel](self)
+            self._runners[kernel] = fn
+        return fn
+
+
+class ShardedBackend:
+    """Serve graphs beyond one device through core/dist edge partitions.
+
+    Edges are 1-D partitioned by destination range over ``mesh[axis]``
+    (every visible card by default, or ``num_shards`` shards on the
+    devices `core.dist.make_mesh` picks for ``device``); vertex property
+    state lives sharded and each traversal step all-gathers it — see
+    core/dist.py for why reordering concentrates the *useful* payload of
+    that collective. ``prepare``'s ``hot_prefix_fraction`` (a policy
+    decision) turns on the hot-prefix exchange for the monotone kernels:
+    only that fraction of each shard's slice is gathered per step, the
+    cold suffix every ``cold_every`` steps. `telemetry()["hot_prefix"]`
+    reports the exchanged-vs-full byte ledger and static prefix hit rates.
+    """
+
+    name = "sharded"
+
+    def __init__(self, num_shards: int | None = None, axis: str = "data",
+                 mesh=None, cold_every: int = 4,
+                 metrics: MetricsRegistry | None = None,
+                 fused: bool = True,
+                 device: str | torch.device | None = None):
+        from ..core.dist import ExchangeStats, make_mesh
+        if mesh is None:
+            mesh = make_mesh(num_shards, axis, device)
+        self.mesh = mesh
+        self.axis = axis
+        self.num_shards = mesh.shape[axis]
+        self.cold_every = cold_every
+        # both values run the same host step loop (core/dist.py); fused
+        # books one dispatch a query, the host loop one a step — the
+        # reference's counts
+        self.fused = fused
+        self.metrics = metrics or MetricsRegistry()
+        self.tracer: Tracer | None = None   # set by the owning session
+        self._counters = _backend_counters(self.metrics, self.name)
+        self._c_ex_steps = self.metrics.counter(
+            "engine_exchange_steps_total",
+            "sharded per-step collective exchanges")
+        self._c_ex_bytes = self.metrics.counter(
+            "engine_exchange_bytes_total",
+            "bytes received per device across exchanges")
+        self.exchange_stats = ExchangeStats()
+        # exchange delta of the most recent run(): runs are serial, so a
+        # snapshot/delta pair attributes collective bytes per query — the
+        # scheduler copies this into each request's telemetry
+        self.last_run_exchange: dict | None = None
+        self._prefix_info: list[dict] = []
+
+    @property
+    def queries_run(self) -> int:
+        return self._counters["queries"].value
+
+    @property
+    def sources_run(self) -> int:
+        return self._counters["sources"].value
+
+    @property
+    def graphs_prepared(self) -> int:
+        return self._counters["prepared"].value
+
+    def prepare(self, graph: Graph,
+                canonical_ids: np.ndarray | None = None,
+                hot_prefix_fraction: float | None = None,
+                search: SearchSpec | None = None) -> GraphHandle:
+        n, e = graph.num_vertices, graph.num_edges
+        state = _ShardedGraphState(graph, self.mesh, self.axis,
+                                   canonical_ids, hot_prefix_fraction,
+                                   self.cold_every, self.exchange_stats,
+                                   fused=self.fused, search=search)
+        self._counters["prepared"].inc()
+        return GraphHandle(self.name, n, e, (n, e),
+                           self._per_device_bytes(graph),
+                           shard_state=state,
+                           hot_prefix_fraction=hot_prefix_fraction)
+
+    def _per_device_bytes(self, graph: Graph) -> int:
+        """Resident graph bytes per device, from the *actual* partition.
+
+        `partition_edges` splits by dst range and pads every shard to the
+        fullest shard's edge count, so on skewed graphs the per-device
+        footprint is set by the hub-heaviest range — the true histogram
+        is O(E) on the host and cheap next to the upload. Counts the
+        edge arrays (src, dst, valid, weights) and one int32 vertex
+        property slice; per-query (S × per) state is not included. The
+        formula is the JAX package's unchanged: the policy reads it.
+        """
+        per = -(-graph.num_vertices // self.num_shards)
+        counts = np.bincount(np.asarray(graph.indices) // per,
+                             minlength=self.num_shards)
+        emax = int(counts.max()) if len(counts) else 0
+        return emax * (4 + 4 + 1 + 4) + per * 4
+
+    def _sync(self) -> None:
+        for d in self.mesh.distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def _run_knn(self, handle: GraphHandle, queries) -> tuple:
+        """Query-parallel knn: the padded query rows are split evenly over
+        the shards, the CSR arrays, vector corpus and canonical-id map
+        are replicated once per distinct device, each shard runs the
+        single-device beam search on its rows, and the shards' visit
+        counts are summed. No per-step exchange (the graph is
+        replicated), so ``last_run_exchange`` stays None for knn runs;
+        the ids equal the single path's because every lane runs the same
+        per-query search on the same operands."""
+        from ..core.dist import psum
+        st = handle.shard_state
+        sp = st.search
+        if sp is None:
+            raise ValueError("knn_search needs a graph prepared with "
+                             "search= (a SearchSpec); this handle has none")
+        if st.knn_operands is None:
+            vecs = np.ascontiguousarray(sp.vectors, dtype=np.float32)
+            canon = np.ascontiguousarray(sp.canon, dtype=np.int32)
+            st.knn_operands = {
+                d: (to_device(st.graph, canonical_ids=st.canonical_ids,
+                              device=d),
+                    torch.from_numpy(vecs).to(d),
+                    torch.from_numpy(canon).to(d))
+                for d in self.mesh.distinct}
+        padded, valid, real = pad_queries(queries, multiple=self.num_shards)
+        rows = len(padded) // self.num_shards
+        p = sp.params
+        self._counters["queries"].inc()
+        self._counters["dispatches"].inc()
+        self._counters["sources"].inc(real)
+        ids, visits = [], []
+        for i, d in enumerate(self.mesh.devices):
+            ga, vecs, canon = st.knn_operands[d]
+            part = slice(i * rows, (i + 1) * rows)
+            got, seen = K.knn_search_multi(
+                ga, vecs, canon, int(sp.entry),
+                torch.from_numpy(padded[part]).to(d),
+                torch.from_numpy(valid[part]).to(d),
+                k_out=p.k_out, beam_width=p.beam_width,
+                k_return=p.k_return, max_steps=p.max_steps)
+            ids.append(got.to(self.mesh.home))
+            visits.append(seen)
+        visits = psum(visits, self.mesh)[0]
+        self._sync()
+        self.last_run_exchange = None
+        return torch.cat(ids)[:real], visits[:handle.num_vertices]
+
+    def run(self, handle: GraphHandle, kernel: str,
+            sources=None) -> torch.Tensor:
+        build_kernel(kernel)  # unknown kernel: raise before anything counts
+        if kernel in VECTOR_SOURCE:
+            return self._run_knn(handle, sources)
+        canon = _RUNNER_ALIASES.get(kernel, kernel)
+        new_runner = canon not in handle.shard_state._runners
+        runner = handle.shard_state.runner(kernel)
+        if new_runner and getattr(runner, "hot_prefix_fraction",
+                                  None) is not None:
+            self._prefix_info.append({
+                "kernel": canon,
+                "hot_prefix_fraction": runner.hot_prefix_fraction,
+                "h_local": runner.h_local,
+                "per_shard_vertices": runner.per,
+                "prefix_hit_rate": round(runner.prefix_hit_rate, 4),
+            })
+        self._counters["queries"].inc()
+        before = self.exchange_stats.snapshot()
+        # per-step exchange spans: while this run is live, every
+        # ExchangeStats record emits one engine-track span covering the
+        # step that ended at the collective — nested under the launch
+        # span the session wraps around executor.run
+        if self.tracer is not None:
+            tracer = self.tracer
+            last = {"t": tracer.clock.now()}
+
+            def _exchange_span(mode: str, nbytes: int,
+                               full_nbytes: int) -> None:
+                now = tracer.clock.now()
+                tracer.emit("exchange", last["t"], now,
+                            args={"mode": mode, "bytes": nbytes,
+                                  "bytes_full_equivalent": full_nbytes,
+                                  "kernel": canon})
+                last["t"] = now
+
+            self.exchange_stats.span_sink = _exchange_span
+        try:
+            if kernel in GLOBAL:
+                out = runner()[:handle.num_vertices]
+            else:
+                padded, real = pad_sources(sources, kernel)
+                self._counters["sources"].inc(real)
+                out = runner(padded)[:real, :handle.num_vertices]
+            self._sync()
+        finally:
+            self.exchange_stats.span_sink = None
+        delta = self.exchange_stats.delta(before)
+        self._c_ex_steps.inc(delta.steps)
+        self._c_ex_bytes.inc(delta.bytes_exchanged)
+        self._counters["dispatches"].inc(delta.dispatches)
+        self.last_run_exchange = delta.as_dict()
+        return out
+
+    def telemetry(self) -> dict:
+        return {
+            "num_shards": self.num_shards,
+            "graphs_prepared": self.graphs_prepared,
+            "queries_run": self.queries_run,
+            "sources_run": self.sources_run,
+            "fused": self.fused,
+            "dispatches": self._counters["dispatches"].value,
+            "hot_prefix": {
+                **self.exchange_stats.as_dict(),
+                "cold_every": self.cold_every,
+                "runners": list(self._prefix_info),
             },
         }

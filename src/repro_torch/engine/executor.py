@@ -6,10 +6,15 @@ benchmarks time, run behind a cache of per-shape callables, with
 multi-source queries batched into one (S, V) launch padded to
 power-of-two source buckets. The mechanics live in `backends.py`.
 
+`ShardedBackend` routes queries through `core.dist` edge-partitioned
+kernels (all six: bfs/sssp/bc/pr/cc/ccsv, and knn split by query rows)
+when a graph exceeds the per-device budget; the placement decision — and
+the `hot_prefix_fraction` governing the sharded exchange — is the
+policy's, see policy.py.
+
 `BatchedExecutor.run` accepts either a `GraphHandle` from ``prepare``
 (routed to the handle's backend) or raw `GraphArrays` (single-device
-path, exact shapes). Only the single-device backend is ported so far;
-the sharded one is ROADMAP A7.
+path, exact shapes).
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import torch
 from ..algos.graph_arrays import GraphArrays
 from ..core.csr import Graph
 from .backends import (GLOBAL, MULTI_SOURCE, VECTOR_SOURCE, ExecutionBackend,
-                       GraphHandle, SingleDeviceBackend)
+                       GraphHandle, ShardedBackend, SingleDeviceBackend)
 
 
 class BatchedExecutor:
@@ -27,18 +32,18 @@ class BatchedExecutor:
     def __init__(self, single: SingleDeviceBackend | None = None,
                  num_shards: int | None = None, bucketing: bool = True,
                  max_cached_executables: int | None = None,
-                 metrics=None, fused: bool | None = None,
+                 metrics=None, fused: bool = True,
                  device: str | torch.device | None = None):
-        if num_shards is not None or fused is not None:
-            # both configure the sharded backend
-            raise NotImplementedError("sharded backend: ROADMAP A7")
         self.single = single or SingleDeviceBackend(
             bucketing=bucketing,
             max_cached_executables=max_cached_executables,
             metrics=metrics, device=device)
-        # one registry spans the facade and its backends — a session
-        # adopts it so every engine metric shares a namespace (obs.py).
+        # one registry spans the facade and both backends — a session
+        # adopts it so every engine metric shares a namespace (obs.py)
         self.metrics = self.single.metrics
+        self._num_shards = num_shards
+        self._fused = fused
+        self._sharded: ShardedBackend | None = None
         self._tracer = None
 
     @property
@@ -46,8 +51,17 @@ class BatchedExecutor:
         return self.single.device
 
     @property
-    def sharded(self):
-        raise NotImplementedError("sharded backend: ROADMAP A7")
+    def sharded(self) -> ShardedBackend:
+        """Lazy: building a mesh is pointless until a graph needs one.
+        Its shards go on the single backend's device: a named one holds
+        them all, bare ``cuda`` spreads them over the visible cards."""
+        if self._sharded is None:
+            self._sharded = ShardedBackend(num_shards=self._num_shards,
+                                           metrics=self.metrics,
+                                           fused=self._fused,
+                                           device=self.device)
+            self._sharded.tracer = self._tracer
+        return self._sharded
 
     @property
     def tracer(self):
@@ -55,10 +69,12 @@ class BatchedExecutor:
 
     @tracer.setter
     def tracer(self, tracer) -> None:
-        """Hand the session's tracer to the backend (for launch-internal
-        spans: device_sync, cache misses)."""
+        """Hand the session's tracer to both backends (for launch-internal
+        spans: device_sync, cache misses, per-step exchanges)."""
         self._tracer = tracer
         self.single.tracer = tracer
+        if self._sharded is not None:
+            self._sharded.tracer = tracer
 
     def backend(self, name: str) -> ExecutionBackend:
         if name == "single":
@@ -74,8 +90,16 @@ class BatchedExecutor:
                 search=None) -> GraphHandle:
         """Upload one graph through the named backend; returns its handle.
 
-        ``hot_prefix_fraction`` only applies to the sharded backend.
+        ``hot_prefix_fraction`` only applies to the sharded backend (the
+        single-device path has no per-step exchange to thin out).
+        ``search`` (a `repro_torch.search.SearchSpec`) attaches the
+        served-order vector corpus that makes the handle servable by
+        ``knn_search``.
         """
+        if backend == "sharded":
+            return self.sharded.prepare(
+                graph, canonical_ids=canonical_ids,
+                hot_prefix_fraction=hot_prefix_fraction, search=search)
         return self.backend(backend).prepare(graph,
                                              canonical_ids=canonical_ids,
                                              search=search)
@@ -107,22 +131,26 @@ class BatchedExecutor:
 
     @property
     def queries_run(self) -> int:
-        return self.single.queries_run
+        sharded = self._sharded.queries_run if self._sharded else 0
+        return self.single.queries_run + sharded
 
     @property
     def sources_run(self) -> int:
-        return self.single.sources_run
+        sharded = self._sharded.sources_run if self._sharded else 0
+        return self.single.sources_run + sharded
 
     def telemetry(self) -> dict:
+        # cross-backend totals; the detail (cached keys, bucketing stats,
+        # shard counts) lives per backend
         return {
             "compile_cache_hits": self.cache_hits,
             "compile_cache_misses": self.cache_misses,
             "queries_run": self.queries_run,
             "sources_run": self.sources_run,
             "single": self.single.telemetry(),
-            "sharded": None,
+            "sharded": self._sharded.telemetry() if self._sharded else None,
         }
 
 
 __all__ = ["GLOBAL", "MULTI_SOURCE", "VECTOR_SOURCE", "BatchedExecutor",
-           "GraphHandle", "SingleDeviceBackend"]
+           "GraphHandle", "ShardedBackend", "SingleDeviceBackend"]

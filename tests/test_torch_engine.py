@@ -199,19 +199,24 @@ def test_backend_cache_mechanics(plc_graph, tiny_graph):
 
 
 def test_unported_paths_raise(plc_graph):
+    """The paths this test once found refused now work: knn without a
+    SearchSpec still raises, and the sharded backend and its options
+    (tests/test_torch_sharded.py) are served."""
     ex = torch_engine.BatchedExecutor(device="cpu")
     h = ex.prepare(plc_graph)
     # knn is ported (tests/test_torch_knn.py); a graph prepared without
     # a SearchSpec has nothing to search
     with pytest.raises(ValueError, match="search="):
         ex.run(h, "knn", np.zeros((1, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="A7"):
-        ex.prepare(plc_graph, backend="sharded")
-    # the sharded backend's options are refused, not ignored
-    with pytest.raises(NotImplementedError, match="A7"):
-        torch_engine.EngineSession(num_shards=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        torch_engine.BatchedExecutor(fused=False, device="cpu")
+    hs = ex.prepare(plc_graph, backend="sharded")
+    assert hs.backend == "sharded" and hs.shard_state is not None
+    np.testing.assert_array_equal(ex.run(hs, "bfs", [5]).numpy(),
+                                  ex.run(h, "bfs", [5]).numpy())
+    s = torch_engine.EngineSession(num_shards=4, device="cpu")
+    assert s.executor.sharded.mesh.devices == (torch.device("cpu"),) * 4
+    s.close()
+    host = torch_engine.BatchedExecutor(fused=False, device="cpu")
+    assert host.sharded.fused is False
 
 
 def test_profiler_hook_maps_to_torch_profiler(tmp_path):
