@@ -1,8 +1,8 @@
 """What the A/B timing scripts (`gmm_ab.py`, `spmv_ab.py`,
-`flash_bwd_ab.py`, `flash_fwd_ab.py`) share: the card's name and power
-limit, CUDA-event and host-clock timers, and the loop that measures
-several checkouts in turns, each in a process of its own (the checkouts
-share module names).
+`flash_bwd_ab.py`, `flash_fwd_ab.py`, `recurrent_prefill_ab.py`) share:
+the card's name and power limit, CUDA-event and host-clock timers, and
+the loop that measures several checkouts in turns, each in a process of
+its own (the checkouts share module names).
 
 A script defines ``child(root) -> dict``, which imports the port from
 ``root / "src"``, measures and returns its numbers, and ends with

@@ -45,8 +45,9 @@ any CUDA work, joined before it exits), beside phases 1-5.
    and BC (4 sources each), PR, CC and CC-SV. The launch counters are
    set to 0 just before and read just after; every answer is checked
    against the numpy oracles of ``core/baselines.py`` (exact for BFS,
-   SSSP, CC and CC-SV; rtol 1e-4 for PR, 1e-3 for BC). Then a warm
-   launch of each through the backend, timed.
+   SSSP, CC and CC-SV; rtol 1e-4 for PR, 1e-3 for BC), made on the same
+   graph in a worker process from the start of the run (`graph_oracles`).
+   Then a warm launch of each through the backend, timed.
 5. Kernel timing at the served graph's shapes (the real rows of its
    in-CSR, as PR's relaxation passes them): the kernel, its plain
    version, one ``torch.sparse`` CSR product as a yardstick (timed only;
@@ -259,7 +260,7 @@ Then training, after the MoE model is freed:
     prefix's pairs; ``library_ms`` null with the refusals where no
     backend takes it). Then qwen2.5-3b at full width
     and depth (36 layers, 3,085,938,688 parameters, remat on) trained
-    for 6 steps through ``train.steps.make_train_step`` with
+    for `TRAIN_STEPS` steps through ``train.steps.make_train_step`` with
     ``TrainConfig(microbatch=2)`` (the reference's defaults otherwise): 8
     x 4,096 tokens a step (``train_4k``'s sequence, its batch of 256 cut
     to 8) from the Zipf corpus through the vocab LOrder
@@ -268,7 +269,8 @@ Then training, after the MoE model is freed:
     loss, grad norm, seconds, tokens/s and peak memory; 36 x 4 x 2 flash
     forward launches a step (the replay), 144 of each backward kernel (all
     ``wgmma``) and 4 hot-slab launches, counted from zero over the steps;
-    every loss finite, the last 3's mean below the first 3's, and, on one
+    every loss finite, the last half's mean below the first half's (the
+    last 3 against the first 3), and, on one
     microbatch first, no gradient leaf all zero; then ``torch.profiler``
     over one more step: the device's busy share and its ten costliest
     device operations. Then one microbatch's loss and
@@ -324,6 +326,23 @@ Then training, after the MoE model is freed:
     tree (params and AdamW moments) through save, restore and
     ``load_state`` on the card, bit for bit.
 
+    Then the recurrent trunks (`recurrent_train_phase`): rwkv6-3b (32
+    layers, no attention) and zamba2-1.2b (38 Mamba2 layers, the shared
+    block at 6 of them) each at full width and depth, trained as qwen is
+    but for `RECURRENT_TRAIN_STEPS` steps and a profiled step of one
+    microbatch: the wkv and SSD scans' gradients through their chunked
+    forms and state loops; zamba2's shared block 6 x 4 x 2 flash forward
+    launches a step and 24 of each backward kernel (``wgmma`` at d 64); 4
+    hot-slab launches a step for each. Then each one's card against the
+    CPU at 2 layers (zamba2's cut keeps its shared block), its decay
+    path's leaves printed by name: rwkv6-3b's bf16 gradients at that cut
+    are chaotic (grad_witness.py), so its runs there take the compute
+    dtype float32 (`F32_GRAD_ARCHS`), and it is held in bf16 at 1 layer
+    too; remat on against off bit for bit in bf16; the resume test at
+    ``--depth 2``, full width. Phases 7-11's `time_scan`
+    times each scan's forward plus backward at the prefill and at a
+    training microbatch.
+
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -371,15 +390,34 @@ TRAIN_MICROBATCH = 2
 TRAIN_STEPS = 6
 MOE_TRAIN_LAYERS = 4            # phase 14: moonshot trained, 4 of 48 layers
 MOE_GRAD_LAYERS = 2             # its card-vs-CPU and remat-bits checks
+# phase 14: rwkv6-3b and zamba2-1.2b, fewer than `TRAIN_STEPS` to keep the
+# run inside its time limit (a step of rwkv6-3b takes 13-17 s, zamba2's
+# 6), the falling-loss gate then the last loss against the first, and
+# their profiled step one microbatch of `TRAIN_MICROBATCH` sequences (the
+# profiler takes 31 s to hand over a full step's 458,481 device operations)
+RECURRENT_TRAIN_STEPS = 2
+# the recurrent trunks' decay path: the leaves whose gradients in-place
+# writes in the chunked scans once corrupted (printed by name)
+DECAY_LEAVES = ("dec_w1", "dec_w2", "w_base", "a_log", "dt_bias")
+# archs whose bf16 gradients at 2 layers of full width and random weights
+# are chaotic: the CPU's own move by up to 5e-2 relative L2 when every
+# weight is multiplied by 1 + 1e-6 N(0, 1), 8.7e-3 at 1 layer
+# (grad_witness.py). Their card against CPU runs at 2 layers with the
+# compute dtype float32 in both, and in bf16 at 1 layer (no flash kernel
+# on rwkv6-3b's path)
+F32_GRAD_ARCHS = (RWKV_ARCH,)
 # the backward checks and timings: (BH, KV, S, d, prefix) of a qwen2.5-3b
 # microbatch (2 x 16 heads over 2 x 2 kv heads, d 128, causal), a
-# minicpm-2b one (2 x 36, d 64) and a paligemma-3b one (2 x 8 heads over 2
-# x 1 kv head, d 256, causal with its 256-row prefix)
+# minicpm-2b one (2 x 36, d 64), a paligemma-3b one (2 x 8 heads over 2
+# x 1 kv head, d 256, causal with its 256-row prefix) and one of
+# zamba2-1.2b's shared block (2 x 32, d 64, causal)
 BWD_SHAPES = ((32, 4, 4096, 128, 0), (72, 72, 4096, 64, 0),
-              (16, 2, 4096, 256, 256))
+              (16, 2, 4096, 256, 256), (64, 64, 4096, 64, 0))
 # the mma.sync pair's check, at qwen2.5-3b's microbatch with d 32
 BWD_MMA_SYNC_SHAPE = (32, 4, 4096, 32, 0)
 SHARDS = 4                      # phase 4s: phase 4's graph in 4 shards
+# phase 4's oracles in two worker processes, about equal in host time
+ORACLE_PARTS = ("cc", "rest")
 # k-NN: SIFT1M's width (d 128) with 16,384 of its 1,000,000 base vectors:
 # the host NSW builder takes about 9 ms an insert
 KNN_VECTORS, KNN_DIM, KNN_K = 16_384, 128, 16
@@ -417,13 +455,19 @@ def cuda_ms(fn, reps: int, warmup: int = 3, queued: bool = False) -> float:
 
 
 def spmv_check(name, t_indptr, t_indices, val, x) -> float:
-    """Kernel vs plain version on the same card tensors; returns max |err|."""
+    """Kernel vs plain version on the same card tensors; returns max |err|.
+    The plain version sums in float64 and rounds once: in float32 its
+    ``index_add_`` adds a row's products in the atomics' order, which
+    changes from run to run, and over phase 3's 100,000-edge hub row it
+    once strayed 1.39e-5 relative from the kernel, past `SPMV_TOL`; the
+    kernel's tiled sums stray far less from the exact sum."""
     import torch
     from repro_torch.kernels.csr_spmv import csr_spmv as spmv
     from repro_torch.kernels.csr_spmv.ref import csr_spmv_ref
     got = spmv.csr_spmv(t_indptr, t_indices, val, x)
     again = spmv.csr_spmv(t_indptr, t_indices, val, x)
-    want = csr_spmv_ref(t_indptr, t_indices, val, x)
+    want = csr_spmv_ref(t_indptr, t_indices, val.double(),
+                        x.double()).to(x.dtype)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError(f"csr_spmv[{name}]: two runs differ")
@@ -525,18 +569,52 @@ def kernel_cases(dev) -> float:
     return max(errs)
 
 
-def serve(dev, num_vertices: int) -> dict:
-    """Phase 4: the port's main path, checked against the numpy oracles."""
+def served_graph(num_vertices: int):
+    """Phase 4's graph (the ``lj-sim`` recipe, seed `SEED`) and the 4
+    sources of each multi-source kernel."""
     import numpy as np
+    from repro_torch.core.generators import powerlaw_community
+    g = powerlaw_community(num_vertices, avg_degree=14.0, mixing=0.12,
+                           seed=SEED)
+    rng = np.random.default_rng(SEED)
+    sources = {k: rng.choice(g.num_vertices, 4, replace=False)
+               for k in ("bfs", "sssp", "bc")}
+    return g, sources
+
+
+def graph_oracles(num_vertices: int, part: str) -> dict:
+    """The numpy oracles' answers on phase 4's graph (`served_graph`),
+    made on the host in a process of their own, started with the run, so
+    that they overlap the phases before them: ``part`` (`ORACLE_PARTS`)
+    "cc" CC's and CC-SV's labels, "rest" BFS's, SSSP's, BC's and PR's;
+    and the seconds they took."""
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.algos.graph_arrays import edge_weights
     from repro_torch.core import baselines as B
-    from repro_torch.core.generators import powerlaw_community
+    t0 = time.perf_counter()
+    g, sources = served_graph(num_vertices)
+    if part == "cc":
+        labels = B.cc_baseline(g)
+        out = {"cc": labels, "ccsv": labels}
+    else:
+        weights = edge_weights(g.edge_src, g.indices)
+        out = {"bfs": [B.bfs_baseline(g, s) for s in sources["bfs"]],
+               "sssp": [B.sssp_baseline(g, weights, s)
+                        for s in sources["sssp"]],
+               "bc": [B.bc_baseline(g, [s]) for s in sources["bc"]],
+               "pr": B.pagerank_baseline(g)}
+    return {**out, "seconds": time.perf_counter() - t0}
+
+
+def serve(dev, num_vertices: int, oracles: list) -> dict:
+    """Phase 4: the port's main path, checked against the numpy oracles
+    (``oracles``: futures of `graph_oracles`' parts)."""
+    import numpy as np
     from repro_torch.engine import EngineSession
     from repro_torch.kernels.csr_spmv import csr_spmv as spmv
 
     t0 = time.perf_counter()
-    g = powerlaw_community(num_vertices, avg_degree=14.0, mixing=0.12,
-                           seed=SEED)
+    g, sources = served_graph(num_vertices)
     print(f"graph: V={g.num_vertices} E={g.num_edges} "
           f"generated in {time.perf_counter() - t0:.1f} s")
     session = EngineSession(device=dev)
@@ -548,9 +626,6 @@ def serve(dev, num_vertices: int) -> dict:
           f"device_bytes={entry.handle.device_bytes}")
     print(f"decision: {entry.decision}")
 
-    rng = np.random.default_rng(SEED)
-    sources = {k: rng.choice(g.num_vertices, 4, replace=False)
-               for k in ("bfs", "sssp", "bc")}
     kernels = ("bfs", "sssp", "bc", "pr", "cc", "ccsv")
     perm = entry.perm
     spmv.launches = 0
@@ -584,24 +659,26 @@ def serve(dev, num_vertices: int) -> dict:
     spmv.launches = launches["csr_spmv"]  # the warm PR is not the main path's
 
     t0 = time.perf_counter()
-    weights = edge_weights(g.edge_src, g.indices)
-    for i, s in enumerate(sources["bfs"]):
-        np.testing.assert_array_equal(out["bfs"][i], B.bfs_baseline(g, s))
-    for i, s in enumerate(sources["sssp"]):
+    parts = [f.result() for f in oracles]
+    want = {k: v for part in parts for k, v in part.items()}
+    for i in range(len(sources["bfs"])):
+        np.testing.assert_array_equal(out["bfs"][i], want["bfs"][i])
+    for i in range(len(sources["sssp"])):
         np.testing.assert_array_equal(out["sssp"][i].astype(np.int64),
-                                      B.sssp_baseline(g, weights, s))
-    for i, s in enumerate(sources["bc"]):
-        np.testing.assert_allclose(out["bc"][i], B.bc_baseline(g, [s]),
-                                   rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(out["pr"], B.pagerank_baseline(g),
-                               rtol=1e-4, atol=1e-9)
-    labels = B.cc_baseline(g)
-    np.testing.assert_array_equal(out["cc"], labels)
-    np.testing.assert_array_equal(out["ccsv"], labels)
+                                      want["sssp"][i])
+    for i in range(len(sources["bc"])):
+        np.testing.assert_allclose(out["bc"][i], want["bc"][i], rtol=1e-3,
+                                   atol=1e-3)
+    np.testing.assert_allclose(out["pr"], want["pr"], rtol=1e-4, atol=1e-9)
+    np.testing.assert_array_equal(out["cc"], want["cc"])
+    np.testing.assert_array_equal(out["ccsv"], want["ccsv"])
     for k in kernels:
         print(f"{k}: shape={out[k].shape} dtype={out[k].dtype} "
               f"matches the numpy oracle")
-    print(f"oracles checked in {time.perf_counter() - t0:.1f} s")
+    made = " and ".join(f"{p['seconds']:.1f}" for p in parts)
+    print(f"oracles made in {made} s in worker processes beside the "
+          f"phases before; waited {time.perf_counter() - t0:.1f} s for "
+          f"them, checked")
     return {"session": session, "entry": entry, "launches": launches,
             "graph": g, "sources": sources, "answers": out, "walls": walls,
             "warm": warm}
@@ -2300,65 +2377,151 @@ def time_gmm(model, pre: dict) -> tuple[dict, float]:
     return timing, err
 
 
-def time_scan(model, batch) -> dict:
-    """The recurrent trunk's scan on layer 0 at the prefill's shapes, on
-    the inputs the layer hands it: rwkv's chunked wkv (`_wkv_chunked`) or
-    the hybrid's SSD (`ssd_chunked`), plain torch. Device ms from CUDA
-    events, the device's busy ms and the device ops one call launches
-    from `torch.profiler`; times the layers, those ops are the scan's
-    host launches a prefill, one a chunk of them the state loop's."""
-    import torch
+def device_events(prof) -> list:
+    """(name, start us, end us) of each device operation that ``prof`` (a
+    finished ``torch.profiler.profile``) recorded, read from kineto's own
+    events: building torch's ``FunctionEvent``s for a training step's
+    several hundred thousand operations takes minutes."""
     from torch.autograd import DeviceType
+    return [(e.name(), e.start_ns() / 1e3,
+             (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def device_ops(fn) -> tuple[int, float]:
+    """(device operations, their summed ms) of one synchronised ``fn()``
+    under ``torch.profiler``, the device's activity alone."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = device_events(prof)
+    return len(ops), sum(end - start for _, start, end in ops) / 1e3
+
+
+def scan_call(model, batch):
+    """(name, chunk, chunks, the scan, its inputs) of the recurrent trunk's
+    layer-0 scan on ``batch``: rwkv's chunked wkv (`_wkv_chunked`) or the
+    hybrid's SSD (`ssd_chunked`) on the inputs the layer hands it; the
+    scan takes its inputs and returns its (B, T, ...) output."""
     from repro_torch.models import mamba2, rwkv6
     from repro_torch.models.layers import apply_norm
     from repro_torch.models.transformer import embed_inputs, trunk_kind
     cfg, blk = model.cfg, model.layers[0]
     x = apply_norm(blk.norm1, embed_inputs(model, batch), cfg)
-    s = x.shape[1]
     if trunk_kind(cfg) == "rwkv":
         h, dh = rwkv6.heads_of(cfg)
         r, k, v, _, logw = rwkv6._wkv_inputs(blk.rwkv, x)
-        name, chunk = "wkv (_wkv_chunked)", rwkv6.WKV_CHUNK
+        chunk = rwkv6.WKV_CHUNK
+        return ("wkv (_wkv_chunked)", chunk, x.shape[1] // chunk,
+                lambda *a: rwkv6._wkv_chunked(*a, h, dh)[0],
+                [r, k, v, logw, blk.rwkv["u_bonus"]])
+    _, xh, dt, b, c, _ = mamba2._mixer_inputs(blk.mamba, x, cfg)
+    chunk = cfg.ssm_chunk
+    return ("SSD (ssd_chunked)", chunk, x.shape[1] // chunk,
+            lambda *a: mamba2.ssd_chunked(*a, chunk),
+            [xh, dt, b, c, blk.mamba["a_log"]])
 
-        def scan():
-            return rwkv6._wkv_chunked(r, k, v, logw, blk.rwkv["u_bonus"], h,
-                                      dh)
-    else:
-        _, xh, dt, b, c, _ = mamba2._mixer_inputs(blk.mamba, x, cfg)
-        name, chunk = "SSD (ssd_chunked)", cfg.ssm_chunk
 
-        def scan():
-            return mamba2.ssd_chunked(xh, dt, b, c, blk.mamba["a_log"],
-                                      chunk)
-    del x
-    ms = cuda_ms(scan, reps=3, warmup=1)
+def time_scan_grad(scan, inputs, chunks: int) -> dict:
+    """The scan's forward plus backward (against a cotangent of ones, every
+    input a leaf): device ms (CUDA events, 3 calls), device ops and their
+    ms (`device_ops`), the GiB the forward leaves allocated (what it saves
+    for the backward, and its output);
+    and the state loop's own share (`layers.carry_states` on the scan's
+    real operands, forward alone and forward plus backward)."""
+    import torch
+    from repro_torch.models import layers, mamba2, rwkv6
+    kept = []
+
+    def keep(delta, decay):
+        kept[:] = [delta.detach(), decay.detach()]
+        return layers.carry_states(delta, decay)
+
+    def fwd_bwd():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        y = scan(*leaves)
+        y.backward(torch.ones_like(y))
+
+    rwkv6.carry_states = mamba2.carry_states = keep
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        y = scan(*[t.detach().requires_grad_(True) for t in inputs])
+        saved = (torch.cuda.memory_allocated() - base) / 2**30
+        del y
+    finally:
+        rwkv6.carry_states = mamba2.carry_states = layers.carry_states
+    delta, decay = (t.requires_grad_(True) for t in kept)
+
+    def loop_fwd_bwd():
+        states = layers.carry_states(delta, decay)
+        torch.autograd.backward(states[1:], [torch.ones_like(states[1])]
+                                * chunks)
+
+    ms = cuda_ms(fwd_bwd, reps=3, warmup=1)
+    ops, busy = device_ops(fwd_bwd)
+    loop_fwd, _ = device_ops(lambda: layers.carry_states(delta, decay))
+    loop_ops, loop_busy = device_ops(loop_fwd_bwd)
+    return {"ms": ms, "ops": ops, "busy_ms": busy, "saved_gib": saved,
+            "loop_fwd_ops": loop_fwd, "loop_bwd_ops": loop_ops - loop_fwd,
+            "loop_busy_ms": loop_busy}
+
+
+def time_scan(model, batch) -> dict:
+    """The recurrent trunk's scan on layer 0 (`scan_call`), plain torch: at
+    the prefill's shapes its forward (device ms from CUDA events, the
+    device's busy ms and the device ops one call launches from
+    `torch.profiler`; times the layers, those ops are the scan's host
+    launches a prefill, one a chunk of them the state loop's), then its
+    forward plus backward (`time_scan_grad`) there and at a training
+    microbatch (`TRAIN_MICROBATCH` x `TRAIN_SEQ` of the same tokens)."""
+    import torch
+    cfg = model.cfg
+    name, chunk, chunks, scan, inputs = scan_call(model, batch)
+    s = chunks * chunk
+    ms = cuda_ms(lambda: scan(*inputs), reps=3, warmup=1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    scan()
+    scan(*inputs)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        scan()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
-    chunks, layers = s // chunk, cfg.num_layers
+    ops, busy_ms = device_ops(lambda: scan(*inputs))
+    layers = cfg.num_layers
     out = {"scan": name, "ms": ms, "wall_ms": wall_ms,
-           "busy_ms": busy_ms if ops else None, "ops": len(ops),
+           "busy_ms": busy_ms if ops else None, "ops": ops,
            "state_loop_launches": chunks,
-           "prefill_launches": len(ops) * layers,
+           "prefill_launches": ops * layers,
            "prefill_state_loop_launches": chunks * layers}
     print(f"scan: {cfg.name} layer 0 {name} at S={s}, {chunks} chunks of "
           f"{chunk}: ms={ms:.4f} (CUDA events, 3 calls), wall_ms="
           f"{wall_ms:.4f} (one synchronised call), device busy "
-          + (f"{busy_ms:.4f} ms, {len(ops)} device ops a call"
+          + (f"{busy_ms:.4f} ms, {ops} device ops a call"
              if ops else "not measured (the profiler recorded no device "
              "time)")
           + f"; {chunks} of them the state loop's (one a chunk); a "
-          f"prefill of {layers} layers: {len(ops) * layers} launches, "
+          f"prefill of {layers} layers: {ops * layers} launches, "
           f"{chunks * layers} from the state loops")
+    micro = {k: v.reshape(-1, TRAIN_SEQ)[:TRAIN_MICROBATCH]
+             for k, v in batch.items()}
+    del inputs
+    for label, b in (("prefill", batch), ("train", micro)):
+        _, _, chunks, scan, inputs = scan_call(model, b)
+        g = time_scan_grad(scan, inputs, chunks)
+        del inputs
+        torch.cuda.empty_cache()
+        out[f"{label}_fwd_bwd"] = g
+        print(f"scan forward and backward [{label}]: {cfg.name} layer 0 "
+              f"{name} at {tuple(b['tokens'].shape)} tokens, {chunks} "
+              f"chunks: ms={g['ms']:.4f} (CUDA events, 3 calls), device "
+              f"busy {g['busy_ms']:.4f} ms, {g['ops']} device ops a call; "
+              f"the forward saves {g['saved_gib']:.3f} GiB for the "
+              f"backward; the state loop alone {g['loop_fwd_ops']} device "
+              f"ops forward and {g['loop_bwd_ops']} backward, busy "
+              f"{g['loop_busy_ms']:.4f} ms")
     return out
 
 
@@ -2689,9 +2852,11 @@ def with_prefix(cfg, tokens, dev) -> dict:
     return batch
 
 
-def train_full_width(dev, cfg) -> dict:
-    """``cfg`` at full width (qwen2.5-3b and paligemma-3b at full depth,
-    moonshot cut in depth), remat on, trained for `TRAIN_STEPS` steps through
+def train_full_width(dev, cfg, steps: int = TRAIN_STEPS,
+                     profile_rows: int = TRAIN_BATCH) -> dict:
+    """``cfg`` at full width (qwen2.5-3b, paligemma-3b, rwkv6-3b and
+    zamba2-1.2b at full depth, moonshot cut in depth), remat on, trained
+    for ``steps`` steps through
     `train.steps.make_train_step`: a global batch of `TRAIN_BATCH` x
     `TRAIN_SEQ` positions (``train_4k``'s sequence; its batch of 256 cut
     to 8), tokens from the Zipf corpus through the vocab LOrder
@@ -2702,7 +2867,8 @@ def train_full_width(dev, cfg) -> dict:
     kernel output without an autograd graph would leave one so) and, for
     an MoE, keeps layer 0's weight-gradient operands (`tgmm`'s x, dy and
     offsets of its three products, from that backward) and its bf16
-    expert stacks under ``"layer0"``."""
+    expert stacks under ``"layer0"``. The profiled step (`profile_train_step`)
+    takes the last batch's first ``profile_rows`` sequences."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import DataConfig, DataLoader
@@ -2734,7 +2900,7 @@ def train_full_width(dev, cfg) -> dict:
     loader = DataLoader(dc, vr, start_step=1)   # batch 0 built the LOrder
     try:
         batches = [torch.from_numpy(next(loader)["tokens"])
-                   for _ in range(TRAIN_STEPS)]
+                   for _ in range(steps)]
     finally:
         loader.close()
 
@@ -2823,7 +2989,7 @@ def train_full_width(dev, cfg) -> dict:
                 "flash_bwd_dkdv": fa.launches_bwd["dkdv"] - bwd0["dkdv"],
                 **{f"flash_bwd_{k}": fa.launches_bwd_by_variant[k] - by0[k]
                    for k in by0}}
-    micro = TRAIN_STEPS * TRAIN_BATCH // TRAIN_MICROBATCH
+    micro = steps * TRAIN_BATCH // TRAIN_MICROBATCH
     layers = len(cfg.attn_positions)
     bwd = fa.bwd_variant(torch.bfloat16, cfg.head_dim)
     # the forward and its replay, then the backward, each microbatch
@@ -2839,17 +3005,20 @@ def train_full_width(dev, cfg) -> dict:
                              f"{expected}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"training losses {losses}")
-    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+    half = max(1, steps // 2)
+    if not np.mean(losses[-half:]) < np.mean(losses[:half]):
         raise AssertionError(f"training loss does not fall: {losses}")
-    per_step = {k: v // TRAIN_STEPS for k, v in launches.items()}
-    print(f"train [{cfg.name}]: {TRAIN_STEPS} steps of {TRAIN_BATCH}x"
+    per_step = {k: v // steps for k, v in launches.items()}
+    print(f"train [{cfg.name}]: {steps} steps of {TRAIN_BATCH}x"
           f"{TRAIN_SEQ} positions ({cfg.prefix_tokens} of them a prefix), "
           f"losses {[round(x, 4) for x in losses]}, the "
-          f"last 3's mean {np.mean(losses[-3:]):.4f} below the first 3's "
-          f"{np.mean(losses[:3]):.4f}; launches a step {per_step}")
+          f"last {half}'s mean {np.mean(losses[-half:]):.4f} below the first "
+          f"{half}'s {np.mean(losses[:half]):.4f}; launches a step "
+          f"{per_step}")
     profile = profile_train_step(
-        step, model, opt, with_prefix(cfg, batches[-1], dev),
+        step, model, opt, with_prefix(cfg, batches[-1][:profile_rows], dev),
         float(np.mean([r["seconds"] for r in rows])))
+    profile["microbatches"] = profile_rows // TRAIN_MICROBATCH
     del model, opt
     torch.cuda.empty_cache()
     return {"launches": launches, "steps": rows, "profile": profile,
@@ -2874,7 +3043,6 @@ def profile_train_step(step, model, opt, batch, step_s: float) -> dict:
     hand-written kernels among the operations (`PORT_KERNELS`): each
     one's ms and launches, wherever it ranks."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t_prof = time.perf_counter()
     # the device's activity alone (the host's ops, some 10^5 of them, take
@@ -2886,24 +3054,23 @@ def profile_train_step(step, model, opt, batch, step_s: float) -> dict:
         float(m["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = device_events(prof)
     if not ops:
         raise AssertionError("train profile: the profiler recorded no "
                              "device operation")
     busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end)
-                              for e in ops):
+    for start, stop in sorted((start, stop) for _, start, stop in ops):
         if stop > end:
             busy_us += stop - max(start, end)
             end = stop
     by_name: dict = {}
     ours: dict = {}
-    for e in ops:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        kernel = next((k for k in PORT_KERNELS if k in e.name), None)
+    for name, start, stop in ops:
+        by_name[name] = by_name.get(name, 0.0) + stop - start
+        kernel = next((k for k in PORT_KERNELS if k in name), None)
         if kernel is not None:
             ms, count = ours.get(kernel, (0.0, 0))
-            ours[kernel] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+            ours[kernel] = (ms + (stop - start) / 1e3, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(f"train profile: one step, wall {wall:.3f} s under the profiler "
           f"(timed steps {step_s:.3f} s), device busy {busy_us / 1e6:.3f} s "
@@ -2946,33 +3113,65 @@ def loss_and_grads(model, batch, tape=None) -> tuple[float, dict]:
     return float(loss.detach()), grads
 
 
+def leaf_errors(got, want) -> dict:
+    """Each leaf's relative L2 error of ``got`` against ``want``."""
+    return {n: float((got[n] - want[n]).norm()
+                     / want[n].norm().clamp(min=1e-30)) for n in want}
+
+
 def hold_grads(label: str, got, want, got_loss, want_loss) -> tuple:
     """The card's loss within 1e-2 relative of the CPU's and each leaf's
     relative L2 error within 5e-2, no leaf all zero on the card. Returns
-    (worst leaf, its error, the leaves' count)."""
+    (worst leaf, its error, every leaf's error by name)."""
     if abs(got_loss - want_loss) > 1e-2 * abs(want_loss):
         raise AssertionError(f"{label}: loss {got_loss} against {want_loss}")
     zero = [n for n in got if not bool(got[n].any())]
     if zero:
         raise AssertionError(f"{label}: gradient leaves all zero {zero[:8]}")
-    rel = {n: float((got[n] - want[n]).norm()
-                    / want[n].norm().clamp(min=1e-30)) for n in want}
+    rel = leaf_errors(got, want)
     worst = max(rel, key=rel.get)
     if rel[worst] > 5e-2:
         raise AssertionError(f"{label}: {worst}'s gradient parts by "
                              f"{rel[worst]:.3e} (relative L2)")
-    return worst, rel[worst], len(rel)
+    return worst, rel[worst], rel
 
 
-def train_card_vs_cpu(dev, arch: str) -> None:
-    """One microbatch's loss and gradients, ``arch``'s width cut to 2
-    layers, 1 x 512 positions (`lm_batch`: paligemma-3b's 256 prefix rows
-    from N(0, 1) and 256 tokens), the same weights on the CPU (plain
-    versions, p rounded to bf16 before PV as the reference does) and the
-    card (kernels, PV in float32): the loss within 1e-2 relative, each
-    leaf's relative L2 error within 5e-2. Then on the card remat on (the
-    config's) against off over the same parameters: every gradient equal
-    bit for bit."""
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """The model modules' ``COMPUTE_DTYPE`` set to ``dtype`` inside."""
+    from repro_torch.models import layers, mamba2, rwkv6, transformer
+    mods = (layers, mamba2, rwkv6, transformer)
+    kept = [m.COMPUTE_DTYPE for m in mods]
+    for m in mods:
+        m.COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        for m, d in zip(mods, kept):
+            m.COMPUTE_DTYPE = d
+
+
+def print_decay(label: str, rel: dict) -> None:
+    """The decay path's leaves (`DECAY_LEAVES`) by name with their errors."""
+    decay = {n: e for n, e in rel.items()
+             if n.rsplit(".", 1)[-1] in DECAY_LEAVES}
+    if decay:
+        print(f"{label}: the decay path, relative L2: "
+              + ", ".join(f"{n} {e:.3e}" for n, e in decay.items()))
+
+
+def train_card_vs_cpu(dev, arch: str, layers: int = 2, dtype=None) -> None:
+    """One microbatch's loss and gradients, ``arch``'s width cut to
+    ``layers`` layers, 1 x 512 positions (`lm_batch`: paligemma-3b's 256
+    prefix rows from N(0, 1) and 256 tokens), the same weights on the CPU
+    (plain versions, p rounded to bf16 before PV as the reference does)
+    and the card (kernels, PV in float32), both runs computing in
+    ``dtype`` (None: float32 for an arch of `F32_GRAD_ARCHS`, whose bf16
+    gradients at 2 layers are chaotic, else bf16): the loss within 1e-2
+    relative, each leaf's relative L2 error within 5e-2 (`hold_grads`);
+    the decay path's leaves printed by name. Then on the card remat on
+    (the config's) against off over the same parameters, in bf16: every
+    gradient equal bit for bit."""
     import copy
     import dataclasses
     import torch
@@ -2981,24 +3180,30 @@ def train_card_vs_cpu(dev, arch: str) -> None:
     from repro_torch.models.transformer import (Transformer, init_params,
                                                 param_tree)
 
-    cfg = cut_depth(get_config(arch), 2)
+    cfg = cut_depth(get_config(arch), layers)
     if not cfg.remat:
         raise AssertionError(f"{cfg.name} trains with remat")
     host = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     card = copy.deepcopy(host).to(dev)
     batch = lm_batch(cfg, token_source(cfg, 512), 1, 512)
-    t0 = time.perf_counter()
-    want_loss, want = loss_and_grads(host, batch)
-    cpu_s = time.perf_counter() - t0
-    del host
-    got_loss, got = loss_and_grads(card, on(dev, batch))
-    worst, err, leaves = hold_grads("train card vs CPU", got, want, got_loss,
-                                    want_loss)
-    print(f"train card vs CPU [{cfg.name}], 2 layers, 1x512 positions (CPU "
+    if dtype is None:
+        dtype = (torch.float32 if arch in F32_GRAD_ARCHS
+                 else torch.bfloat16)
+    label = f"train card vs CPU [{cfg.name}, depth {layers}, {dtype}]"
+    with compute_dtype(dtype):
+        t0 = time.perf_counter()
+        want_loss, want = loss_and_grads(host, batch)
+        cpu_s = time.perf_counter() - t0
+        got_loss, got = loss_and_grads(card, on(dev, batch))
+    worst, err, rel = hold_grads(label, got, want, got_loss, want_loss)
+    print(f"{label}, 1x512 positions (CPU "
           f"forward and backward {cpu_s:.1f} s): loss {got_loss:.6f} "
           f"against {want_loss:.6f}; the worst leaf {worst} at {err:.3e} "
-          f"relative L2, {leaves} leaves")
-    del want
+          f"relative L2, {len(rel)} leaves")
+    print_decay(label, rel)
+    if dtype != torch.bfloat16:
+        _, got = loss_and_grads(card, on(dev, batch))
+    del want, host
     plain = Transformer(dataclasses.replace(cfg, remat=False),
                         param_tree(card))
     _, off = loss_and_grads(plain, on(dev, batch))
@@ -3006,8 +3211,9 @@ def train_card_vs_cpu(dev, arch: str) -> None:
     if differ:
         raise AssertionError(f"{cfg.name}: remat on and off give other "
                              f"gradient bits: {differ[:8]}")
-    print(f"train remat bits [{cfg.name}]: all {len(got)} gradient leaves "
-          f"equal bit for bit on the card with remat on and off")
+    print(f"train remat bits [{cfg.name}, depth {layers}]: all "
+          f"{len(got)} gradient leaves equal bit for bit on the card with "
+          f"remat on and off")
     del card, plain, got, off
     torch.cuda.empty_cache()
 
@@ -3045,26 +3251,30 @@ def train_prefix_run(dev) -> None:
 
 def train_resume(dev, arch: str, cut: list) -> None:
     """tests/test_system.py::test_train_resume_continues through
-    ``launch.train.main`` on the card, ``arch`` cut by ``cut`` (qwen2.5-3b:
-    ``--depth 2``, its full width; moonshot: ``--smoke``, since a
-    full-width save of even one layer is about 15 GB): steps 0-9
-    straight, then 0-4, a "crash", and ``--resume`` for 5-9, all with
+    ``launch.train.main`` on the card, ``arch`` cut by ``cut`` (qwen2.5-3b,
+    paligemma-3b, rwkv6-3b, zamba2-1.2b: ``--depth 2``, their full width;
+    moonshot: ``--smoke``, since a full-width save of even one layer is
+    about 15 GB): steps 0-9 straight, then 0-4 with a periodic save at
+    step 4, a "crash", and ``--resume`` for 5-9, all with
     ``--total-steps 10``; the first five losses of two runs at rtol 1e-5,
-    the resumed ones at rtol/atol 5e-3. The checkpoints go to a temporary
-    directory, deleted after."""
+    the resumed ones at rtol/atol 5e-3. Only the crashed run saves
+    periodically (a depth-2 save of rwkv6-3b is 6.1 GB, about 10 s); the
+    other two save only at their end, as ``main`` always does. The
+    checkpoints go to a temporary directory, deleted after."""
     import shutil
     import tempfile
     import numpy as np
     from repro_torch.launch.train import main as train_main
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     args = ["--arch", arch, *cut, "--seq-len", "32", "--global-batch", "2",
-            "--ckpt-dir", tmp, "--ckpt-every", "5", "--total-steps", "10",
-            "--no-vocab-reorder", "--log-every", "100", "--device", str(dev)]
+            "--ckpt-dir", tmp, "--total-steps", "10", "--no-vocab-reorder",
+            "--log-every", "100", "--device", str(dev)]
     try:
-        full = train_main(["--steps", "10"] + args)
+        full = train_main(["--steps", "10", "--ckpt-every", "0"] + args)
         shutil.rmtree(tmp)
-        part = train_main(["--steps", "5"] + args)
-        cont = train_main(["--steps", "10", "--resume"] + args)
+        part = train_main(["--steps", "5", "--ckpt-every", "5"] + args)
+        cont = train_main(["--steps", "10", "--resume", "--ckpt-every", "0"]
+                          + args)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     np.testing.assert_allclose(part[:5], full[:5], rtol=1e-5)
@@ -3290,13 +3500,13 @@ def moe_train_card_vs_cpu(dev) -> dict:
         raise AssertionError(f"{len(tape.experts)} routing calls with remat "
                              f"at {layers} layers")
     got_loss, got = loss_and_grads(card, batch, RouteTape(tape.experts))
-    worst, err, leaves = hold_grads("MoE train card vs CPU", got, want,
-                                    got_loss, want_loss)
+    worst, err, rel = hold_grads("MoE train card vs CPU", got, want,
+                                 got_loss, want_loss)
     print(f"train card vs CPU [{cfg.name}], {layers} layers at full width, "
           f"1x512 tokens, remat on, the CPU's routing replayed (CPU forward "
           f"and backward {cpu_s:.1f} s): loss {got_loss:.6f} against "
           f"{want_loss:.6f}; the worst leaf {worst} at {err:.3e} relative "
-          f"L2, {leaves} leaves, none all zero")
+          f"L2, {len(rel)} leaves, none all zero")
     del want, got
 
     on_tape, off_tape = RouteTape(), RouteTape()
@@ -3413,12 +3623,42 @@ def prefix_train_phase(dev) -> dict:
     return run
 
 
+def recurrent_train_phase(dev) -> dict:
+    """Phase 14's recurrent part, after moonshot's: rwkv6-3b and
+    zamba2-1.2b each trained at full width and depth for
+    `RECURRENT_TRAIN_STEPS` steps and a profiled step of one microbatch
+    (`train_full_width`: the scans' backward
+    through their chunked forms and state loops, zamba2's shared block
+    through the flash backward, the token embedding through the hot
+    slab), its card's gradients held to the CPU's at 2 layers with remat's
+    bits and the decay path by name (`train_card_vs_cpu`; zamba2's cut
+    keeps its shared block; rwkv6-3b's in float32, then in bf16 at 1
+    layer), and a resume through ``launch.train.main`` at ``--depth 2``.
+    Returns each arch's run by name."""
+    import torch
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in (RWKV_ARCH, HYBRID_ARCH):
+        t0 = time.perf_counter()
+        run = train_full_width(dev, get_config(arch), RECURRENT_TRAIN_STEPS,
+                               TRAIN_MICROBATCH)
+        run.pop("layer0")
+        train_card_vs_cpu(dev, arch)
+        if arch in F32_GRAD_ARCHS:
+            train_card_vs_cpu(dev, arch, 1, torch.bfloat16)
+        train_resume(dev, arch, ["--depth", "2"])
+        print(f"phase 14 [{arch}]: {time.perf_counter() - t0:.1f} s wall")
+        out[arch] = run
+    return out
+
+
 def train_phase(dev) -> dict:
     """Phase 14: training. The backward kernels checked and timed, then
     qwen2.5-3b trained at full width and depth, the card's gradients held
     to the CPU's, and a resume through ``launch/train.main``; then
     paligemma-3b the same way (`prefix_train_phase`); then
-    moonshot-v1-16b-a3b's MoE (`moe_train_phase`)."""
+    moonshot-v1-16b-a3b's MoE (`moe_train_phase`); then the recurrent
+    trunks (`recurrent_train_phase`)."""
     from repro_torch.configs import get_config
     err = max(flash_bwd_check("qwen2.5-3b microbatch, GQA", "wgmma",
                               *BWD_SHAPES[0], dev),
@@ -3426,6 +3666,8 @@ def train_phase(dev) -> dict:
                               *BWD_SHAPES[1], dev),
               flash_bwd_check("paligemma-3b microbatch, d 256, prefix",
                               "wgmma", *BWD_SHAPES[2], dev),
+              flash_bwd_check("zamba2-1.2b microbatch, shared block, MHA",
+                              "wgmma", *BWD_SHAPES[3], dev),
               flash_bwd_check("qwen2.5-3b microbatch at d 32, GQA",
                               "mma_sync", *BWD_MMA_SYNC_SHAPE, dev))
     timing = [time_flash_bwd(*shape, dev) for shape in BWD_SHAPES]
@@ -3435,11 +3677,13 @@ def train_phase(dev) -> dict:
     train_resume(dev, TRAIN_ARCH, ["--depth", "2"])
     pali = prefix_train_phase(dev)
     moe = moe_train_phase(dev)
-    parts = (run["launches"], pali["launches"], moe["launches"])
+    recurrent = recurrent_train_phase(dev)
+    parts = (run["launches"], pali["launches"], moe["launches"],
+             *(r["launches"] for r in recurrent.values()))
     launches = {k: sum(x.get(k, 0) for x in parts)
                 for k in set().union(*parts)}
     return {"err": err, "timing": timing, **run, "launches": launches,
-            "prefix": pali, "moe": moe}
+            "prefix": pali, "moe": moe, "recurrent": recurrent}
 
 
 def timed(label: str, fn, *args):
@@ -3461,19 +3705,22 @@ def main() -> int:
         return 3
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    # the k-NN corpora's host NSW builds run beside the graph phases
+    # the graph oracles and the k-NN corpora's host NSW builds run beside
+    # the phases before them
     with ProcessPoolExecutor(
-            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+            4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        oracles = [pool.submit(graph_oracles, NUM_VERTICES, part)
+                   for part in ORACLE_PARTS]
         corpora = {kind: pool.submit(search_corpus, kind)
                    for kind in ("clustered", "integer", "reference")}
         try:
-            return run(torch, corpora)
+            return run(torch, corpora, oracles)
         finally:
-            for f in corpora.values():
+            for f in (*oracles, *corpora.values()):
                 f.cancel()
 
 
-def run(torch, corpora: dict) -> int:
+def run(torch, corpora: dict, oracles: list) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
@@ -3512,7 +3759,7 @@ def run(torch, corpora: dict) -> int:
                  for k in FLASH_BWD_KERNELS}
 
     err = timed("3 spmv checks", kernel_cases, dev)
-    served = timed("4 graph serve", serve, dev, NUM_VERTICES)
+    served = timed("4 graph serve", serve, dev, NUM_VERTICES, oracles)
     timing, served_err = timed("5 spmv timing", time_spmv, served["entry"])
     served["session"].close()
     spmv_launches = served["launches"]["csr_spmv"]
@@ -3606,6 +3853,11 @@ def run(torch, corpora: dict) -> int:
                               "launches"][k]
                           for k in ("flash_bwd_wgmma", "flash_bwd_mma_sync")},
                       "ptxas": {k: v["256"] for k, v in bwd_ptxas.items()}},
+        HYBRID_ARCH: {**train["timing"][3],
+                      "launches_by_variant": {
+                          k[len("flash_bwd_"):]: train["recurrent"][
+                              HYBRID_ARCH]["launches"][k]
+                          for k in ("flash_bwd_wgmma", "flash_bwd_mma_sync")}},
         "ptxas": bwd_ptxas,
     }, {
         "name": "hot_embed",
@@ -3656,6 +3908,17 @@ def run(torch, corpora: dict) -> int:
     print(f"train [{MOE_ARCH}]: {json.dumps(train['moe']['steps'])}")
     print(f"train profile [{MOE_ARCH}]: "
           f"{json.dumps(train['moe']['profile'])}")
+    for (arch, r), lm in zip(train["recurrent"].items(), (rwkv, zamba)):
+        loop = lm["scan"]["train_fwd_bwd"]
+        # each layer's loop a microbatch: forward, replay and backward
+        loops = (get_config(arch).num_layers * r["profile"]["microbatches"]
+                 * (2 * loop["loop_fwd_ops"] + loop["loop_bwd_ops"]))
+        ops = r["profile"]["device_ops"]
+        print(f"train [{arch}]: the state loops' launches in the profiled "
+              f"step ({r['profile']['microbatches']} microbatch(es)) "
+              f"{loops} of its {ops} device ops ({100 * loops / ops:.1f}%)")
+        print(f"train [{arch}]: {json.dumps(r['steps'])}")
+        print(f"train profile [{arch}]: {json.dumps(r['profile'])}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -75,6 +75,22 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1 + torch.tanh(c * (x + k * x ** 3))))
 
 
+def carry_states(delta: torch.Tensor, decay: torch.Tensor) -> list:
+    """The chunked scans' state recurrence S_{c+1} = S_c·decay_c + delta_c
+    from S_0 = 0, one ``addcmul`` a chunk (a Python loop: one launch a
+    chunk on the card). ``delta``: (NC, ...); ``decay``: (NC, ...), each
+    chunk's broadcast against its state. Returns [S_0, ..., S_NC], each a
+    new tensor: nothing autograd saves is written afterwards, so the
+    backward holds with and without remat. The chunks are taken by
+    ``unbind``, whose backward stacks their gradients once (indexing
+    ``delta[c]`` would build a zero gradient of all of ``delta`` a
+    chunk)."""
+    states = [torch.zeros_like(delta[0])]
+    for d, g in zip(delta.unbind(0), decay.unbind(0)):
+        states.append(torch.addcmul(d, states[-1], g))
+    return states
+
+
 def _dense(x, w, b=None):
     y = torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
     if b is not None:

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from .config import ModelConfig
-from .layers import COMPUTE_DTYPE, _dense, _normal, silu
+from .layers import COMPUTE_DTYPE, _dense, _normal, carry_states, silu
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -73,8 +73,10 @@ def ssd_chunked(x, dt, b, c, a_log, chunk: int):
     Recurrence: S_t = exp(-exp(a_log)·dt_t)·S_{t-1} + dt_t·x_t⊗b_t,
     y_t = S_t·c_t (per head). The intra-chunk products and each chunk's
     state contribution are batched over all chunks (heads leading, so each
-    is one batched matmul); the loop over chunks carries only
-    S' = S·e^{c_L} + S_chunk, keeping every chunk's entry state."""
+    is one batched matmul); the loop over chunks (`carry_states`) carries
+    only S' = S·e^{c_L} + S_chunk, keeping every chunk's entry state, each
+    a new tensor: nothing that autograd saves is written in place
+    afterwards, so the backward holds with and without remat."""
     bs, t, h, pdim = x.shape
     n = b.shape[-1]
     nc = t // chunk
@@ -94,23 +96,20 @@ def ssd_chunked(x, dt, b, c, a_log, chunk: int):
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
     dec = (cums[..., :, None] - cums[..., None, :]).masked_fill_(
-        ~tri, -1e30).exp_()                                    # (B,NC,H,L,L)
+        ~tri, -1e30).exp()                                     # (B,NC,H,L,L)
     cb = c_c @ b_c.transpose(-1, -2)                           # (B,NC,L,L)
-    y = (dec.mul_(cb[:, :, None]) @ xs_h)                      # (B,NC,H,L,P)
+    y = (dec * cb[:, :, None]) @ xs_h                          # (B,NC,H,L,P)
     del dec
 
     # chunk states: S_g = Σ_j exp(cums_last - cums_j) b_j ⊗ xs_j
     last = cums[..., -1:]                                      # (B,NC,H,1)
-    states = x.new_empty((nc + 1, bs, h, n, pdim), dtype=torch.float32)
-    states[0] = 0
-    states[1:] = (b_c.transpose(-1, -2)[:, :, None]
-                  @ (torch.exp(last - cums)[..., None] * xs_h)).transpose(0, 1)
+    s_chunk = (b_c.transpose(-1, -2)[:, :, None]
+               @ (torch.exp(last - cums)[..., None] * xs_h)).transpose(0, 1)
     g_total = torch.exp(last[..., 0]).transpose(0, 1)          # (NC, B, H)
-    for i in range(nc):
-        states[i + 1].addcmul_(states[i], g_total[i][..., None, None])
+    states = carry_states(s_chunk, g_total[..., None, None])
 
     # the carried state's contribution: exp(cums_i) c_i · S_before
-    s_before = states[:nc].transpose(0, 1)                     # (B,NC,H,N,P)
+    s_before = torch.stack(states[:nc], 1)                     # (B,NC,H,N,P)
     y += torch.exp(cums)[..., None] * (c_c[:, :, None] @ s_before)
     return y.permute(0, 1, 3, 2, 4).reshape(bs, t, h, pdim).to(COMPUTE_DTYPE)
 

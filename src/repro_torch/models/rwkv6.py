@@ -22,14 +22,16 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import COMPUTE_DTYPE, _dense, _normal, silu
+from .layers import COMPUTE_DTYPE, _dense, _normal, carry_states, silu
 
 LORA_DIM = 32
 DDLERP_DIM = 32
 WKV_CHUNK = 16
 # float32 bytes of one group's (chunks, B, H, L, L, dh) decay tensor in
-# `_wkv_chunked`: bounds its memory at long sequences (at rwkv6-3b's 40
-# heads of 64, about 100 chunks a group)
+# `_wkv_chunked`: bounds the forward's working set at long sequences (at
+# rwkv6-3b's 40 heads of 64 and batch 1, about 100 chunks a group). It
+# bounds nothing under autograd, which saves every group's decay tensor
+# and its product with k for the backward: all the chunks' worth of both
 WKV_GROUP_BYTES = 1 << 28
 
 
@@ -130,9 +132,14 @@ def _wkv_chunked(r, k, v, logw, u, h, dh, chunk: int = WKV_CHUNK):
     computed batched over groups of chunks (``WKV_GROUP_BYTES`` bounds a
     group's (L, L, dh) decay tensor): the intra-chunk terms, the u bonus,
     each chunk's total decay e^{c_L} and its ΔS = Σ_j (k_j e^{c_L-c_j}) v_j.
-    A Python loop then carries S' = S·e^{c_L} + ΔS over the chunks (one
-    ``addcmul_`` a chunk), keeping every chunk's entry state, and one
-    batched product applies them."""
+    A Python loop (`carry_states`) then carries S' = S·e^{c_L} + ΔS over
+    the chunks, keeping every chunk's entry state, and one batched
+    product applies them.
+
+    Nothing that autograd saves is written in place afterwards (the
+    decay tensor's ``exp`` and its product with k are separate tensors,
+    and each carried state is a new one), so the backward holds with and
+    without remat."""
     bsz, t, _ = r.shape
     nc = t // chunk
 
@@ -144,8 +151,7 @@ def _wkv_chunked(r, k, v, logw, u, h, dh, chunk: int = WKV_CHUNK):
                                 device=r.device), diagonal=-1)
     y = r.new_empty((nc, bsz, h, chunk, dh))
     q_state = torch.empty_like(y)                    # r ⊙ e^{c_{t-1}}
-    states = r.new_empty((nc + 1, bsz, h, dh, dh))   # entry states, then S_fin
-    states[0] = 0
+    delta = r.new_empty((nc, bsz, h, dh, dh))        # each chunk's ΔS
     decay = r.new_empty((nc, bsz, h, dh))            # e^{c_L}
     per_chunk = bsz * h * chunk * chunk * dh * 4
     group = max(1, WKV_GROUP_BYTES // per_chunk)
@@ -156,8 +162,8 @@ def _wkv_chunked(r, k, v, logw, u, h, dh, chunk: int = WKV_CHUNK):
         cm1 = cc - lw                                # exclusive (c_{t-1})
         # intra-chunk pairs (j < t): exponent c_{t-1} - c_j <= 0
         dec = cm1[..., :, None, :] - cc[..., None, :, :]   # (., L, L, dh)
-        dec = dec.masked_fill_(~tri[:, :, None], float("-inf")).exp_()
-        dec.mul_(kk[..., None, :, :])
+        dec = dec.masked_fill_(~tri[:, :, None], float("-inf")).exp()
+        dec = dec * kk[..., None, :, :]
         att = (rr[..., :, None, :] @ dec.transpose(-1, -2))[..., 0, :]
         del dec
         yg = att @ vv
@@ -167,13 +173,11 @@ def _wkv_chunked(r, k, v, logw, u, h, dh, chunk: int = WKV_CHUNK):
         q_state[sl] = rr * torch.exp(cm1)
         # state update terms: S' = S·e^{c_L} + Σ_j (k_j e^{c_L - c_j}) v_j
         last = cc[..., -1:, :]
-        states[g0 + 1:sl.stop + 1] = (kk * torch.exp(last - cc)).transpose(
-            -1, -2) @ vv
+        delta[sl] = (kk * torch.exp(last - cc)).transpose(-1, -2) @ vv
         decay[sl] = torch.exp(last[..., 0, :])
-    for c in range(nc):
-        states[c + 1].addcmul_(states[c], decay[c][..., None])
+    states = carry_states(delta, decay[..., None])   # entry states, S_fin
     # contribution of each chunk's carried state
-    y += q_state @ states[:nc]
+    y += q_state @ torch.stack(states[:nc])
     return y.permute(1, 0, 3, 2, 4).reshape(bsz, t, h * dh), states[nc]
 
 

@@ -44,7 +44,7 @@ def _tree_equal(got, want) -> None:
 
 # ------------------------------------------------------------- checkpoints
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "moonshot-v1-16b-a3b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "rwkv6-3b"])
 def test_to_jax_params_inverts_from_jax_params(arch):
     """Every leaf back in the reference's layout, bit for bit: stacked
     layers, the MoE's nested ``shared``, a hybrid's ``shared_attn``."""
@@ -107,6 +107,34 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path):
                                  "cpu")
     _tree_equal(TT.to_jax_params(model), jax.tree.map(np.asarray, params))
     assert int(opt_t["step"]) == 0 and len(opt_t["mu"]["layers"]) == 2
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_recurrent_checkpoints_cross_packages(tmp_path, arch):
+    """The recurrent trunks' trees (RWKV's and Mamba2's stacked leaves, a
+    hybrid's unstacked ``shared_attn``) and their AdamW moments: the
+    port's checkpoint restores in the reference's manager, and the
+    reference's in the port, bit for bit."""
+    from repro.train.optim import init_opt_state
+    cfg = smoke_config(arch, layers=2)
+    model = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt = TO.init_opt_state(TT.param_tree(model))
+    for leaf in TO._leaves(opt["nu"]):
+        leaf[1].uniform_(0, 1, generator=torch.Generator().manual_seed(2))
+    port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
+    CheckpointManager(port_dir, async_save=False).save(
+        3, TR.train_state(model, opt), blocking=True)
+    step, tree = JaxManager(port_dir).restore()
+    assert step == 3
+    _tree_equal(tree["params"], TT.to_jax_params(model))
+    _tree_equal(tree["opt"]["nu"], TT.stack_layers(opt["nu"]))
+    params = JT.init_params(jax_smoke(arch, layers=2), jax.random.PRNGKey(1))
+    JaxManager(ref_dir, async_save=False).save(
+        5, {"params": params, "opt": init_opt_state(params)}, blocking=True)
+    step, state = CheckpointManager(ref_dir).restore()
+    got, opt_t = TR.load_state(cfg, state, "cpu")
+    assert step == 5 and int(opt_t["step"]) == 0
+    _tree_equal(TT.to_jax_params(got), jax.tree.map(np.asarray, params))
 
 
 def test_ckpt_roundtrip(tmp_path):
@@ -254,6 +282,23 @@ def test_train_resume_continues(tmp_path):
     cont = _main(["--steps", "10", "--resume"] + args, tmp_path)
     np.testing.assert_allclose(part[:5], full[:5], rtol=1e-5)
     np.testing.assert_allclose(cont, full[5:], rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_recurrent_train_resume_continues(tmp_path, arch):
+    """`test_train_resume_continues` on the recurrent trunks (the
+    sequence a multiple of both chunks, 16 and 8): the resumed steps
+    repeat the uninterrupted run's."""
+    import shutil
+    args = ["--arch", arch, "--smoke", "--layers", "2", "--seq-len", "32",
+            "--global-batch", "2", "--ckpt-every", "3", "--total-steps",
+            "6", "--no-vocab-reorder", "--log-every", "100"]
+    full = _main(["--steps", "6"] + args, tmp_path)
+    shutil.rmtree(tmp_path)
+    part = _main(["--steps", "3"] + args, tmp_path)
+    cont = _main(["--steps", "6", "--resume"] + args, tmp_path)
+    np.testing.assert_allclose(part[:3], full[:3], rtol=1e-5)
+    np.testing.assert_allclose(cont, full[3:], rtol=5e-3, atol=5e-3)
 
 
 def test_train_refuses_an_embedding_fed_arch(tmp_path):

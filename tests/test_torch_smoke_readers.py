@@ -8,8 +8,9 @@ turns them into numbers by template argument (by head dim and ``kLse``
 for the Hopper flash forward), and `chip_smoke.ptxas_gate` fails on a
 spill or an advisory, the flash backward's two Hopper kernels each at its
 four head dims. `chip_smoke.
-profile_train_step` sums the profiler's device operations: busy time,
-the costliest names, and the port's kernels by name wherever they rank;
+profile_train_step` sums the profiler's device operations (kineto's
+events, the host's left out): busy time, the costliest names, and the
+port's kernels by name wherever they rank;
 `chip_smoke.bwd_pairs` counts the (row, key) pairs of a causal mask with
 a prefix and the 64 x 64 blocks the backward kernels multiply.
 """
@@ -181,19 +182,26 @@ def test_bwd_pairs_counts_what_the_kernels_multiply(s, prefix):
                                                int(held.sum()))
 
 
-class _Span:
-    def __init__(self, start, end):
-        self.start, self.end = start, end
-
-    def elapsed_us(self):
-        return self.end - self.start
-
-
 class _Op:
-    def __init__(self, name, start, end):
+    """A kineto event as ``profile.profiler.kineto_results.events()``
+    gives it: times in ns."""
+
+    def __init__(self, name, start, end, device="CUDA"):
+        self._name, self._start, self._end = name, start * 1000, end * 1000
+        self._device = device
+
+    def name(self):
+        return self._name
+
+    def start_ns(self):
+        return self._start
+
+    def duration_ns(self):
+        return self._end - self._start
+
+    def device_type(self):
         from torch.autograd import DeviceType
-        self.name, self.time_range = name, _Span(start, end)
-        self.device_type = DeviceType.CUDA
+        return getattr(DeviceType, self._device)
 
 
 def test_profile_names_the_ports_kernels(monkeypatch):
@@ -205,17 +213,21 @@ def test_profile_names_the_ports_kernels(monkeypatch):
            _Op("void (anonymous namespace)::gmm_bf16_tgmm<float>(...)",
                3000, 3400),
            _Op("void (anonymous namespace)::flash_bwd_dq_wgmma<64>(...)",
-               3500, 3600)]
+               3500, 3600),
+           _Op("aten::mm", 0, 5000, device="CPU")]
 
     class Profile:
+        class profiler:
+            class kineto_results:
+                @staticmethod
+                def events():
+                    return ops
+
         def __enter__(self):
             return self
 
         def __exit__(self, *exc):
             return False
-
-        def events(self):
-            return ops
 
     monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Profile())
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)

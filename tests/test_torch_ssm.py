@@ -165,6 +165,46 @@ def test_wkv_chunked_extreme_decay_is_stable(offset):
     np.testing.assert_allclose(_f32(s), _f32(js), **SCAN_TOL)
 
 
+def _rel_l2(got, want) -> float:
+    a, b = np.asarray(want, np.float64), _f32(got).astype(np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(a), 1e-30))
+
+
+def _torch_grads(fn, tensors, cotangents):
+    """Autograd of ``fn`` at ``tensors`` (leaves made here) against the
+    outputs' ``cotangents``."""
+    leaves = [t.clone().requires_grad_(True) for t in tensors]
+    outs = fn(*leaves)
+    torch.autograd.backward(outs, cotangents)
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("seed,t,b,h", [(5, 64, 2, 3), (6, 48, 1, 2)])
+def test_wkv_chunked_gradients_match_jax_vjp(monkeypatch, seed, t, b, h):
+    """Autograd of `_wkv_chunked` (output and final state) against
+    ``jax.vjp`` of the reference's (src/repro/models/rwkv6.py:92) for r,
+    k, v, the log-decay and u, in float32, with one chunk a group
+    (``WKV_GROUP_BYTES`` at 1): each gradient within 1e-4 relative L2
+    (sums in another order and form, as `SCAN_TOL`'s; the decay's
+    gradient comes through the exp, the masked exponent and the carried
+    states, which in-place writes once broke)."""
+    dh = 8
+    monkeypatch.setattr(TR, "WKV_GROUP_BYTES", 1)
+    r, k, v, logw, u = _wkv_inputs(seed, b, t, h, dh)
+    rng = np.random.default_rng(seed + 100)
+    dy = rng.standard_normal((b, t, h * dh)).astype(np.float32)
+    ds = rng.standard_normal((b, h, dh, dh)).astype(np.float32)
+    (jr, jk, jv, jlw, ju, jdy, jds), (tr, tk, tv, tlw, tu, tdy, tds) = \
+        _both(r, k, v, logw, u, dy, ds)
+    _, vjp = jax.vjp(lambda *a: JR._wkv_chunked(*a, h, dh),
+                     jr, jk, jv, jlw, ju)
+    want = vjp((jdy, jds))
+    got = _torch_grads(lambda *a: TR._wkv_chunked(*a, h, dh),
+                       (tr, tk, tv, tlw, tu), (tdy, tds))
+    for name, g, w in zip(("r", "k", "v", "logw", "u"), got, want):
+        assert _rel_l2(g, w) < 1e-4, (name, _rel_l2(g, w))
+
+
 # --------------------------------------------------------------- ssd scans
 def _ssd_inputs(seed, bs, t, h, p, n):
     rng = np.random.default_rng(seed)
@@ -202,6 +242,29 @@ def test_ssd_chunked_matches_the_reference(monkeypatch, s):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(_f32(got)[:, :s], _f32(want)[:, :s],
                                **SCAN_TOL)
+
+
+@pytest.mark.parametrize("seed,t", [(7, 32), (8, 48)])
+def test_ssd_chunked_gradients_match_jax_vjp(monkeypatch, seed, t):
+    """Autograd of `ssd_chunked` against ``jax.vjp`` of the reference's
+    (src/repro/models/mamba2.py:60) for x, dt, b, c and ``a_log``, chunk
+    8, both modules' final cast set to float32: each gradient within
+    1e-4 relative L2 (as the wkv's)."""
+    chunk = 8
+    monkeypatch.setattr(JM, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(TM, "COMPUTE_DTYPE", torch.float32)
+    x, dt, b, c, a_log = _ssd_inputs(seed, 2, t, 4, 8, 6)
+    dy = np.random.default_rng(seed + 100).standard_normal(
+        x.shape).astype(np.float32)
+    (jx, jdt, jb, jc, ja, jdy), (tx, tdt, tb, tc, ta, tdy) = _both(
+        x, dt, b, c, a_log, dy)
+    _, vjp = jax.vjp(lambda *a: JM.ssd_chunked(*a, chunk),
+                     jx, jdt, jb, jc, ja)
+    want = vjp(jdy)
+    got = _torch_grads(lambda *a: TM.ssd_chunked(*a, chunk),
+                       (tx, tdt, tb, tc, ta), tdy)
+    for name, g, w in zip(("x", "dt", "b", "c", "a_log"), got, want):
+        assert _rel_l2(g, w) < 1e-4, (name, _rel_l2(g, w))
 
 
 @pytest.mark.parametrize("decode", [False, True])
