@@ -6,9 +6,20 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and none is caught. Each
-prints its wall seconds. The k-NN corpora's NSW graphs and host oracles
-are made in two worker processes started with the run (spawned before
-any CUDA work, joined before it exits), beside phases 1-5.
+prints its wall seconds. A pool of `POOL_WORKERS` worker processes,
+spawned with the run before any CUDA work and joined before it exits,
+makes what the card does not: phase 4's numpy oracles and the k-NN
+corpora's NSW graphs and host oracles beside phases 1-5, then the CPU's
+halves of the card-against-CPU checks (`HostPool`): each config's
+phase-9 forward once its prefill is checked (`host_forward`), and phase
+14's losses and gradients two ahead of their checks (`GradJobs`), on
+half the host's cores (`pool_threads`), so that the main process's
+host-bound decode keeps the other half. A worker draws its weights on the card with
+a CUDA generator (`draw_weights`), as the main process draws the card's
+copy, moves them to the CPU and saves its result to a file of the run's
+temporary directory; the main process holds the card to it, the two
+copies' weights equal (`weight_digest`). The host's cores and the
+threads given are printed.
 
 1. Card: print ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile every CUDA source of the port (one ``nvcc`` each, all
@@ -108,9 +119,14 @@ weights from ``init_params`` on the card, seed 7):
    the Hopper kernel's row log-sum-exp at d 64, 80, 128 and 256 (8 query
    rows on 1 kv row, S 300, causal, prefix 40 and bidirectional): the
    output bits of the call without it, the plain version's log-sum-exp at
-   rtol/atol 1e-4;
-   ``hot_gather`` at the reference cases plus all-cold ids and H = vocab,
-   exact. Each result must also repeat bit for bit.
+   rtol/atol 1e-4; the served configs' groups past 8 and mixtral's window
+   (tests/test_torch_cuda.py::SERVED_FLASH_CASES, bf16 at d 128, one bf16
+   unit of the output): 32 query rows over 2 kv rows (group 16) and 36
+   over 4 (group 9) at S 300 and 4,096, window 0 and 128, and a window of
+   4,096 at S 8,192 and 8,269 with groups 4, 9 and 16;
+   ``hot_gather`` at the reference cases, at D 4,096 and 4,608, plus
+   all-cold ids and H = vocab, exact. Each result must also repeat bit
+   for bit.
 7. Prefill: ``forward`` on the batch ``configs/shapes.input_specs``
    defines for ``prefill_32k`` (32,768 positions, its global batch of 32
    cut to 1 for one card) at all 40 layers; 40
@@ -121,7 +137,9 @@ weights from ``init_params`` on the card, seed 7):
    the vocab LOrder built from its first batch (``locality/vocab.py``).
    The flash kernel is held to its plain version on layer 0's q/k/v at
    the served shape (the first 2 of 36 heads at S = 32,768) and on all 36
-   heads at S = 4,096, bf16 at rtol 1.6e-2 / atol 1e-2 (two bf16 units at
+   heads at S = 4,096 (with a sliding window, at twice the window, so
+   that it cuts every row past it), bf16 at rtol 1.6e-2 / atol 1e-2 (two
+   bf16 units at
    |o| >= 1); the hot-slab kernel to its plain version on the prefill's
    32,768 ids against the served slab, exact.
 8. Consistency: a 64-token prompt through ``forward`` (flash kernel) and
@@ -132,21 +150,26 @@ weights from ``init_params`` on the card, seed 7):
    forward's top logit.
 9. Card against CPU: the config cut to 2 layers (a hybrid keeps its
    shared block on the second, as ``configs/smoke_config`` cuts), the same
-   weights on the CPU (plain versions) and the card (kernels), a
-   256-token prompt, the same standard.
-10. Serve: ``serve_loop`` at full depth, 8 synthetic requests (seed 0), 4
-    slots, ``max_len`` 512, greedy; every request completes with
+   weights on the CPU (plain versions, run in a pool worker) and the card
+   (kernels), a 256-token prompt, the same standard.
+10. Serve: ``serve_loop`` on 8 synthetic requests (seed 0), 4 slots,
+    ``max_len`` 512, greedy, at full depth; the earlier configs of
+    `SERVE_CUT` (all but chatglm3-6b, starcoder2-7b and mixtral-8x7b)
+    on their first `SERVE_LAYERS` layers (`serve_view`: their weights),
+    for the run's time limit; every request completes with
     ``max_new`` tokens and every decode step launches the hot-slab kernel
     once; the kernel is held to its plain version on every token the
     requests fed or sampled, 4 ids a call (the decode step's shape),
-    exact. Then ``torch.profiler`` over 5 decode steps at the served batch
-    splits a step's wall into device time and the rest.
+    exact. Then ``torch.profiler`` over 5 decode steps of the whole model
+    at the served batch splits a step's wall into device time and the
+    rest.
 11. LM kernel timing at the served shapes, from CUDA events: each kernel,
     its plain version, one PyTorch call as a yardstick (timed only; the
-    port never calls it) and the bound. Flash also gets the bound of a
-    float32-faithful PV (``faithful_bound_ms``: the split PV's
-    ``6·d·S(S+1)/2·BH`` FLOPs at the bf16 rate), which SDPA, rounding p to
-    bf16, is not held to.
+    port never calls it) and the bound, from the (row, key) pairs the
+    config's mask lets through (`ref.visible_pairs`: a window's and a
+    prefix's counted). Flash also gets the bound of a float32-faithful PV
+    (``faithful_bound_ms``: the split PV's ``6·d·pairs·BH`` FLOPs at the
+    bf16 rate), which SDPA, rounding p to bf16, is not held to.
 
 Then phases 7-11 on qwen2.5-3b at full width and depth (36 layers, d
 2048, 16 heads of 128 over 2 kv heads, d_ff 11008, vocab 151,936, QKV
@@ -198,6 +221,15 @@ one hot-slab launch a decode step. Then each trunk's scan on layer 0
 a Python loop of one launch a chunk): its device ms, busy ms, device ops
 a call and the host launches a prefill.
 
+Then phases 7-11 on chatglm3-6b at full width and depth (28 layers, d
+4096, 32 heads of 128 over 2 kv heads, so a group of 16; half rotary,
+q/k/v biases, d_ff 13696, vocab 65,024) and starcoder2-7b (32 layers, d
+4608, 36 heads of 128 over 4, a group of 9; layernorm, biased tanh-GELU
+MLP, output bias, d_ff 18432, vocab 49,152), each as qwen2.5-3b: one
+grouped ``wgmma`` flash launch a layer a prefill, held to the plain
+version on layer 0's real q and grouped k/v, timed beside
+``F.scaled_dot_product_attention(..., enable_gqa=True)``.
+
 Then the MoE slice, moonshot-v1-16b-a3b at full width (d 2048, 16 heads
 of 128, 64 experts of d_ff 1408, top-6, 2 shared experts), its depth cut
 to 16 of 48 layers so that the float32 masters (40.3 GB) and a
@@ -207,8 +239,11 @@ the card (seed 7), after the minicpm model is freed:
 12. MoE kernel check: ``moe_gmm`` against its plain version on the card:
     the reference test's float32 cases (tests/test_kernels.py:106-138) at
     rtol/atol 1e-4, then bf16 at the smoke (64/128), served (2048/1408)
-    and K 136 / N 200 widths with empty groups, one group holding every
-    row, rows past the groups' total (zero) and M not a multiple of 128,
+    and K 136 / N 200 widths and at mixtral-8x7b's (8 experts, 4096/14336
+    and 14336/4096 at 1,000 rows, and a decode step's 8 rows;
+    tests/test_torch_cuda.py::MIXTRAL_GMM_CASES) with empty groups, one
+    group holding every row, rows past the groups' total (zero) and M not
+    a multiple of 128,
     through both bf16 kernels (``wgmma`` and ``splitk``, each forced with
     ``variant=``). The float32 result of bf16 operands is held at
     rtol/atol 1e-4 (the products are exact in float32; only the order of
@@ -233,6 +268,19 @@ the card (seed 7), after the minicpm model is freed:
     yardstick and, at the decode step, the wrapper's host ms a call; then
     a sweep of both kernels over 4 to 32,768 tokens of layer 0's routing,
     with the kernel the rule picks and a repeat's bits.
+    Then the same on mixtral-8x7b at full width (d 4096, 32 heads of 128
+    over 8 kv heads, a sliding window of 4,096, 8 experts of d_ff 14336,
+    top 2), its depth cut to 8 of 32 layers (43.2 GiB of float32
+    masters): 8 grouped, windowed ``wgmma`` flash launches a prefill (the
+    flash check's all-heads case at S 8,192; the bound from the window's
+    pairs; the yardstick a boolean (S, S) window mask on SDPA's
+    memory-efficient backend, beside causal SDPA, timed only) and 24
+    ``moe_gmm`` launches a prefill and a decode step, through the kernel
+    the rule picks (one row an expert at a decode step is past split-K's
+    half a row); no variant sweep. Then smoke mixtral (window 8)
+    teacher-forced for `RING_STEPS` decode steps on the card against the
+    CPU (`ring_decode_check`): its 8-slot ring wraps twice, which no
+    full-width serve reaches.
 
 Then training, after the MoE model is freed:
 
@@ -275,11 +323,14 @@ Then training, after the MoE model is freed:
     over one more step: the device's busy share and its ten costliest
     device operations. Then one microbatch's loss and
     gradients on the card against the CPU, the width cut to 2 layers, 1 x
-    512 tokens (the loss within 1e-2, each leaf within 5e-2 relative L2);
+    512 tokens (the loss within 1e-2, each leaf within 5e-2 relative L2;
+    the CPU's half in a pool worker from the start of phase 14);
     then, on the card, the same gradients with remat off, bit for bit;
     then tests/test_system.py's resume test through ``launch/train.main``
-    at that cut (``--depth 2``), checkpoints in a temporary directory. The
-    full-depth run saves no checkpoint.
+    at that cut (``--depth 2``): one checkpoint, the crashed run's
+    periodic save, into a temporary directory (every run passes
+    ``--no-final-ckpt``: no closing save is ever read). The full-depth
+    run saves no checkpoint.
 
     Then, after qwen's model is freed, paligemma-3b
     (`prefix_train_phase`) at full width and depth (18 layers,
@@ -291,9 +342,9 @@ Then training, after the MoE model is freed:
     ``wgmma`` at d 256; the same checks and profile. Then its card
     against the CPU at 2 layers on 256 prefix rows from N(0, 1) plus 256
     tokens, with remat's bits; then ``launch/train.main --arch
-    paligemma-3b --depth 2 --seq-len 320`` for 3 steps (the trainer's
-    own prefix batch; finite losses; 12 ``wgmma`` backward launches; one
-    checkpoint of about 9 GB into a temporary directory).
+    paligemma-3b --depth 2 --seq-len 320 --no-final-ckpt`` for 3 steps
+    (the trainer's own prefix batch; finite losses; 12 ``wgmma`` backward
+    launches; no checkpoint).
 
     Then, after qwen's model is freed, MoE training (`moe_train_phase`).
     ``tgmm``, the grouped matmul's weight-gradient kernel
@@ -349,11 +400,14 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
+import os
 import pathlib
 import subprocess
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 7
@@ -368,8 +422,20 @@ PREFIX_ARCH = "paligemma-3b"    # prefix-LM, one kv head, head dim 256
 ENCODER_ARCH = "hubert-xlarge"  # bidirectional encoder, head dim 80
 RWKV_ARCH = "rwkv6-3b"          # attention-free: time-mix + channel-mix
 HYBRID_ARCH = "zamba2-1.2b"     # Mamba2 with a shared attention block
+GLM_ARCH = "chatglm3-6b"        # group 16, half rotary, q/k/v biases
+CODE_ARCH = "starcoder2-7b"     # group 9, layernorm, biased GELU MLP
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_LAYERS = 16                 # of 48: what one 80 GB card holds in f32
+SWA_ARCH = "mixtral-8x7b"       # window 4,096, group 4, top 2 of 8 experts
+SWA_LAYERS = 8                  # of 32: 43.2 GiB of f32 masters
+RING_STEPS = 24                 # smoke mixtral's decode: 3 laps of its ring
+POOL_WORKERS = 4                # the run's process pool (oracles, corpora,
+                                # the CPU's halves of phases 9 and 14)
+# phase 10 serves these earlier configs on the first `SERVE_LAYERS` of
+# their layers (their weights, `serve_view`), to keep the run inside its
+# time limit: a decode step is bound by the host, about 2-7 ms a layer
+SERVE_CUT = (ARCH, GQA_ARCH, PREFIX_ARCH, RWKV_ARCH, HYBRID_ARCH, MOE_ARCH)
+SERVE_LAYERS = 8
 PREFILL_SHAPE = "prefill_32k"   # configs/shapes.py; its batch of 32 cut to 1
 PREFILL_TOKENS = None           # None: SHAPES[PREFILL_SHAPE].seq_len
 FLASH_TOL = {"float32": dict(rtol=1e-3, atol=2e-3),
@@ -406,6 +472,10 @@ DECAY_LEAVES = ("dec_w1", "dec_w2", "w_base", "a_log", "dt_bias")
 # compute dtype float32 in both, and in bf16 at 1 layer (no flash kernel
 # on rwkv6-3b's path)
 F32_GRAD_ARCHS = (RWKV_ARCH,)
+# phase 14's card-against-CPU gradient checks, (arch, layers): their CPU
+# halves run in pool workers from the start of phase 14 (`host_grads`)
+GRAD_CHECKS = ((TRAIN_ARCH, 2), (PREFIX_ARCH, 2), (MOE_ARCH, MOE_GRAD_LAYERS),
+               (RWKV_ARCH, 2), (RWKV_ARCH, 1), (HYBRID_ARCH, 2))
 # the backward checks and timings: (BH, KV, S, d, prefix) of a qwen2.5-3b
 # microbatch (2 x 16 heads over 2 x 2 kv heads, d 128, causal), a
 # minicpm-2b one (2 x 36, d 64), a paligemma-3b one (2 x 8 heads over 2
@@ -1258,6 +1328,16 @@ def lm_kernel_cases(dev) -> tuple[float, float]:
                                  f"changed")
     print(f"flash_attention: multi-head bits unchanged in "
           f"{len(tc.DIGEST_CASES)} cases")
+    # the served configs' groups past 8 and mixtral's window of 4,096
+    # (tests/test_torch_cuda.py::SERVED_FLASH_CASES): chatglm3-6b's group
+    # of 16, starcoder2-7b's of 9, and a window that cuts every row past
+    # 4,096 at S 8,192 and 8,192 + 77; one bf16 unit of the output
+    for case in tc.SERVED_FLASH_CASES:
+        h, kv, s, window = case
+        flash_err = max(flash_err, flash_check(
+            f"served group {h // kv}, {h}x{s}x128 over {kv} kv rows",
+            *tc.served_flash_inputs(case, dev), window,
+            tol=FLASH_MASK_TOL))
     # causal, sliding-window, prefix-LM (a prefix shorter and longer than
     # a tile, and than S) and bidirectional masks in every variant and at
     # head dims 80 and 256; S no multiple of any tile; then grouped kv
@@ -1290,8 +1370,10 @@ def lm_kernel_cases(dev) -> tuple[float, float]:
         flash_lse_check(q, k, v)
 
     hot_err = 0.0
+    # the reference cases, then chatglm3-6b's and starcoder2-7b's widths
     for vocab, hot, n, d in ((1000, 128, 400, 32), (4096, 512, 512, 32),
-                             (600, 600, 14, 32)):
+                             (600, 600, 14, 32), (8192, 1024, 512, 4096),
+                             (8192, 1024, 512, 4608)):
         table = normal((vocab, d), torch.float32)
         ids = torch.from_numpy(rng.integers(0, vocab, n).astype(
             np.int32)).to(dev)
@@ -1317,13 +1399,14 @@ def card_tests():
     return mod
 
 
-def token_source(cfg, seq_len: int):
+def token_source(cfg, seq_len: int, quiet: bool = False):
     """The repo's token pipeline at ``seq_len``: the Zipf-community corpus
     with its defaults (seed 1234), mapped through the vocab LOrder built
     from its first batch, as the reference's
     ``launch/train.build_vocab_reorder`` builds it. Returns
     ``tokens(step, n)``, the first ``n`` ids of batch ``step`` as a
-    (1, n) CPU tensor; steps from 1 on were not in the LOrder's sample."""
+    (1, n) CPU tensor; steps from 1 on were not in the LOrder's sample.
+    ``quiet`` prints nothing (a pool worker's)."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import (DataConfig, ZipfCommunityCorpus,
@@ -1336,10 +1419,12 @@ def token_source(cfg, seq_len: int):
     vr = vocab_permutation(sample, cfg.vocab_size,
                            hot_fraction=cfg.hot_vocab_fraction)
     corpus = ZipfCommunityCorpus(dc)
-    print(f"vocab LOrder: hot slab {vr.hot_size} rows, built from "
-          f"{sample.size} corpus tokens in {time.perf_counter() - t0:.1f} s; "
-          f"it covers {100 * hot_coverage(corpus.batch(1), vr):.1f}% of "
-          f"the held-out batch 1")
+    if not quiet:
+        print(f"vocab LOrder: hot slab {vr.hot_size} rows, built from "
+              f"{sample.size} corpus tokens in "
+              f"{time.perf_counter() - t0:.1f} s; it covers "
+              f"{100 * hot_coverage(corpus.batch(1), vr):.1f}% of the "
+              f"held-out batch 1")
 
     def tokens(step: int, n: int):
         return torch.from_numpy(vr.map_tokens(
@@ -1430,6 +1515,7 @@ def lm_launches() -> dict:
             "flash_attn_wgmma": fa.launches_by_variant["wgmma"],
             "flash_attn_mma_sync": fa.launches_by_variant["mma_sync"],
             "flash_attn_gqa": fa.launches_grouped,
+            "flash_attn_windowed": fa.launches_windowed,
             "flash_attn_prefix": fa.launches_by_mask["prefix"],
             "flash_attn_non_causal": fa.launches_by_mask["non_causal"],
             "hot_embed": he.launches, "moe_gmm": gm.launches,
@@ -1442,7 +1528,8 @@ def reset_lm_launches() -> None:
     from repro_torch.kernels.flash_attn import flash_attn as fa
     from repro_torch.kernels.hot_embed import hot_embed as he
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
-    fa.launches = fa.launches_grouped = he.launches = gm.launches = 0
+    fa.launches = fa.launches_grouped = fa.launches_windowed = 0
+    he.launches = gm.launches = 0
     fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
     fa.launches_by_mask = dict.fromkeys(fa.MASKS, 0)
     gm.launches_by_variant = dict.fromkeys(gm.VARIANTS, 0)
@@ -1480,7 +1567,7 @@ def flash_launches(cfg, calls: int) -> dict:
     """The flash launches of ``calls`` forwards: one an attention layer
     (a hybrid's: one an application of its shared block; none for rwkv),
     all through the variant of ``cfg``'s head dim, grouped and masked as
-    its attention is."""
+    its attention is (a sliding window counts apart as well)."""
     import torch
     from repro_torch.kernels.flash_attn import flash_attn as fa
     n = len(cfg.attn_positions) * calls
@@ -1490,6 +1577,7 @@ def flash_launches(cfg, calls: int) -> dict:
             "flash_attn_wgmma": n if v == "wgmma" else 0,
             "flash_attn_mma_sync": n if v == "mma_sync" else 0,
             "flash_attn_gqa": n if cfg.num_kv_heads < cfg.num_heads else 0,
+            "flash_attn_windowed": n if cfg.causal and cfg.window > 0 else 0,
             "flash_attn_prefix": n if kind == "prefix" else 0,
             "flash_attn_non_causal": n if kind == "non_causal" else 0}
 
@@ -1549,7 +1637,8 @@ def prefill(dev, model, batch) -> dict:
         mask = flash_mask(cfg)
         err = flash_check(f"{where} served, rows 0-1", q, k, v, rows=(0, 1),
                           tol=FLASH_SERVED_TOL, **mask)
-        s4 = 4096
+        # a window cuts every row past it at twice its length
+        s4 = 2 * cfg.window if cfg.window else 4096
         err = max(err, flash_check(
             f"{where} all heads",
             *(t[:, :s4].contiguous() for t in (q, k, v)),
@@ -1586,6 +1675,7 @@ def gmm_check(name, x, w, offs, verbose: bool = True) -> float:
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"moe_gmm[{name}, {v}]: two runs differ")
+        del again    # (65,536 x 14,336 float32 at mixtral's prefill: 3.5 GiB)
         torch.testing.assert_close(got, want, **GMM_TOL)
         errs[v] = float((got - want).abs().max()) if got.numel() else 0.0
         if got[total:].any():
@@ -1596,7 +1686,7 @@ def gmm_check(name, x, w, offs, verbose: bool = True) -> float:
             if not torch.equal(half, got.to(torch.bfloat16)):
                 raise AssertionError(f"moe_gmm[{name}, {v}]: the bf16 result "
                                      f"is not the float32 one rounded")
-        del got, again
+        del got
     if verbose:
         sizes = (offs[1:] - offs[:-1]).tolist()
         e, k, n = w.shape
@@ -1611,9 +1701,10 @@ def gmm_check(name, x, w, offs, verbose: bool = True) -> float:
 def gmm_kernel_cases(dev) -> float:
     """Phase 12: ``moe_gmm`` against its plain version on the card: the
     reference test's float32 cases (tests/test_kernels.py:106-138) through
-    ``grouped_matmul``, then bf16 at the smoke and the served widths with
-    empty groups, one group holding every row, rows past the groups'
-    total, and M not a multiple of 128."""
+    ``grouped_matmul``, then bf16 at the smoke and moonshot's served widths
+    and at mixtral-8x7b's (8 experts, K 4,096 and N 14,336 and back, and a
+    decode step's 8 rows), with empty groups, one group holding every
+    row, rows past the groups' total, and M not a multiple of 128."""
     import numpy as np
     import torch
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
@@ -1643,25 +1734,29 @@ def gmm_kernel_cases(dev) -> float:
         print(f"moe_gmm[reference {gs}, K={k}, N={n}]: float32 "
               f"max_abs_err={float((got - want).abs().max()):.3e}")
 
-    for m, k, n, e in ((40, 64, 128, 4), (40, 128, 64, 4),
-                       (1000, 2048, 1408, 64), (1000, 1408, 2048, 64),
-                       (333, 2048, 1408, 64), (24, 2048, 1408, 64),
-                       (228, 136, 200, 3)):
-        x = normal((m, k), dtype=torch.bfloat16)
-        w = normal((e, k, n), k ** -0.5, torch.bfloat16)
-        for case in ("skewed", "one_group", "short"):
-            if case == "one_group":
-                sizes = np.zeros(e, np.int64)
-                sizes[e // 2] = m
-            elif case == "short":            # rows past the total
-                sizes = rng.multinomial(m - 13, np.ones(e) / e)
-            else:                            # skewed, with empty groups
-                p = 1.0 / (1 + np.arange(e)) ** 1.2
-                sizes = rng.multinomial(m, p / p.sum())
-                sizes[1] = 0
-            offs = torch.from_numpy(np.concatenate(
-                [[0], np.cumsum(sizes)]).astype(np.int32)).to(dev)
-            err = max(err, gmm_check(f"{case}", x, w, offs))
+    tc = card_tests()
+    cases = [(case, m, k, n, e)
+             for m, k, n, e in ((40, 64, 128, 4), (40, 128, 64, 4),
+                                (1000, 2048, 1408, 64), (1000, 1408, 2048, 64),
+                                (333, 2048, 1408, 64), (24, 2048, 1408, 64),
+                                (228, 136, 200, 3))
+             for case in ("skewed", "one_group", "short")]
+    # then mixtral-8x7b's (tests/test_torch_cuda.py::MIXTRAL_GMM_CASES);
+    # operands drawn on the card (its stacks hold 4.7e8 weights), once for
+    # each run of cases at one shape
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shape = None
+    for case, m, k, n, e in cases + tc.MIXTRAL_GMM_CASES:
+        if shape != (m, k, n, e):
+            shape = (m, k, n, e)
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            w = (torch.randn((e, k, n), generator=gen, device=dev)
+                 * k ** -0.5).to(torch.bfloat16)
+        sizes = tc._variant_sizes(rng, case, m, e)
+        offs = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(sizes)]).astype(np.int32)).to(dev)
+        err = max(err, gmm_check(f"{case}", x, w, offs))
     return err
 
 
@@ -1931,31 +2026,236 @@ def _decode_consistency(dev, model, tokens) -> None:
     hold_logits(name, dec, full)
 
 
-def card_vs_cpu(dev, cfg, batch) -> None:
+# ------------------------------------- the host's halves, in pool workers
+def pool_threads(jobs: int = 1) -> int:
+    """The intra-op torch threads each of ``jobs`` pool jobs at work at
+    once takes: half the host's cores between them, the rest for the main
+    process, whose host-bound decode slows several-fold when the cores
+    are oversubscribed (PERF.md §6)."""
+    return max(1, (os.cpu_count() or 1) // 2 // jobs)
+
+
+def draw_weights(cfg, device):
+    """`init_params` of ``cfg`` on a CUDA generator seeded with `SEED`, on
+    ``device``: the main process draws the card's copy so and a pool
+    worker the CPU's, bit for bit the same weights, in a fraction of a
+    second where a CPU generator draws about 10^8 weights a second
+    (mixtral-8x7b's 2 layers hold 3.2e9). For the CPU each weight moves
+    there as soon as it is drawn (the models' draw helper,
+    `layers._normal`, wrapped), so that a worker holds no more than one
+    weight on the card beside the main process's model, then frees its
+    card memory."""
+    import torch
+    from repro_torch.models import layers, mamba2, moe, rwkv6
+    from repro_torch.models.transformer import init_params
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if torch.device(device).type == "cuda":
+        return init_params(cfg, gen, device)
+    mods, draw = (layers, mamba2, moe, rwkv6), layers._normal
+
+    def drawn_to_host(gen, shape, scale):
+        # `layers._normal` with the scale applied in place: one weight's
+        # memory on the card at a time (the digest holds the bits)
+        return torch.randn(shape, generator=gen, device=gen.device,
+                           dtype=torch.float32).mul_(scale).to(device)
+    for m in mods:
+        m._normal = drawn_to_host
+    try:
+        model = init_params(cfg, gen, "cuda").to(device)
+    finally:
+        for m in mods:
+            m._normal = draw
+    torch.cuda.empty_cache()
+    return model
+
+
+def weight_digest(model):
+    """The first 16 values of every parameter, on the CPU: equal on the
+    card's copy and the CPU's when both were drawn alike."""
+    import torch
+    return torch.cat([p.detach().flatten()[:16].float().cpu()
+                      for p in model.parameters()])
+
+
+def host_forward(cfg, batch: dict, threads: int, path: str) -> str:
+    """Phase 9's CPU half, in a pool worker, submitted as the config's
+    phases start: ``cfg`` cut to 2 layers (a hybrid keeps its shared block
+    on the second, as ``smoke_config`` cuts), `draw_weights` to the CPU,
+    and its forward, plain versions, on ``batch`` (`lm_batch` step 3),
+    on ``threads`` intra-op threads; recorded: the float32 logits, the
+    expert choices and router margins (MoE, `RouteTape`) and every block
+    call's input and output (`BlockTape`, for a recurrent trunk). Saves
+    them to ``path`` (`spool`) and returns it."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch.train import cut_depth
+    from repro_torch.models.moe import RouteTape
+    from repro_torch.models.transformer import forward, trunk_kind
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    cut = cut_depth(cfg, 2)
+    host = draw_weights(cut, "cpu")
+    tape = BlockTape(host)
+    t1 = time.perf_counter()
+    with RouteTape() as route, tape.record():
+        want = forward(host, batch)[0].float()
+    out = {"want": want, "digest": weight_digest(host),
+           "experts": route.experts if cut.is_moe else [],
+           "margins": route.margins if cut.is_moe else [],
+           "ins": [], "outs": [], "threads": threads,
+           "init_s": t1 - t0, "forward_s": time.perf_counter() - t1}
+    if trunk_kind(cut) != "attn":
+        out.update(ins=tape.ins, outs=tape.outs)
+    return spool(out, path)
+
+
+def spool(obj, path: str) -> str:
+    """``obj`` (dicts and lists of tensors and numbers) saved to ``path``
+    (``torch.save``): a worker's result goes to a file in the run's
+    temporary directory, not through the pool's pipe, whose unpickling
+    holds the main process's interpreter for seconds a gigabyte."""
+    import torch
+    torch.save(obj, path)
+    return path
+
+
+def grad_cut(arch: str, layers: int):
+    """``arch``'s config at full width, cut to ``layers`` layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+    return cut_depth(get_config(arch), layers)
+
+
+def grad_dtype(arch: str, layers: int) -> str:
+    """The compute dtype of ``arch``'s card-against-CPU gradients at
+    ``layers`` layers: float32 for an arch of `F32_GRAD_ARCHS` at 2
+    layers, whose bf16 gradients there are chaotic, else bfloat16."""
+    return ("float32" if arch in F32_GRAD_ARCHS and layers > 1
+            else "bfloat16")
+
+
+def host_grads(arch: str, layers: int, threads: int, path: str) -> str:
+    """Phase 14's CPU half of a card-against-CPU gradient check, in a pool
+    worker (`GradJobs`): `grad_cut`, `draw_weights` to
+    the CPU, one microbatch (`lm_batch` step 1 of 512 positions, the
+    token source at 512) through `loss_and_grads` in compute dtype
+    `grad_dtype`, remat as the config has it, on ``threads`` intra-op
+    threads; for an MoE its expert choices, forward and replay
+    (`RouteTape`). Saves the batch, the loss, every leaf's float32
+    gradient and the choices to ``path`` (`spool`) and returns it."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.models.moe import RouteTape
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    cfg = grad_cut(arch, layers)
+    host = draw_weights(cfg, "cpu")
+    batch = lm_batch(cfg, token_source(cfg, 512, quiet=True), 1, 512)
+    tape = RouteTape() if cfg.is_moe else None
+    t1 = time.perf_counter()
+    with compute_dtype(getattr(torch, grad_dtype(arch, layers))):
+        loss, grads = loss_and_grads(host, batch, tape)
+    return spool({"batch": batch, "loss": loss, "grads": grads,
+                  "digest": weight_digest(host),
+                  "experts": tape.experts if tape is not None else [],
+                  "threads": threads, "init_s": t1 - t0,
+                  "grads_s": time.perf_counter() - t1}, path)
+
+
+class HostPool:
+    """The run's process pool as the card-against-CPU checks use it, each
+    job's result in a file of ``tmp`` (`spool`), the jobs at work on half
+    the host's cores: phase 9's forwards one at a time, phase 14's
+    `GRAD_CHECKS` two at a time (`GradJobs`)."""
+
+    def __init__(self, pool, tmp: str):
+        self.pool, self.tmp, self.jobs = pool, tmp, []
+
+    def forward(self, cfg, batch: dict):
+        """A future of `host_forward`."""
+        return self._submit(host_forward, f"forward-{cfg.name}",
+                            pool_threads(), cfg, batch)
+
+    def _submit(self, fn, name: str, threads: int, *args):
+        job = self.pool.submit(fn, *args, threads,
+                               os.path.join(self.tmp, name))
+        self.jobs.append(job)
+        return job
+
+
+class GradJobs:
+    """Futures of `host_grads` by `GRAD_CHECKS` entry, submitted in that
+    order two ahead: the first two at once, the next each time one is
+    asked for, so that two run on half the cores while phase 14's card
+    work, mostly bound by the card, runs beside them."""
+
+    AHEAD = 2
+
+    def __init__(self, host: HostPool):
+        self.host, self.futures = host, {}
+        self._submit_upto(self.AHEAD)
+
+    def _submit_upto(self, n: int) -> None:
+        for arch, layers in GRAD_CHECKS[:n]:
+            if (arch, layers) not in self.futures:
+                self.futures[arch, layers] = self.host._submit(
+                    host_grads, f"grads-{arch}-{layers}",
+                    pool_threads(self.AHEAD), arch, layers)
+
+    def __getitem__(self, key):
+        self._submit_upto(GRAD_CHECKS.index(key) + 1 + self.AHEAD)
+        return self.futures[key]
+
+
+def host_result(future, what: str, card):
+    """A pool worker's result (`spool`), loaded (memory-mapped; the file is
+    unlinked at once) and the seconds the main process waited for it;
+    its weights held to ``card``'s (`weight_digest`)."""
+    import torch
+    t0 = time.perf_counter()
+    path = future.result()
+    waited = time.perf_counter() - t0
+    out = torch.load(path, mmap=True)
+    os.unlink(path)
+    if not torch.equal(out["digest"], weight_digest(card)):
+        raise AssertionError(f"{what}: the pool worker drew other weights "
+                             f"than the card's")
+    print(f"{what}: the CPU's half from a pool worker ({out['threads']} "
+          f"torch thread(s): weights {out['init_s']:.1f} s, then "
+          f"{out.get('forward_s', out.get('grads_s')):.1f} s), waited "
+          f"{waited:.1f} s for it; the same weights as the card's")
+    return out
+
+
+def same_batch(what: str, got: dict, want: dict) -> None:
+    import torch
+    if got.keys() != want.keys() or not all(
+            torch.equal(got[n], want[n]) for n in want):
+        raise AssertionError(f"{what}: the pool worker's batch is not the "
+                             f"main process's")
+
+
+def card_vs_cpu(dev, cfg, batch, host) -> None:
     """Phase 9: the config cut to 2 layers (a hybrid's second one flagged
     for the shared block, as ``smoke_config`` cuts), the same weights on
-    both, the same ``batch`` (`lm_batch`); the CPU rounds p to bf16
-    before PV as the reference does, the card keeps it float32. For MoE
+    both, the same ``batch`` (`lm_batch`); the CPU's half is ``host``, a
+    future of `host_forward` from the pool (the card's copy drawn alike,
+    `draw_weights`): the CPU rounds p to bf16 before PV as the reference
+    does, the card keeps it float32. For MoE
     the card's free routing is held by `routing_check` and its logits on
     a run that replays the CPU's expert choices (see
     `decode_consistency`); for a recurrent trunk the free run is printed
     and the card is held on a run whose blocks are fed the CPU's inputs
     (`BlockTape`)."""
-    import copy
     import torch
     from repro_torch.launch.train import cut_depth
     from repro_torch.models.moe import RouteTape
-    from repro_torch.models.transformer import (forward, init_params,
-                                                trunk_kind)
+    from repro_torch.models.transformer import forward, trunk_kind
     cut = cut_depth(cfg, 2)   # a hybrid keeps its shared block last
-    host = init_params(cut, torch.Generator().manual_seed(SEED), "cpu")
-    card = copy.deepcopy(host).to(dev)
-    t0 = time.perf_counter()
-    tape = BlockTape(host)
-    with RouteTape() as host_tape, tape.record():
-        want = forward(host, batch)[0].float()
-    name = (f"card vs CPU, 2 layers (CPU forward "
-            f"{time.perf_counter() - t0:.1f} s)")
+    name = "card vs CPU, 2 layers"
+    card = draw_weights(cut, dev)
+    cpu = host_result(host, name, card)
+    want = cpu["want"]
     with RouteTape() as card_tape:
         got = forward(card, on(dev, batch))[0].float().cpu()
     if trunk_kind(cut) != "attn":
@@ -1963,7 +2263,7 @@ def card_vs_cpu(dev, cfg, batch) -> None:
         hold_logits(name + ", free-running (printed, not held)", got, want,
                     held=False)
         card_tape = BlockTape(card)
-        card_tape.ins, card_tape.outs = tape.ins, tape.outs
+        card_tape.ins, card_tape.outs = cpu["ins"], cpu["outs"]
         with card_tape.replay(lambda t: t.to(dev)):
             got = forward(card, on(dev, batch))[0].float().cpu()
         print(f"{name}, each block fed the CPU's input: every block output "
@@ -1971,17 +2271,33 @@ def card_vs_cpu(dev, cfg, batch) -> None:
               f"{card_tape.worst[0]:.4f} at call {card_tape.worst[1]}")
         name += ", each block fed the CPU's input"
     elif cut.is_moe:
-        routing_check(name, host_tape, torch.stack(card_tape.experts), got,
-                      want)
-        with RouteTape(host_tape.experts):
+        routing_check(name, types.SimpleNamespace(experts=cpu["experts"],
+                                                  margins=cpu["margins"]),
+                      torch.stack(card_tape.experts), got, want)
+        with RouteTape(cpu["experts"]):
             got = forward(card, on(dev, batch))[0].float().cpu()
         name += ", the CPU's routing replayed"
     hold_logits(name, got, want)
 
 
+def serve_view(model):
+    """The model phase 10 serves: for a config of `SERVE_CUT`, a
+    `Transformer` over the first `SERVE_LAYERS` of ``model``'s layers (its
+    tensors, not copies; `cut_depth`'s config: a hybrid keeps its shared
+    block); else ``model``."""
+    from repro_torch.launch.train import cut_depth
+    from repro_torch.models.transformer import Transformer, param_tree
+    cfg = model.cfg
+    if cfg.name not in SERVE_CUT or cfg.num_layers <= SERVE_LAYERS:
+        return model
+    tree = param_tree(model)
+    tree["layers"] = tree["layers"][:SERVE_LAYERS]
+    return Transformer(cut_depth(cfg, SERVE_LAYERS), tree)
+
+
 def serve_lm(dev, model) -> dict:
-    """Phase 10: the reference's continuous-batching server at full
-    depth."""
+    """Phase 10: the reference's continuous-batching server on ``model``
+    (`serve_view`)."""
     import numpy as np
     import torch
     from repro_torch.launch import serve as S
@@ -2009,7 +2325,8 @@ def serve_lm(dev, model) -> dict:
                              f"decode steps, expected {expected}")
     toks = sum(len(r.out) for r in done)
     lat = [r.t_done - r.t_enqueue for r in done]
-    print(f"[serve] {len(done)} requests, {toks} tokens in {seconds:.1f}s "
+    print(f"[serve] {cfg.name} at {cfg.num_layers} layers: {len(done)} "
+          f"requests, {toks} tokens in {seconds:.1f}s "
           f"({toks / seconds:.1f} tok/s aggregate); {steps} decode "
           f"steps, {1e3 * seconds / steps:.2f} ms each")
     print(f"[serve] latency p50 {np.percentile(lat, 50):.2f}s "
@@ -2069,12 +2386,17 @@ def decode_profile(dev, model, steps: int = 5) -> None:
 
 
 def time_flash(cfg, q, k, v) -> dict:
-    """Phase 11's flash timing on the prefill's real q, k, v."""
+    """Phase 11's flash timing on the prefill's real q, k, v: the kernel,
+    its plain version, one SDPA call that computes the same function
+    (timed only) and the bound, from the (row, key) pairs the config's
+    mask lets through (`ref.visible_pairs`: a window's and a prefix's
+    counted)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attn import flash_attn as fa
-    from repro_torch.kernels.flash_attn.ref import attention_ref, visible
+    from repro_torch.kernels.flash_attn.ref import (attention_ref, visible,
+                                                    visible_pairs)
 
     mask = flash_mask(cfg)
     bh, s, d = q.shape
@@ -2088,10 +2410,11 @@ def time_flash(cfg, q, k, v) -> dict:
                            reps=5, warmup=1),
              "plain_ms": cuda_ms(plain_flash, reps=1, warmup=1)}
     # the library call, which rounds p to bf16: causal or bidirectional
-    # SDPA; with a prefix, an explicit boolean (S, S) mask on the
-    # memory-efficient backend, which takes no grouped kv, so k and v are
-    # repeated per head outside the timed call
-    if cfg.causal and cfg.prefix_tokens > 0:
+    # SDPA; with a prefix or a window, which SDPA takes no argument for, an
+    # explicit boolean (S, S) mask on the memory-efficient backend, which
+    # takes no grouped kv, so k and v are repeated per head outside the
+    # timed call
+    if cfg.causal and (cfg.prefix_tokens > 0 or cfg.window > 0):
         pos = torch.arange(s, device=q.device)
         keep = visible(pos, pos, prefix=cfg.prefix_tokens,
                        window=cfg.window)[None, None]
@@ -2100,12 +2423,14 @@ def time_flash(cfg, q, k, v) -> dict:
             flash["library_ms"] = cuda_ms(
                 lambda: F.scaled_dot_product_attention(
                     q[None], kr, vr, attn_mask=keep), reps=5, warmup=1)
-        library = ("F.scaled_dot_product_attention(attn_mask=bool (S, S) "
-                   "prefix mask, k/v repeated per head), efficient backend")
+        what = "prefix" if cfg.prefix_tokens > 0 else "window"
+        library = (f"F.scaled_dot_product_attention(attn_mask=bool (S, S) "
+                   f"{what} mask, k/v repeated per head), efficient backend")
         del keep, kr, vr
         # a second yardstick, timed only: causal SDPA on the same q/k/v on
-        # the first backend that takes it, which leaves out the prefix's
-        # p(p - 1)/2 pairs above the diagonal
+        # the first backend that takes it, which computes every causal
+        # pair: it leaves out a prefix's p(p - 1)/2 pairs above the
+        # diagonal and keeps those a window cuts
         def causal_sdpa():
             return F.scaled_dot_product_attention(
                 q[None], k[None], v[None], is_causal=True,
@@ -2124,7 +2449,7 @@ def time_flash(cfg, q, k, v) -> dict:
                                                      warmup=1)
             flash["library_causal"] = (
                 f"F.scaled_dot_product_attention(is_causal=True, enable_gqa="
-                f"{group > 1}) on {backend.name}: causal only (no prefix), "
+                f"{group > 1}) on {backend.name}: causal only (no {what}), "
                 f"timed only")
             break
         else:
@@ -2136,12 +2461,7 @@ def time_flash(cfg, q, k, v) -> dict:
                 enable_gqa=group > 1), reps=5, warmup=1)
         library = (f"F.scaled_dot_product_attention(is_causal="
                    f"{cfg.causal}, enable_gqa={group > 1})")
-    # (row, key) pairs the mask lets through (the served configs have no
-    # window): the causal triangle, plus the prefix's keys above the
-    # diagonal; every pair when non-causal
-    p = min(cfg.prefix_tokens, s)
-    pairs = (s * s if not cfg.causal
-             else s * (s + 1) // 2 + p * (p - 1) // 2)
+    pairs = visible_pairs(s, **mask)
     flops = 4 * d * pairs * bh      # QK^T and PV
     # q read and o written, k and v read: BH / group rows each
     nbytes = (2 * bh + 2 * bh // group) * s * d * q.element_size()
@@ -2153,10 +2473,13 @@ def time_flash(cfg, q, k, v) -> dict:
                  faithful_bound_ms=max(faithful / BF16_FLOPS * 1e3,
                                        bytes_ms),
                  variant=fa.variant(q.dtype, d), group=group,
-                 mask=fa.mask_kind(cfg.causal, cfg.prefix_tokens))
+                 mask=fa.mask_kind(cfg.causal, cfg.prefix_tokens),
+                 window=cfg.window if cfg.causal else 0,
+                 pairs_per_head=pairs)
     print(f"flash_attention timing: {cfg.name} (BH, S, d)=({bh}, {s}, {d}) "
           f"bf16 group={group} variant={flash['variant']} "
           f"mask={flash['mask']} prefix={cfg.prefix_tokens} "
+          f"window={flash['window']} pairs a head={pairs} "
           f"ms={flash['ms']:.4f} plain_ms={flash['plain_ms']:.4f} "
           f"library_ms={flash['library_ms']:.4f} ({library}, p rounded to "
           f"bf16) "
@@ -2174,26 +2497,38 @@ def time_flash(cfg, q, k, v) -> dict:
 def time_lm_kernels(model, pre: dict) -> dict:
     """Phase 11: both LM kernels at the prefill's shapes (flash where the
     trunk has attention, the hot-slab gather where the input is
-    tokens)."""
+    tokens). The launch counters are put back after: timing launches are
+    not the main path's."""
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    from repro_torch.kernels.hot_embed import hot_embed as he
+    kept = [(mod, name, copy.copy(getattr(mod, name))) for mod, name in (
+        (fa, "launches"), (fa, "launches_by_variant"),
+        (fa, "launches_by_mask"), (fa, "launches_grouped"),
+        (fa, "launches_windowed"), (he, "launches"))]
+    try:
+        out = {}
+        if pre["q"] is not None:
+            out["flash_attn"] = time_flash(model.cfg, pre["q"], pre["k"],
+                                           pre["v"])
+        if pre["ids"] is not None:
+            out["hot_embed"] = time_hot_gather(model, pre["ids"])
+        return out
+    finally:
+        for mod, name, value in kept:
+            setattr(mod, name, value)
+
+
+def time_hot_gather(model, ids) -> dict:
+    """The hot-slab gather on the prefill's ids against the served slab:
+    the kernel, its plain version, ``F.embedding`` of all ids on the
+    whole table (timed only) and the bound (ids read, each distinct hot
+    row read once, the output written)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attn import flash_attn as fa
     from repro_torch.kernels.hot_embed import hot_embed as he
     from repro_torch.kernels.hot_embed.ref import hot_gather_ref
     from repro_torch.models.layers import hot_vocab_size
-
-    kept = (fa.launches, dict(fa.launches_by_variant),
-            dict(fa.launches_by_mask), fa.launches_grouped, he.launches)
-    cfg = model.cfg
-    out = {}
-    if pre["q"] is not None:
-        out["flash_attn"] = time_flash(cfg, pre["q"], pre["k"], pre["v"])
-    if pre["ids"] is None:
-        (fa.launches, fa.launches_by_variant, fa.launches_by_mask,
-         fa.launches_grouped, he.launches) = kept
-        return out
-
-    ids, table = pre["ids"], model.embed["table"]
+    table = model.embed["table"]
     hot = hot_vocab_size(model.cfg)
     slab = table[:hot]
     n, dm = ids.numel(), table.shape[1]
@@ -2205,17 +2540,14 @@ def time_lm_kernels(model, pre: dict) -> dict:
                                     reps=50)}
     rows = int(torch.unique(ids[ids < hot]).numel())
     nbytes = 4 * n + 4 * dm * rows + 4 * n * dm
-    gather.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    gather.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                  D=dm, hot_rows=hot)
     print(f"hot_gather timing: ids={n} hot ids={int((ids < hot).sum())} "
           f"distinct hot rows={rows} D={dm} ms={gather['ms']:.4f} "
           f"plain_ms={gather['plain_ms']:.4f} "
           f"library_ms={gather['library_ms']:.4f} (F.embedding of all ids) "
           f"bound_ms={gather['bound_ms']:.4f} ({nbytes} bytes)")
-    # timing launches are not the main path's
-    (fa.launches, fa.launches_by_variant, fa.launches_by_mask,
-     fa.launches_grouped, he.launches) = kept
-    out["hot_embed"] = gather
-    return out
+    return gather
 
 
 def host_ms(fn, reps: int = 200) -> float:
@@ -2233,18 +2565,19 @@ def host_ms(fn, reps: int = 200) -> float:
     return seconds / reps * 1e3
 
 
-def time_gmm(model, pre: dict) -> tuple[dict, float]:
+def time_gmm(model, pre: dict, sweep: bool = True) -> tuple[dict, float]:
     """Phase 13: ``moe_gmm`` at the prefill's shapes (layer 0's real
     expert-sorted rows through the gate and the down products) and at a
-    decode step's (the first 4 tokens x top-6 = 24 rows), each with both
+    decode step's (the first 4 tokens x top-k: moonshot's 24 rows,
+    mixtral-8x7b's 8), each with both
     bf16 variants, the plain version, one PyTorch call as a yardstick
     (``torch._grouped_mm``, timed only; the port never calls it) and the
     bound; at the decode shape, the wrapper's host ms a call, and device
     times taken queued (`cuda_ms`), since there the host's cost nears the
-    device's. Then a sweep of token counts over layer 0's routing (the
-    first t tokens' rows): both variants' times, the variant the rule
-    picks, and whether each variant repeats its bits. Returns the timings
-    and the decode shapes' max |err| against the plain version."""
+    device's. Then, with ``sweep``, a sweep of token counts over layer 0's
+    routing (the first t tokens' rows): both variants' times, the variant
+    the rule picks, and whether each variant repeats its bits. Returns the
+    timings and the decode shapes' max |err| against the plain version."""
     import torch
     from repro_torch.kernels.moe_gmm import moe_gmm as gm
     from repro_torch.kernels.moe_gmm.ref import gmm_grouped_ref
@@ -2332,7 +2665,7 @@ def time_gmm(model, pre: dict) -> tuple[dict, float]:
     timing = one("prefill gate", moe["xs"], w_gate, moe["offs"], reps=20)
     timing["down"] = one("prefill down", moe["act"], w_down, moe["offs"],
                          reps=20)
-    # a decode step at the served batch: 4 tokens, their top-6 experts
+    # a decode step at the served batch: 4 tokens, their top-k experts
     x, act, offs = rows_of(4)
     err = gmm_check("decode step gate", x, w_gate, offs)
     err = max(err, gmm_check("decode step down", act, w_down, offs))
@@ -2347,7 +2680,7 @@ def time_gmm(model, pre: dict) -> tuple[dict, float]:
         for v, shape, entry in (("wgmma", "prefill gate", timing),
                                 ("splitk", "decode gate", timing["decode"]))}
 
-    for t in SWEEP_TOKENS:
+    for t in SWEEP_TOKENS if sweep else ():
         x, act, offs = rows_of(t)
         rows = x.shape[0]
         reps = 20 if rows <= 6144 else 5
@@ -2525,10 +2858,13 @@ def time_scan(model, batch) -> dict:
     return out
 
 
-def run_lm(dev, cfg, full_cfg=None) -> dict:
+def run_lm(dev, cfg, host, full_cfg=None) -> dict:
     """Phases 7-11 (and 13 for MoE) on one LM config, weights from
     ``init_params`` on the card (seed 7), its inputs from
-    ``configs/shapes.input_specs`` (`lm_batch`). Phases whose cell
+    ``configs/shapes.input_specs`` (`lm_batch`); ``host``, the run's
+    `HostPool`, takes phase 9's CPU half (`host_forward`) after the
+    prefill; ``full_cfg`` is the config before its depth was cut (None:
+    not cut). Phases whose cell
     ``cell_supported`` rules out (an encoder's decode: consistency, serve,
     decode profile) are skipped and say so. A recurrent trunk's scan is
     timed on layer 0 (`time_scan`). Frees the model before it returns."""
@@ -2554,16 +2890,19 @@ def run_lm(dev, cfg, full_cfg=None) -> dict:
               else token_source(cfg, seq))
     batch = lm_batch(cfg, tokens, 1, seq)
     pre = prefill(dev, model, batch)
+    # phase 9's CPU half, submitted once the prefill's checks, which hold
+    # the card's most memory, are done: the worker draws its weights there
+    cpu_batch = lm_batch(cfg, tokens, 3, 256 + cfg.prefix_tokens)
+    cpu = host.forward(cfg, cpu_batch)
     decode, why = cell_supported(cfg, SHAPES["decode_32k"])
     if decode:
         decode_consistency(dev, model, tokens(2, 64))
     else:
         print(f"decode vs forward: skipped for {cfg.name}: {why}")
-    card_vs_cpu(dev, cfg, lm_batch(cfg, tokens, 3,
-                                   256 + cfg.prefix_tokens))
+    card_vs_cpu(dev, cfg, cpu_batch, cpu)
     lm = {"launches": {}, "hot_err": 0.0}
     if decode:
-        lm = serve_lm(dev, model)
+        lm = serve_lm(dev, serve_view(model))
         decode_profile(dev, model)
     else:
         print(f"serve and decode profile: skipped for {cfg.name}: {why}")
@@ -2571,12 +2910,82 @@ def run_lm(dev, cfg, full_cfg=None) -> dict:
            "serve": lm["launches"], "flash_err": pre["err"],
            "hot_err": max(pre["hot_err"], lm["hot_err"])}
     if cfg.is_moe:
-        out["gmm_timing"], err = time_gmm(model, pre)
+        # the variant sweep places moonshot's crossover; mixtral's 8
+        # experts are timed at its prefill and decode shapes only
+        out["gmm_timing"], err = time_gmm(model, pre,
+                                          sweep=cfg.name == MOE_ARCH)
         out["gmm_err"] = max(pre["moe"]["err"], err)
     if trunk_kind(cfg) != "attn":
         out["scan"] = time_scan(model, on(dev, batch))
     del model, pre
     torch.cuda.empty_cache()
+    return out
+
+
+def ring_decode_check(dev) -> None:
+    """Phase 13's window past its end: smoke mixtral-8x7b (window 8, so its
+    attention cache is an 8-slot ring, `layers.init_attn_cache`) with the
+    same weights (`init_params`, seed `SEED`) on the CPU and the card,
+    teacher-forced through `decode_step` for `RING_STEPS` tokens, so that
+    the ring wraps twice; the card's free routing held by `routing_check`,
+    its logits by `hold_logits` on a run that replays the CPU's expert
+    choices (tests/test_torch_models.py holds the CPU's decode to the
+    reference's on the same path). At full width the served lengths never
+    reach 4,096 positions, so the ring never wraps there."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.moe import RouteTape
+    from repro_torch.models.transformer import (decode_step, init_cache,
+                                                init_params)
+    cfg = smoke_config(SWA_ARCH)
+    host = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    card = copy.deepcopy(host).to(dev)
+    n, layers = RING_STEPS, cfg.num_layers
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, n)).astype(np.int32))
+
+    def decode(model, device, replay=None):
+        cache = init_cache(cfg, 1, n, device=device)
+        slots = cache["layers"]["k"].shape[2]
+        if slots != cfg.window:
+            raise AssertionError(f"{slots} cache slots for window "
+                                 f"{cfg.window}")
+        steps = []
+        with RouteTape(replay) as tape:
+            for i in range(n):
+                lg, cache = decode_step(model, cache,
+                                        tokens[:, i:i + 1].to(device))
+                steps.append(lg[:, 0].float().cpu())
+        return torch.stack(steps, dim=1), tape
+
+    want, cpu_tape = decode(host, "cpu")
+    got, card_tape = decode(card, dev)
+    name = (f"ring decode [{cfg.name} smoke, window {cfg.window}, {n} "
+            f"steps], card vs CPU")
+
+    def by_layer(t):   # a step routes one position through every layer
+        return torch.stack(t).reshape(n, layers, -1).transpose(0, 1)
+    routing_check(name, types.SimpleNamespace(
+        experts=list(by_layer(cpu_tape.experts)),
+        margins=list(by_layer(cpu_tape.margins)[..., 0])),
+        by_layer(card_tape.experts), got, want)
+    got, _ = decode(card, dev, cpu_tape.experts)
+    hold_logits(name + ", the CPU's routing replayed", got, want)
+
+
+def lm_configs() -> dict:
+    """Phases 7-13's configs by arch, in the order they run: (the config at
+    full width, its depth cut for the MoE models; the full config where it
+    was cut, else None)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+    out = {arch: (get_config(arch), None)
+           for arch in (ARCH, GQA_ARCH, PREFIX_ARCH, ENCODER_ARCH, RWKV_ARCH,
+                        HYBRID_ARCH, GLM_ARCH, CODE_ARCH)}
+    for arch, layers in ((MOE_ARCH, MOE_LAYERS), (SWA_ARCH, SWA_LAYERS)):
+        full = get_config(arch)
+        out[arch] = (cut_depth(full, layers), full)
     return out
 
 
@@ -2674,8 +3083,9 @@ def bwd_pairs(s: int, prefix: int = 0, step: int = 64) -> tuple[int, int]:
     head: the (row, key) pairs it lets through, and the 64-row by 64-key
     blocks (``step``) with at least one of them, which the ``wgmma``
     backward kernels multiply whole (a block with none they skip)."""
+    from repro_torch.kernels.flash_attn.ref import visible_pairs
     p = min(prefix, s)
-    pairs = s * (s + 1) // 2 + p * (p - 1) // 2
+    pairs = visible_pairs(s, prefix=prefix)
     n = -(-s // step)
     blocks = n * (n + 1) // 2
     pn = -(-p // step)
@@ -3160,50 +3570,42 @@ def print_decay(label: str, rel: dict) -> None:
               + ", ".join(f"{n} {e:.3e}" for n, e in decay.items()))
 
 
-def train_card_vs_cpu(dev, arch: str, layers: int = 2, dtype=None) -> None:
+def train_card_vs_cpu(dev, arch: str, host, layers: int = 2) -> None:
     """One microbatch's loss and gradients, ``arch``'s width cut to
     ``layers`` layers, 1 x 512 positions (`lm_batch`: paligemma-3b's 256
     prefix rows from N(0, 1) and 256 tokens), the same weights on the CPU
-    (plain versions, p rounded to bf16 before PV as the reference does)
-    and the card (kernels, PV in float32), both runs computing in
-    ``dtype`` (None: float32 for an arch of `F32_GRAD_ARCHS`, whose bf16
-    gradients at 2 layers are chaotic, else bf16): the loss within 1e-2
-    relative, each leaf's relative L2 error within 5e-2 (`hold_grads`);
-    the decay path's leaves printed by name. Then on the card remat on
-    (the config's) against off over the same parameters, in bf16: every
-    gradient equal bit for bit."""
-    import copy
+    (``host``, a future of `host_grads` from the pool: plain versions, p
+    rounded to bf16 before PV as the reference does) and the card
+    (kernels, PV in float32; both drawn by `draw_weights`), both runs
+    computing in `grad_dtype`: the
+    loss within 1e-2 relative, each leaf's relative L2 error within 5e-2
+    (`hold_grads`); the decay path's leaves printed by name. Then on the
+    card remat on (the config's) against off over the same parameters, in
+    bf16: every gradient equal bit for bit."""
     import dataclasses
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch.train import cut_depth
-    from repro_torch.models.transformer import (Transformer, init_params,
-                                                param_tree)
+    from repro_torch.models.transformer import Transformer, param_tree
 
-    cfg = cut_depth(get_config(arch), layers)
+    cfg = grad_cut(arch, layers)
     if not cfg.remat:
         raise AssertionError(f"{cfg.name} trains with remat")
-    host = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
-    card = copy.deepcopy(host).to(dev)
-    batch = lm_batch(cfg, token_source(cfg, 512), 1, 512)
-    if dtype is None:
-        dtype = (torch.float32 if arch in F32_GRAD_ARCHS
-                 else torch.bfloat16)
+    dtype = getattr(torch, grad_dtype(arch, layers))
     label = f"train card vs CPU [{cfg.name}, depth {layers}, {dtype}]"
+    card = draw_weights(cfg, dev)
+    batch = lm_batch(cfg, token_source(cfg, 512), 1, 512)
+    cpu = host_result(host, label, card)
+    same_batch(label, cpu["batch"], batch)
+    want_loss, want = cpu["loss"], cpu["grads"]
     with compute_dtype(dtype):
-        t0 = time.perf_counter()
-        want_loss, want = loss_and_grads(host, batch)
-        cpu_s = time.perf_counter() - t0
         got_loss, got = loss_and_grads(card, on(dev, batch))
     worst, err, rel = hold_grads(label, got, want, got_loss, want_loss)
-    print(f"{label}, 1x512 positions (CPU "
-          f"forward and backward {cpu_s:.1f} s): loss {got_loss:.6f} "
-          f"against {want_loss:.6f}; the worst leaf {worst} at {err:.3e} "
-          f"relative L2, {len(rel)} leaves")
+    print(f"{label}, 1x512 positions: loss {got_loss:.6f} against "
+          f"{want_loss:.6f}; the worst leaf {worst} at {err:.3e} relative "
+          f"L2, {len(rel)} leaves")
     print_decay(label, rel)
     if dtype != torch.bfloat16:
         _, got = loss_and_grads(card, on(dev, batch))
-    del want, host
+    del want, cpu
     plain = Transformer(dataclasses.replace(cfg, remat=False),
                         param_tree(card))
     _, off = loss_and_grads(plain, on(dev, batch))
@@ -3223,8 +3625,8 @@ def train_prefix_run(dev) -> None:
     cut to 2 layers (``--depth 2``), 3 steps of 2 x 320 positions: the
     trainer's own prefix batch (256 rows of zero embeddings before 64
     tokens), finite losses, each step's attention backward on the
-    ``wgmma`` pair (one of each kernel a layer a step). It saves one
-    checkpoint at its end, into a temporary directory deleted after."""
+    ``wgmma`` pair (one of each kernel a layer a step). It saves no
+    checkpoint (``--no-final-ckpt``): nothing restores this run."""
     import shutil
     import tempfile
     import numpy as np
@@ -3236,7 +3638,8 @@ def train_prefix_run(dev) -> None:
         losses = train_main(["--arch", PREFIX_ARCH, "--depth", "2",
                              "--seq-len", "320", "--global-batch", "2",
                              "--steps", "3", "--ckpt-dir", tmp,
-                             "--ckpt-every", "0", "--no-vocab-reorder",
+                             "--ckpt-every", "0", "--no-final-ckpt",
+                             "--no-vocab-reorder",
                              "--log-every", "1", "--device", str(dev)])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3257,10 +3660,12 @@ def train_resume(dev, arch: str, cut: list) -> None:
     about 15 GB): steps 0-9 straight, then 0-4 with a periodic save at
     step 4, a "crash", and ``--resume`` for 5-9, all with
     ``--total-steps 10``; the first five losses of two runs at rtol 1e-5,
-    the resumed ones at rtol/atol 5e-3. Only the crashed run saves
-    periodically (a depth-2 save of rwkv6-3b is 6.1 GB, about 10 s); the
-    other two save only at their end, as ``main`` always does. The
-    checkpoints go to a temporary directory, deleted after."""
+    the resumed ones at rtol/atol 5e-3. Only the crashed run saves, once,
+    at step 4 (``--ckpt-every 5``, the trainer's asynchronous periodic
+    save), the one checkpoint the resume reads: every run passes
+    ``--no-final-ckpt``, since a depth-2 save of rwkv6-3b is 6.1 GB,
+    about 10 s, and no closing save is ever restored. The checkpoint
+    goes to a temporary directory, deleted after."""
     import shutil
     import tempfile
     import numpy as np
@@ -3268,10 +3673,11 @@ def train_resume(dev, arch: str, cut: list) -> None:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     args = ["--arch", arch, *cut, "--seq-len", "32", "--global-batch", "2",
             "--ckpt-dir", tmp, "--total-steps", "10", "--no-vocab-reorder",
-            "--log-every", "100", "--device", str(dev)]
+            "--no-final-ckpt", "--log-every", "100", "--device", str(dev)]
     try:
         full = train_main(["--steps", "10", "--ckpt-every", "0"] + args)
-        shutil.rmtree(tmp)
+        if any(pathlib.Path(tmp).iterdir()):
+            raise AssertionError("--no-final-ckpt: the straight run saved")
         part = train_main(["--steps", "5", "--ckpt-every", "5"] + args)
         cont = train_main(["--steps", "10", "--resume", "--ckpt-every", "0"]
                           + args)
@@ -3464,49 +3870,44 @@ def time_tgmm(layer0: dict) -> dict:
     return out
 
 
-def moe_train_card_vs_cpu(dev) -> dict:
+def moe_train_card_vs_cpu(dev, host) -> dict:
     """moonshot's width cut to `MOE_GRAD_LAYERS` layers, 1 x 512 tokens,
     remat on in both runs (the config's own setting): one microbatch's
-    loss and gradients on the CPU (plain versions) and on the card
-    (kernels), the card replaying the CPU's expert choices
-    (`models.moe.RouteTape`: with remat each run routes a layer in the
-    forward and again in the backward's replay, in the same order), at
-    `hold_grads`'s standard. Then the card's own routing, remat on and off
-    over the same parameters: the replay routes as the forward did, and
-    every gradient is equal bit for bit."""
-    import copy
+    loss and gradients on the CPU (``host``, a future of `host_grads` from
+    the pool: plain versions) and on the card (kernels), the card
+    replaying the CPU's expert choices (`models.moe.RouteTape`: with
+    remat each run routes a layer in the forward and again in the
+    backward's replay, in the same order), at `hold_grads`'s standard.
+    Then the card's own routing, remat on and off over the same
+    parameters: the replay routes as the forward did, and every gradient
+    is equal bit for bit."""
     import dataclasses
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch.train import cut_depth
     from repro_torch.models.moe import RouteTape
-    from repro_torch.models.transformer import (Transformer, init_params,
-                                                param_tree)
+    from repro_torch.models.transformer import Transformer, param_tree
 
-    cfg = cut_depth(get_config(MOE_ARCH), MOE_GRAD_LAYERS)
+    cfg = grad_cut(MOE_ARCH, MOE_GRAD_LAYERS)
     if not cfg.remat:
         raise AssertionError(f"{cfg.name} trains with remat")
     layers = cfg.num_layers
-    host = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
-    tokens = token_source(cfg, 512)(1, 512)
-    t0 = time.perf_counter()
-    tape = RouteTape()
-    want_loss, want = loss_and_grads(host, {"tokens": tokens}, tape)
-    cpu_s = time.perf_counter() - t0
-    card = copy.deepcopy(host).to(dev)
-    del host
+    label = "MoE train card vs CPU"
+    card = draw_weights(cfg, dev)
+    batch = lm_batch(cfg, token_source(cfg, 512), 1, 512)
+    cpu = host_result(host, label, card)
+    same_batch(label, cpu["batch"], batch)
+    want_loss, want, experts = cpu["loss"], cpu["grads"], cpu["experts"]
+    del cpu
+    tokens = batch["tokens"]
     batch = {"tokens": tokens.to(dev)}
-    if len(tape.experts) != 2 * layers:
-        raise AssertionError(f"{len(tape.experts)} routing calls with remat "
+    if len(experts) != 2 * layers:
+        raise AssertionError(f"{len(experts)} routing calls with remat "
                              f"at {layers} layers")
-    got_loss, got = loss_and_grads(card, batch, RouteTape(tape.experts))
-    worst, err, rel = hold_grads("MoE train card vs CPU", got, want,
-                                 got_loss, want_loss)
+    got_loss, got = loss_and_grads(card, batch, RouteTape(experts))
+    worst, err, rel = hold_grads(label, got, want, got_loss, want_loss)
     print(f"train card vs CPU [{cfg.name}], {layers} layers at full width, "
-          f"1x512 tokens, remat on, the CPU's routing replayed (CPU forward "
-          f"and backward {cpu_s:.1f} s): loss {got_loss:.6f} against "
-          f"{want_loss:.6f}; the worst leaf {worst} at {err:.3e} relative "
-          f"L2, {len(rel)} leaves, none all zero")
+          f"1x512 tokens, remat on, the CPU's routing replayed: loss "
+          f"{got_loss:.6f} against {want_loss:.6f}; the worst leaf {worst} "
+          f"at {err:.3e} relative L2, {len(rel)} leaves, none all zero")
     del want, got
 
     on_tape, off_tape = RouteTape(), RouteTape()
@@ -3524,7 +3925,7 @@ def moe_train_card_vs_cpu(dev) -> dict:
         raise AssertionError(f"remat on and off give other gradient bits: "
                              f"{differ[:8]}")
     parted = sum(int((a != b).any(-1).sum())
-                 for a, b in zip(fwd, tape.experts[:layers]))
+                 for a, b in zip(fwd, experts[:layers]))
     print(f"train remat bits [{cfg.name}]: {layers} layers on the card, its "
           f"own routing (replay = forward at every layer; {parted} of "
           f"{layers * tokens.numel()} token choices part from the CPU's), "
@@ -3532,7 +3933,7 @@ def moe_train_card_vs_cpu(dev) -> dict:
           f"and off")
     del card, plain, on, off
     torch.cuda.empty_cache()
-    return {"worst_rel_l2": err, "cpu_s": cpu_s}
+    return {"worst_rel_l2": err}
 
 
 def ckpt_round_trip(dev) -> None:
@@ -3579,13 +3980,14 @@ def ckpt_round_trip(dev) -> None:
           f"included) bit for bit")
 
 
-def moe_train_phase(dev) -> dict:
+def moe_train_phase(dev, host: GradJobs) -> dict:
     """Phase 14's MoE part, after qwen2.5-3b's model is freed: `tgmm`
     checked on the card, moonshot trained at full width and
     `MOE_TRAIN_LAYERS` layers, `tgmm` and dX checked on layer 0's real
     rows and timed there, the card's gradients against the CPU's and
     remat's bits, a resume through ``launch/train.main`` and a checkpoint
-    round trip."""
+    round trip. ``host`` holds the futures of the CPU's halves
+    (`GRAD_CHECKS`)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import cut_depth
     t0 = time.perf_counter()
@@ -3599,7 +4001,8 @@ def moe_train_phase(dev) -> dict:
                   dx_check(f"layer0 train {name}", x, w, dy, offs))
     run["timing"] = time_tgmm(layer0)
     del layer0
-    run["card_vs_cpu"] = moe_train_card_vs_cpu(dev)
+    run["card_vs_cpu"] = moe_train_card_vs_cpu(
+        dev, host[MOE_ARCH, MOE_GRAD_LAYERS])
     train_resume(dev, MOE_ARCH, ["--smoke"])
     ckpt_round_trip(dev)
     run["err"] = err
@@ -3607,7 +4010,7 @@ def moe_train_phase(dev) -> dict:
     return run
 
 
-def prefix_train_phase(dev) -> dict:
+def prefix_train_phase(dev, host: GradJobs) -> dict:
     """Phase 14's prefix-LM part, after qwen2.5-3b's model is freed:
     paligemma-3b (d 256, 8 heads over 1 kv head, a 256-row prefix) trained
     at full width and depth for `TRAIN_STEPS` steps, its card's
@@ -3617,13 +4020,13 @@ def prefix_train_phase(dev) -> dict:
     t0 = time.perf_counter()
     run = train_full_width(dev, get_config(PREFIX_ARCH))
     run.pop("layer0")
-    train_card_vs_cpu(dev, PREFIX_ARCH)
+    train_card_vs_cpu(dev, PREFIX_ARCH, host[PREFIX_ARCH, 2])
     train_prefix_run(dev)
     print(f"phase 14 [{PREFIX_ARCH}]: {time.perf_counter() - t0:.1f} s wall")
     return run
 
 
-def recurrent_train_phase(dev) -> dict:
+def recurrent_train_phase(dev, host: GradJobs) -> dict:
     """Phase 14's recurrent part, after moonshot's: rwkv6-3b and
     zamba2-1.2b each trained at full width and depth for
     `RECURRENT_TRAIN_STEPS` steps and a profiled step of one microbatch
@@ -3635,7 +4038,6 @@ def recurrent_train_phase(dev) -> dict:
     keeps its shared block; rwkv6-3b's in float32, then in bf16 at 1
     layer), and a resume through ``launch.train.main`` at ``--depth 2``.
     Returns each arch's run by name."""
-    import torch
     from repro_torch.configs import get_config
     out = {}
     for arch in (RWKV_ARCH, HYBRID_ARCH):
@@ -3643,23 +4045,26 @@ def recurrent_train_phase(dev) -> dict:
         run = train_full_width(dev, get_config(arch), RECURRENT_TRAIN_STEPS,
                                TRAIN_MICROBATCH)
         run.pop("layer0")
-        train_card_vs_cpu(dev, arch)
+        train_card_vs_cpu(dev, arch, host[arch, 2])
         if arch in F32_GRAD_ARCHS:
-            train_card_vs_cpu(dev, arch, 1, torch.bfloat16)
+            train_card_vs_cpu(dev, arch, host[arch, 1], 1)
         train_resume(dev, arch, ["--depth", "2"])
         print(f"phase 14 [{arch}]: {time.perf_counter() - t0:.1f} s wall")
         out[arch] = run
     return out
 
 
-def train_phase(dev) -> dict:
-    """Phase 14: training. The backward kernels checked and timed, then
+def train_phase(dev, pool: HostPool) -> dict:
+    """Phase 14: training. The CPU's halves of its card-against-CPU checks
+    submitted to ``pool`` (`GradJobs`), then the backward kernels
+    checked and timed, then
     qwen2.5-3b trained at full width and depth, the card's gradients held
     to the CPU's, and a resume through ``launch/train.main``; then
     paligemma-3b the same way (`prefix_train_phase`); then
     moonshot-v1-16b-a3b's MoE (`moe_train_phase`); then the recurrent
     trunks (`recurrent_train_phase`)."""
     from repro_torch.configs import get_config
+    host = GradJobs(pool)
     err = max(flash_bwd_check("qwen2.5-3b microbatch, GQA", "wgmma",
                               *BWD_SHAPES[0], dev),
               flash_bwd_check("minicpm-2b microbatch, MHA", "wgmma",
@@ -3673,11 +4078,11 @@ def train_phase(dev) -> dict:
     timing = [time_flash_bwd(*shape, dev) for shape in BWD_SHAPES]
     run = train_full_width(dev, get_config(TRAIN_ARCH))
     run.pop("layer0")
-    train_card_vs_cpu(dev, TRAIN_ARCH)
+    train_card_vs_cpu(dev, TRAIN_ARCH, host[TRAIN_ARCH, 2])
     train_resume(dev, TRAIN_ARCH, ["--depth", "2"])
-    pali = prefix_train_phase(dev)
-    moe = moe_train_phase(dev)
-    recurrent = recurrent_train_phase(dev)
+    pali = prefix_train_phase(dev, host)
+    moe = moe_train_phase(dev, host)
+    recurrent = recurrent_train_phase(dev, host)
     parts = (run["launches"], pali["launches"], moe["launches"],
              *(r["launches"] for r in recurrent.values()))
     launches = {k: sum(x.get(k, 0) for x in parts)
@@ -3704,24 +4109,42 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 3
     import multiprocessing
+    import shutil
+    import tempfile
     from concurrent.futures import ProcessPoolExecutor
-    # the graph oracles and the k-NN corpora's host NSW builds run beside
-    # the phases before them
-    with ProcessPoolExecutor(
-            4, mp_context=multiprocessing.get_context("spawn")) as pool:
-        oracles = [pool.submit(graph_oracles, NUM_VERTICES, part)
-                   for part in ORACLE_PARTS]
-        corpora = {kind: pool.submit(search_corpus, kind)
-                   for kind in ("clustered", "integer", "reference")}
-        try:
-            return run(torch, corpora, oracles)
-        finally:
-            for f in (*oracles, *corpora.values()):
-                f.cancel()
-
-
-def run(torch, corpora: dict, oracles: list) -> int:
     sys.path.insert(0, str(ROOT / "src"))
+    configs = lm_configs()
+    cores = os.cpu_count() or 1
+    torch.set_num_threads(max(1, cores - cores // 2))
+    print(f"host: {cores} cores; a pool of {POOL_WORKERS} spawned workers; "
+          f"a phase 9 job takes {pool_threads()} torch thread(s), each of "
+          f"phase 14's {pool_threads(GradJobs.AHEAD)}; the main process "
+          f"keeps {torch.get_num_threads()}")
+    # the graph oracles and the k-NN corpora's host NSW builds beside
+    # phases 1-5; later the CPU's halves of the card-against-CPU checks
+    # (`HostPool`), whose results the workers save in a temporary
+    # directory of the run's (`spool`)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_host_")
+    try:
+        with ProcessPoolExecutor(
+                POOL_WORKERS,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            oracles = [pool.submit(graph_oracles, NUM_VERTICES, part)
+                       for part in ORACLE_PARTS]
+            corpora = {kind: pool.submit(search_corpus, kind)
+                       for kind in ("clustered", "integer", "reference")}
+            host = HostPool(pool, tmp)
+            try:
+                return run(torch, corpora, oracles, configs, host)
+            finally:
+                for f in (*oracles, *corpora.values(), *host.jobs):
+                    f.cancel()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run(torch, corpora: dict, oracles: list, configs: dict,
+        host: HostPool) -> int:
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
@@ -3773,28 +4196,30 @@ def run(torch, corpora: dict, oracles: list) -> int:
     timed("k-NN", knn_phase, dev, corpora, card)
     torch.cuda.empty_cache()
 
-    import dataclasses
     from repro_torch.configs import get_config
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("float32 matmuls must not run in TF32: the "
                              "router and the plain versions need float32")
     flash_err, hot_err = timed("6 LM kernel checks", lm_kernel_cases, dev)
-    mini = timed(f"7-11 {ARCH}", run_lm, dev, get_config(ARCH))
-    qwen = timed(f"7-11 {GQA_ARCH}", run_lm, dev, get_config(GQA_ARCH))
-    pali = timed(f"7-11 {PREFIX_ARCH}", run_lm, dev, get_config(PREFIX_ARCH))
-    hubert = timed(f"7, 9, 11 {ENCODER_ARCH}", run_lm, dev,
-                   get_config(ENCODER_ARCH))
-    rwkv = timed(f"7-11 {RWKV_ARCH}", run_lm, dev, get_config(RWKV_ARCH))
-    zamba = timed(f"7-11 {HYBRID_ARCH}", run_lm, dev,
-                  get_config(HYBRID_ARCH))
+
+    def lm(label, arch):
+        cfg, full = configs[arch]
+        return timed(f"{label} {arch}", run_lm, dev, cfg, host, full)
+    mini = lm("7-11", ARCH)
+    qwen = lm("7-11", GQA_ARCH)
+    pali = lm("7-11", PREFIX_ARCH)
+    hubert = lm("7, 9, 11", ENCODER_ARCH)
+    rwkv = lm("7-11", RWKV_ARCH)
+    zamba = lm("7-11", HYBRID_ARCH)
+    glm = lm("7-11", GLM_ARCH)
+    code = lm("7-11", CODE_ARCH)
 
     gmm_err = timed("12 moe_gmm checks", gmm_kernel_cases, dev)
-    full = get_config(MOE_ARCH)
-    cut = dataclasses.replace(full, num_layers=MOE_LAYERS,
-                              block_pattern=("attn",) * MOE_LAYERS)
-    moe = timed(f"13 {MOE_ARCH}", run_lm, dev, cut, full)
-    train = timed("14 training", train_phase, dev)
-    runs = (mini, qwen, pali, hubert, rwkv, zamba, moe)
+    moe = lm("13", MOE_ARCH)
+    swa = lm("13", SWA_ARCH)
+    timed(f"13 {SWA_ARCH} smoke ring", ring_decode_check, dev)
+    train = timed("14 training", train_phase, dev, host)
+    runs = (mini, qwen, pali, hubert, rwkv, zamba, glm, code, moe, swa)
 
     def launches(name):
         return (sum(r[w].get(name, 0) for r in runs for w in ("pre", "serve"))
@@ -3821,6 +4246,7 @@ def run(torch, corpora: dict, oracles: list) -> int:
             "prefix": launches("flash_attn_prefix"),
             "non_causal": launches("flash_attn_non_causal")},
         "launches_grouped_query": launches("flash_attn_gqa"),
+        "launches_windowed": launches("flash_attn_windowed"),
         "max_abs_err": max([flash_err] + [r["flash_err"] for r in runs]),
         "ptxas": flash_ptxas,
         **mini["timing"]["flash_attn"],
@@ -3828,7 +4254,10 @@ def run(torch, corpora: dict, oracles: list) -> int:
         PREFIX_ARCH: pali["timing"]["flash_attn"],
         ENCODER_ARCH: hubert["timing"]["flash_attn"],
         HYBRID_ARCH: zamba["timing"]["flash_attn"],
+        GLM_ARCH: glm["timing"]["flash_attn"],
+        CODE_ARCH: code["timing"]["flash_attn"],
         MOE_ARCH: moe["timing"]["flash_attn"],
+        SWA_ARCH: swa["timing"]["flash_attn"],
     }, {
         "name": "flash_attn_bwd",
         "route": "cuda",
@@ -3871,7 +4300,10 @@ def run(torch, corpora: dict, oracles: list) -> int:
         PREFIX_ARCH: pali["timing"]["hot_embed"],
         RWKV_ARCH: rwkv["timing"]["hot_embed"],
         HYBRID_ARCH: zamba["timing"]["hot_embed"],
+        GLM_ARCH: glm["timing"]["hot_embed"],
+        CODE_ARCH: code["timing"]["hot_embed"],
         MOE_ARCH: moe["timing"]["hot_embed"],
+        SWA_ARCH: swa["timing"]["hot_embed"],
     }, {
         "name": "moe_gmm",
         "route": "cuda",
@@ -3880,8 +4312,9 @@ def run(torch, corpora: dict, oracles: list) -> int:
         "launches": launches("moe_gmm"),
         "launches_by_variant": {"wgmma": launches("moe_gmm_wgmma"),
                                 "splitk": launches("moe_gmm_splitk")},
-        "max_abs_err": max(gmm_err, moe["gmm_err"]),
+        "max_abs_err": max(gmm_err, moe["gmm_err"], swa["gmm_err"]),
         **moe["gmm_timing"],
+        SWA_ARCH: swa["gmm_timing"],
     }, {
         "name": "moe_gmm_bwd",
         "route": "cuda",

@@ -118,12 +118,14 @@ MASKS = ("causal", "prefix", "non_causal")
 
 # Kernel launches since import (or since a caller last reset them), in all,
 # by variant, by mask (causal without a prefix, causal with one,
-# non-causal), and those with grouped kv (group > 1). Only the CUDA branch
-# below adds to them, once per launch.
+# non-causal), those with grouped kv (group > 1) and those with a sliding
+# window (causal, window > 0; counted under their `MASKS` kind as well).
+# Only the CUDA branch below adds to them, once per launch.
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 launches_by_mask = dict.fromkeys(MASKS, 0)
 launches_grouped = 0
+launches_windowed = 0
 # Backward launches, by kernel (two per `flash_attention_bwd` call on the
 # card), and by variant (`bwd_variant`: both kernels of a call count).
 launches_bwd = {"dq": 0, "dkdv": 0}
@@ -252,7 +254,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _forward(q, k, v, sm_scale, window, causal, prefix, with_lse: bool):
     """The forward kernel on CUDA tensors: (out, lse or None)."""
-    global launches, launches_grouped
+    global launches, launches_grouped, launches_windowed
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
@@ -279,6 +281,8 @@ def _forward(q, k, v, sm_scale, window, causal, prefix, with_lse: bool):
     launches_by_mask[mask_kind(causal, prefix)] += 1
     if group > 1:
         launches_grouped += 1
+    if window > 0:
+        launches_windowed += 1
     return out, lse
 
 

@@ -27,6 +27,27 @@ def visible(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool = True,
     return mask
 
 
+def visible_pairs(s: int, *, causal: bool = True, prefix: int = 0,
+                  window: int = 0) -> int:
+    """The (row, key) pairs `visible` lets through over ``s`` rows and
+    keys, one head, in closed form: what a kernel that skips the masked
+    tiles must multiply. Rows at or past the prefix see ``min(i + 1, w)``
+    keys (``w`` the window, or S without one); a row ``i`` below it sees
+    the prefix's keys past ``i - w``. A causal window W over S >= W rows
+    and no prefix: W(W + 1)/2 + (S - W)·W."""
+    if not causal:
+        return s * s
+    p = min(prefix, s)
+    w = min(window, s) if window > 0 else s
+
+    def tri(n: int) -> int:
+        return n * (n + 1) // 2 if n > 0 else 0
+
+    def upto(n: int) -> int:    # sum of min(i + 1, w) over rows i < n
+        return tri(min(n, w)) + max(0, n - w) * w
+    return p * p - tri(p - w) + upto(s) - upto(p)
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   sm_scale: float | None = None, window: int = 0,
                   causal: bool = True, prefix: int = 0,

@@ -15,9 +15,11 @@ card unless ``--device`` names another):
 
 The reference's elastic restart onto a mesh needs the sharded modules
 (ROADMAP A8.8). Embedding-fed archs are refused, as in the reference.
-Beside the reference's flags: ``--device``, and ``--depth N``, the full
+Beside the reference's flags: ``--device``; ``--depth N``, the full
 width with the depth cut to N layers (the reference's ``--layers`` cuts
-the smoke config only).
+the smoke config only); and ``--no-final-ckpt``, which skips the save
+the reference always makes at the end (only ``--ckpt-every``'s periodic
+saves are written), for runs whose last state nobody restores.
 
 Usage:
   python -m repro_torch.launch.train --arch qwen2.5-3b --smoke --device cpu
@@ -119,6 +121,8 @@ def main(argv=None):
         tempfile.gettempdir(), "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--no-final-ckpt", action="store_true",
+                    help="save no checkpoint at the end of the run")
     ap.add_argument("--no-vocab-reorder", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
@@ -202,12 +206,14 @@ def main(argv=None):
         loader.close()
         ckpt.wait()
 
-    t0 = time.time()
-    ckpt.save(args.steps - 1, train_state(model, opt_state), blocking=True)
-    final = ckpt.dir / f"step_{args.steps - 1:08d}"
-    size = sum(p.stat().st_size for p in final.iterdir())
-    print(f"[ckpt] saved step {args.steps - 1}: {size} bytes in "
-          f"{time.time() - t0:.2f} s")
+    if not args.no_final_ckpt:
+        t0 = time.time()
+        ckpt.save(args.steps - 1, train_state(model, opt_state),
+                  blocking=True)
+        final = ckpt.dir / f"step_{args.steps - 1:08d}"
+        size = sum(p.stat().st_size for p in final.iterdir())
+        print(f"[ckpt] saved step {args.steps - 1}: {size} bytes in "
+              f"{time.time() - t0:.2f} s")
     first = np.mean(losses[:5]) if len(losses) >= 5 else losses[0]
     last = np.mean(losses[-5:])
     print(f"[done] loss {first:.4f} -> {last:.4f} "

@@ -284,6 +284,25 @@ def test_train_resume_continues(tmp_path):
     np.testing.assert_allclose(cont, full[5:], rtol=5e-3, atol=5e-3)
 
 
+def test_no_final_ckpt_keeps_only_the_periodic_saves(tmp_path):
+    """``--no-final-ckpt``, the port's own flag: a run without periodic
+    saves leaves no checkpoint, one with ``--ckpt-every 3`` only its step
+    2, and ``--resume`` continues from that step as the uninterrupted run
+    does (test_train_resume_continues's standard)."""
+    args = ["--arch", "qwen2.5-3b", "--smoke", "--layers", "2",
+            "--seq-len", "32", "--global-batch", "2", "--total-steps", "10",
+            "--no-vocab-reorder", "--log-every", "100", "--no-final-ckpt"]
+    full = _main(["--steps", "10", "--ckpt-every", "0"] + args, tmp_path)
+    assert CheckpointManager(tmp_path).all_steps() == []
+    part = _main(["--steps", "5", "--ckpt-every", "3"] + args, tmp_path)
+    assert CheckpointManager(tmp_path).all_steps() == [2]
+    cont = _main(["--steps", "10", "--resume", "--ckpt-every", "0"] + args,
+                 tmp_path)
+    assert CheckpointManager(tmp_path).all_steps() == [2]
+    np.testing.assert_allclose(part, full[:5], rtol=1e-5)
+    np.testing.assert_allclose(cont, full[3:], rtol=5e-3, atol=5e-3)
+
+
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
 def test_recurrent_train_resume_continues(tmp_path, arch):
     """`test_train_resume_continues` on the recurrent trunks (the

@@ -506,6 +506,55 @@ def test_flash_grouped_query_at_qwen_heads():
                                **FLASH_TOL[torch.bfloat16])
 
 
+# The served configs' attention past the smoke ones, bf16 at d 128 as
+# (heads, kv heads, S, window): chatglm3-6b's 32 query heads over 2 kv
+# heads (group 16) and starcoder2-7b's 36 over 4 (group 9, the first group
+# that is no power of two), at S 300 and 4,096 with window 0 and 128; then
+# mixtral-8x7b's window of 4,096 at S 8,192 and 8,192 + 77, where it cuts
+# every row past 4,096, at groups 4 (mixtral's 32 over 8), 9 and 16.
+# chip_smoke.py's phase 6 runs the same cases.
+SERVED_FLASH_CASES = (
+    [(h, kv, s, w) for h, kv in ((32, 2), (36, 4)) for s in (300, 4096)
+     for w in (0, 128)]
+    + [(h, kv, s, 4096) for h, kv in ((32, 8), (36, 4), (32, 2))
+       for s in (8192, 8192 + 77)])
+
+
+def served_flash_inputs(case, dev):
+    """bf16 q (heads, S, 128) and k, v (kv heads, S, 128) of one
+    `SERVED_FLASH_CASES` case, N(0, 1) from a seed of the case."""
+    h, kv, s, window = case
+    rng = np.random.default_rng(h * 100_000 + kv * 10_000 + s + window)
+    return [torch.from_numpy(rng.standard_normal((n, s, 128)).astype(
+        np.float32)).to(dev, torch.bfloat16) for n in (h, kv, kv)]
+
+
+@pytest.mark.parametrize("case", SERVED_FLASH_CASES,
+                         ids=[f"h{c[0]}-kv{c[1]}-s{c[2]}-w{c[3]}"
+                              for c in SERVED_FLASH_CASES])
+def test_flash_at_the_served_groups_and_window(case):
+    """Groups 16 and 9 and a window of 4,096 through the wgmma variant:
+    the bits repeat and equal the same kernel's on k and v repeated per
+    query row, the plain version holds at one bf16 unit of the output, and
+    every launch counts as grouped and, with a window, as windowed."""
+    dev = _card()
+    h, kv, s, window = case
+    q, k, v = served_flash_inputs(case, dev)
+    before = fa.launches_grouped, fa.launches_windowed
+    got = fa.flash_attention(q, k, v, window=window)
+    again = fa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert (fa.launches_grouped, fa.launches_windowed) == (
+        before[0] + 2, before[1] + (2 if window else 0))
+    assert got.shape == (h, s, 128) and torch.equal(got, again)
+    group = h // kv
+    assert torch.equal(got, fa.flash_attention(
+        q, k.repeat_interleave(group, 0), v.repeat_interleave(group, 0),
+        window=window))
+    want = attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_MASK_TOL)
+
+
 # (dtype, d, S, window) -> sha256 of the output bytes of the multi-head
 # kernel on `_digest_inputs`, recorded on an H100 from the kernel as it
 # was before it took grouped-query attention: a multi-head call (group 1)
@@ -994,6 +1043,18 @@ def test_grouped_matmul_refuses_bad_operands_on_the_card():
     assert gmm_mod.launches_by_variant == by_variant
 
 
+# mixtral-8x7b's widths, 8 experts: the gate and up products (K 4,096, N
+# 14,336) and the down product (K 14,336, N 4,096) at 1,000 rows, skewed,
+# in one group and short of the rows, and a decode step's 8 rows (4
+# tokens, top 2: one row an expert, past split-K's half a row, so the rule
+# gives wgmma; each variant is forced here). chip_smoke.py's phase 12 runs
+# the same cases.
+MIXTRAL_GMM_CASES = [(case, 1000, k, n, 8) for k, n in ((4096, 14336),
+                                                         (14336, 4096))
+                     for case in ("skewed", "one_group", "short")] + [
+    ("decode_top2", 8, 4096, 14336, 8)]
+
+
 def _variant_sizes(rng, case, m, e):
     sizes = np.zeros(e, np.int64)
     if case == "m1":
@@ -1010,6 +1071,9 @@ def _variant_sizes(rng, case, m, e):
     elif case == "decode":              # 4 tokens, 6 distinct experts each
         for _ in range(4):
             sizes[rng.choice(e, 6, replace=False)] += 1
+    elif case == "decode_top2":         # 4 tokens, 2 distinct experts each
+        for _ in range(4):
+            sizes[rng.choice(e, 2, replace=False)] += 1
     else:                               # skewed, with empty groups
         p = 1.0 / (1 + np.arange(e)) ** 1.2
         sizes[:] = rng.multinomial(m, p / p.sum())
@@ -1026,7 +1090,7 @@ def _variant_sizes(rng, case, m, e):
     ("short", 1000, 2048, 1408, 64),
     ("skewed", 1000, 1408, 2048, 64),   # the served widths
     ("decode", 24, 2048, 1408, 64),
-    ("decode", 24, 1408, 2048, 64)])
+    ("decode", 24, 1408, 2048, 64)] + MIXTRAL_GMM_CASES)
 def test_gmm_variant_matches_plain_version(variant, case, m, k, n, e):
     """Each bf16 variant, forced, against the plain version at GMM_TOL
     (float32 out), its bf16 result the float32 one rounded once, its bits

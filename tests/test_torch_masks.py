@@ -184,6 +184,27 @@ def test_chunked_equals_unchunked(mask, round_p, monkeypatch):
                        chunked)
 
 
+@pytest.mark.parametrize("window", [0, 5, 200])
+@pytest.mark.parametrize("prefix", [0, 3, 64])
+@pytest.mark.parametrize("s", [7, 130])
+def test_visible_pairs_counts_the_mask(s, prefix, window):
+    """`ref.visible_pairs`, the closed form that chip_smoke.py's flash
+    bound counts (a window's pairs and a prefix's), equals the (row, key)
+    pairs that `visible` and the reference's ``layers._attn_mask`` let
+    through, causal and not."""
+    pos = torch.arange(s)
+    for causal in (True, False):
+        want = int(fa_ref.visible(pos, pos, causal=causal, prefix=prefix,
+                                  window=window).sum())
+        cfg = dataclasses.replace(jax_smoke("mixtral-8x7b", layers=1),
+                                  causal=causal, window=window,
+                                  prefix_tokens=prefix)
+        jpos = jnp.arange(s)
+        assert int(JL._attn_mask(jpos, jpos, cfg).sum()) == want
+        assert fa_ref.visible_pairs(s, causal=causal, prefix=prefix,
+                                    window=window) == want
+
+
 def test_wrapper_checks_the_mask_and_names_its_kind():
     """A negative window or prefix is refused; a device other than the CPU
     and CUDA is refused; each call counts under one of `fa.MASKS`."""

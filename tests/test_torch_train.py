@@ -302,7 +302,8 @@ def test_ef_compressed_psum_is_not_ported():
 # -------------------------------------------------------------------- loss
 LOSS_ARCHS = [("qwen2.5-3b", 1e-5), ("minicpm-2b", 1e-5),
               ("paligemma-3b", 1e-5), ("hubert-xlarge", 5e-5),
-              ("rwkv6-3b", 5e-4), ("zamba2-1.2b", 5e-5)]
+              ("rwkv6-3b", 5e-4), ("zamba2-1.2b", 5e-5),
+              ("chatglm3-6b", 1e-5), ("starcoder2-7b", 1e-5)]
 
 
 @pytest.mark.parametrize("arch,rtol", LOSS_ARCHS)
