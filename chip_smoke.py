@@ -287,8 +287,12 @@ Then training, after the MoE model is freed:
 14. Training. The flash backward's Hopper kernels
     (``flash_bwd_dq_wgmma``, ``flash_bwd_dkdv_wgmma``) at a qwen2.5-3b
     microbatch's attention (32 query rows of 4,096 over 4 kv rows, d 128,
-    causal), a minicpm-2b one's (72 rows, d 64) and a paligemma-3b one's
-    (16 rows over 2 kv rows, d 256, causal with its 256-row prefix):
+    causal), a minicpm-2b one's (72 rows, d 64), a paligemma-3b one's
+    (16 rows over 2 kv rows, d 256, causal with its 256-row prefix),
+    zamba2-1.2b's shared block's (64 rows, d 64), a chatglm3-6b one's (64
+    rows over 4, group 16), a starcoder2-7b one's (72 over 8, group 9)
+    and mixtral-8x7b's heads (64 over 16, group 4) with its 4,096-token
+    window at S 8,192 + 77, where it cuts (`BWD_SHAPES`):
     FlashAttention's
     standard, each of dq, dk and dv at most 2x (plus 1e-3) the max error
     of the plain bf16 path against a float64 autograd oracle, a repeat's
@@ -296,17 +300,21 @@ Then training, after the MoE model is freed:
     of the largest gradient; the same checks of the ``mma.sync`` pair
     (``flash_bwd_dq_bf16``, ``flash_bwd_dkdv_bf16``) at qwen2.5-3b's
     microbatch with d 32; each check's two calls launch both kernels of
-    its variant and no other; the Hopper kernels timed at the three
-    shapes, each kernel alone and
+    its variant and no other, counted under its kv group and, with a
+    window, as windowed; the Hopper kernels timed at those shapes
+    (`BWD_TIMING`: mixtral's at S 16,384, with its window and without,
+    the windowed time held below 0.75 of the other's), each kernel alone
+    and
     the pair, with each kernel's TFLOP/s of its own products, beside the
     plain version, the bound (five products at the bf16 rate, a prefix's
-    extra pairs counted; also seven, what the two kernels issue, and the
+    extra pairs and a window's cut counted; also seven, what the two
+    kernels issue, and the
     FLOPs of the 64 x 64 blocks they multiply whole) and the backward
     alone of
     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
     (timed only, on the backend it takes; causal only, so without a
-    prefix's pairs; ``library_ms`` null with the refusals where no
-    backend takes it). Then qwen2.5-3b at full width
+    prefix's pairs and with those a window cuts; ``library_ms`` null with
+    the refusals where no backend takes it). Then qwen2.5-3b at full width
     and depth (36 layers, 3,085,938,688 parameters, remat on) trained
     for `TRAIN_STEPS` steps through ``train.steps.make_train_step`` with
     ``TrainConfig(microbatch=2)`` (the reference's defaults otherwise): 8
@@ -318,24 +326,21 @@ Then training, after the MoE model is freed:
     forward launches a step (the replay), 144 of each backward kernel (all
     ``wgmma``) and 4 hot-slab launches, counted from zero over the steps;
     every loss finite, the last half's mean below the first half's (the
-    last 3 against the first 3), and, on one
+    last 2 against the first 2), and, on one
     microbatch first, no gradient leaf all zero; then ``torch.profiler``
     over one more step: the device's busy share and its ten costliest
     device operations. Then one microbatch's loss and
     gradients on the card against the CPU, the width cut to 2 layers, 1 x
     512 tokens (the loss within 1e-2, each leaf within 5e-2 relative L2;
     the CPU's half in a pool worker from the start of phase 14);
-    then, on the card, the same gradients with remat off, bit for bit;
-    then tests/test_system.py's resume test through ``launch/train.main``
-    at that cut (``--depth 2``): one checkpoint, the crashed run's
-    periodic save, into a temporary directory (every run passes
-    ``--no-final-ckpt``: no closing save is ever read). The full-depth
-    run saves no checkpoint.
+    then, on the card, the same gradients with remat off, bit for bit.
+    The full-depth run saves no checkpoint (the resume test through
+    ``launch/train.main`` runs on zamba2-1.2b and smoke mixtral below).
 
     Then, after qwen's model is freed, paligemma-3b
     (`prefix_train_phase`) at full width and depth (18 layers,
-    2,508,660,736 parameters, remat on), trained as qwen is for 6
-    steps: 8 x 4,096 positions a step, each sequence
+    2,508,660,736 parameters, remat on), trained as qwen is for
+    `TRAIN_STEPS` steps: 8 x 4,096 positions a step, each sequence
     a 256-row prefix of zero embeddings (as the reference's trainer builds
     it) and 3,840 corpus tokens; 18 x 4 x 2 grouped, prefix-masked flash
     forward launches a step and 72 of each backward kernel, all
@@ -354,8 +359,9 @@ Then training, after the MoE model is freed:
     rows (float32 at rtol/atol 1e-4, the bf16 result that one rounded, a
     repeat's bits equal), and dX and dW through ``ragged_dot``'s autograd
     Function at two of them. moonshot-v1-16b-a3b at full width, 4 of its
-    48 layers (3,022,536,704 parameters), trained as qwen is (remat on, 6
-    steps of 8 x 4,096 tokens in microbatches of 2, one profiled step):
+    48 layers (3,022,536,704 parameters), trained as qwen is (remat on,
+    `TRAIN_STEPS` steps of 8 x 4,096 tokens in microbatches of 2, one
+    profiled step):
     each layer a microbatch launches 3 ``moe_gmm`` (``wgmma``) in the
     forward, 3 in the replay and 3 for dX, and 3 ``tgmm``: 144 and 48 a
     step, asserted; no gradient leaf all zero on the first microbatch,
@@ -372,10 +378,28 @@ Then training, after the MoE model is freed:
     zero), and on the card remat on against off over the same
     parameters, its own routing: the replay routes as the forward did and
     every gradient is equal bit for bit.
-    Then the resume test on smoke moonshot (``--smoke``: a full-width save
-    of even one layer is about 15 GB), and smoke moonshot's checkpoint
-    tree (params and AdamW moments) through save, restore and
-    ``load_state`` on the card, bit for bit.
+    Then smoke moonshot's checkpoint tree (params and AdamW moments)
+    through save, restore and ``load_state`` on the card, bit for bit
+    (the MoE's resume test runs on smoke mixtral below).
+
+    Then the configs phase 13 serves last (`wide_train_phase`):
+    chatglm3-6b (group 16, half rotary, q/k/v biases), starcoder2-7b
+    (group 9, layernorm, biased tanh-GELU MLP, output bias) and
+    mixtral-8x7b (group 4, window 4,096, 8 experts of 14,336, top 2), each
+    at full width and its depth cut to the deepest whose training peak
+    stays under about 62 GiB (`TRAIN_DEPTH`; printed as a cut with the
+    parameters and the peak), trained as the recurrent trunks are below
+    (`RECURRENT_TRAIN_STEPS` steps, a profiled microbatch, no gradient
+    leaf all zero, the loss falling, the launches by kv group and
+    windowed asserted: mixtral's 3 ``tgmm`` a layer a microbatch); for
+    mixtral ``tgmm`` and dX held to their plain versions on layer 0's
+    real rows (16,384 a microbatch over 8 experts) and timed there beside
+    the bound and ``torch._grouped_mm``; each one's card against the CPU
+    (chatglm3-6b and starcoder2-7b at 2 layers, `train_card_vs_cpu`;
+    mixtral at 1 layer, 1.71e9 parameters, on the CPU's replayed routing,
+    `moe_train_card_vs_cpu`) with remat's bits; and the resume test on
+    smoke mixtral (a full-width save of one of its layers is about 20
+    GB).
 
     Then the recurrent trunks (`recurrent_train_phase`): rwkv6-3b (32
     layers, no attention) and zamba2-1.2b (38 Mamba2 layers, the shared
@@ -389,8 +413,10 @@ Then training, after the MoE model is freed:
     path's leaves printed by name: rwkv6-3b's bf16 gradients at that cut
     are chaotic (grad_witness.py), so its runs there take the compute
     dtype float32 (`F32_GRAD_ARCHS`), and it is held in bf16 at 1 layer
-    too; remat on against off bit for bit in bf16; the resume test at
-    ``--depth 2``, full width. Phases 7-11's `time_scan`
+    too; remat on against off bit for bit in bf16; zamba2's resume test
+    at ``--depth 2``, full width (the only full-width resume: those of
+    qwen2.5-3b and rwkv6-3b at 2 layers, about 27 s each, ran the same
+    path). Phases 7-11's `time_scan`
     times each scan's forward plus backward at the prefill and at a
     training microbatch.
 
@@ -453,9 +479,17 @@ TRAIN_ARCH = GQA_ARCH           # phase 14: the reference trainer's default
 TRAIN_SEQ = 4096                # configs/shapes.py's train_4k
 TRAIN_BATCH = 8                 # train_4k's global batch of 256, cut to 8
 TRAIN_MICROBATCH = 2
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4                 # 6 before the last three configs trained
 MOE_TRAIN_LAYERS = 4            # phase 14: moonshot trained, 4 of 48 layers
 MOE_GRAD_LAYERS = 2             # its card-vs-CPU and remat-bits checks
+# phase 14: chatglm3-6b, starcoder2-7b and mixtral-8x7b trained at full
+# width, each at the deepest cut whose training peak stays under about
+# 62 GiB (float32 masters, gradients and both AdamW moments take 16 B a
+# parameter: 3.04, 3.23 and 21.63 GiB a layer; peaks measured at 13, 12
+# and 2 layers: 51.5, 49.9 and 58.9 GiB), and their card-vs-CPU depths
+# (mixtral's one layer holds 1.71e9 parameters)
+TRAIN_DEPTH = {GLM_ARCH: 16, CODE_ARCH: 15, SWA_ARCH: 2}
+WIDE_GRAD_LAYERS = {GLM_ARCH: 2, CODE_ARCH: 2, SWA_ARCH: 1}
 # phase 14: rwkv6-3b and zamba2-1.2b, fewer than `TRAIN_STEPS` to keep the
 # run inside its time limit (a step of rwkv6-3b takes 13-17 s, zamba2's
 # 6), the falling-loss gate then the last loss against the first, and
@@ -475,16 +509,34 @@ F32_GRAD_ARCHS = (RWKV_ARCH,)
 # phase 14's card-against-CPU gradient checks, (arch, layers): their CPU
 # halves run in pool workers from the start of phase 14 (`host_grads`)
 GRAD_CHECKS = ((TRAIN_ARCH, 2), (PREFIX_ARCH, 2), (MOE_ARCH, MOE_GRAD_LAYERS),
-               (RWKV_ARCH, 2), (RWKV_ARCH, 1), (HYBRID_ARCH, 2))
-# the backward checks and timings: (BH, KV, S, d, prefix) of a qwen2.5-3b
+               *WIDE_GRAD_LAYERS.items(), (RWKV_ARCH, 2), (RWKV_ARCH, 1),
+               (HYBRID_ARCH, 2))
+# the backward checks: (BH, KV, S, d, prefix, window) of a qwen2.5-3b
 # microbatch (2 x 16 heads over 2 x 2 kv heads, d 128, causal), a
 # minicpm-2b one (2 x 36, d 64), a paligemma-3b one (2 x 8 heads over 2
-# x 1 kv head, d 256, causal with its 256-row prefix) and one of
-# zamba2-1.2b's shared block (2 x 32, d 64, causal)
-BWD_SHAPES = ((32, 4, 4096, 128, 0), (72, 72, 4096, 64, 0),
-              (16, 2, 4096, 256, 256), (64, 64, 4096, 64, 0))
+# x 1 kv head, d 256, causal with its 256-row prefix), one of
+# zamba2-1.2b's shared block (2 x 32, d 64, causal), a chatglm3-6b one
+# (2 x 32 over 2 x 2, group 16), a starcoder2-7b one (2 x 36 over 2 x 4,
+# group 9) and mixtral-8x7b's (2 x 32 over 2 x 8, group 4, window 4,096)
+# at S 8,192 + 77, where the window cuts (at train_4k's 4,096 it masks
+# nothing)
+BWD_SHAPES = ((32, 4, 4096, 128, 0, 0), (72, 72, 4096, 64, 0, 0),
+              (16, 2, 4096, 256, 256, 0), (64, 64, 4096, 64, 0, 0),
+              (64, 4, 4096, 128, 0, 0), (72, 8, 4096, 128, 0, 0),
+              (64, 16, 8269, 128, 0, 4096))
+BWD_NAMES = ("qwen2.5-3b microbatch, GQA", "minicpm-2b microbatch, MHA",
+             "paligemma-3b microbatch, d 256, prefix",
+             "zamba2-1.2b microbatch, shared block, MHA",
+             "chatglm3-6b microbatch, group 16",
+             "starcoder2-7b microbatch, group 9",
+             "mixtral-8x7b microbatch heads, window 4,096 at S 8,269")
+# the timings: the checks' shapes, mixtral's at S 16,384, where the window
+# lets 58,722,304 of a head's 134,225,920 causal pairs through, and the
+# same without the window beside it
+BWD_TIMING = (*BWD_SHAPES[:-1], (64, 16, 16384, 128, 0, 4096),
+              (64, 16, 16384, 128, 0, 0))
 # the mma.sync pair's check, at qwen2.5-3b's microbatch with d 32
-BWD_MMA_SYNC_SHAPE = (32, 4, 4096, 32, 0)
+BWD_MMA_SYNC_SHAPE = (32, 4, 4096, 32, 0, 0)
 SHARDS = 4                      # phase 4s: phase 4's graph in 4 shards
 # phase 4's oracles in two worker processes, about equal in host time
 ORACLE_PARTS = ("cc", "rest")
@@ -2990,9 +3042,10 @@ def lm_configs() -> dict:
 
 
 # ------------------------------------------------------------- training
-def _plain_attention(q, k, v, prefix: int = 0):
-    """Causal attention (rows below ``prefix`` see every key below it) in
-    the inputs' dtype throughout, k and v repeated per query row: in bf16
+def _plain_attention(q, k, v, prefix: int = 0, window: int = 0):
+    """Causal attention (rows below ``prefix`` see every key below it; a
+    ``window`` keeps the keys less than it behind a row) in the inputs'
+    dtype throughout, k and v repeated per query row: in bf16
     FlashAttention's plain bf16 path, in float64 its oracle."""
     import torch
     from repro_torch.kernels.flash_attn.ref import visible
@@ -3001,21 +3054,37 @@ def _plain_attention(q, k, v, prefix: int = 0):
     k, v = k.repeat_interleave(group, 0), v.repeat_interleave(group, 0)
     logits = torch.einsum("bqd,bkd->bqk", q, k) * d ** -0.5
     pos = torch.arange(s, device=q.device)
-    logits = torch.where(visible(pos, pos, prefix=prefix)[None], logits,
-                         -1e30)
+    logits = torch.where(visible(pos, pos, prefix=prefix,
+                                 window=window)[None], logits, -1e30)
     return torch.einsum("bqk,bkd->bqd", torch.softmax(logits, dim=-1), v)
 
 
-def _grads_of(fn, q, k, v, do, dtype, prefix):
+def _grads_of(fn, q, k, v, do, dtype, prefix, window):
     import torch
     leaves = [t.detach().to(dtype).requires_grad_(True) for t in (q, k, v)]
-    return torch.autograd.grad(fn(*leaves, prefix=prefix), leaves,
-                               do.to(dtype))
+    return torch.autograd.grad(fn(*leaves, prefix=prefix, window=window),
+                               leaves, do.to(dtype))
 
 
-def flash_bwd_check(name, variant, bh, kv, s, d, prefix, dev) -> float:
-    """The backward kernels, causal with a ``prefix`` (0: none), at
-    FlashAttention's standard: dq, dk and dv each at most 2x (plus 1e-3)
+def bwd_group_launches(since: dict) -> dict:
+    """The backward's kernel launches by kv group since ``since`` (a copy
+    of `flash_attn.launches_bwd_by_group`), the groups with any."""
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    return {g: n - since.get(g, 0)
+            for g, n in sorted(fa.launches_bwd_by_group.items())
+            if n != since.get(g, 0)}
+
+
+def bwd_mask_text(prefix: int, window: int) -> str:
+    return ("causal" + (f" with a {prefix}-row prefix" if prefix else "")
+            + (f", window {window}" if window else ""))
+
+
+def flash_bwd_check(name, variant, bh, kv, s, d, prefix, window,
+                    dev) -> float:
+    """The backward kernels, causal with a ``prefix`` and a ``window`` (0:
+    none), at FlashAttention's standard: dq, dk and dv each at most 2x
+    (plus 1e-3)
     the max error of the plain bf16 path against a float64 autograd
     oracle, both taken a kv head's query group at a time; a repeat gives
     the same bits; both calls launch the two kernels of ``variant`` and
@@ -3031,18 +3100,26 @@ def flash_bwd_check(name, variant, bh, kv, s, d, prefix, dev) -> float:
         return torch.randn((rows, s, d), generator=gen, device=dev).to(
             torch.bfloat16)
     q, do, k, v = draw(bh), draw(bh), draw(kv), draw(kv)
-    o, lse = fa.flash_attention_lse(q, k, v, prefix=prefix)
+    mask = dict(prefix=prefix, window=window)
+    o, lse = fa.flash_attention_lse(q, k, v, **mask)
     by0 = dict(fa.launches_bwd_by_variant)
-    got = fa.flash_attention_bwd(q, k, v, o, lse, do, prefix=prefix)
-    again = fa.flash_attention_bwd(q, k, v, o, lse, do, prefix=prefix)
+    group0 = dict(fa.launches_bwd_by_group)
+    windowed0 = fa.launches_bwd_windowed
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"flash backward[{name}]: two runs differ")
-    launched = {x: fa.launches_bwd_by_variant[x] - by0[x] for x in by0}
-    if launched != {x: 4 if x == variant else 0 for x in by0}:
-        raise AssertionError(f"flash backward[{name}]: launches by variant "
-                             f"{launched}, expected 4 {variant}")
     group = bh // kv
+    launched = {x: fa.launches_bwd_by_variant[x] - by0[x] for x in by0}
+    by_group = bwd_group_launches(group0)
+    windowed = fa.launches_bwd_windowed - windowed0
+    if (launched != {x: 4 if x == variant else 0 for x in by0}
+            or by_group != {group: 4} or windowed != 4 * (window > 0)):
+        raise AssertionError(f"flash backward[{name}]: launches by variant "
+                             f"{launched}, by group {by_group}, windowed "
+                             f"{windowed}; expected 4 {variant} at group "
+                             f"{group}")
     err = {c: 0.0 for c in "qkv"}
     base = dict(err)
     heads = max(1, 8 // group)          # kv heads a chunk: 8 query rows
@@ -3050,8 +3127,10 @@ def flash_bwd_check(name, variant, bh, kv, s, d, prefix, dev) -> float:
         rows = slice(j * group, (j + heads) * group)
         kvr = slice(j, j + heads)
         args = (q[rows], k[kvr], v[kvr], do[rows])
-        oracle = _grads_of(_plain_attention, *args, torch.float64, prefix)
-        plain = _grads_of(_plain_attention, *args, torch.bfloat16, prefix)
+        oracle = _grads_of(_plain_attention, *args, torch.float64, prefix,
+                           window)
+        plain = _grads_of(_plain_attention, *args, torch.bfloat16, prefix,
+                          window)
         mine = (got[0][rows], got[1][kvr], got[2][kvr])
         for c, g, o_, p_ in zip("qkv", mine, oracle, plain):
             err[c] = max(err[c], float((g.double() - o_).abs().max()))
@@ -3062,7 +3141,7 @@ def flash_bwd_check(name, variant, bh, kv, s, d, prefix, dev) -> float:
             raise AssertionError(
                 f"flash backward[{name}] d{c}: {err[c]:.3e} against the "
                 f"float64 oracle, the plain bf16 path's {base[c]:.3e}")
-    want = attention_bwd_ref(q, k, v, o, lse, do, prefix=prefix)
+    want = attention_bwd_ref(q, k, v, o, lse, do, **mask)
     plain_err = 0.0
     for g, w in zip(got, want):
         scale = float(w.float().abs().max())
@@ -3070,43 +3149,53 @@ def flash_bwd_check(name, variant, bh, kv, s, d, prefix, dev) -> float:
                                    atol=2e-2 * scale)
         plain_err = max(plain_err, float((g.float() - w.float()).abs().max()))
     print(f"flash backward[{name}]: (BH, S, d)=({bh}, {s}, {d}) over {kv} "
-          f"kv rows, causal{f' with a {prefix}-row prefix' if prefix else ''}"
-          f", {variant}; max |err| against the float64 oracle "
+          f"kv rows (group {group}), {bwd_mask_text(prefix, window)}, "
+          f"{variant}; max |err| against the float64 oracle "
           + ", ".join(f"d{c} {err[c]:.3e} (plain bf16 path {base[c]:.3e})"
                       for c in "qkv")
           + f"; against attention_bwd_ref {plain_err:.3e}; bits repeat")
     return plain_err
 
 
-def bwd_pairs(s: int, prefix: int = 0, step: int = 64) -> tuple[int, int]:
-    """(pairs, blocks) of a causal mask with ``prefix`` over S ``s``, a
-    head: the (row, key) pairs it lets through, and the 64-row by 64-key
-    blocks (``step``) with at least one of them, which the ``wgmma``
-    backward kernels multiply whole (a block with none they skip)."""
+def bwd_pairs(s: int, prefix: int = 0, window: int = 0,
+              step: int = 64) -> tuple[int, int]:
+    """(pairs, blocks) of a causal mask with ``prefix`` and ``window`` over
+    S ``s``, a head: the (row, key) pairs it lets through
+    (`ref.visible_pairs`), and the 64-row by 64-key blocks (``step``) with
+    at least one of them, which the ``wgmma`` backward kernels multiply
+    whole (a block with none they skip). A block of rows r and keys c
+    holds a causal pair where some r - c lies in [0, window), and a
+    prefix pair where some r and c lie below the prefix with r - c below
+    the window."""
+    import numpy as np
     from repro_torch.kernels.flash_attn.ref import visible_pairs
     p = min(prefix, s)
-    pairs = visible_pairs(s, prefix=prefix)
-    n = -(-s // step)
-    blocks = n * (n + 1) // 2
-    pn = -(-p // step)
-    blocks += pn * (pn - 1) // 2       # the prefix's blocks above the diagonal
-    return pairs, blocks
+    w = window if window > 0 else s
+    first = np.arange(0, s, step)
+    last = np.minimum(first + step, s) - 1
+    r0, r1, c0, c1 = first[:, None], last[:, None], first[None], last[None]
+    causal = (r1 - c0 >= 0) & (r0 - c1 < w)
+    pre = (r0 < p) & (c0 < p) & (r0 - np.minimum(c1, p - 1) < w)
+    return (visible_pairs(s, prefix=prefix, window=window),
+            int((causal | pre).sum()))
 
 
-def time_flash_bwd(bh, kv, s, d, prefix, dev) -> dict:
-    """The backward kernels timed at one of `BWD_SHAPES` (causal, with a
-    ``prefix`` where it has one): each kernel alone
+def time_flash_bwd(bh, kv, s, d, prefix, window, dev) -> dict:
+    """The backward kernels timed at one of `BWD_TIMING` (causal, with a
+    ``prefix`` and a ``window`` where it has them): each kernel alone
     (`flash_attn.backward_launches`; the dk/dv kernel reads the dq
     kernel's rows, written once before), the pair as `flash_attention_bwd`
     runs it, their plain version, and the backward alone of
     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-    on the backend it takes (causal only: without a prefix's extra pairs;
-    ``library_ms`` None, with the refusals, where no backend takes it).
+    on the backend it takes (causal only: without a prefix's extra pairs
+    and with the pairs a window cuts, so timed only; ``library_ms`` None,
+    with the refusals, where no backend takes it).
     The bound: the five products of the math, 2·d FLOPs a visible (row,
-    key) pair each, at the card's bf16 rate (and the seven the two kernels
-    issue: dq recomputes S and dP); ``issued_flops`` counts what the
-    kernels multiply: seven products over every 64 x 64 block that holds
-    a visible pair. Each kernel's TFLOP/s counts its own products over the
+    key) pair each (`bwd_pairs`: a window's and a prefix's counted), at
+    the card's bf16 rate (and the seven the two kernels issue: dq
+    recomputes S and dP); ``issued_flops`` counts what the kernels
+    multiply: seven products over every 64 x 64 block that holds a
+    visible pair. Each kernel's TFLOP/s counts its own products over the
     visible pairs (dq: S, dP, dQ; dk/dv: S, dP, dV, dK)."""
     import torch
     import torch.nn.functional as F
@@ -3119,21 +3208,22 @@ def time_flash_bwd(bh, kv, s, d, prefix, dev) -> dict:
         return torch.randn((rows, s, d), generator=gen, device=dev).to(
             torch.bfloat16)
     q, do, k, v = draw(bh), draw(bh), draw(kv), draw(kv)
-    o, lse = fa.flash_attention_lse(q, k, v, prefix=prefix)
+    mask = dict(prefix=prefix, window=window)
+    o, lse = fa.flash_attention_lse(q, k, v, **mask)
     _, launch_dq, launch_dkdv = fa.backward_launches(q, k, v, o, lse, do,
-                                                     prefix=prefix)
+                                                     **mask)
     launch_dq()
-    out = {"shape": [bh, kv, s, d], "prefix": prefix,
+    out = {"shape": [bh, kv, s, d], "prefix": prefix, "window": window,
            "variant": fa.bwd_variant(q.dtype, d),
            "ms": cuda_ms(lambda: fa.flash_attention_bwd(
-               q, k, v, o, lse, do, prefix=prefix), reps=20, warmup=2),
+               q, k, v, o, lse, do, **mask), reps=20, warmup=2),
            "dq_ms": cuda_ms(launch_dq, reps=20, warmup=2),
            "dkdv_ms": cuda_ms(launch_dkdv, reps=20, warmup=2),
            # the training forward's call, for the step's breakdown
            "forward_lse_ms": cuda_ms(lambda: fa.flash_attention_lse(
-               q, k, v, prefix=prefix), reps=10, warmup=2),
+               q, k, v, **mask), reps=10, warmup=2),
            "plain_ms": cuda_ms(lambda: attention_bwd_ref(
-               q, k, v, o, lse, do, prefix=prefix), reps=1, warmup=1)}
+               q, k, v, o, lse, do, **mask), reps=1, warmup=1)}
     backend, refused = None, []
     for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
               SDPBackend.EFFICIENT_ATTENTION):
@@ -3157,13 +3247,15 @@ def time_flash_bwd(bh, kv, s, d, prefix, dev) -> dict:
                 y, leaves, do[None], retain_graph=True), reps=10, warmup=2)
         out["library"] = (f"F.scaled_dot_product_attention(is_causal=True, "
                           f"enable_gqa=True) backward on {backend.name}"
-                          + (", causal only" if prefix else ""))
-    pairs, blocks = bwd_pairs(s, prefix)
+                          + (", causal only, timed only" if prefix or window
+                             else ""))
+    pairs, blocks = bwd_pairs(s, prefix, window)
     product = 2 * d * pairs * bh    # FLOPs of one product
     nbytes = (4 * bh + 4 * kv) * s * d * 2 + bh * s * 4
     ops_ms = 5 * product / BF16_FLOPS * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    out.update(bound_ms=max(ops_ms, bytes_ms),
+    out.update(pairs_per_head=pairs, blocks_per_head=blocks,
+               bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                bound_flops=5 * product,
                bound7_ms=7 * product / BF16_FLOPS * 1e3,
@@ -3173,7 +3265,8 @@ def time_flash_bwd(bh, kv, s, d, prefix, dev) -> dict:
     lib = ("refused" if out["library_ms"] is None
            else f"{out['library_ms']:.4f}")
     print(f"flash backward timing: (BH, S, d)=({bh}, {s}, {d}) over {kv} kv "
-          f"rows, causal{f' with a {prefix}-row prefix' if prefix else ''}, "
+          f"rows (group {bh // kv}), {bwd_mask_text(prefix, window)}, "
+          f"{pairs} pairs and {blocks} blocks a head, "
           f"{out['variant']}: ms={out['ms']:.4f} (dq "
           f"{out['dq_ms']:.4f} ms, {out['dq_tflops']:.1f} TFLOP/s of its "
           f"three products; dkdv {out['dkdv_ms']:.4f} ms, "
@@ -3265,7 +3358,8 @@ def with_prefix(cfg, tokens, dev) -> dict:
 def train_full_width(dev, cfg, steps: int = TRAIN_STEPS,
                      profile_rows: int = TRAIN_BATCH) -> dict:
     """``cfg`` at full width (qwen2.5-3b, paligemma-3b, rwkv6-3b and
-    zamba2-1.2b at full depth, moonshot cut in depth), remat on, trained
+    zamba2-1.2b at full depth; moonshot, chatglm3-6b, starcoder2-7b and
+    mixtral-8x7b cut in depth, `TRAIN_DEPTH`), remat on, trained
     for ``steps`` steps through
     `train.steps.make_train_step`: a global batch of `TRAIN_BATCH` x
     `TRAIN_SEQ` positions (``train_4k``'s sequence; its batch of 256 cut
@@ -3376,6 +3470,8 @@ def train_full_width(dev, cfg, steps: int = TRAIN_STEPS,
     reset_lm_launches()
     bwd0 = dict(fa.launches_bwd)
     by0 = dict(fa.launches_bwd_by_variant)
+    group0 = dict(fa.launches_bwd_by_group)
+    windowed0 = fa.launches_bwd_windowed
     for i, tokens in enumerate(batches):
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
@@ -3398,10 +3494,14 @@ def train_full_width(dev, cfg, steps: int = TRAIN_STEPS,
                 "flash_bwd_dq": fa.launches_bwd["dq"] - bwd0["dq"],
                 "flash_bwd_dkdv": fa.launches_bwd["dkdv"] - bwd0["dkdv"],
                 **{f"flash_bwd_{k}": fa.launches_bwd_by_variant[k] - by0[k]
-                   for k in by0}}
+                   for k in by0},
+                **{f"flash_bwd_group{g}": n
+                   for g, n in bwd_group_launches(group0).items()},
+                "flash_bwd_windowed": fa.launches_bwd_windowed - windowed0}
     micro = steps * TRAIN_BATCH // TRAIN_MICROBATCH
     layers = len(cfg.attn_positions)
     bwd = fa.bwd_variant(torch.bfloat16, cfg.head_dim)
+    group = cfg.num_heads // cfg.num_kv_heads
     # the forward and its replay, then the backward, each microbatch
     expected = {**flash_launches(cfg, 2 * micro), "hot_embed": micro,
                 **gmm_launches(cfg, TRAIN_MICROBATCH * TRAIN_SEQ, 2 * micro,
@@ -3409,7 +3509,10 @@ def train_full_width(dev, cfg, steps: int = TRAIN_STEPS,
                 "flash_bwd_dq": layers * micro,
                 "flash_bwd_dkdv": layers * micro,
                 **{f"flash_bwd_{k}": 2 * layers * micro if k == bwd else 0
-                   for k in by0}}
+                   for k in by0},
+                **({f"flash_bwd_group{group}": 2 * layers * micro}
+                   if layers else {}),
+                "flash_bwd_windowed": 2 * layers * micro if cfg.window else 0}
     if launches != expected:
         raise AssertionError(f"training launches {launches}, expected "
                              f"{expected}")
@@ -3432,7 +3535,8 @@ def train_full_width(dev, cfg, steps: int = TRAIN_STEPS,
     del model, opt
     torch.cuda.empty_cache()
     return {"launches": launches, "steps": rows, "profile": profile,
-            "layer0": layer0}
+            "layer0": layer0, "params": n_params,
+            "peak_gib": max(r["peak_gib"] for r in rows)}
 
 
 # the port's hand-written kernels, by (a part of) their function names
@@ -3654,10 +3758,10 @@ def train_prefix_run(dev) -> None:
 
 def train_resume(dev, arch: str, cut: list) -> None:
     """tests/test_system.py::test_train_resume_continues through
-    ``launch.train.main`` on the card, ``arch`` cut by ``cut`` (qwen2.5-3b,
-    paligemma-3b, rwkv6-3b, zamba2-1.2b: ``--depth 2``, their full width;
-    moonshot: ``--smoke``, since a full-width save of even one layer is
-    about 15 GB): steps 0-9 straight, then 0-4 with a periodic save at
+    ``launch.train.main`` on the card, ``arch`` cut by ``cut`` (zamba2-1.2b:
+    ``--depth 2``, its full width; mixtral-8x7b: ``--smoke``, since a
+    full-width save of even one of its layers is about 20 GB): steps 0-9
+    straight, then 0-4 with a periodic save at
     step 4, a "crash", and ``--resume`` for 5-9, all with
     ``--total-steps 10``; the first five losses of two runs at rtol 1e-5,
     the resumed ones at rtol/atol 5e-3. Only the crashed run saves, once,
@@ -3805,8 +3909,10 @@ def tgmm_kernel_cases(dev) -> float:
 def time_tgmm(layer0: dict) -> dict:
     """`tgmm` at a training microbatch's shapes (layer 0's real rows and
     dY, kept from the first microbatch's backward): the gate product's
-    weight gradient (xᵀ (2048 x 49,152) @ dY (49,152 x 1408) over 64
-    groups) and the down product's (its transpose widths), each beside
+    weight gradient (moonshot: xᵀ (2048 x 49,152) @ dY (49,152 x 1408)
+    over 64 groups; mixtral-8x7b: xᵀ (4096 x 16,384) @ dY (16,384 x
+    14,336) over 8) and the down product's (its transpose widths), each
+    beside
     its plain version, the bound (operations at the bf16 rate, bytes at
     HBM's: x and dY read once, dW written once) and one PyTorch call as a
     yardstick, ``torch._grouped_mm(xᵀ, dY, offs=)`` (timed only; the port
@@ -3870,8 +3976,10 @@ def time_tgmm(layer0: dict) -> dict:
     return out
 
 
-def moe_train_card_vs_cpu(dev, host) -> dict:
-    """moonshot's width cut to `MOE_GRAD_LAYERS` layers, 1 x 512 tokens,
+def moe_train_card_vs_cpu(dev, host, arch: str = MOE_ARCH,
+                          layers: int = MOE_GRAD_LAYERS) -> dict:
+    """An MoE's width (moonshot's, mixtral-8x7b's) cut to ``layers``
+    layers, 1 x 512 tokens,
     remat on in both runs (the config's own setting): one microbatch's
     loss and gradients on the CPU (``host``, a future of `host_grads` from
     the pool: plain versions) and on the card (kernels), the card
@@ -3886,11 +3994,10 @@ def moe_train_card_vs_cpu(dev, host) -> dict:
     from repro_torch.models.moe import RouteTape
     from repro_torch.models.transformer import Transformer, param_tree
 
-    cfg = grad_cut(MOE_ARCH, MOE_GRAD_LAYERS)
+    cfg = grad_cut(arch, layers)
     if not cfg.remat:
         raise AssertionError(f"{cfg.name} trains with remat")
-    layers = cfg.num_layers
-    label = "MoE train card vs CPU"
+    label = f"MoE train card vs CPU [{cfg.name}, depth {layers}]"
     card = draw_weights(cfg, dev)
     batch = lm_batch(cfg, token_source(cfg, 512), 1, 512)
     cpu = host_result(host, label, card)
@@ -3919,11 +4026,12 @@ def moe_train_card_vs_cpu(dev, host) -> dict:
     if not (len(replay) == len(off_tape.experts) == layers and all(
             torch.equal(a, b) for a, b in zip(fwd, replay[::-1])) and all(
             torch.equal(a, b) for a, b in zip(fwd, off_tape.experts))):
-        raise AssertionError("the remat replay routed otherwise")
+        raise AssertionError(f"{cfg.name}: the remat replay routed "
+                             f"otherwise")
     differ = [n for n in on if not torch.equal(on[n], off[n])]
     if differ:
-        raise AssertionError(f"remat on and off give other gradient bits: "
-                             f"{differ[:8]}")
+        raise AssertionError(f"{cfg.name}: remat on and off give other "
+                             f"gradient bits: {differ[:8]}")
     parted = sum(int((a != b).any(-1).sum())
                  for a, b in zip(fwd, experts[:layers]))
     print(f"train remat bits [{cfg.name}]: {layers} layers on the card, its "
@@ -3985,9 +4093,8 @@ def moe_train_phase(dev, host: GradJobs) -> dict:
     checked on the card, moonshot trained at full width and
     `MOE_TRAIN_LAYERS` layers, `tgmm` and dX checked on layer 0's real
     rows and timed there, the card's gradients against the CPU's and
-    remat's bits, a resume through ``launch/train.main`` and a checkpoint
-    round trip. ``host`` holds the futures of the CPU's halves
-    (`GRAD_CHECKS`)."""
+    remat's bits, and a checkpoint round trip. ``host`` holds the futures
+    of the CPU's halves (`GRAD_CHECKS`)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import cut_depth
     t0 = time.perf_counter()
@@ -4003,11 +4110,59 @@ def moe_train_phase(dev, host: GradJobs) -> dict:
     del layer0
     run["card_vs_cpu"] = moe_train_card_vs_cpu(
         dev, host[MOE_ARCH, MOE_GRAD_LAYERS])
-    train_resume(dev, MOE_ARCH, ["--smoke"])
     ckpt_round_trip(dev)
     run["err"] = err
     print(f"phase 14 [{MOE_ARCH}]: {time.perf_counter() - t0:.1f} s wall")
     return run
+
+
+def wide_train_phase(dev, host: GradJobs) -> dict:
+    """Phase 14's part for the configs phase 13 serves last, after
+    moonshot's: chatglm3-6b (group 16, half rotary, q/k/v biases),
+    starcoder2-7b (group 9, layernorm, biased GELU MLP) and mixtral-8x7b
+    (group 4, window 4,096, 8 experts of 14,336), each at full width and
+    its depth cut `TRAIN_DEPTH`, through `train_full_width`
+    (`RECURRENT_TRAIN_STEPS` steps and a profiled step of one
+    microbatch; the depth printed as a
+    cut with the parameters and the peak); for mixtral `tgmm` and dX held
+    to their plain versions on layer 0's real rows and timed there; each
+    one's card against the CPU at `WIDE_GRAD_LAYERS` with remat's bits
+    (`train_card_vs_cpu`, mixtral's on the CPU's replayed routing,
+    `moe_train_card_vs_cpu`); and a resume through ``launch.train.main``
+    on smoke mixtral (a full-width save of one of its layers is about 20
+    GB). Returns each arch's run by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+    out = {}
+    for arch, depth in TRAIN_DEPTH.items():
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        run = train_full_width(dev, cut_depth(full, depth),
+                               RECURRENT_TRAIN_STEPS, TRAIN_MICROBATCH)
+        print(f"train [{arch}]: depth cut to {depth} of {full.num_layers} "
+              f"layers at full width, {run['params']} parameters, peak "
+              f"{run['peak_gib']:.1f} GiB")
+        layer0 = run.pop("layer0")
+        if layer0 is not None:
+            err = 0.0
+            for name in ("gate", "down"):
+                x, dy, offs = layer0[name]
+                err = max(err, tgmm_check(f"{arch} layer0 train {name}", x,
+                                          dy, offs),
+                          dx_check(f"{arch} layer0 train {name}", x,
+                                   layer0[f"w_{name}"], dy, offs))
+            run.update(err=err, timing=time_tgmm(layer0))
+            del layer0
+        layers = WIDE_GRAD_LAYERS[arch]
+        if full.is_moe:
+            run["card_vs_cpu"] = moe_train_card_vs_cpu(
+                dev, host[arch, layers], arch, layers)
+        else:
+            train_card_vs_cpu(dev, arch, host[arch, layers], layers)
+        print(f"phase 14 [{arch}]: {time.perf_counter() - t0:.1f} s wall")
+        out[arch] = run
+    timed("14 [resume]", train_resume, dev, SWA_ARCH, ["--smoke"])
+    return out
 
 
 def prefix_train_phase(dev, host: GradJobs) -> dict:
@@ -4036,8 +4191,8 @@ def recurrent_train_phase(dev, host: GradJobs) -> dict:
     slab), its card's gradients held to the CPU's at 2 layers with remat's
     bits and the decay path by name (`train_card_vs_cpu`; zamba2's cut
     keeps its shared block; rwkv6-3b's in float32, then in bf16 at 1
-    layer), and a resume through ``launch.train.main`` at ``--depth 2``.
-    Returns each arch's run by name."""
+    layer), and zamba2's resume through ``launch.train.main`` at
+    ``--depth 2``. Returns each arch's run by name."""
     from repro_torch.configs import get_config
     out = {}
     for arch in (RWKV_ARCH, HYBRID_ARCH):
@@ -4048,7 +4203,8 @@ def recurrent_train_phase(dev, host: GradJobs) -> dict:
         train_card_vs_cpu(dev, arch, host[arch, 2])
         if arch in F32_GRAD_ARCHS:
             train_card_vs_cpu(dev, arch, host[arch, 1], 1)
-        train_resume(dev, arch, ["--depth", "2"])
+        if arch == HYBRID_ARCH:     # phase 14's one full-width resume
+            timed("14 [resume]", train_resume, dev, arch, ["--depth", "2"])
         print(f"phase 14 [{arch}]: {time.perf_counter() - t0:.1f} s wall")
         out[arch] = run
     return out
@@ -4057,38 +4213,54 @@ def recurrent_train_phase(dev, host: GradJobs) -> dict:
 def train_phase(dev, pool: HostPool) -> dict:
     """Phase 14: training. The CPU's halves of its card-against-CPU checks
     submitted to ``pool`` (`GradJobs`), then the backward kernels
-    checked and timed, then
+    checked (`BWD_SHAPES`) and timed (`BWD_TIMING`: mixtral's window at S
+    16,384 must take clearly less than the same call without it), then
     qwen2.5-3b trained at full width and depth, the card's gradients held
-    to the CPU's, and a resume through ``launch/train.main``; then
-    paligemma-3b the same way (`prefix_train_phase`); then
-    moonshot-v1-16b-a3b's MoE (`moe_train_phase`); then the recurrent
-    trunks (`recurrent_train_phase`)."""
+    to the CPU's; then paligemma-3b the same way (`prefix_train_phase`);
+    then moonshot-v1-16b-a3b's MoE (`moe_train_phase`); then chatglm3-6b,
+    starcoder2-7b and mixtral-8x7b (`wide_train_phase`); then the
+    recurrent trunks (`recurrent_train_phase`). Each part prints its
+    wall."""
     from repro_torch.configs import get_config
     host = GradJobs(pool)
-    err = max(flash_bwd_check("qwen2.5-3b microbatch, GQA", "wgmma",
-                              *BWD_SHAPES[0], dev),
-              flash_bwd_check("minicpm-2b microbatch, MHA", "wgmma",
-                              *BWD_SHAPES[1], dev),
-              flash_bwd_check("paligemma-3b microbatch, d 256, prefix",
-                              "wgmma", *BWD_SHAPES[2], dev),
-              flash_bwd_check("zamba2-1.2b microbatch, shared block, MHA",
-                              "wgmma", *BWD_SHAPES[3], dev),
-              flash_bwd_check("qwen2.5-3b microbatch at d 32, GQA",
-                              "mma_sync", *BWD_MMA_SYNC_SHAPE, dev))
-    timing = [time_flash_bwd(*shape, dev) for shape in BWD_SHAPES]
+
+    def checks():
+        return max([flash_bwd_check(name, "wgmma", *shape, dev)
+                    for name, shape in zip(BWD_NAMES, BWD_SHAPES)]
+                   + [flash_bwd_check("qwen2.5-3b microbatch at d 32, GQA",
+                                      "mma_sync", *BWD_MMA_SYNC_SHAPE, dev)])
+    err = timed("14 [flash backward checks]", checks)
+    timing = timed("14 [flash backward timing]",
+                   lambda: [time_flash_bwd(*shape, dev)
+                            for shape in BWD_TIMING])
+    windowed, causal = timing[-2:]
+    share = windowed["pairs_per_head"] / causal["pairs_per_head"]
+    if not windowed["ms"] < 0.75 * causal["ms"]:
+        raise AssertionError(
+            f"the windowed backward at S 16,384 takes {windowed['ms']:.4f} "
+            f"ms against {causal['ms']:.4f} without the window: its key "
+            f"tiles left of the window are not skipped")
+    print(f"flash backward: mixtral's window at S 16,384 lets {share:.3f} "
+          f"of the causal pairs through and takes "
+          f"{windowed['ms'] / causal['ms']:.3f} of the causal time "
+          f"({windowed['ms']:.4f} against {causal['ms']:.4f} ms)")
+    t0 = time.perf_counter()
     run = train_full_width(dev, get_config(TRAIN_ARCH))
     run.pop("layer0")
     train_card_vs_cpu(dev, TRAIN_ARCH, host[TRAIN_ARCH, 2])
-    train_resume(dev, TRAIN_ARCH, ["--depth", "2"])
+    print(f"phase 14 [{TRAIN_ARCH}]: {time.perf_counter() - t0:.1f} s wall")
     pali = prefix_train_phase(dev, host)
     moe = moe_train_phase(dev, host)
+    wide = wide_train_phase(dev, host)
     recurrent = recurrent_train_phase(dev, host)
     parts = (run["launches"], pali["launches"], moe["launches"],
+             *(r["launches"] for r in wide.values()),
              *(r["launches"] for r in recurrent.values()))
     launches = {k: sum(x.get(k, 0) for x in parts)
                 for k in set().union(*parts)}
     return {"err": err, "timing": timing, **run, "launches": launches,
-            "prefix": pali, "moe": moe, "recurrent": recurrent}
+            "prefix": pali, "moe": moe, "wide": wide,
+            "recurrent": recurrent}
 
 
 def timed(label: str, fn, *args):
@@ -4225,6 +4397,10 @@ def run(torch, corpora: dict, oracles: list, configs: dict,
         return (sum(r[w].get(name, 0) for r in runs for w in ("pre", "serve"))
                 + train["launches"].get(name, 0))
 
+    def bwd_groups(counts):     # training's backward launches by kv group
+        return {k[len("flash_bwd_group"):]: v for k, v in sorted(
+            counts.items()) if k.startswith("flash_bwd_group")}
+
     kernels = [{
         "name": "csr_spmv",
         "route": "cuda",
@@ -4269,6 +4445,8 @@ def run(torch, corpora: dict, oracles: list, configs: dict,
                                "dkdv": launches("flash_bwd_dkdv")},
         "launches_by_variant": {"wgmma": launches("flash_bwd_wgmma"),
                                 "mma_sync": launches("flash_bwd_mma_sync")},
+        "launches_by_group": bwd_groups(train["launches"]),
+        "launches_windowed": launches("flash_bwd_windowed"),
         "max_abs_err": train["err"],
         **{k: train["timing"][0][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4287,6 +4465,13 @@ def run(torch, corpora: dict, oracles: list, configs: dict,
                           k[len("flash_bwd_"):]: train["recurrent"][
                               HYBRID_ARCH]["launches"][k]
                           for k in ("flash_bwd_wgmma", "flash_bwd_mma_sync")}},
+        **{arch: {**train["timing"][i],
+                  "launches_by_group": bwd_groups(train["wide"][arch][
+                      "launches"]),
+                  "launches_windowed": train["wide"][arch]["launches"][
+                      "flash_bwd_windowed"]}
+           for arch, i in ((GLM_ARCH, 4), (CODE_ARCH, 5), (SWA_ARCH, 6))},
+        f"{SWA_ARCH} causal": train["timing"][7],
         "ptxas": bwd_ptxas,
     }, {
         "name": "hot_embed",
@@ -4323,12 +4508,16 @@ def run(torch, corpora: dict, oracles: list, configs: dict,
                     "lax.ragged_dot (src/repro/models/moe.py:51-54) in XLA",
         "kernel": "gmm_bf16_tgmm",
         "launches": launches("moe_gmm_tgmm"),
-        "max_abs_err": train["moe"]["err"],
+        "max_abs_err": max(train["moe"]["err"],
+                           train["wide"][SWA_ARCH]["err"]),
         **{k: train["moe"]["timing"]["gate"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "dx")},
         "library": "torch._grouped_mm(xT, dY, offs=)",
         "down": train["moe"]["timing"]["down"],
+        SWA_ARCH: {**train["wide"][SWA_ARCH]["timing"],
+                   "launches": train["wide"][SWA_ARCH]["launches"][
+                       "moe_gmm_tgmm"]},
         "ptxas": tgmm_ptxas,
     }]
     for r in (rwkv, zamba):
@@ -4341,6 +4530,10 @@ def run(torch, corpora: dict, oracles: list, configs: dict,
     print(f"train [{MOE_ARCH}]: {json.dumps(train['moe']['steps'])}")
     print(f"train profile [{MOE_ARCH}]: "
           f"{json.dumps(train['moe']['profile'])}")
+    for arch, r in train["wide"].items():
+        print(f"train [{arch}, depth {TRAIN_DEPTH[arch]}]: "
+              f"{json.dumps(r['steps'])}")
+        print(f"train profile [{arch}]: {json.dumps(r['profile'])}")
     for (arch, r), lm in zip(train["recurrent"].items(), (rwkv, zamba)):
         loop = lm["scan"]["train_fwd_bwd"]
         # each layer's loop a microbatch: forward, replay and backward

@@ -127,9 +127,13 @@ launches_by_mask = dict.fromkeys(MASKS, 0)
 launches_grouped = 0
 launches_windowed = 0
 # Backward launches, by kernel (two per `flash_attention_bwd` call on the
-# card), and by variant (`bwd_variant`: both kernels of a call count).
+# card), by variant (`bwd_variant`: both kernels of a call count), by kv
+# group (query rows a kv row; 1 is multi-head) and those with a sliding
+# window (window > 0), both kernels of a call counted in each.
 launches_bwd = {"dq": 0, "dkdv": 0}
 launches_bwd_by_variant = {"wgmma": 0, "mma_sync": 0}
+launches_bwd_by_group: dict[int, int] = {}
+launches_bwd_windowed = 0
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -386,6 +390,7 @@ def backward_launches(q, k, v, o, lse, do, *, sm_scale: float | None = None,
         fn = _bind(name, pointers)
 
         def launch() -> None:
+            global launches_bwd_windowed
             # the pointers from the tensors the closure holds, so that every
             # buffer the kernel writes lives as long as the launch can run
             ptrs = [None if t is None else t.data_ptr() for t in tensors]
@@ -395,6 +400,10 @@ def backward_launches(q, k, v, o, lse, do, *, sm_scale: float | None = None,
             _raise_on(rc, name)
             launches_bwd[which] += 1
             launches_bwd_by_variant[kind] += 1
+            launches_bwd_by_group[group] = (
+                launches_bwd_by_group.get(group, 0) + 1)
+            if window > 0:
+                launches_bwd_windowed += 1
         return launch
     return ((dq, dk, dv), launcher("dq", *dq_args),
             launcher("dkdv", *dkdv_args))

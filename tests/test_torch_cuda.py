@@ -1356,7 +1356,10 @@ def test_flash_grad_at_head_dim_256_runs_on_the_wgmma_kernels():
 # step): S not a multiple of 64 or 128 and S below 64; group 8
 # (qwen2.5-3b's and, over one kv row, paligemma-3b's), 16 and 1; a window
 # that ends inside a 128-key tile; prefixes that cross one and that end
-# inside a 64-row step
+# inside a 64-row step; starcoder2-7b's group of 9 (a kv row's group
+# starting mid-block at S 300, and at a microbatch's 4,096 + 77) and
+# mixtral-8x7b's window of 4,096 at group 4 where it cuts (S 8,192 + 77;
+# at train_4k's 4,096 it masks nothing)
 WGMMA_BWD_CASES = [
     (16, 2, 300, dict(causal=True)),
     (16, 1, 200, dict(causal=True)),
@@ -1368,10 +1371,14 @@ WGMMA_BWD_CASES = [
     (8, 1, 200, dict(causal=False)),
     (4, 4, 40, dict(causal=False)),
     (8, 1, 333, dict(causal=True, prefix=100)),
+    (18, 2, 300, dict(causal=True)),
+    (9, 1, 4173, dict(causal=True)),
+    (8, 2, 8269, dict(causal=True, window=4096)),
 ]
 WGMMA_BWD_IDS = ["g8-s300", "g16-s200", "g1-s40", "g8-window", "g1-window",
                  "g8-prefix", "g1-prefix-window", "g8-bidirectional",
-                 "g1-s40-bidirectional", "g8-kv1-prefix100"]
+                 "g1-s40-bidirectional", "g8-kv1-prefix100", "g9-s300",
+                 "g9-s4173", "g4-window4096-s8269"]
 
 
 def _bwd_inputs(bh, kv, s, d, seed, dev):
@@ -1389,14 +1396,22 @@ def test_wgmma_backward_holds_the_flashattention_standard(d, case):
     """The Hopper backward kernels (``flash_bwd_dq_wgmma``,
     ``flash_bwd_dkdv_wgmma``) at FlashAttention's standard against a
     float64 oracle, with repeatable bits, on shapes that cross their
-    tiles; both backwards launch the ``wgmma`` kernels, one of each."""
+    tiles; both backwards launch the ``wgmma`` kernels, one of each,
+    counted under their kv group and, with a window, as windowed."""
     bh, kv, s, mask = case
     dev = _card()
     q, k, v, do = _bwd_inputs(bh, kv, s, d, bh * s + d, dev)
     before = dict(fa.launches_bwd_by_variant)
+    group0 = dict(fa.launches_bwd_by_group)
+    windowed0 = fa.launches_bwd_windowed
     flash_backward_holds(q, k, v, do, mask, name=f"d{d}")
     assert {n: fa.launches_bwd_by_variant[n] - before[n] for n in before} == {
         "wgmma": 4, "mma_sync": 0}
+    assert {g: n - group0.get(g, 0)
+            for g, n in fa.launches_bwd_by_group.items()
+            if n != group0.get(g, 0)} == {bh // kv: 4}
+    assert fa.launches_bwd_windowed - windowed0 == 4 * (
+        mask.get("window", 0) > 0)
 
 
 @pytest.mark.parametrize("d", fa.BWD_HEAD_DIMS)
@@ -1612,15 +1627,21 @@ def _tgmm_operands(dev, rng, sizes, k, n, tail=0, dy_scale=1.0):
     return x, dy, offs
 
 
+# mixtral-8x7b's training microbatch: 2 x 4,096 tokens, top 2 of 8
+# experts, 16,384 rows, one expert empty
+MIXTRAL_TGMM_SIZES = [2731, 0, 1964, 2305, 2048, 2600, 2100, 2636]
 # group sizes whose ends fall off multiples of 64 and of 16, groups of
 # fewer than 16 rows (1, 3, 5), empty groups, and a group of 2,049 rows
 # (33 slices) whose tiles spread over many persistent blocks; K and N
 # at the served widths, off multiples of 128 and 256, and at the smoke's
 # widths over more groups than the kernel orders (1,100: they keep their
-# own order) and more tiles than the card has blocks
+# own order) and more tiles than the card has blocks; and mixtral-8x7b's
+# gate and down products at a training microbatch
 _TGMM_EDGE_CASES = {
     "served": ([5, 77, 3, 2049, 0, 131, 1, 600, 0, 270], 2048, 1408, 13),
     "down": ([5, 77, 3, 2049, 0, 131, 1, 600, 0, 270], 1408, 2048, 0),
+    "mixtral": (MIXTRAL_TGMM_SIZES, 4096, 14336, 0),
+    "mixtral_down": (MIXTRAL_TGMM_SIZES, 14336, 4096, 0),
     "ragged": ([17, 0, 1, 95, 200, 15], 136, 200, 29),
     "many_groups": (None, 64, 128, 7),
 }

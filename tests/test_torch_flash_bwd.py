@@ -8,7 +8,8 @@ model, `ref.attention_bwd_tiled_ref` (P and dS rounded to bf16 as
 operands, float32 sums over 64-row and 64-key steps, per-head dK and dV
 partials summed over the group in head order), is held to the plain
 backward, to ``jax.vjp`` of the reference's ``_sdpa_chunked`` and to
-FlashAttention's own standard, at every mask and at group 1 and 4, and at
+FlashAttention's own standard, at every mask and at group 1, 4, 9 and 16
+(starcoder2-7b's and chatglm3-6b's, with a window that cuts), and at
 head dim 256 (paligemma-3b's, whose dk/dv kernel splits the head dim
 between its warpgroups: the same steps and sums per column) with
 paligemma's grouping, 8 query rows over 1 kv row, and a prefix that ends
@@ -65,14 +66,18 @@ def _forward(q, k, v, mask):
 
 @pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
 @pytest.mark.parametrize("bh,kv,s,d", [(4, 4, 150, 32), (8, 2, 150, 32),
-                                       (4, 1, 40, 32), (8, 1, 150, 256)],
+                                       (4, 1, 40, 32), (8, 1, 150, 256),
+                                       (18, 2, 150, 32), (16, 1, 150, 32)],
                          ids=["group1", "group4", "group4-s40",
-                              "d256-group8"])
+                              "d256-group8", "group9", "group16"])
 def test_tiled_model_matches_the_plain_backward(bh, kv, s, d, mask):
     """The model against `attention_bwd_ref` on the same o and lse: S
     across the kernels' 64- and 128-row tiles and below one step; at d
     256 paligemma-3b's 8 query rows over 1 kv row, S across its 64-key
-    dk/dv and 64-row dq blocks, the prefix of 70 ending inside a step."""
+    dk/dv and 64-row dq blocks, the prefix of 70 ending inside a step; at
+    starcoder2-7b's group of 9 (over 2 kv rows, so that the second kv
+    row's group starts mid-block) and chatglm3-6b's 16, the window of 48
+    cutting rows past it."""
     q, k, v, do = _inputs(bh, kv, s, d, seed=s + bh)
     o, lse = _forward(q, k, v, mask)
     got = attention_bwd_tiled_ref(q, k, v, o, lse, do, **mask)
@@ -93,8 +98,10 @@ def _jax_cfg(h, kv, d, mask):
 
 
 @pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
-@pytest.mark.parametrize("h,kv,d", [(4, 4, 32), (8, 2, 32), (8, 1, 256)],
-                         ids=["group1", "group4", "d256-group8"])
+@pytest.mark.parametrize("h,kv,d", [(4, 4, 32), (8, 2, 32), (8, 1, 256),
+                                    (18, 2, 32), (16, 1, 32)],
+                         ids=["group1", "group4", "d256-group8", "group9",
+                              "group16"])
 def test_tiled_model_matches_jax_vjp(h, kv, d, mask):
     """The model against ``jax.vjp`` of the reference's model attention
     (src/repro/models/layers.py, ``_sdpa_chunked``) on the same bf16
@@ -134,8 +141,10 @@ def _plain_attention(q, k, v, mask):
 
 
 @pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
-@pytest.mark.parametrize("bh,kv,d", [(4, 4, 64), (8, 2, 64), (8, 1, 256)],
-                         ids=["group1", "group4", "d256-group8"])
+@pytest.mark.parametrize("bh,kv,d", [(4, 4, 64), (8, 2, 64), (8, 1, 256),
+                                     (18, 2, 64), (16, 1, 64)],
+                         ids=["group1", "group4", "d256-group8", "group9",
+                              "group16"])
 def test_tiled_model_holds_the_flashattention_standard(bh, kv, d, mask):
     """The model's dq, dk and dv (on the forward's bf16 o, as the kernels
     get it) each at most 2x, plus 1e-3, the max error of the plain bf16
@@ -182,10 +191,13 @@ def test_backward_launches_are_for_the_card():
     on the same tensors runs the plain version."""
     q, k, v, do = _inputs(4, 2, 20, 64, seed=0)
     o, lse = _forward(q, k, v, {})
-    before = (dict(fa.launches_bwd), dict(fa.launches_bwd_by_variant))
+    def counts():
+        return (dict(fa.launches_bwd), dict(fa.launches_bwd_by_variant),
+                dict(fa.launches_bwd_by_group), fa.launches_bwd_windowed)
+    before = counts()
     with pytest.raises(ValueError, match="cpu or cuda"):
-        fa.backward_launches(q, k, v, o, lse, do)
+        fa.backward_launches(q, k, v, o, lse, do, window=8)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do)
     for g, w in zip(got, attention_bwd_ref(q, k, v, o, lse, do)):
         torch.testing.assert_close(g, w)
-    assert (dict(fa.launches_bwd), dict(fa.launches_bwd_by_variant)) == before
+    assert counts() == before

@@ -12,7 +12,8 @@ profile_train_step` sums the profiler's device operations (kineto's
 events, the host's left out): busy time, the costliest names, and the
 port's kernels by name wherever they rank;
 `chip_smoke.bwd_pairs` counts the (row, key) pairs of a causal mask with
-a prefix and the 64 x 64 blocks the backward kernels multiply.
+a prefix or a sliding window and the 64 x 64 blocks the backward kernels
+multiply.
 """
 from __future__ import annotations
 
@@ -180,6 +181,30 @@ def test_bwd_pairs_counts_what_the_kernels_multiply(s, prefix):
     held = blocks.reshape(n, 64, n, 64).any(3).any(1)
     assert chip_smoke.bwd_pairs(s, prefix) == (int(seen.sum()),
                                                int(held.sum()))
+
+
+@pytest.mark.parametrize("s,prefix,window", [(300, 0, 100), (200, 0, 64),
+                                             (200, 0, 65), (300, 100, 48),
+                                             (130, 0, 4096),
+                                             (1000, 0, 256)])
+def test_bwd_pairs_counts_a_window(s, prefix, window):
+    """`chip_smoke.bwd_pairs` with a sliding window, against the same
+    count over the mask itself: windows that end on a block's edge and
+    one past it, a window over a prefix, and one longer than S (it cuts
+    nothing: the causal count)."""
+    import torch
+    from repro_torch.kernels.flash_attn.ref import visible
+    pos = torch.arange(s)
+    seen = visible(pos, pos, prefix=prefix, window=window)
+    n = -(-s // 64)
+    blocks = torch.zeros(n * 64, n * 64, dtype=torch.bool)
+    blocks[:s, :s] = seen
+    held = blocks.reshape(n, 64, n, 64).any(3).any(1)
+    assert chip_smoke.bwd_pairs(s, prefix, window) == (int(seen.sum()),
+                                                       int(held.sum()))
+    if window >= s and not prefix:
+        assert chip_smoke.bwd_pairs(s, prefix, window) == \
+            chip_smoke.bwd_pairs(s)
 
 
 class _Op:

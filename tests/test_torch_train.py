@@ -28,7 +28,9 @@ reason:
   MoE trunk, whose experts' gradients come through `ragged_dot`'s
   backward, 1.2e-2, smoke moonshot's router, and 1.0e-2, smoke
   mixtral's embedding; with the recurrent trunks 1.8e-2, smoke
-  rwkv6-3b's ``u_bonus``, and 6.3e-3, smoke zamba2-1.2b's embedding);
+  rwkv6-3b's ``u_bonus``, and 6.3e-3, smoke zamba2-1.2b's embedding;
+  at their real groups of 16 and 9, 1.5e-2 and 2.4e-2, chatglm3-6b's
+  and starcoder2-7b's ``bk``, qwen's leaf again);
 * the flash backward's plain version: 1e-5 against ``jax.vjp`` of the
   reference's oracle and against torch autograd, in float32;
 * a train step: loss and grad norm at 1e-2 relative, and every parameter
@@ -355,22 +357,29 @@ def test_loss_fn_with_an_moe_adds_the_router_loss():
 # its 4-row prefix: the width the card's d 256 backward kernels take;
 # zamba2-1.2b at 3 layers with its shared block applied before the last
 # two (the 2-layer smoke pattern applies it once), so that its gradient
-# sums two applications
+# sums two applications; chatglm3-6b and starcoder2-7b at their real
+# groups (the smoke config's 4 query heads over 1 kv head is a group of
+# 4): 16 query heads over 1 kv head and 9 over 1, head dim 16
 GRAD_REPLACE = {"paligemma-3b": dict(head_dim=256),
                 "zamba2-1.2b": dict(num_layers=3, block_pattern=(
-                    "mamba", "shared_attn", "shared_attn"))}
+                    "mamba", "shared_attn", "shared_attn")),
+                "chatglm3-6b": dict(num_heads=16, num_kv_heads=1),
+                "starcoder2-7b": dict(num_heads=9, num_kv_heads=1)}
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b",
                                   "moonshot-v1-16b-a3b", "mixtral-8x7b",
                                   "paligemma-3b", "rwkv6-3b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "chatglm3-6b",
+                                  "starcoder2-7b"])
 def test_gradients_match_jax_grad(arch):
     """Autograd of the port's loss against ``jax.grad`` of the
     reference's, leaf by leaf, relative L2 error within `GRAD_REL_L2`,
     with remat on (the blocks and the loss chunks replayed) and off; the
-    two give the same bits. The recurrent trunks' decay
-    path (rwkv6's ``dec_w1``, ``dec_w2``, ``w_base``; Mamba2's ``a_log``,
+    two give the same bits. chatglm3-6b's half rotary and q/k/v biases
+    and starcoder2-7b's layernorm, biased tanh-GELU MLP and output bias
+    are differentiated at their groups of 16 and 9. The recurrent trunks'
+    decay path (rwkv6's ``dec_w1``, ``dec_w2``, ``w_base``; Mamba2's ``a_log``,
     ``dt_bias``) is where in-place writes in the chunked scans once
     raised without remat and, with it, gave wrong gradients silently
     (the replay's saved-tensor hooks skip autograd's version check);
@@ -484,17 +493,20 @@ def test_flash_wrappers_take_the_plain_versions_on_the_cpu():
 
 
 # -------------------------------------------------------------- train step
-def _step_pair(arch, tc_kw, b=4, s=16):
-    cfg_j, cfg_t, params, model = _pair(arch)
+def _step_pair(arch, tc_kw, b=4, s=16, **replace):
+    cfg_j, cfg_t, params, model = _pair(arch, **replace)
     tokens = np.random.default_rng(1).integers(
         0, cfg_t.vocab_size, (b, s)).astype(np.int32)
     return cfg_j, cfg_t, params, model, tokens
 
 
-def test_train_step_matches_the_reference():
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "chatglm3-6b",
+                                  "starcoder2-7b"])
+def test_train_step_matches_the_reference(arch):
     """One `make_train_step` step (two microbatches) against the
-    reference's jitted step on the same weights and tokens."""
-    _step_against_the_reference("qwen2.5-3b")
+    reference's jitted step on the same weights and tokens; chatglm3-6b
+    and starcoder2-7b at their real groups (`GRAD_REPLACE`)."""
+    _step_against_the_reference(arch, **GRAD_REPLACE.get(arch, {}))
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "mixtral-8x7b"])
@@ -517,10 +529,10 @@ def test_recurrent_train_step_matches_the_reference(arch):
     _step_against_the_reference(arch)
 
 
-def _step_against_the_reference(arch):
+def _step_against_the_reference(arch, **replace):
     kw = dict(learning_rate=1e-3, warmup_steps=0, schedule="const",
               microbatch=2)
-    cfg_j, cfg_t, params, model, tokens = _step_pair(arch, kw)
+    cfg_j, cfg_t, params, model, tokens = _step_pair(arch, kw, **replace)
     step_j, _ = JS.make_train_step(cfg_j, JO.TrainConfig(**kw),
                                    make_host_mesh())
     p_j, o_j, m_j = step_j(params, JO.init_opt_state(params),
