@@ -538,6 +538,21 @@ BWD_TIMING = (*BWD_SHAPES[:-1], (64, 16, 16384, 128, 0, 4096),
 # the mma.sync pair's check, at qwen2.5-3b's microbatch with d 32
 BWD_MMA_SYNC_SHAPE = (32, 4, 4096, 32, 0, 0)
 SHARDS = 4                      # phase 4s: phase 4's graph in 4 shards
+# phase 15: the LM on meshes of 4 shards of cuda:0
+MESH_AXES = ("data", "model")
+MESH_ARCH = GQA_ARCH
+MESH_LAYERS = 8                 # of 36, as phase 10 cuts (`SERVE_LAYERS`)
+MESH_SERVE = (1, 4)             # (a): kv 2 does not divide 4: seq-sharded
+MESH_TRAIN = (2, 2)             # (b) and (c): FSDP x TP
+MESH_LR = 1e-3                  # (b), (c): constant, so the update shows
+# (a)'s decode: rows, cache length (divisible by 4), the positions filled
+# with random K/V before it (into the third sequence shard), steps
+MESH_DECODE = {"batch": 4, "cache": 4096, "filled": 3000, "steps": 16}
+MESH_MOE_LAYERS = 2             # (c): moonshot, 2 of 48 layers
+MESH_MOE_PREFILL = 4096         # (c)'s prefill: 1 row, cut over data
+MESH_MOE_TRAIN = (4, 1024)      # (c)'s train step: rows x tokens
+MESH_MOE_GRAD_LAYERS = 1        # (c)'s card against the CPU
+MESH_MOE_GRAD = (2, 256)
 # phase 4's oracles in two worker processes, about equal in host time
 ORACLE_PARTS = ("cc", "rest")
 # k-NN: SIFT1M's width (d 128) with 16,384 of its 1,000,000 base vectors:
@@ -4263,6 +4278,586 @@ def train_phase(dev, pool: HostPool) -> dict:
             "recurrent": recurrent}
 
 
+# ------------------------------------------------------ phase 15: the mesh
+def bwd_snapshot() -> tuple:
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    return dict(fa.launches_bwd), dict(fa.launches_bwd_by_variant)
+
+
+def bwd_delta(since: tuple) -> dict:
+    """The flash backward's launches since `bwd_snapshot`, by kernel and
+    by variant, as phase 14 books them."""
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    by, var = since
+    return {"flash_bwd_dq": fa.launches_bwd["dq"] - by["dq"],
+            "flash_bwd_dkdv": fa.launches_bwd["dkdv"] - by["dkdv"],
+            **{f"flash_bwd_{k}": fa.launches_bwd_by_variant[k] - var[k]
+               for k in var}}
+
+
+def mesh_of(shape):
+    """A ``(data, model)`` mesh of ``shape``, every shard on ``cuda:0`` (the
+    run needs one card; NCCL refuses two ranks on one card, and the port's
+    mesh is single-controller)."""
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, MESH_AXES, "cuda:0")
+
+
+def shard_bytes(trees) -> list:
+    """Bytes each shard holds of the `ShardedTensor` leaves of ``trees``."""
+    from repro_torch.train.optim import _leaves
+    out = None
+    for tree in trees:
+        for _, st in _leaves(tree):
+            b = [t.numel() * t.element_size() for t in st.shards]
+            out = b if out is None else [x + y for x, y in zip(out, b)]
+    return out
+
+
+def hold_chunked(name, got, want, rows: int = 2048) -> dict:
+    """``got`` against ``want`` ((1, n, V) bf16) at `hold_logits`'s
+    standard (DECODE_TOL, argmax agreement > 0.95 with ties within one
+    bf16 unit), ``rows`` positions at a time in float32."""
+    import torch
+    worst, agree, same, n = 0.0, 0.0, 0.0, got.shape[1]
+    for a in range(0, n, rows):
+        g, w = got[:, a:a + rows].float(), want[:, a:a + rows].float()
+        torch.testing.assert_close(g, w, **DECODE_TOL)
+        worst = max(worst, float((g - w).abs().max()))
+        best = w.amax(-1)
+        picked = w.gather(-1, g.argmax(-1, keepdim=True))[..., 0]
+        agree += float((best - picked <= bf16_unit(best)).float().sum())
+        same += float((w.argmax(-1) == g.argmax(-1)).float().sum())
+    agree, same = agree / (n * got.shape[0]), same / (n * got.shape[0])
+    print(f"{name}: {got.shape[0]}x{n} positions, max_abs_diff {worst:.4f}, "
+          f"argmax agreement {agree:.4f} ({same:.4f} the same token)")
+    if agree <= 0.95:
+        raise AssertionError(f"{name}: argmax agreement {agree}")
+    return {"max_abs_diff": worst, "argmax_agreement": agree}
+
+
+def drops_by_layer(tape, shards: int) -> list:
+    """(rows kept, rows dropped) of each layer's dispatches in a
+    `models.moe.DropTape` (one call a shard a layer, in layer order)."""
+    out = []
+    for a in range(0, len(tape.calls), shards):
+        kept = sum(int(c[1].sum()) for c in tape.calls[a:a + shards])
+        rows = sum(c[1].numel() for c in tape.calls[a:a + shards])
+        out.append((kept, rows - kept))
+    return out
+
+
+def mesh_flash(cfg, mesh, calls: int) -> dict:
+    """`flash_launches` of ``calls`` forwards on ``mesh``: one a layer a
+    shard, grouped where a model shard's query heads outnumber the kv
+    heads they read (qwen2.5-3b: 4 over 1 at model 4, 8 over 1 at 2)."""
+    out = flash_launches(cfg, calls * mesh.size)
+    nm = mesh.shape["model"]
+    grouped = cfg.num_heads // nm > max(1, cfg.num_kv_heads // nm)
+    out["flash_attn_gqa"] = out["flash_attn"] if grouped else 0
+    return out
+
+
+def mesh_launches(got: dict, want: dict, what: str) -> None:
+    """``got``'s launch counts equal ``want``'s where ``want`` names them."""
+    wrong = {k: (got.get(k, 0), v) for k, v in want.items()
+             if got.get(k, 0) != v}
+    if wrong:
+        raise AssertionError(f"{what}: launches (got, expected) {wrong}")
+
+
+def seqsharded_attention_check(dev, cfg, mesh) -> float:
+    """`layers._decode_attn_seqsharded` alone at ``cfg``'s heads (qwen2.5-3b:
+    2 kv heads of 8 query heads, head dim 128) over a `MESH_DECODE` cache
+    split on its sequence over ``mesh``'s 4 model shards, against the
+    unsharded decode attention (`layers._sdpa_chunked`, p in float32) over
+    the same cache after the same write: within 1e-3 or one bf16 unit of
+    each value (both round one float32 result to bf16), and the caches'
+    slices equal the whole cache's. Returns the max abs difference."""
+    import torch
+    from repro_torch.launch.shardings import P, shard_leaf
+    from repro_torch.models import layers as L
+    b, t, filled = (MESH_DECODE[k] for k in ("batch", "cache", "filled"))
+    kv, dh = cfg.num_kv_heads, cfg.head_dim
+    rep = cfg.num_heads // kv
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, kn, vn = randn(b, 1, kv, rep, dh), randn(b, 1, kv, dh), randn(
+        b, 1, kv, dh)
+    ck, cv = randn(b, t, kv, dh), randn(b, t, kv, dh)
+    length = torch.tensor(filled, dtype=torch.int32, device=dev)
+    spec = P(None, "model", None, None)
+    cache = {"k": shard_leaf(ck, spec, mesh), "v": shard_leaf(cv, spec, mesh),
+             "length": shard_leaf(length, P(), mesh)}
+    n = mesh.size
+    got, new = L._decode_attn_seqsharded([q] * n, [kn] * n, [vn] * n, cache,
+                                         cfg, mesh)
+    pos = length[None]
+    wk, wv, k_pos, k_valid = L._cache_write(
+        {"k": ck, "v": cv, "length": length}, kn, vn, cfg, pos)
+    want = L._sdpa_chunked(q.reshape(b, 1, kv * rep, dh), wk, wv, pos, k_pos,
+                           cfg, k_valid, round_p=False).float()
+    err = 0.0
+    for o in got:
+        o = o.reshape(want.shape).float()
+        d = (o - want).abs()
+        if not bool((d <= torch.clamp(bf16_unit(want), min=1e-3)).all()):
+            raise AssertionError(f"sequence-sharded decode attention parts "
+                                 f"from the unsharded by {float(d.max())}")
+        err = max(err, float(d.max()))
+    if not (torch.equal(new["k"].full(), wk) and torch.equal(
+            new["v"].full(), wv) and all(
+            int(x) == filled + 1 for x in new["length"].shards)):
+        raise AssertionError("the sequence-sharded write is not the whole "
+                             "cache's")
+    print(f"mesh: _decode_attn_seqsharded at {b}x{t} positions ({filled} "
+          f"filled), {kv} kv heads of {rep} each, d {dh}, over {n} sequence "
+          f"shards: max_abs_diff {err:.3e} against the unsharded attention "
+          f"(p in float32 in both); the slot written in shard "
+          f"{filled // (t // n)}, the other shards' slices kept")
+    return err
+
+
+def mesh_serve(dev) -> dict:
+    """Phase 15 (a): `MESH_ARCH` at full width, `MESH_LAYERS` layers, served
+    on a (data 1, model 4) mesh of ``cuda:0`` in the serving layout
+    (``param_specs(serve=True)``): ``make_forward`` over 1 x
+    `PREFILL_TOKENS` positions against the single-device forward on the
+    same weights (`hold_chunked`), one flash launch a layer a shard (the
+    local group: 4 query heads over 1 kv head) and one hot-slab launch;
+    ``make_serve_step`` over a `MESH_DECODE` cache laid out by
+    ``cache_specs`` (sequence-sharded: 2 kv heads do not divide 4),
+    teacher-forced steps against the single-device ``decode_step`` from
+    the same cache; and `seqsharded_attention_check`."""
+    import torch
+    from repro_torch.core.dist import CollectiveLedger
+    from repro_torch.launch.shardings import shard_tree
+    from repro_torch.models.transformer import (ShardedModel, decode_step,
+                                                forward, init_cache)
+    from repro_torch.train.steps import make_forward, make_serve_step
+    cfg = grad_cut(MESH_ARCH, MESH_LAYERS)
+    mesh = mesh_of(MESH_SERVE)
+    model = draw_weights(cfg, dev)
+    n = PREFILL_TOKENS or 32_768
+    batch = {"tokens": token_source(cfg, n)(3, n).to(dev)}
+    one_ms = cuda_ms(lambda: forward(model, batch), reps=2, warmup=1)
+    want = forward(model, batch)[0]
+    fwd = make_forward(cfg, mesh)
+    sm = ShardedModel.from_model(model, mesh, serve=True)
+    held = shard_bytes([sm.params])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_lm_launches()
+    with CollectiveLedger() as ledger:
+        got = fwd(sm, batch)[0]
+    torch.cuda.synchronize()
+    launches = lm_launches()
+    calls = cfg.num_layers * mesh.size
+    mesh_launches(launches, {**mesh_flash(cfg, mesh, 1), "hot_embed": 1,
+                             "moe_gmm": 0}, "mesh prefill")
+    hold = hold_chunked(f"mesh prefill [{cfg.name}, {MESH_SERVE}] against "
+                        f"one device", got, want)
+    del got, want
+    ms = cuda_ms(lambda: fwd(sm, batch), reps=2, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    collectives = ledger.as_dict()
+    print(f"mesh prefill [{cfg.name}, {cfg.num_layers} layers, data x model "
+          f"= {MESH_SERVE}]: {ms:.1f} ms ({n / ms * 1e3:.0f} tokens/s; one "
+          f"device {one_ms:.1f} ms), "
+          f"{calls} flash launches, peak {peak:.1f} GiB; each shard holds "
+          f"{[round(b / 2**30, 3) for b in held]} GiB of params; "
+          f"collectives a forward, bytes a device: {collectives}")
+
+    b, t, filled, steps = (MESH_DECODE[k] for k in ("batch", "cache",
+                                                    "filled", "steps"))
+    cache = init_cache(cfg, b, t, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for leaf in ("k", "v"):
+        c = cache["layers"][leaf]
+        c[:, :, :filled] = torch.randn(c[:, :, :filled].shape, generator=gen,
+                                       device=dev).to(c.dtype)
+    cache["layers"]["length"].fill_(filled)
+    cache["pos"].fill_(filled)
+    serve = make_serve_step(cfg, mesh, b, t)
+    if serve.cspecs["layers"]["k"][2] != "model":
+        raise AssertionError(f"{cfg.name}'s cache is not sequence-sharded")
+    scache = shard_tree(cache, serve.cspecs, mesh)
+    src = token_source(cfg, steps, quiet=True)
+    toks = torch.cat([src(s, steps) for s in range(4, 4 + b)]).to(dev)
+    outs, walls, dlaunch = ([], []), [], {}
+    for i in range(steps):
+        tok = toks[:, i:i + 1]
+        a, cache = decode_step(model, cache, tok)
+        torch.cuda.synchronize()
+        before = lm_launches()
+        t0 = time.perf_counter()
+        with CollectiveLedger() as dled:
+            c, scache = serve(sm, scache, tok)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        for k, v in lm_launches().items():
+            dlaunch[k] = dlaunch.get(k, 0) + v - before[k]
+        outs[0].append(c)
+        outs[1].append(a)
+    # a decode step: one hot-slab lookup (the shards share the card and
+    # their rows), attention over the cache in plain torch
+    mesh_launches(dlaunch, {"hot_embed": steps, "flash_attn": 0},
+                  "mesh decode")
+    dec = hold_chunked(f"mesh decode [{cfg.name}], {steps} teacher-forced "
+                       f"steps from {filled} cached positions, against one "
+                       f"device", torch.cat(outs[0], 1), torch.cat(outs[1], 1))
+    if int(scache["pos"].shards[0]) != filled + steps:
+        raise AssertionError("the sharded cache's position did not advance")
+    step_ms = 1e3 * sorted(walls)[len(walls) // 2]
+    print(f"mesh decode [{cfg.name}]: median step {step_ms:.1f} ms wall "
+          f"({b} rows), collectives a step, bytes a device: "
+          f"{dled.as_dict()}")
+    err = seqsharded_attention_check(dev, cfg, mesh)
+    del model, sm, cache, scache
+    torch.cuda.empty_cache()
+    return {"launches": launches, "decode_launches": dlaunch,
+            "prefill_ms": ms, "one_device_ms": one_ms,
+            "tokens_per_s": n / ms * 1e3, "peak_gib": peak,
+            "shard_gib": [x / 2**30 for x in held], "hold": hold,
+            "decode": {**dec, "step_ms": step_ms},
+            "collectives": collectives, "seq_attn_err": err}
+
+
+def sharded_loss_and_grads(sm, batch) -> tuple[float, dict]:
+    """One batch's loss and every leaf's whole float32 gradient on the CPU
+    (replicas summed, `train.steps.sharded_grads`), by tree path."""
+    from repro_torch.launch.shardings import ShardedTensor
+    from repro_torch.train.optim import TrainConfig, _leaves
+    from repro_torch.train.steps import sharded_grads
+    m = sharded_grads(sm, batch, TrainConfig())
+    grads = {"/".join(map(str, path)): ShardedTensor(
+        [t.grad for t in st.shards], st.spec, st.mesh, st.shape).full(
+        "cpu").float() for path, st in _leaves(sm.params)}
+    for p in sm.parameters():
+        p.grad = None
+    return float(m["loss"]), grads
+
+
+def mesh_train(dev) -> dict:
+    """Phase 15 (b): `MESH_ARCH` at full width, `MESH_LAYERS` layers,
+    remat on, trained on a (2, 2) mesh of ``cuda:0`` (FSDP over ``data``,
+    TP over ``model``): `TRAIN_BATCH` x `TRAIN_SEQ` tokens in microbatches
+    of `TRAIN_MICROBATCH`, at `MESH_LR` (constant). The same weights on
+    one device give the reference step: the loss within 1e-2 and each
+    leaf's gradient within 5e-2 relative L2 (`hold_grads`); after the
+    update every shard's slice of the params within one AdamW step's reach
+    of `shard_tree`'s slice of the one-device params, of the first moment
+    within 5e-2 and of the second within 1e-1 relative L2 (it holds the
+    gradient's square). Then a second step timed: seconds, tokens/s,
+    peak GiB, the bytes each shard holds and the collectives' bytes."""
+    import torch
+    from repro_torch.core.dist import CollectiveLedger
+    from repro_torch.launch.shardings import shard_tree
+    from repro_torch.models.transformer import ShardedModel, param_tree
+    from repro_torch.train import steps as TS
+    from repro_torch.train.optim import TrainConfig, _leaves, init_opt_state
+    cfg = grad_cut(MESH_ARCH, MESH_LAYERS)
+    if not cfg.remat:
+        raise AssertionError(f"{cfg.name} trains with remat")
+    mesh = mesh_of(MESH_TRAIN)
+    tc = TrainConfig(microbatch=TRAIN_MICROBATCH, learning_rate=MESH_LR,
+                     warmup_steps=0, schedule="const")
+    src = token_source(cfg, TRAIN_SEQ, quiet=True)
+    batches = [{"tokens": torch.cat([src(1 + s * TRAIN_BATCH + r, TRAIN_SEQ)
+                                     for r in range(TRAIN_BATCH)]).to(dev)}
+               for s in range(2)]
+    model = draw_weights(cfg, dev)
+    step = TS.make_train_step(cfg, tc, mesh)
+    sm = ShardedModel.from_model(model, mesh)
+    opt = TS.init_sharded_opt_state(sm)
+    one_opt = init_opt_state(param_tree(model))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m1 = TS._grads(cfg, tc, model, batches[0])
+    torch.cuda.synchronize()
+    one_grad_s = time.perf_counter() - t0
+    want = {"/".join(map(str, p)): g.grad.float()
+            for p, g in _leaves(param_tree(model))}
+    torch.cuda.synchronize()
+    reset_lm_launches()
+    bwd0 = bwd_snapshot()
+    t0 = time.perf_counter()
+    with CollectiveLedger() as ledger:
+        m2 = TS.sharded_grads(sm, batches[0], tc)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    launches = {**lm_launches(), **bwd_delta(bwd0)}
+    micro = TRAIN_BATCH // TRAIN_MICROBATCH
+    layers = cfg.num_layers * mesh.size
+    # each microbatch: the forward and its replay, then the backward; one
+    # embedding lookup a data shard
+    mesh_launches(launches, {
+        **mesh_flash(cfg, mesh, 2 * micro),
+        "flash_bwd_dq": layers * micro, "flash_bwd_dkdv": layers * micro,
+        "hot_embed": micro * mesh.shape["data"], "moe_gmm": 0},
+        "mesh training")
+    got = {}
+    for path, st in _leaves(sm.params):
+        got["/".join(map(str, path))] = type(st)(
+            [t.grad for t in st.shards], st.spec, st.mesh, st.shape).full(
+            ).float()
+    # the key bias's exact gradient is zero (it adds q·bk to every logit
+    # of a row, which the softmax removes): each run's is rounding noise
+    # of its own, printed but not held (tests/test_torch_train.py holds
+    # only the bound of an AdamW step for it, as the params check below)
+    noise = {n: float((got.pop(n) - want[n]).norm()
+                      / want.pop(n).norm().clamp(min=1e-30))
+             for n in [n for n in want if n.endswith("attn/bk")]}
+    worst, err, _ = hold_grads(f"mesh train [{cfg.name}] against one device",
+                               got, want, float(m2["loss"]),
+                               float(m1["loss"]))
+    del got, want
+    TS.apply(model, one_opt, m1, tc)
+    _, opt, m2 = TS.apply_sharded(sm, opt, m2, tc)
+    reach = 2 * MESH_LR + 1e-6
+    whole = shard_tree({"params": param_tree(model), "mu": one_opt["mu"],
+                        "nu": one_opt["nu"]},
+                       {"params": step.pspecs, "mu": step.pspecs,
+                        "nu": step.pspecs}, mesh)
+    worst_m = {"mu": 0.0, "nu": 0.0}
+    for kind, tree in (("params", sm.params), ("mu", opt["mu"]),
+                       ("nu", opt["nu"])):
+        for (path, a), (_, b) in zip(_leaves(tree), _leaves(whole[kind])):
+            for x, y in zip(a.shards, b.shards):
+                if kind == "params":
+                    d = (x - y).abs()
+                    lim = reach * (1 + 0.1 * float(y.abs().max()))
+                    if float(d.max()) > lim:
+                        raise AssertionError(f"mesh train: {path}'s slice "
+                                             f"parts by {float(d.max())}")
+                    continue
+                if path[-2:] == ("attn", "bk"):    # noise, as above
+                    continue
+                rel = float((x - y).norm() / y.norm().clamp(min=1e-30))
+                worst_m[kind] = max(worst_m[kind], rel)
+    if worst_m["mu"] > 5e-2 or worst_m["nu"] > 1e-1:
+        raise AssertionError(f"mesh train: the moments' slices part {worst_m}")
+    del whole, model, one_opt
+    torch.cuda.empty_cache()
+    held = shard_bytes([sm.params, opt["mu"], opt["nu"]])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sm, opt, m = step(sm, opt, batches[1])
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = {"loss": [float(m1["loss"]), loss], "grad_s": grad_s,
+            "one_device_grad_s": one_grad_s,
+            "seconds": dt, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
+            "peak_gib": peak, "shard_gib": [x / 2**30 for x in held],
+            "worst_grad": [worst, err], "moments_rel_l2": worst_m,
+            "bk_rel_l2": max(noise.values(), default=0.0),
+            "collectives": ledger.as_dict()}
+    print(f"mesh train [{cfg.name}, {cfg.num_layers} layers, data x model = "
+          f"{MESH_TRAIN}]: a step's gradients {grad_s:.2f} s (one device "
+          f"{one_grad_s:.2f} s), against one device worst {worst} at "
+          f"{err:.3e}; params, mu and nu slices held (mu {worst_m['mu']:.2e}, "
+          f"nu {worst_m['nu']:.2e}); step 2 loss {loss:.4f} in {dt:.2f} s "
+          f"({rows['tokens_per_s']:.0f} tokens/s), peak {peak:.1f} GiB; "
+          f"each shard holds {[round(x / 2**30, 3) for x in held]} GiB of "
+          f"params and moments; collectives a step's forwards, bytes a "
+          f"device: {rows['collectives']}")
+    del sm, opt
+    torch.cuda.empty_cache()
+    return {"launches": launches, **rows}
+
+
+def mesh_moe_grad_batch(cfg) -> dict:
+    """(c)'s card-against-CPU batch: `MESH_MOE_GRAD` rows of the token
+    source."""
+    import torch
+    rows, seq = MESH_MOE_GRAD
+    src = token_source(cfg, seq, quiet=True)
+    return {"tokens": torch.cat([src(1 + r, seq) for r in range(rows)])}
+
+
+def host_mesh_moe(threads: int, path: str) -> str:
+    """Phase 15 (c)'s CPU half, in a pool worker: `MOE_ARCH` at full width
+    cut to `MESH_MOE_GRAD_LAYERS` layer(s), `draw_weights` to the CPU, on
+    a (2, 2) mesh of CPU shards, one batch's loss and gradients through
+    the capacity dispatch (plain versions), its expert choices
+    (`RouteTape`) and dropped rows (`DropTape`). Saves them to ``path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.moe import DropTape, RouteTape
+    from repro_torch.models.transformer import ShardedModel
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    cfg = grad_cut(MOE_ARCH, MESH_MOE_GRAD_LAYERS)
+    host = draw_weights(cfg, "cpu")
+    digest = weight_digest(host)
+    sm = ShardedModel.from_model(host, make_mesh(MESH_TRAIN, MESH_AXES,
+                                                 "cpu"))
+    del host
+    batch = mesh_moe_grad_batch(cfg)
+    t1 = time.perf_counter()
+    with RouteTape() as route, DropTape() as drops:
+        loss, grads = sharded_loss_and_grads(sm, batch)
+    return spool({"batch": batch, "loss": loss, "grads": grads,
+                  "digest": digest, "experts": route.experts,
+                  "drops": drops.totals(), "threads": threads,
+                  "init_s": t1 - t0, "grads_s": time.perf_counter() - t1},
+                 path)
+
+
+def mesh_moe(dev, host) -> dict:
+    """Phase 15 (c): `MOE_ARCH` at full width, `MESH_MOE_LAYERS` layers, on
+    a (2, 2) mesh of ``cuda:0`` through the TP-within-expert capacity
+    dispatch: a prefill forward of 1 x `MESH_MOE_PREFILL` tokens (the
+    batch of one row replicated over ``data``, its flattened tokens cut in
+    halves over it, as the reference's ``shard_map`` cuts them), then one
+    training step of `MESH_MOE_TRAIN` rows in microbatches of
+    `TRAIN_MICROBATCH`; each with its ``moe_gmm`` launches (every group
+    ``cap`` rows; ``tgmm`` and dX in the backward) and its rows kept and
+    dropped. Then the card against the CPU (``host``, a future of
+    `host_mesh_moe`) at `MESH_MOE_GRAD_LAYERS` layer(s) on the CPU's
+    expert choices (`RouteTape`): the loss and gradients at
+    `hold_grads`'s standard, the rows kept and dropped equal."""
+    import torch
+    from repro_torch.core.dist import CollectiveLedger
+    from repro_torch.models.moe import DropTape, RouteTape, capacity
+    from repro_torch.models.transformer import ShardedModel, forward
+    from repro_torch.train import steps as TS
+    from repro_torch.train.optim import TrainConfig
+    cfg = grad_cut(MOE_ARCH, MESH_MOE_LAYERS)
+    mesh = mesh_of(MESH_TRAIN)
+    sm = ShardedModel.from_model(draw_weights(cfg, dev), mesh)
+    torch.cuda.empty_cache()
+    n = MESH_MOE_PREFILL
+    batch = {"tokens": token_source(cfg, n, quiet=True)(3, n).to(dev)}
+    reset_lm_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with DropTape() as drops, CollectiveLedger() as ledger:
+        logits = forward(sm, batch)[0]
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    pre = lm_launches()
+    shards = mesh.size
+    mesh_launches(pre, {**mesh_flash(cfg, mesh, 1), "hot_embed": 1,
+                        "moe_gmm": 3 * cfg.num_layers * shards,
+                        "moe_gmm_tgmm": 0}, "mesh MoE prefill")
+    if logits.shape != (1, n, cfg.vocab_size) or not bool(
+            torch.isfinite(logits.float()).all()):
+        raise AssertionError("mesh MoE prefill: logits of another shape or "
+                             "not finite")
+    pre_drops = {**drops.totals(), "by_layer": drops_by_layer(drops, shards)}
+    cap = capacity(n // mesh.shape["data"], cfg)
+    if pre_drops["capacities"] != [cap]:
+        raise AssertionError(f"mesh MoE prefill: capacities "
+                             f"{pre_drops['capacities']}, expected {cap}")
+    print(f"mesh MoE prefill [{cfg.name}, {cfg.num_layers} layers, "
+          f"{MESH_TRAIN}]: {n} tokens in {fwd_s:.2f} s, capacity {cap} rows "
+          f"an expert, {pre_drops['kept']} rows kept and "
+          f"{pre_drops['dropped']} dropped over {pre_drops['calls']} "
+          f"dispatches ((kept, dropped) a layer {pre_drops['by_layer']}); "
+          f"launches {pre}; collectives, bytes a device: "
+          f"{ledger.as_dict()}")
+    del logits
+    tc = TrainConfig(microbatch=TRAIN_MICROBATCH, learning_rate=MESH_LR,
+                     warmup_steps=0, schedule="const")
+    rows, seq = MESH_MOE_TRAIN
+    src = token_source(cfg, seq, quiet=True)
+    tbatch = {"tokens": torch.cat([src(4 + r, seq)
+                                   for r in range(rows)]).to(dev)}
+    step = TS.make_train_step(cfg, tc, mesh)
+    opt = TS.init_sharded_opt_state(sm)
+    reset_lm_launches()
+    bwd0 = bwd_snapshot()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with DropTape() as tdrops:
+        sm, opt, m = step(sm, opt, tbatch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    train = {**lm_launches(), **bwd_delta(bwd0)}
+    micro = rows // TRAIN_MICROBATCH
+    prods = 3 * cfg.num_layers * shards * micro
+    # the forward and its replay, and dX, through moe_gmm; dW through tgmm
+    mesh_launches(train, {**mesh_flash(cfg, mesh, 2 * micro),
+                          "moe_gmm": 3 * prods, "moe_gmm_tgmm": prods,
+                          "flash_bwd_dq": cfg.num_layers * shards * micro,
+                          "hot_embed": micro * mesh.shape["data"]},
+                  "mesh MoE training")
+    held = shard_bytes([sm.params, opt["mu"], opt["nu"]])
+    td = {**tdrops.totals(), "by_layer": drops_by_layer(tdrops, shards)}
+    print(f"mesh MoE train [{cfg.name}]: one step of {rows}x{seq} tokens, "
+          f"loss {loss:.4f}, {dt:.2f} s ({rows * seq / dt:.0f} tokens/s), "
+          f"peak {peak:.1f} GiB; each shard holds "
+          f"{[round(x / 2**30, 3) for x in held]} GiB; capacity "
+          f"{td['capacities']}, {td['kept']} rows kept and {td['dropped']} "
+          f"dropped (forward and replay; (kept, dropped) a layer a call "
+          f"{td['by_layer']}); launches {train}")
+    if not (loss == loss and loss < 1e4):
+        raise AssertionError(f"mesh MoE train: loss {loss}")
+    del sm, opt
+    torch.cuda.empty_cache()
+
+    cut = grad_cut(MOE_ARCH, MESH_MOE_GRAD_LAYERS)
+    label = f"mesh MoE card vs CPU [{cut.name}, depth {cut.num_layers}]"
+    card = draw_weights(cut, dev)
+    cpu = host_result(host, label, card)
+    smc = ShardedModel.from_model(card, mesh)
+    del card
+    batch = mesh_moe_grad_batch(cut)
+    same_batch(label, cpu["batch"], batch)
+    with RouteTape(cpu["experts"]), DropTape() as cdrops:
+        got_loss, got = sharded_loss_and_grads(
+            smc, {"tokens": batch["tokens"].to(dev)})
+    worst, err, rel = hold_grads(label, got, cpu["grads"], got_loss,
+                                 cpu["loss"])
+    if cdrops.totals() != cpu["drops"]:
+        raise AssertionError(f"{label}: rows kept and dropped "
+                             f"{cdrops.totals()} on the card, "
+                             f"{cpu['drops']} on the CPU")
+    print(f"{label}: {MESH_MOE_GRAD} tokens, remat on, the CPU's routing "
+          f"replayed: loss {got_loss:.6f} against {cpu['loss']:.6f}, the "
+          f"worst leaf {worst} at {err:.3e} relative L2 of {len(rel)}; rows "
+          f"kept and dropped equal on both: {cpu['drops']}")
+    del smc, got, cpu
+    torch.cuda.empty_cache()
+    launches = {k: pre.get(k, 0) + train.get(k, 0)
+                for k in set(pre) | set(train)}
+    return {"launches": launches, "prefill_s": fwd_s,
+            "prefill_drops": pre_drops, "train_drops": td,
+            "step_s": dt, "tokens_per_s": rows * seq / dt, "peak_gib": peak,
+            "shard_gib": [x / 2**30 for x in held],
+            "card_vs_cpu": {"worst": worst, "rel_l2": err,
+                            "drops": cdrops.totals()}}
+
+
+def mesh_phase(dev, pool: HostPool) -> dict:
+    """Phase 15: the LM on a (data, model) mesh of 4 shards of one card:
+    (a) `mesh_serve`, (b) `mesh_train`, (c) `mesh_moe`, whose CPU half a
+    pool worker makes beside (a) and (b). Each part prints its wall."""
+    import torch
+    host = pool._submit(host_mesh_moe, "mesh-moe", pool_threads())
+    serve = timed("15a [mesh serve]", mesh_serve, dev)
+    train = timed("15b [mesh train]", mesh_train, dev)
+    moe = timed("15c [mesh MoE]", mesh_moe, dev, host)
+    torch.cuda.empty_cache()
+    parts = (serve["launches"], serve["decode_launches"], train["launches"],
+             moe["launches"])
+    launches = {k: sum(x.get(k, 0) for x in parts)
+                for k in set().union(*parts)}
+    return {"serve": serve, "train": train, "moe": moe,
+            "launches": launches}
+
+
 def timed(label: str, fn, *args):
     """``fn(*args)``, its wall seconds printed under ``label``."""
     t0 = time.perf_counter()
@@ -4391,11 +4986,13 @@ def run(torch, corpora: dict, oracles: list, configs: dict,
     swa = lm("13", SWA_ARCH)
     timed(f"13 {SWA_ARCH} smoke ring", ring_decode_check, dev)
     train = timed("14 training", train_phase, dev, host)
+    mesh = timed("15 mesh", mesh_phase, dev, host)
     runs = (mini, qwen, pali, hubert, rwkv, zamba, glm, code, moe, swa)
 
     def launches(name):
         return (sum(r[w].get(name, 0) for r in runs for w in ("pre", "serve"))
-                + train["launches"].get(name, 0))
+                + train["launches"].get(name, 0)
+                + mesh["launches"].get(name, 0))
 
     def bwd_groups(counts):     # training's backward launches by kv group
         return {k[len("flash_bwd_group"):]: v for k, v in sorted(
@@ -4423,6 +5020,7 @@ def run(torch, corpora: dict, oracles: list, configs: dict,
             "non_causal": launches("flash_attn_non_causal")},
         "launches_grouped_query": launches("flash_attn_gqa"),
         "launches_windowed": launches("flash_attn_windowed"),
+        "launches_mesh": mesh["launches"].get("flash_attn", 0),
         "max_abs_err": max([flash_err] + [r["flash_err"] for r in runs]),
         "ptxas": flash_ptxas,
         **mini["timing"]["flash_attn"],
@@ -4447,6 +5045,8 @@ def run(torch, corpora: dict, oracles: list, configs: dict,
                                 "mma_sync": launches("flash_bwd_mma_sync")},
         "launches_by_group": bwd_groups(train["launches"]),
         "launches_windowed": launches("flash_bwd_windowed"),
+        "launches_mesh": mesh["launches"].get("flash_bwd_dq", 0)
+        + mesh["launches"].get("flash_bwd_dkdv", 0),
         "max_abs_err": train["err"],
         **{k: train["timing"][0][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4479,6 +5079,7 @@ def run(torch, corpora: dict, oracles: list, configs: dict,
         "source": "src/repro_torch/csrc/hot_embed.cu",
         "replaces": "src/repro/kernels/hot_embed/hot_embed.py:37",
         "launches": launches("hot_embed"),
+        "launches_mesh": mesh["launches"].get("hot_embed", 0),
         "max_abs_err": max([hot_err] + [r["hot_err"] for r in runs]),
         **mini["timing"]["hot_embed"],
         GQA_ARCH: qwen["timing"]["hot_embed"],
@@ -4497,6 +5098,7 @@ def run(torch, corpora: dict, oracles: list, configs: dict,
         "launches": launches("moe_gmm"),
         "launches_by_variant": {"wgmma": launches("moe_gmm_wgmma"),
                                 "splitk": launches("moe_gmm_splitk")},
+        "launches_mesh": mesh["launches"].get("moe_gmm", 0),
         "max_abs_err": max(gmm_err, moe["gmm_err"], swa["gmm_err"]),
         **moe["gmm_timing"],
         SWA_ARCH: swa["gmm_timing"],
@@ -4508,6 +5110,7 @@ def run(torch, corpora: dict, oracles: list, configs: dict,
                     "lax.ragged_dot (src/repro/models/moe.py:51-54) in XLA",
         "kernel": "gmm_bf16_tgmm",
         "launches": launches("moe_gmm_tgmm"),
+        "launches_mesh": mesh["launches"].get("moe_gmm_tgmm", 0),
         "max_abs_err": max(train["moe"]["err"],
                            train["wide"][SWA_ARCH]["err"]),
         **{k: train["moe"]["timing"]["gate"][k] for k in (
@@ -4545,6 +5148,7 @@ def run(torch, corpora: dict, oracles: list, configs: dict,
               f"{loops} of its {ops} device ops ({100 * loops / ops:.1f}%)")
         print(f"train [{arch}]: {json.dumps(r['steps'])}")
         print(f"train profile [{arch}]: {json.dumps(r['profile'])}")
+    print(f"mesh: {json.dumps(mesh, default=str)}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -17,10 +17,12 @@ that each package restores the other's checkpoints:
 * **keep-k GC**: committed steps beyond ``keep`` are deleted after a
   successful commit, never before.
 
-The reference's elastic restore onto a mesh (``restore(shardings=)``)
-needs the sharded modules and raises here (ROADMAP A8.8); ``device=``
-puts the restored leaves on one device, as tensors of their stored
-dtypes.
+* **Elastic restore**: a save holds the *global* arrays (a sharded
+  leaf, ``launch.shardings.ShardedTensor``, is gathered whole first), and
+  ``restore(shardings=)`` cuts each onto the mesh and spec of its
+  ``NamedSharding`` (``launch.shardings.to_named``), so a state saved
+  from one mesh restores onto another; ``device=`` puts the restored
+  leaves on one device, as tensors of their stored dtypes.
 """
 from __future__ import annotations
 
@@ -61,6 +63,8 @@ def _to_host(v) -> np.ndarray:
     anything else as ``np.asarray`` takes it, as in the reference."""
     if isinstance(v, torch.Tensor):
         return v.detach().to("cpu", copy=True).numpy()
+    if hasattr(v, "full"):     # a ShardedTensor: its global array
+        return v.full("cpu").numpy()
     return np.asarray(v)
 
 
@@ -136,11 +140,11 @@ class CheckpointManager:
     def restore(self, step: int | None = None, shardings=None,
                 device: str | torch.device | None = None):
         """Load a committed step (the latest by default): (step, tree) with
-        numpy leaves, or tensors on ``device`` when it is given; (None,
-        None) when nothing is committed."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore onto shardings (elastic re-sharding): ROADMAP A8.8")
+        numpy leaves, or tensors on ``device`` when it is given, or, with
+        ``shardings`` (a tree of ``NamedSharding`` of the checkpoint's
+        structure), ``ShardedTensor``s cut by each leaf's spec onto its
+        mesh: the elastic-restart path. (None, None) when nothing is
+        committed."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -156,7 +160,16 @@ class CheckpointManager:
         if missing:
             raise FileNotFoundError(
                 f"checkpoint step {step} incomplete: missing {missing}")
-        if device is not None:
+        if shardings is not None:
+            from ..launch.shardings import shard_leaf
+            named = _flatten(shardings)
+            if set(named) != set(flat):
+                raise ValueError(
+                    "the shardings' tree is not the checkpoint's: "
+                    f"{sorted(set(named) ^ set(flat))[:4]}")
+            flat = {k: shard_leaf(v, named[k].spec, named[k].mesh)
+                    for k, v in flat.items()}
+        elif device is not None:
             flat = {k: torch.from_numpy(v).to(device)
                     for k, v in flat.items()}
         return step, _unflatten(flat)

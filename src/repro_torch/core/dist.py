@@ -68,14 +68,35 @@ from .csr import Graph
 # ---------------------------------------------------------------- the mesh
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh: the device of each shard, in shard order."""
+    """An N-D mesh: the device of each shard, in shard order, row-major over
+    the named axes (the last axis varies fastest, as in a JAX mesh's
+    device grid). ``Mesh(devices)`` is the graph engine's 1-D mesh over
+    ``data``; ``launch/mesh.py`` builds the LM's ``(data, model)`` and
+    ``(pod, data, model)`` meshes. Several shards may share a device."""
 
     devices: tuple[torch.device, ...]
-    axis: str = "data"
+    axis_names: tuple[str, ...] = ("data",)
+    dims: tuple[int, ...] | None = None
+
+    def __post_init__(self):
+        if isinstance(self.axis_names, str):
+            object.__setattr__(self, "axis_names", (self.axis_names,))
+        if self.dims is None:
+            if len(self.axis_names) != 1:
+                raise ValueError("an N-D mesh needs its dims")
+            object.__setattr__(self, "dims", (len(self.devices),))
+        if len(self.dims) != len(self.axis_names) or \
+                int(np.prod(self.dims)) != len(self.devices):
+            raise ValueError(f"{len(self.devices)} devices for axes "
+                             f"{self.axis_names} of sizes {self.dims}")
 
     @property
     def shape(self) -> dict[str, int]:
-        return {self.axis: len(self.devices)}
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
 
     @property
     def distinct(self) -> tuple[torch.device, ...]:
@@ -87,10 +108,31 @@ class Mesh:
         """Where whole results are assembled: shard 0's device."""
         return self.devices[0]
 
+    def coords(self, i: int) -> dict[str, int]:
+        """Shard ``i``'s index along each axis."""
+        return dict(zip(self.axis_names,
+                        (int(c) for c in np.unravel_index(i, self.dims))))
+
+    def groups(self, axes=None) -> list[list[int]]:
+        """The shards that a collective over ``axes`` (a name, a tuple of
+        names, or None for every axis) combines: one list a group, of the
+        shards that agree on every other axis, in row-major order over
+        ``axes``. Axes the mesh lacks are ignored, as a size-1 axis."""
+        if axes is None:
+            axes = self.axis_names
+        elif isinstance(axes, str):
+            axes = (axes,)
+        rest = [a for a in self.axis_names if a not in axes]
+        out: dict[tuple, list[int]] = {}
+        for i in range(self.size):
+            c = self.coords(i)
+            out.setdefault(tuple(c[a] for a in rest), []).append(i)
+        return list(out.values())
+
 
 def make_mesh(num_shards: int | None = None, axis: str = "data",
               device: str | torch.device | None = None) -> Mesh:
-    """A mesh of ``num_shards`` shards.
+    """A 1-D mesh of ``num_shards`` shards.
 
     ``device=None`` or ``"cuda"`` spreads the shards round-robin over the
     visible cards (one shard a card by default, as the reference's
@@ -99,44 +141,118 @@ def make_mesh(num_shards: int | None = None, axis: str = "data",
     """
     if num_shards is not None and num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    return Mesh(shard_devices(num_shards, device), (axis,))
+
+
+def shard_devices(num_shards: int | None,
+                  device: str | torch.device | None) -> tuple:
+    """The device of each of ``num_shards`` shards (`make_mesh`)."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         count = torch.cuda.device_count()
         n = num_shards or count
-        return Mesh(tuple(torch.device("cuda", i % count) for i in range(n)),
-                    axis)
+        return tuple(torch.device("cuda", i % count) for i in range(n))
     if dev.type == "cuda" and dev.index >= torch.cuda.device_count():
         raise RuntimeError(f"no device {dev}: "
                            f"{torch.cuda.device_count()} visible")
-    return Mesh((dev,) * (num_shards or 1), axis)
+    return (dev,) * (num_shards or 1)
 
 
 # ------------------------------------------------------------ collectives
+# Each takes one tensor a shard (in shard order) and returns one a shard.
+# ``axis`` (a name, a tuple of names, None for all) picks the shards each
+# result combines (`Mesh.groups`). Shards of one group on one device share
+# one result tensor. The functions are plain torch ops, so autograd runs
+# through them: an all-gather's backward hands each shard the gradient of
+# its own piece summed over the group (a reduce-scatter), a psum's
+# backward hands each input the sum of the outputs' gradients.
 def all_gather(slabs: list[torch.Tensor], mesh: Mesh,
-               h_local: int | None = None) -> list[torch.Tensor]:
-    """Tiled all-gather along the last axis: every shard receives the
-    shards' slabs (or their first ``h_local`` entries) concatenated in
-    shard order. Shards on one device share one gathered tensor."""
+               h_local: int | None = None, axis=None,
+               dim: int = -1) -> list[torch.Tensor]:
+    """Tiled all-gather along ``dim`` (the last by default): every shard
+    receives its group's slabs (or their first ``h_local`` entries)
+    concatenated in group order."""
     parts = [s if h_local is None else s[..., :h_local] for s in slabs]
-    out = {d: torch.cat([p.to(d) for p in parts], dim=-1)
-           for d in mesh.distinct}
-    return [out[d] for d in mesh.devices]
+    _book("all_gather", parts, mesh, axis)
+    return _combine(parts, mesh, axis,
+                    lambda ps: torch.cat(ps, dim=dim))
 
 
-def _reduce(values: list[torch.Tensor], mesh: Mesh, op) -> list:
-    out = {d: op(torch.stack([v.to(d) for v in values]))
-           for d in mesh.distinct}
-    return [out[d] for d in mesh.devices]
+class CollectiveLedger:
+    """Bytes the collectives move, booked by the reference's per-device
+    formulas while one is open (``with``): an all-gather of ``b`` bytes a
+    shard over ``n`` shards moves ``(n - 1)·b`` into each device, a psum
+    or pmax (a ring all-reduce) ``2(n - 1)/n·b``. Booked once a call, for
+    one device of the group; autograd's backward of a gather (a
+    reduce-scatter) and of a psum move the same bytes again and are not
+    booked."""
+
+    def __init__(self):
+        self.bytes: dict[str, float] = {}
+        self.calls: dict[str, int] = {}
+
+    def __enter__(self):
+        global ledger
+        ledger = self
+        return self
+
+    def __exit__(self, *exc):
+        global ledger
+        ledger = None
+
+    def book(self, kind: str, n: int, nbytes: int) -> None:
+        if n <= 1:
+            return
+        moved = (n - 1) * nbytes if kind == "all_gather" else \
+            2 * (n - 1) / n * nbytes
+        self.bytes[kind] = self.bytes.get(kind, 0.0) + moved
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+
+    def as_dict(self) -> dict:
+        return {"bytes_per_device": dict(self.bytes), "calls": dict(
+            self.calls), "total_bytes_per_device": sum(self.bytes.values())}
 
 
-def psum(values: list[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
-    """Sum of one value a shard, summed in shard order, on every shard."""
-    return _reduce(values, mesh, lambda t: t.sum(0, dtype=t.dtype))
+# the `CollectiveLedger` the collectives book into, while one is open
+ledger = None
 
 
-def pmax(values: list[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
-    """Max of one value a shard, on every shard."""
-    return _reduce(values, mesh, lambda t: t.amax(0))
+def _book(kind: str, values: list, mesh: Mesh, axis) -> None:
+    if ledger is not None:
+        n = len(mesh.groups(axis)[0])
+        v = values[0]
+        ledger.book(kind, n, v.numel() * v.element_size())
+
+
+def _combine(values: list[torch.Tensor], mesh: Mesh, axis, op) -> list:
+    out: list = [None] * mesh.size
+    for group in mesh.groups(axis):
+        done: dict = {}
+        for i in group:
+            d = mesh.devices[i]
+            if d not in done:
+                done[d] = op([values[j].to(d) for j in group])
+            out[i] = done[d]
+    return out
+
+
+def _reduce(values: list[torch.Tensor], mesh: Mesh, op, axis=None) -> list:
+    return _combine(values, mesh, axis, lambda vs: op(torch.stack(vs)))
+
+
+def psum(values: list[torch.Tensor], mesh: Mesh,
+         axis=None) -> list[torch.Tensor]:
+    """Sum of one value a shard over its group, summed in group order, on
+    every shard of the group."""
+    _book("psum", values, mesh, axis)
+    return _reduce(values, mesh, lambda t: t.sum(0, dtype=t.dtype), axis)
+
+
+def pmax(values: list[torch.Tensor], mesh: Mesh,
+         axis=None) -> list[torch.Tensor]:
+    """Max of one value a shard over its group, on every shard of it."""
+    _book("pmax", values, mesh, axis)
+    return _reduce(values, mesh, lambda t: t.amax(0), axis)
 
 
 def _any(flags: list[torch.Tensor], mesh: Mesh) -> bool:

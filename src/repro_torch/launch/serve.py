@@ -102,7 +102,9 @@ def serve_loop(cfg, model, requests: list[Request], batch_slots: int = 4,
     """Continuous-batching loop on the model's device. Returns the
     completed requests, in completion order. Every decode step it runs
     adds one to the module's `decode_steps`."""
+    from .mesh import make_host_mesh
     dev = model.device
+    mesh = make_host_mesh(dev)             # one shard: the model's device
     queue = list(requests)[::-1]           # pop() takes the oldest
     active: list[Request | None] = [None] * batch_slots
     remaining = [0] * batch_slots
@@ -115,7 +117,7 @@ def serve_loop(cfg, model, requests: list[Request], batch_slots: int = 4,
     def run_step():
         global decode_steps
         decode_steps += 1
-        return decode_step(model, cache, tokens)
+        return decode_step(model, cache, tokens, mesh)
 
     def admit(slot: int):
         nonlocal cache

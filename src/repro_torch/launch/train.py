@@ -13,8 +13,11 @@ card unless ``--device`` names another):
   is computed from a corpus sample before step 0 and applied to the
   embedding rows and to the host token stream.
 
-The reference's elastic restart onto a mesh needs the sharded modules
-(ROADMAP A8.8). Embedding-fed archs are refused, as in the reference.
+The step is built on ``make_host_mesh()``, as the reference's is: a
+one-shard mesh on the run's device, whose step is the single-device one
+(a sharded run goes through ``train.steps.make_train_step`` on a larger
+mesh, and ``CheckpointManager.restore(shardings=)`` restores a save onto
+it). Embedding-fed archs are refused, as in the reference.
 Beside the reference's flags: ``--device``; ``--depth N``, the full
 width with the depth cut to N layers (the reference's ``--layers`` cuts
 the smoke config only); and ``--no-final-ckpt``, which skips the save
@@ -133,6 +136,7 @@ def main(argv=None):
     from ..configs import get_config, smoke_config
     from ..data.pipeline import DataConfig, DataLoader
     from ..device import resolve_device
+    from ..launch.mesh import make_host_mesh
     from ..locality import applies_to
     from ..models.transformer import init_params, param_tree
     from ..train.optim import TrainConfig, init_opt_state
@@ -175,7 +179,7 @@ def main(argv=None):
             start_step = step_found + 1
             print(f"[ckpt] resumed from step {step_found}")
 
-    step_fn = make_train_step(cfg, tc)
+    step_fn = make_train_step(cfg, tc, make_host_mesh(dev))
     loader = DataLoader(dc, vocab_reorder, start_step=start_step)
     monitor = StragglerMonitor()
 

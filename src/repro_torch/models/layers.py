@@ -24,16 +24,29 @@ Conventions
   (`bf16_scalar`), and ``jax.nn.silu`` and ``jax.nn.gelu`` on bf16 round
   each step of their formulas (`silu`, `gelu`).
 
-The reference's sequence-sharded decode (``_seq_shards``,
-``_decode_attn_seqsharded``) belongs to the sharded mesh and is not
-ported: a ``mesh=`` argument raises.
+On a mesh (``mesh=``, ``launch/mesh.py``) `apply_attention` takes the
+layer's params as `ShardedTensor`s laid out by ``param_specs`` and ``x``
+as one tensor a shard, and computes Megatron-style over ``model``: each
+shard projects with its own columns of ``wq``/``wk``/``wv`` (gathered
+whole over ``data`` first, the FSDP gather), computes the heads its
+``wq`` columns cover, and multiplies them by its rows of ``wo``; a psum
+over ``model`` sums the partial outputs (`_apply_attention_sharded`).
+Where a spec splits finer than a whole head (qwen2.5-3b's ``wk`` at
+``model`` = 4 is half a kv head a shard), the shard all-gathers the
+projected columns over ``model`` to the whole kv heads its q heads read.
+A decode against a cache sharded on its sequence dim (kv heads that do
+not divide ``model``, `_seq_shards`) runs `_decode_attn_seqsharded`: each
+shard attends over its slice of the cache for every head, and the
+partial softmaxes combine by ``pmax`` and ``psum`` over ``model``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
+from ..core import dist
 from ..kernels.flash_attn.flash_attn import HEAD_DIMS
 from ..kernels.flash_attn.ops import attention
 from ..kernels.hot_embed.ops import hot_cold_lookup
@@ -43,10 +56,8 @@ COMPUTE_DTYPE = torch.bfloat16
 Q_CHUNK = 1024
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded attention (a mesh) is not ported yet: ROADMAP A8.8")
+MODEL = "model"
+DP_AXES = ("pod", "data")
 
 
 def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
@@ -244,6 +255,46 @@ def flash_eligible(cfg: ModelConfig, device: torch.device | str) -> bool:
     return False
 
 
+def _prefill_attention(q, k, v, cfg: ModelConfig, positions):
+    """Self-attention over the whole sequence: q (B,S,H,dh), k/v
+    (B,S,KV,dh) -> (B,S,H,dh)."""
+    b, s, h, dh = q.shape
+    if flash_eligible(cfg, q.device):
+        # (B·heads, S, dh); k and v keep their kv heads, so that a kv
+        # row serves h / kv query rows (never expanded to h heads)
+        def heads(t):
+            return t.transpose(1, 2).reshape(-1, s, dh)
+        of = attention(heads(q), heads(k), heads(v), window=cfg.window,
+                       causal=cfg.causal, prefix=cfg.prefix_tokens)
+        return of.reshape(b, h, s, dh).transpose(1, 2)
+    return _sdpa_chunked(q, k, v, positions, positions, cfg)
+
+
+def _cache_write(cache, k, v, cfg: ModelConfig, positions):
+    """Writes one decode step's k/v (B,1,KV,dh) into ``cache`` in place.
+    Sliding-window configs use a ring buffer of size ``window``,
+    full-attention configs a linear buffer. Returns (k, v, k_pos,
+    k_valid): the cache's tensors, each slot's position and whether it
+    holds a key the step may read."""
+    t = cache["k"].shape[1]
+    pos = positions[-1]
+    ar = torch.arange(t, device=k.device)
+    if cfg.window > 0 and t <= cfg.window:
+        slot = (pos % t).long().reshape(1)
+        k_pos = pos - ((slot - ar) % t)
+        k_valid = k_pos >= 0
+    else:
+        # dynamic_update_slice_in_dim clamps its start so that the
+        # update fits: once the shared length passes T - 1, every
+        # write lands on the last slot
+        slot = cache["length"].clamp(0, t - 1).long().reshape(1)
+        k_pos = ar
+        k_valid = k_pos < cache["length"] + 1
+    ck = cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cv = cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    return ck, cv, k_pos, k_valid
+
+
 def apply_attention(p, x, cfg: ModelConfig, positions, cache=None,
                     mesh=None):
     """Returns (out, new_cache). cache=None -> full self-attention (prefill).
@@ -251,8 +302,16 @@ def apply_attention(p, x, cfg: ModelConfig, positions, cache=None,
     cache: dict(k=(B,T,KV,dh), v=..., length=0-d int32 tensor) for decode;
     positions are absolute token positions of x's tokens. The cache's k and
     v are written in place and returned in ``new_cache``.
+
+    With ``mesh``: ``p`` maps names to `ShardedTensor`s, ``x`` is one
+    tensor a shard and ``cache`` (if any) holds `ShardedTensor`s laid out
+    by ``cache_specs``; the output is one tensor a shard
+    (`_apply_attention_sharded`).
     """
-    _no_mesh(mesh)
+    if mesh is not None:
+        if not isinstance(x, (list, tuple)):
+            raise TypeError("on a mesh x is one tensor a shard")
+        return _apply_attention_sharded(p, x, cfg, positions, cache, mesh)
     b, s, d = x.shape
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _dense(x, p["wq"], p.get("bq")).reshape(b, s, h, dh)
@@ -262,37 +321,11 @@ def apply_attention(p, x, cfg: ModelConfig, positions, cache=None,
     k = apply_rope(k, positions, cfg)
 
     if cache is None:
-        if flash_eligible(cfg, x.device):
-            # (B·heads, S, dh); k and v keep their kv heads, so that a kv
-            # row serves h / kv query rows (never expanded to h heads)
-            def heads(t):
-                return t.transpose(1, 2).reshape(-1, s, dh)
-            of = attention(heads(q), heads(k), heads(v), window=cfg.window,
-                           causal=cfg.causal, prefix=cfg.prefix_tokens)
-            out = of.reshape(b, h, s, dh).transpose(1, 2)
-        else:
-            out = _sdpa_chunked(q, k, v, positions, positions, cfg)
+        out = _prefill_attention(q, k, v, cfg, positions)
         new_cache = None
     else:
-        # decode step (s == 1). Sliding-window configs use a ring buffer of
-        # size `window`; full-attention configs use a linear buffer.
         assert s == 1, "cached attention path is decode-only (s == 1)"
-        t = cache["k"].shape[1]
-        pos = positions[-1]
-        ar = torch.arange(t, device=x.device)
-        if cfg.window > 0 and t <= cfg.window:
-            slot = (pos % t).long().reshape(1)
-            k_pos = pos - ((slot - ar) % t)
-            k_valid = k_pos >= 0
-        else:
-            # dynamic_update_slice_in_dim clamps its start so that the
-            # update fits: once the shared length passes T - 1, every
-            # write lands on the last slot
-            slot = cache["length"].clamp(0, t - s).long().reshape(1)
-            k_pos = ar
-            k_valid = k_pos < cache["length"] + 1
-        ck = cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-        cv = cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        ck, cv, k_pos, k_valid = _cache_write(cache, k, v, cfg, positions)
         # p meets V as in the prefill on this device (`flash_attention`)
         out = _sdpa_chunked(q, ck, cv, positions, k_pos, cfg, k_valid,
                             round_p=x.device.type != "cuda")
@@ -300,6 +333,199 @@ def apply_attention(p, x, cfg: ModelConfig, positions, cache=None,
 
     out = _dense(out.reshape(b, s, h * dh), p["wo"], p.get("bo"))
     return out, new_cache
+
+
+# ------------------------------------------------------ attention on a mesh
+def _seq_shards(mesh, cfg: ModelConfig, t: int) -> int:
+    """Shards for a sequence-sharded KV cache: applies when kv heads do NOT
+    divide the model axis (else heads shard), the cache length does, and
+    there is no sliding window."""
+    if mesh is None or MODEL not in getattr(mesh, "axis_names", ()):
+        return 1
+    n = mesh.shape[MODEL]
+    if n > 1 and cfg.num_kv_heads % n != 0 and t % n == 0 \
+            and cfg.window == 0:
+        return n
+    return 1
+
+
+def split_over(st, dim: int, axis: str = MODEL) -> bool:
+    """Whether `ShardedTensor` ``st`` splits ``dim`` over ``axis`` (of size
+    more than 1)."""
+    e = st.spec[dim]
+    axes = e if isinstance(e, tuple) else (e,)
+    return axis in axes and st.mesh.shape.get(axis, 1) > 1
+
+
+def psum_model(values: list, mesh, split: bool = True) -> list:
+    """``psum`` over ``model`` of one partial a shard (the Megatron sum after
+    a row-split product); the values themselves when nothing was split."""
+    return dist.psum(values, mesh, MODEL) if split else values
+
+
+def _columns(locs: list, have: list, need: list, mesh) -> list:
+    """Shard ``i``'s columns ``need[i]`` = [lo, hi) of an activation whose
+    shard ``i`` holds columns ``have[i]``: its own when they cover them,
+    else an all-gather over ``model`` first."""
+    full, out = None, []
+    for i, (t, (a, b), (lo, hi)) in enumerate(zip(locs, have, need)):
+        if a <= lo and hi <= b:
+            out.append(t if (a, b) == (lo, hi) else t[..., lo - a:hi - a])
+        else:
+            if full is None:
+                full = dist.all_gather(locs, mesh, axis=MODEL)
+            out.append(full[i][..., lo:hi])
+    return out
+
+
+def _local_heads(cfg: ModelConfig, h0: int, h1: int, g0: int, g1: int):
+    """(config, kv index or None) for q heads [h0, h1) reading kv heads
+    [g0, g1): the config with those head counts when each kv head serves
+    an equal run of the q heads; else an MHA config and, for each q head,
+    the kv head (from g0) to repeat for it."""
+    rep = cfg.num_heads // cfg.num_kv_heads
+    nh, ng = h1 - h0, g1 - g0
+    idx = [hh // rep - g0 for hh in range(h0, h1)]
+    if nh % ng == 0 and idx == [j // (nh // ng) for j in range(nh)]:
+        return dataclasses.replace(cfg, num_heads=nh, num_kv_heads=ng), None
+    return dataclasses.replace(cfg, num_heads=nh, num_kv_heads=nh), idx
+
+
+def _apply_attention_sharded(p, xs, cfg: ModelConfig, positions, cache,
+                             mesh):
+    """`apply_attention` on a mesh. Shard ``i`` computes q heads [h0, h1),
+    those its ``wq`` columns [a, b) cover (every head, for a sequence-
+    sharded decode), reads the kv heads they map to, multiplies columns
+    [a, b) of the heads' output by its rows of ``wo`` and sums over
+    ``model``. In decode it writes the kv heads its cache slice holds."""
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rep = h // kv
+    n = mesh.size
+    seq = cache is not None and _seq_shards(
+        mesh, cfg, cache["k"].shape[1]) > 1
+    g = {name: st.gather(DP_AXES) for name, st in p.items()}
+
+    def proj(w, bias):
+        return [_dense(xs[i], g[w][i], g[bias][i] if bias in g else None)
+                for i in range(n)]
+
+    qcols = [p["wq"].bounds(i, 1) for i in range(n)]
+    kcols = [p["wk"].bounds(i, 1) for i in range(n)]
+    heads, reads, kvs = [], [], []
+    for i, (a, b) in enumerate(qcols):
+        h0, h1 = (0, h) if seq else (a // dh, -(-b // dh))
+        g0, g1 = h0 // rep, (h1 - 1) // rep + 1
+        heads.append((h0, h1))
+        reads.append((g0, g1))
+        if cache is not None:    # write every kv head the slice holds
+            c0, c1 = cache["k"].bounds(i, 2)
+            g0, g1 = min(g0, c0), max(g1, c1)
+        kvs.append((g0, g1))
+    q = _columns(proj("wq", "bq"), qcols,
+                 [(h0 * dh, h1 * dh) for h0, h1 in heads], mesh)
+    kcol = [(g0 * dh, g1 * dh) for g0, g1 in kvs]
+    k = _columns(proj("wk", "bk"), kcols, kcol, mesh)
+    v = _columns(proj("wv", "bv"), kcols, kcol, mesh)
+
+    b, s = xs[0].shape[:2]
+    pos = {d: positions.to(d) for d in mesh.distinct}
+    outs, qs, ks, vs = [], [], [], []
+    for i in range(n):
+        pi = pos[mesh.devices[i]]
+        (h0, h1), (g0, g1) = heads[i], kvs[i]
+        qs.append(apply_rope(q[i].reshape(b, s, h1 - h0, dh), pi, cfg))
+        ks.append(apply_rope(k[i].reshape(b, s, g1 - g0, dh), pi, cfg))
+        vs.append(v[i].reshape(b, s, g1 - g0, dh))
+    new_cache = None
+    if seq:
+        outs, new_cache = _decode_attn_seqsharded(
+            [t.reshape(b, 1, kv, rep, dh) for t in qs], ks, vs, cache, cfg,
+            mesh)
+        outs = [o.reshape(b, s, h * dh) for o in outs]
+    else:
+        lengths = []
+        for i in range(n):
+            pi = pos[mesh.devices[i]]
+            (h0, h1), (r0, r1), (g0, _) = heads[i], reads[i], kvs[i]
+            lcfg, idx = _local_heads(cfg, h0, h1, r0, r1)
+
+            def sel(t):    # the kv heads q heads [h0, h1) read
+                t = t[:, :, r0 - g0:r1 - g0]
+                return t if idx is None else t[:, :, idx]
+            if cache is None:
+                o = _prefill_attention(qs[i], sel(ks[i]), sel(vs[i]), lcfg,
+                                       pi)
+            else:
+                local = {"k": cache["k"].shards[i],
+                         "v": cache["v"].shards[i],
+                         "length": cache["length"].shards[i]}
+                ck, cv, k_pos, k_valid = _cache_write(local, ks[i], vs[i],
+                                                      cfg, pi)
+                o = _sdpa_chunked(qs[i], sel(ck), sel(cv), pi, k_pos, lcfg,
+                                  k_valid, round_p=pi.device.type != "cuda")
+                lengths.append(local["length"] + 1)
+            outs.append(o.reshape(b, s, (h1 - h0) * dh))
+        if cache is not None:
+            new_cache = dict(cache, length=_like(cache["length"], lengths))
+    wo = g["wo"]
+    part = [torch.matmul(
+        outs[i][..., a - heads[i][0] * dh:b_ - heads[i][0] * dh].to(
+            COMPUTE_DTYPE), wo[i].to(COMPUTE_DTYPE))
+        for i, (a, b_) in enumerate(qcols)]
+    out = psum_model(part, mesh, split_over(p["wo"], 0))
+    if "bo" in g:
+        out = [o + g["bo"][i].to(COMPUTE_DTYPE) for i, o in enumerate(out)]
+    return out, new_cache
+
+
+def _like(st, shards: list):
+    """A `ShardedTensor` with ``st``'s layout and new shards."""
+    return type(st)(shards, st.spec, st.mesh, st.shape)
+
+
+def _decode_attn_seqsharded(q, k_new, v_new, cache, cfg: ModelConfig, mesh):
+    """One-token decode against a sequence-sharded KV cache.
+
+    Each model shard owns a contiguous T/n slice of the cache: it writes
+    the step's k/v into its slice only when the slot ``length - ax·tl``
+    falls in it, computes float32 logits over its slice masked at ``kpos
+    <= length``, and the partial softmaxes combine over ``model``:
+    ``pmax`` of the row maxima, ``psum`` of the sums and of the
+    numerators, divided by ``max(l, 1e-30)``. q: one (B,1,KV,rep,dh)
+    tensor a shard (every head); k_new/v_new: (B,1,KV,dh); cache:
+    `ShardedTensor`s ``k``/``v`` (B,T,KV,dh) split over ``model`` on T and
+    ``length``. The batch keeps its split over the data axes. Returns (one
+    (B,1,KV,rep,dh) bf16 output a shard, the new cache); the cache's
+    tensors are written in place."""
+    dh = q[0].shape[-1]
+    scale = dh ** -0.5
+    logits, vals, lengths = [], [], []
+    for i in range(mesh.size):
+        ck, cv = cache["k"].shards[i], cache["v"].shards[i]
+        length = cache["length"].shards[i]
+        ax = mesh.coords(i)[MODEL]
+        tl = ck.shape[1]
+        slot = length - ax * tl
+        ok = (slot >= 0) & (slot < tl)
+        idx = slot.clamp(0, tl - 1).long().reshape(1)
+        for c, new in ((ck, k_new[i]), (cv, v_new[i])):
+            c.index_copy_(1, idx, torch.where(ok, new.to(c.dtype),
+                                              c.index_select(1, idx)))
+        kpos = ax * tl + torch.arange(tl, device=ck.device)
+        lg = torch.einsum("bqgrd,btgd->bgrqt", q[i].float(),
+                          ck.float()) * scale
+        logits.append(torch.where((kpos <= length)[None, None, None, None],
+                                  lg, -1e30))
+        vals.append(cv)
+        lengths.append(length + 1)
+    m = dist.pmax([lg.amax(-1) for lg in logits], mesh, MODEL)
+    pv = [torch.exp(lg - mi[..., None]) for lg, mi in zip(logits, m)]
+    l = dist.psum([t.sum(-1) for t in pv], mesh, MODEL)
+    num = dist.psum([torch.einsum("bgrqt,btgd->bqgrd", t, cv.float())
+                     for t, cv in zip(pv, vals)], mesh, MODEL)
+    out = [(nu / torch.clamp(li, min=1e-30).permute(0, 3, 1, 2)[..., None]
+            ).to(COMPUTE_DTYPE) for nu, li in zip(num, l)]
+    return out, dict(cache, length=_like(cache["length"], lengths))
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -333,12 +559,36 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig):
     return p
 
 
-def apply_mlp(p, x, cfg: ModelConfig):
+def apply_mlp(p, x, cfg: ModelConfig, mesh=None):
+    """The MLP. With ``mesh`` (``p`` of `ShardedTensor`s, ``x`` one tensor
+    a shard) each shard computes its own columns of the hidden layer (the
+    weights gathered whole over ``data`` first) and its rows of the
+    output product, and a psum over ``model`` sums them; the output bias
+    is added after the sum."""
+    if mesh is not None:
+        return _apply_mlp_sharded(p, x, cfg, mesh)
     if cfg.mlp_type == "swiglu":
         return _dense(silu(_dense(x, p["w_gate"]))
                       * _dense(x, p["w_up"]), p["w_down"])
     h = gelu(_dense(x, p["w_in"], p.get("b_in")))
     return _dense(h, p["w_out"], p.get("b_out"))
+
+
+def _apply_mlp_sharded(p, xs, cfg: ModelConfig, mesh):
+    g = {name: st.gather(DP_AXES) for name, st in p.items()}
+    n = mesh.size
+    if cfg.mlp_type == "swiglu":
+        part = [_dense(silu(_dense(xs[i], g["w_gate"][i]))
+                       * _dense(xs[i], g["w_up"][i]), g["w_down"][i])
+                for i in range(n)]
+        return psum_model(part, mesh, split_over(p["w_down"], 0))
+    part = [_dense(gelu(_dense(xs[i], g["w_in"][i],
+                               g["b_in"][i] if "b_in" in g else None)),
+                   g["w_out"][i]) for i in range(n)]
+    out = psum_model(part, mesh, split_over(p["w_out"], 0))
+    if "b_out" in g:
+        out = [o + g["b_out"][i].to(COMPUTE_DTYPE) for i, o in enumerate(out)]
+    return out
 
 
 # --------------------------------------------------------------- embedding

@@ -18,8 +18,12 @@ a ``"layers"`` list), so a leaf decays when its rank, plus one inside
 ``"layers"``, is 2 or more (`decays`); a ``"layers"`` dict holds stacked
 leaves, as in the reference, and counts as it is.
 
-The cross-pod error-feedback all-reduce (``ef_compressed_psum``) needs a
-process group and is not ported: it raises (ROADMAP A8.8).
+On a mesh the train step (``train/steps.py``) hands these functions
+trees whose leaves are lists of one slice a shard; ``skip`` names the
+slices that replicate another (a slice counts once in the global norm),
+and each leaf is updated on its own device. The cross-pod error-feedback
+all-reduce (`ef_compressed_psum`) runs over one mesh axis, on one value a
+shard.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ import dataclasses
 import math
 
 import torch
+
+from ..core import dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,34 +111,41 @@ def init_opt_state(params) -> dict:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, skip=frozenset()):
     """Scales ``grads`` in place so that their global L2 norm is at most
-    ``max_norm``; returns (grads, the norm before, a 0-d float32 tensor)."""
-    leaves = [g for _, g in _leaves(grads)]
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in leaves))
+    ``max_norm``; returns (grads, the norm before, a 0-d float32 tensor on
+    the first leaf's device). Leaves at a path in ``skip`` are scaled but
+    not counted (a replica of another slice)."""
+    flat = list(_leaves(grads))
+    dev = flat[0][1].device
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())).to(dev)
+                           for path, g in flat if path not in skip))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    for g in leaves:
-        g.mul_(scale)
+    for _, g in flat:
+        g.mul_(scale.to(g.device))
     return grads, gnorm
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state: dict, tc: TrainConfig):
+def adamw_update(params, grads, opt_state: dict, tc: TrainConfig,
+                 skip=frozenset()):
     """One AdamW step in place on ``params`` and ``opt_state`` (trees of one
-    structure; ``grads`` is clipped in place). Returns (params, opt_state,
-    metrics) with ``grad_norm`` and ``lr`` as 0-d tensors."""
-    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
+    structure; ``grads`` is clipped in place, ``skip`` as
+    `clip_by_global_norm` takes it). Returns (params, opt_state, metrics)
+    with ``grad_norm`` and ``lr`` as 0-d tensors."""
+    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip, skip)
     step = opt_state["step"] + 1
     lr = schedule_lr(tc, step)
     b1, b2 = tc.beta1, tc.beta2
     sf = step.float()
-    bc1 = 1 - b1 ** sf
-    bc2 = 1 - b2 ** sf
+    bc = {step.device: (lr, 1 - b1 ** sf, 1 - b2 ** sf)}
     flat_mu = dict(_leaves(opt_state["mu"]))
     flat_nu = dict(_leaves(opt_state["nu"]))
     flat_g = dict(_leaves(grads))
     for path, p in _leaves(params):
+        if p.device not in bc:
+            bc[p.device] = tuple(t.to(p.device) for t in bc[step.device])
+        lr_d, bc1, bc2 = bc[p.device]
         g = flat_g[path].float()
         mu, nu = flat_mu[path], flat_nu[path]
         mu.mul_(b1).add_((1 - b1) * g)
@@ -140,7 +153,7 @@ def adamw_update(params, grads, opt_state: dict, tc: TrainConfig):
         update = (mu / bc1) / (torch.sqrt(nu / bc2) + tc.eps)
         if decays(path, p):   # decoupled weight decay on matrices only
             update = update + tc.weight_decay * p
-        p.sub_(lr * update)
+        p.sub_(lr_d * update)
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
 
@@ -157,8 +170,27 @@ def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def ef_compressed_psum(grads, errors, axis: str):
-    """The reference's error-feedback int8 psum over a mesh axis: it needs a
-    process group, which the port does not have yet."""
-    raise NotImplementedError(
-        "ef_compressed_psum needs a process group: ROADMAP A8.8")
+def ef_compressed_psum(grads, errors, axis: str, mesh):
+    """Error-feedback int8 psum over the mesh axis ``axis`` (the
+    low-bandwidth cross-pod link), the reference's as a function over the
+    shards: ``grads`` and ``errors`` are trees whose leaves are lists of
+    one tensor a shard (in the mesh's order). Each shard quantises its
+    gradient plus its residual to int8 with one scale, keeps the new
+    residual, and the decompressed values are summed over ``axis`` and
+    divided by its size. Returns (mean_grads, new_errors), leaves of the
+    same form."""
+    n = mesh.shape[axis]
+
+    def one(gs, es):
+        gcs = [g.float() + e for g, e in zip(gs, es)]
+        sent = [decompress_int8(*compress_int8(gc)) for gc in gcs]
+        new_e = [gc - d for gc, d in zip(gcs, sent)]
+        total = dist.psum(sent, mesh, axis)
+        return [t / n for t in total], new_e
+
+    if isinstance(grads, dict):
+        out = {k: ef_compressed_psum(grads[k], errors[k], axis, mesh)
+               for k in grads}
+        return ({k: v[0] for k, v in out.items()},
+                {k: v[1] for k, v in out.items()})
+    return one(grads, errors)

@@ -182,10 +182,19 @@ def test_ckpt_async_snapshots_before_in_place_updates(tmp_path):
 
 
 def test_ckpt_refuses_shardings(tmp_path):
+    """``restore(shardings=)`` refuses a tree that is not the
+    checkpoint's; a matching one cuts each leaf by its spec onto its mesh
+    (tests/test_torch_mesh.py holds the elastic restore of a model)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import NamedSharding, P
     m = CheckpointManager(tmp_path, async_save=False)
     m.save(1, {"w": torch.arange(8.0)}, blocking=True)
-    with pytest.raises(NotImplementedError, match="A8.8"):
-        m.restore(shardings={"w": None})
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    with pytest.raises(ValueError, match="not the checkpoint's"):
+        m.restore(shardings={"v": NamedSharding(mesh, P("data"))})
+    _, tree = m.restore(shardings={"w": NamedSharding(mesh, P("data"))})
+    assert [t.tolist() for t in tree["w"].shards] == [
+        [0, 1, 2, 3], [0, 1, 2, 3], [4, 5, 6, 7], [4, 5, 6, 7]]
 
 
 # ------------------------------------------------------------------ loader

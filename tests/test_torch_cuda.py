@@ -1916,3 +1916,117 @@ def test_moe_training_on_the_card_matches_the_cpu():
     for n in got:
         assert torch.equal(no_remat[n], got[n]), n
         assert torch.equal(again[n], got[n]), n
+
+
+# ---------------------------------------------------------------- the mesh
+def _mesh4(shape):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, ("data", "model"), "cuda:0")
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_seqsharded_decode_attention_on_the_card(shape):
+    """``layers._decode_attn_seqsharded`` at qwen2.5-3b's heads (2 kv heads
+    of 8 query heads, head dim 128) on 4 shards of the card, the cache
+    split on its sequence over ``model`` (and its rows over ``data``),
+    against the unsharded decode attention (``_sdpa_chunked``, p in
+    float32) over the same cache after the same write: within 1e-3 or one
+    bf16 unit of each value (both round one float32 result to bf16); the
+    cache's slices equal the whole cache's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shardings import P, shard_leaf
+    from repro_torch.models import layers as L
+    dev = _card()
+    cfg = get_config("qwen2.5-3b")
+    mesh = _mesh4(shape)
+    b, t, filled = 4, 4096, 3000
+    kv, dh = cfg.num_kv_heads, cfg.head_dim
+    rep = cfg.num_heads // kv
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+    q, kn, vn = randn(b, 1, kv, rep, dh), randn(b, 1, kv, dh), randn(
+        b, 1, kv, dh)
+    ck, cv = randn(b, t, kv, dh), randn(b, t, kv, dh)
+    length = torch.tensor(filled, dtype=torch.int32, device=dev)
+    rows = "data" if shape[0] > 1 else None
+    spec = P(rows, "model", None, None)
+    cache = {"k": shard_leaf(ck, spec, mesh), "v": shard_leaf(cv, spec, mesh),
+             "length": shard_leaf(length, P(), mesh)}
+    per = b // shape[0]
+
+    def mine(x, i):     # shard i's rows
+        r = mesh.coords(i)["data"]
+        return x[r * per:(r + 1) * per]
+    n = mesh.size
+    got, new = L._decode_attn_seqsharded(
+        [mine(q, i) for i in range(n)], [mine(kn, i) for i in range(n)],
+        [mine(vn, i) for i in range(n)], cache, cfg, mesh)
+    pos = length[None]
+    wk, wv, k_pos, k_valid = L._cache_write(
+        {"k": ck.clone(), "v": cv.clone(), "length": length}, kn, vn, cfg,
+        pos)
+    want = L._sdpa_chunked(q.reshape(b, 1, kv * rep, dh), wk, wv, pos,
+                           k_pos, cfg, k_valid, round_p=False).float()
+    unit = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                      - 7)
+    for i, o in enumerate(got):
+        w, u = mine(want, i), mine(unit, i)
+        d = (o.reshape(w.shape).float() - w).abs()
+        assert bool((d <= torch.clamp(u, min=1e-3)).all()), float(d.max())
+    assert torch.equal(new["k"].full(), wk)
+    assert torch.equal(new["v"].full(), wv)
+    assert all(int(x) == filled + 1 for x in new["length"].shards)
+
+
+def test_capacity_dispatch_through_moe_gmm_on_the_card():
+    """``moe._dispatch_capacity`` at moonshot's widths (d 2048, 64 experts,
+    top 6; one model shard's F/2 = 704 slice of every expert) over 512
+    tokens whose routing sends every token to expert 0 (so its group
+    drops rows past the capacity of 128), on the card through
+    ``moe_gmm`` (3 launches, every group ``cap`` rows) against its plain
+    version on the CPU on the same inputs: the output within 2% of each
+    value or of the largest magnitude (tests/test_torch_models.py's bf16
+    standard: the bf16 intermediates round at other places), the same rows
+    kept and dropped; and its gradients (``tgmm`` and dX) within 5e-2
+    relative L2 of the CPU's."""
+    from repro_torch.models import moe as TM
+    dev = _card()
+    t, d, f, e, k = 512, 2048, 704, 64, 6
+    cap = TM.capacity(t, type("C", (), {"experts_per_token": k,
+                                        "num_experts": e})())
+    assert cap == 128
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(t, d, generator=gen).to(torch.bfloat16)
+    weights = 1.0 / torch.arange(1, e + 1, dtype=torch.float32)
+    rest = torch.stack([torch.multinomial(weights[1:], k - 1, generator=gen)
+                        + 1 for _ in range(t)])
+    experts = torch.cat([torch.zeros(t, 1, dtype=torch.long), rest], 1)
+    gates = torch.softmax(torch.randn(t, k, generator=gen), -1)
+    ws = [torch.randn(e, d, f, generator=gen) * d ** -0.5,
+          torch.randn(e, d, f, generator=gen) * d ** -0.5,
+          torch.randn(e, f, d, generator=gen) * f ** -0.5]
+    runs = {}
+    for where in ("cpu", dev):
+        xs = x.detach().to(where).requires_grad_(True)
+        wt = [w.detach().to(where).requires_grad_(True) for w in ws]
+        launched = gmm_mod.launches
+        with TM.DropTape() as tape:
+            y = TM._dispatch_capacity(xs, experts.to(where), gates.to(where),
+                                      *wt, e, cap)
+        if where == dev:
+            assert gmm_mod.launches - launched == 3
+        y.float().square().sum().backward()
+        runs[str(where)] = (y.detach().float().cpu(), tape.dropped(), tape.totals(),
+                            [xs.grad.float().cpu()]
+                            + [w.grad.float().cpu() for w in wt])
+    (yc, dc, tc, gc), (yg, dg, tg, gg) = runs["cpu"], runs[str(dev)]
+    assert tc == tg and tc["dropped"] >= t - cap
+    for a, b in zip(dc, dg):
+        assert np.array_equal(a, b)
+    frac = 2e-2
+    torch.testing.assert_close(yg, yc, rtol=frac,
+                               atol=frac * float(yc.abs().max()))
+    for a, b in zip(gg, gc):
+        assert float((a - b).norm() / b.norm()) < 5e-2

@@ -614,13 +614,22 @@ def test_unported_trunks_raise(arch, row):
 
 
 def test_mesh_raises(minicpm):
+    """A `Transformer` handed a mesh of more than one shard is refused (it
+    must be cut onto the mesh first, ``ShardedModel.from_model``); on the
+    one-shard host mesh it runs as without a mesh
+    (tests/test_torch_mesh.py holds the sharded model)."""
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
     _, cfg_t, _, model = minicpm
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A8.8"):
-        TT.forward(model, {"tokens": tokens}, mesh=object())
-    with pytest.raises(NotImplementedError, match="A8.8"):
+    mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+    with pytest.raises(TypeError, match="ShardedModel"):
+        TT.forward(model, {"tokens": tokens}, mesh=mesh)
+    with pytest.raises(TypeError, match="ShardedModel"):
         TT.decode_step(model, TT.init_cache(cfg_t, 1, 4, device="cpu"),
-                       tokens[:, :1], mesh=object())
+                       tokens[:, :1], mesh=mesh)
+    host = make_host_mesh("cpu")
+    assert torch.equal(TT.forward(model, {"tokens": tokens}, host)[0],
+                       TT.forward(model, {"tokens": tokens})[0])
 
 
 def test_entry_points_refuse_without_a_card():

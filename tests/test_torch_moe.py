@@ -276,10 +276,14 @@ def test_route_tape_records_and_replays():
 
 
 def test_apply_moe_refuses_a_mesh():
+    """On a mesh `apply_moe` takes one tensor a shard: a whole tensor is
+    refused (tests/test_torch_mesh_moe.py holds the sharded MoE)."""
+    from repro_torch.launch.mesh import make_mesh
     _, cfg_t, _, tp = _moe_params("moonshot-v1-16b-a3b")
-    with pytest.raises(NotImplementedError, match="A8.8"):
+    mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+    with pytest.raises(TypeError, match="one tensor a shard"):
         TM.apply_moe(tp, torch.zeros(1, 2, cfg_t.d_model), cfg_t,
-                     mesh=object())
+                     mesh=mesh)
 
 
 # ---------------------------------------------------------------- the model

@@ -297,8 +297,22 @@ def test_int8_compression_error_feedback():
 
 
 def test_ef_compressed_psum_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A8.8"):
-        TO.ef_compressed_psum({}, {}, "pod")
+    """`ef_compressed_psum` is ported now (the name is kept): over a
+    2-way ``pod`` axis of CPU shards it sums each shard's int8-quantised
+    gradient plus residual, halves it, and keeps each shard's new
+    residual (tests/test_torch_mesh_moe.py holds it to the reference's
+    inside ``shard_map``)."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2,), ("pod",), device="cpu")
+    rng = np.random.default_rng(5)
+    g = [torch.from_numpy(rng.standard_normal(9).astype(np.float32))
+         for _ in range(2)]
+    e = [torch.zeros(9) for _ in range(2)]
+    mean, errs = TO.ef_compressed_psum({"w": g}, {"w": e}, "pod", mesh)
+    sent = [TO.decompress_int8(*TO.compress_int8(x)) for x in g]
+    for i in range(2):
+        torch.testing.assert_close(mean["w"][i], (sent[0] + sent[1]) / 2)
+        torch.testing.assert_close(errs["w"][i], g[i] - sent[i])
 
 
 # -------------------------------------------------------------------- loss
@@ -589,9 +603,19 @@ def test_train_step_microbatch_equivalence():
 
 
 def test_train_step_refuses_a_mesh():
+    """A mesh is a `core.dist.Mesh`; a `Transformer` on a mesh of more
+    than one shard is refused at the step (tests/test_torch_mesh.py
+    trains the sharded model)."""
+    from repro_torch.launch.mesh import make_mesh
     cfg = smoke_config("qwen2.5-3b", layers=2)
-    with pytest.raises(NotImplementedError, match="A8.8"):
+    with pytest.raises(TypeError, match="Mesh"):
         TS.make_train_step(cfg, TO.TrainConfig(), mesh=object())
+    mesh = make_mesh((2, 1), ("data", "model"), device="cpu")
+    step = TS.make_train_step(cfg, TO.TrainConfig(), mesh)
+    model = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(TypeError, match="ShardedModel"):
+        step(model, TO.init_opt_state(TT.param_tree(model)),
+             {"tokens": torch.zeros((2, 8), dtype=torch.int32)})
 
 
 def test_forward_and_serve_wrappers():
